@@ -3,19 +3,27 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — Aggregate Risk Analysis under a multi-tenancy
-plan — at the published width (K = 1000 events per trial, M = 15 ELTs, a
-2,000,000-event catalog, T = 1,000,000 trials unless host memory forces fewer)
-through the entry points a user calls, builds every CUDA kernel from the
-sources in this checkout, holds each against its plain PyTorch version on the
-card, and shows by the launch counters that the main path went through the
-kernels.  Any failed phase ends the run with a non-zero exit code; without a
-CUDA device nothing runs.  The last line of a good run is
+Drives the port's two paths through the entry points a user calls:
+
+* Aggregate Risk Analysis under a multi-tenancy plan at the published width
+  (K = 1000 events per trial, M = 15 ELTs, a 2,000,000-event catalog,
+  T = 1,000,000 trials unless host memory forces fewer);
+* multi-tenant continuous serving of internlm2-1.8b at its published width
+  (24 layers, d_model 2048, random weights from a seed) through
+  ``repro_torch.launch.serve``, with and without a shared prompt prefix.
+
+It builds every CUDA kernel from the sources in this checkout (one ``nvcc``
+per source, all started together), holds each against its plain PyTorch
+version on the card, and shows by the launch counters that each path went
+through its kernels.  Any failed phase ends the run with a non-zero exit
+code; without a CUDA device nothing runs.  The last line of a good run is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
-Phases: device, build, kernels (sweep), tables, kernels (full width), main
-path (gather, full width), main path (onehot, catalog cut), cli.
+Phases: device, build, kernels (aggregate sweep), paged kernels (the
+reference's cases), tables, kernels (full width), main path (gather, full
+width), main path (onehot, catalog cut), cli, paged kernels (full width),
+serving (reduced, token-exact with ``generate``), serving (full width).
 """
 from __future__ import annotations
 
@@ -34,26 +42,38 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.configs.risk_app import RiskAppConfig
 from repro_torch.core.pipeline import timeline_overlaps
 from repro_torch.core.tenancy import TenancyConfig
 from repro_torch.kernels import aggregate_loss as agg
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.launch import risk as risk_cli
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models.model import build_model
 from repro_torch.risk import metrics
 from repro_torch.risk.analysis import AggregateRiskAnalysis
 from repro_torch.risk.tables import (GENERATE_PEAK_BYTES_PER_EVENT, RiskTables,
                                      generate)
+from repro_torch.serving.continuous import ContinuousBatchingEngine
+from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.kvcache import POS_SENTINEL, PagedKVCache
+from repro_torch.serving.multitenant import Request
 
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
-# tensor cores (both kernels do their arithmetic in plain float32)
+# tensor cores (all four kernels do their arithmetic in plain float32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
 # kernel vs plain version: the JAX package's own tolerance for kernel vs
 # oracle; the two sum the same terms in different orders
 RTOL, ATOL = 1e-5, 1e-3
+# paged decode vs its plain version: tests/test_paged_attention.py::_agree
+# (online softmax across pages vs one full-row softmax); the scatter is a
+# cast and a copy, held bit for bit
+PAGED_RTOL, PAGED_ATOL = 3e-5, 3e-6
 # one schedule vs another of the same kernel (tests/test_risk.py)
 YLT_RTOL = 1e-6
 
@@ -113,28 +133,45 @@ def phase_device() -> str:
     return line
 
 
+def _entry_name(line: str) -> str:
+    """A readable name for the entry ptxas compiles: the kernel, with its
+    template arguments (``gather_kernel<NV=4>``, ``paged_decode_kernel<8,
+    bf16>``)."""
+    mangled = line.split("'")[1] if "'" in line else line
+    m = re.search(r"\d+([a-z_]+_kernel)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end(1):]        # I<template args>E, then E v (params)
+    targs = (rest[1:rest.find("EEv")]
+             if rest.startswith("I") and "EEv" in rest else "")
+    pretty = [t[2:-1] if t.startswith("Li") else
+              "bf16" if "bfloat" in t else "f32"
+              for t in re.findall(r"Li\d+E|13__nv_bfloat16|f", targs)]
+    return f"{m.group(1)}<{','.join(pretty)}>" if pretty else m.group(1)
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    lines = build.compile_library("aggregate_loss").splitlines()
+    logs = build.compile_all()
     dt = time.perf_counter() - t0
-    # ptxas names an entry, then reports what it uses
-    used, spills, entry = [], [], "?"
-    for l in lines:
-        if "Compiling entry function" in l:
-            m = re.search(r"gather_kernelILi\d|onehot_kernel", l)
-            entry = m.group(0).replace("ILi", "<NV=") + ">" * ("ILi" in m.group(0)) \
-                if m else l.split("'")[1]
-        elif "Used" in l:
-            used.append(f"{entry} {l.split('Used', 1)[1].split(',')[0].strip()}")
-        elif "spill" in l and "0 bytes spill stores, 0 bytes spill loads" not in l:
-            spills.append(f"{entry}: {l.strip()}")
-    check(len(used) >= 2, "ptxas reported fewer than two kernels")
-    say("build", f"aggregate_loss.cu -> "
-                 f"{build.library_path('aggregate_loss').name} ({len(used)} "
-                 f"kernel instances: {'; '.join(used)}; spills: "
-                 f"{'; '.join(spills) or 'none'})")
-    build.load_library("aggregate_loss")
-    say("build", f"nvcc sm_90a: {dt:.1f} s")
+    for src, log in logs.items():
+        # ptxas names an entry, then reports what it uses
+        used, spills, entry = [], [], "?"
+        for l in log.splitlines():
+            if "Compiling entry function" in l:
+                entry = _entry_name(l)
+            elif "Used" in l:
+                used.append(f"{entry} "
+                            f"{l.split('Used', 1)[1].split(',')[0].strip()}")
+            elif ("spill" in l and
+                  "0 bytes spill stores, 0 bytes spill loads" not in l):
+                spills.append(f"{entry}: {l.strip()}")
+        check(len(used) >= 2, f"{src}: ptxas reported fewer than two kernels")
+        say("build", f"{src}.cu -> {build.library_path(src).name} "
+                     f"({len(used)} kernel instances: {'; '.join(used)}; "
+                     f"spills: {'; '.join(spills) or 'none'})")
+        build.load_library(src)
+    say("build", f"nvcc sm_90a, {len(logs)} sources at once: {dt:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -182,11 +219,16 @@ def make_case(rng, T, K, M, cat, device):
             float(K * 0.1), float(K * 0.8))
 
 
+G, O = "aggregate_loss_gather", "aggregate_loss_onehot"
+K3, K4 = "paged_attention_decode", "paged_prefill_scatter"
+TOL = {G: (RTOL, ATOL), O: (RTOL, ATOL), K3: (PAGED_RTOL, PAGED_ATOL)}
+
+
 class Errors:
     """Largest disagreement seen per kernel, over every comparison."""
 
     def __init__(self):
-        self.abs = {"aggregate_loss_gather": 0.0, "aggregate_loss_onehot": 0.0}
+        self.abs = dict.fromkeys((G, O, K3, K4), 0.0)
         self.rel = dict(self.abs)
         self.cases = dict.fromkeys(self.abs, 0)
 
@@ -203,18 +245,39 @@ class Errors:
         self.abs[name] = max(self.abs[name], a)
         self.rel[name] = max(self.rel[name], r)
         self.cases[name] += 1
-        check(bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL)),
+        rtol, atol = TOL[name]
+        check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
               f"{name} {what}: max abs err {a:.3g}, max rel err {r:.3g} "
-              f"outside rtol={RTOL} atol={ATOL}")
+              f"outside rtol={rtol} atol={atol}")
+
+    def hold_bits(self, name: str, got: torch.Tensor, want: torch.Tensor,
+                  what: str) -> None:
+        """Bit for bit (the scatter: a cast and a copy)."""
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} {what}: shape/dtype {got.shape} {got.dtype}")
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        self.cases[name] += 1
+        if not same:
+            a = float((got.float() - want.float()).abs().max())
+            self.abs[name] = max(self.abs[name], a)
+        check(same, f"{name} {what}: not bit-exact")
+
+
+HOLD_CYCLES = 2_000_000      # ~1 ms of device clock: the host's lead
 
 
 def cuda_ms(fn, reps: int, flush: torch.Tensor) -> float:
-    """Median time of ``fn`` by CUDA events, the L2 cache flushed before each."""
+    """Median time of ``fn`` by CUDA events, the L2 cache flushed before
+    each.  The device spins after the flush, so the host has enqueued all
+    of ``fn`` before the first event fires: the window holds device time
+    only, not the host's launch gaps (which matter for calls of a few µs)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -246,9 +309,6 @@ def onehot_fma_ms(T, K, M, rows):
     """Not the bound: the one-hot product's own multiply-adds at the float32
     rate, the cost of that algorithm."""
     return 2 * T * K * rows * M / PEAK_F32_FLOPS * 1e3
-
-
-G, O = "aggregate_loss_gather", "aggregate_loss_onehot"
 
 
 def phase_kernels_small(errs: Errors, dev) -> None:
@@ -564,6 +624,492 @@ def phase_cli() -> None:
 
 
 # ---------------------------------------------------------------------------
+# paged attention: the serving path's kernels
+# ---------------------------------------------------------------------------
+PEAK_BF16_FLOPS = 989e12      # the decode's products are of bf16 inputs
+
+# (P, NB, H, Hkv, window): tests/test_paged_attention.py:91-96
+PAGED_CASES = [(4, 3, 4, 2, None),   # GQA 2:1, ragged rings
+               (8, 2, 2, 2, None),   # MHA
+               (4, 2, 4, 1, None),   # MQA
+               (4, 4, 4, 2, 6)]      # sliding window inside the ring
+# (P, NB, H, Hkv, D, window): full-width head geometry, head sizes that
+# leave lanes idle (24, 80) and the largest the kernel takes
+PAGED_WIDE = [(16, 5, 16, 8, 128, None), (4, 3, 32, 8, 80, 6),
+              (4, 3, 4, 2, 24, None), (8, 2, 64, 2, 256, None)]
+# (S, NP, P, Hkv, D, pages): the reference's scatter case and two more
+SCATTER_CASES = [(2, 9, 4, 2, 8, [4, 2, 7]), (3, 10, 4, 1, 24, [2, 9]),
+                 (2, 12, 8, 2, 16, [3, 5, 6, 11])]
+
+# the serving main path: launch.serve at the published width of internlm2
+SERVE_ARGV = ["--arch", "internlm2-1.8b", "--no-reduced", "--mode",
+              "continuous", "--no-swap", "--tenants", "3", "--requests", "12",
+              "--prompt-len", "128", "--new-tokens", "32", "--capacity", "8",
+              "--page-size", "16", "--inner-steps", "4"]
+SHARED_PREFIXES = (0, 64)
+FULL_C, FULL_H, FULL_HKV, FULL_D, FULL_P, FULL_S = 8, 16, 8, 128, 16, 24
+
+
+def rand_paged_state(rng, *, C, NB, P, H, Hkv, D, dev,
+                     q_dtype=torch.float32, full=False, n_extra_pages=3):
+    """A mid-decode paged state as tests/test_paged_attention.py builds it:
+    per-row rings of ragged length (all NB blocks with ``full``) over
+    distinct physical pages, SENTINEL-padded tables, the dense ring's
+    positions in the position pool (rings may have wrapped), and
+    unreferenced pages of noise.  Returns the decode kernel's arguments."""
+    NP_ = PagedKVCache.RESERVED + C * NB + n_extra_pages
+    k_pool = rng.standard_normal((NP_, P, Hkv, D)).astype(np.float32)
+    v_pool = rng.standard_normal((NP_, P, Hkv, D)).astype(np.float32)
+    pos_pool = np.full((NP_, P), POS_SENTINEL, np.int32)
+    table = np.full((C, NB), PagedKVCache.SENTINEL, np.int32)
+    free = list(rng.permutation(np.arange(PagedKVCache.RESERVED, NP_)))
+    positions = np.zeros((C,), np.int32)
+    for c in range(C):
+        nb_c = NB if full else int(rng.integers(1, NB + 1))
+        ring = nb_c * P
+        pos = int(rng.integers(ring - P, 2 * ring + 3))
+        positions[c] = pos
+        pages = [free.pop() for _ in range(nb_c)]
+        table[c, :nb_c] = pages
+        for j in range(ring):            # slot j holds the latest pos' = j
+            filled = j <= pos            # (mod ring)
+            wraps = (pos - j) // ring if filled else 0
+            pos_pool[pages[j // P], j % P] = (j + wraps * ring if filled
+                                              else POS_SENTINEL)
+    q = rng.standard_normal((C, H, D)).astype(np.float32)
+    on = lambda a: torch.from_numpy(a).to(dev)
+    return (on(q).to(q_dtype), on(k_pool).to(torch.bfloat16),
+            on(v_pool).to(torch.bfloat16), on(pos_pool), on(table),
+            on(positions))
+
+
+def decode_pair(state, window=None):
+    return (pa.paged_attention_decode(*state, window=window),
+            pa.paged_attention_decode_plain(*state, window=window))
+
+
+def scatter_pair(pool, pages, values):
+    return (pa.paged_prefill_scatter(pool.clone(), pages, values),
+            pa.paged_prefill_scatter_plain(pool.clone(), pages, values))
+
+
+def decode_bound_ms(C, NB, P, H, Hkv, D, q_bytes):
+    """Each named page's K and V tile and positions read once, the table,
+    positions and q read once, the f32 output written once, at the memory
+    rate; or the two products (4 flops per query head, key and element)
+    at the bf16 rate -- whichever is larger."""
+    nbytes = (C * NB * P * (2 * Hkv * D * 2 + 4) + C * NB * 4 + C * 4
+              + C * H * D * (q_bytes + 4))
+    flops = 4 * C * H * NB * P * D
+    by, op = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(by, op), "bytes" if by >= op else "operations"
+
+
+def scatter_bound_ms(S, nb, E, value_bytes):
+    """The values read once and the named pages written once (bf16), at the
+    memory rate; the cast is no arithmetic to speak of."""
+    return (S * nb * E * (value_bytes + 2) + nb * 4) / PEAK_BYTES_PER_S * 1e3
+
+
+def phase_paged_small(errs: Errors, dev) -> None:
+    """Both paged kernels against their plain versions over the cases of
+    tests/test_paged_attention.py and the edges the kernels handle."""
+    rng = np.random.default_rng(2)
+    for P, NB, H, Hkv, window in PAGED_CASES:
+        for qdt in (torch.float32, torch.bfloat16):
+            st = rand_paged_state(rng, C=3, NB=NB, P=P, H=H, Hkv=Hkv, D=8,
+                                  dev=dev, q_dtype=qdt)
+            errs.hold(K3, *decode_pair(st, window),
+                      f"P{P} NB{NB} H{H} Hkv{Hkv} window {window} q {qdt}")
+    for P, NB, H, Hkv, D, window in PAGED_WIDE:
+        st = rand_paged_state(rng, C=3, NB=NB, P=P, H=H, Hkv=Hkv, D=D,
+                              dev=dev, q_dtype=torch.bfloat16)
+        errs.hold(K3, *decode_pair(st, window),
+                  f"P{P} NB{NB} H{H} Hkv{Hkv} D{D} window {window}")
+    # a row whose table is all SENTINEL: the uniform average of the full
+    # softmax over an all -1e30 row, finite
+    st = list(rand_paged_state(rng, C=2, NB=2, P=4, H=2, Hkv=2, D=8, dev=dev))
+    st[4][0] = PagedKVCache.SENTINEL
+    errs.hold(K3, *decode_pair(st), "all-masked row")
+    st = rand_paged_state(rng, C=4, NB=3, P=4, H=4, Hkv=2, D=8, dev=dev,
+                          full=True)
+    errs.hold(K3, *decode_pair(st), "every row one full ring")
+    # a head size the 16-byte loads cannot take is refused, not computed
+    st = rand_paged_state(rng, C=2, NB=2, P=4, H=2, Hkv=2, D=12, dev=dev)
+    try:
+        pa.paged_attention_decode(*st)
+    except ValueError:
+        pass
+    else:
+        raise PhaseFailed("the decode kernel took a head size of 12")
+    # physical page ids are routing only: relabelling every page (pool rows
+    # and table entries alike) leaves the output bit for bit
+    for _ in range(6):
+        q, kp, vp, pp_, pt, pos = rand_paged_state(rng, C=3, NB=3, P=4, H=4,
+                                                   Hkv=2, D=8, dev=dev)
+        base = pa.paged_attention_decode(q, kp, vp, pp_, pt, pos)
+        perm = np.arange(kp.shape[0])
+        body = perm[PagedKVCache.RESERVED:].copy()
+        rng.shuffle(body)
+        perm[PagedKVCache.RESERVED:] = body
+        inv = torch.from_numpy(np.argsort(perm)).to(dev)
+        relabel = torch.from_numpy(perm.astype(np.int32)).to(dev)
+        got = pa.paged_attention_decode(q, kp[inv], vp[inv], pp_[inv],
+                                        relabel[pt.long()], pos)
+        torch.cuda.synchronize()
+        check(torch.equal(base, got), "a page permutation changed the "
+                                      "decode output")
+    # the scatter: f32 and bf16 values into a bf16 pool, contiguous and as
+    # a row sliced out of a batched prefill (strided stage axis)
+    for vdt in (torch.float32, torch.bfloat16):
+        for S, NP_, P, Hkv, D, pages in SCATTER_CASES:
+            pool = torch.from_numpy(rng.standard_normal(
+                (S, NP_, P, Hkv, D)).astype(np.float32)).to(dev,
+                                                           torch.bfloat16)
+            wide = torch.from_numpy(rng.standard_normal(
+                (S, 3, len(pages), P, Hkv, D)).astype(np.float32)).to(dev, vdt)
+            pg = torch.tensor(pages, dtype=torch.int32, device=dev)
+            for tag, values in (("contiguous", wide[:, 0].contiguous()),
+                                ("stage-strided", wide[:, 1])):
+                errs.hold_bits(K4, *scatter_pair(pool, pg, values),
+                               f"S{S} NP{NP_} P{P} Hkv{Hkv} D{D} {vdt} {tag}")
+    say("paged", f"reference cases hold: decode {errs.cases[K3]} comparisons "
+                 f"(rtol={PAGED_RTOL} atol={PAGED_ATOL}), six page "
+                 f"permutations bit for bit, scatter {errs.cases[K4]} "
+                 f"comparisons bit-exact")
+
+
+def phase_paged_full(errs: Errors, dev, NB: int) -> dict:
+    """Both kernels at the serving path's full-width shapes: held against
+    their plain versions, then timed beside their bounds."""
+    rng = np.random.default_rng(3)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    C, H, Hkv, D, P, S = FULL_C, FULL_H, FULL_HKV, FULL_D, FULL_P, FULL_S
+    st = rand_paged_state(rng, C=C, NB=NB, P=P, H=H, Hkv=Hkv, D=D, dev=dev,
+                          q_dtype=torch.bfloat16, full=True)
+    errs.hold(K3, *decode_pair(st), f"full width C{C} NB{NB}")
+    d_ms = cuda_ms(lambda: pa.paged_attention_decode(*st), 50, flush)
+    d_plain = cuda_ms(lambda: pa.paged_attention_decode_plain(*st), 10, flush)
+    d_bound, d_by = decode_bound_ms(C, NB, P, H, Hkv, D, 2)
+    d_shape = (f"q ({C}, {H}, {D}) bf16, pools ({st[1].shape[0]}, {P}, "
+               f"{Hkv}, {D}) bf16, table ({C}, {NB}), every page named")
+    say("paged", f"decode {d_shape}: {d_ms:.4f} ms, plain {d_plain:.4f} ms, "
+                 f"bound {d_bound:.4f} ms by {d_by}")
+    del st
+
+    E = P * Hkv * D
+    NP_ = PagedKVCache.RESERVED + C * NB
+    pool = torch.zeros((S, NP_, P, Hkv, D), dtype=torch.bfloat16, device=dev)
+    timed_inputs = {}
+    for nb in sorted({8, 12, NB}):
+        pages = torch.from_numpy(rng.permutation(np.arange(
+            PagedKVCache.RESERVED, NP_))[:nb].astype(np.int32)).to(dev)
+        for vdt in (torch.float32, torch.bfloat16):
+            values = torch.randn((S, nb, P, Hkv, D), device=dev).to(vdt)
+            errs.hold_bits(K4, *scatter_pair(pool, pages, values),
+                           f"full width S{S} nb{nb} {vdt}")
+            if nb == 12:             # the bucket of a 64 + 128-token prompt
+                timed_inputs[str(vdt).split(".")[1]] = (pages, values)
+    # timed in turns (f32, bf16, bf16, f32 values), each figure the median
+    # of its two turns
+    turns = {"float32": [], "bfloat16": []}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        pages, values = timed_inputs[name]
+        long_pages, vb = pages.long(), values.to(torch.bfloat16)
+        turns[name].append((
+            cuda_ms(lambda: pa.paged_prefill_scatter(pool, pages, values),
+                    50, flush),
+            cuda_ms(lambda: pa.paged_prefill_scatter_plain(pool, pages,
+                                                           values),
+                    20, flush),
+            cuda_ms(lambda: pool.index_copy_(1, long_pages, vb), 20, flush)))
+    timed = {}
+    for name, runs in turns.items():
+        k, plain, lib = (statistics.median(col) for col in zip(*runs))
+        bound = scatter_bound_ms(S, 12, E, 4 if name == "float32" else 2)
+        timed[name] = dict(ms=k, plain_ms=plain, library_ms=lib,
+                           bound_ms=bound)
+        say("paged", f"scatter pool ({S}, {NP_}, {P}, {Hkv}, {D}) bf16, 12 "
+                     f"pages, values {name}: {k:.4f} ms, plain {plain:.4f} "
+                     f"ms, index_copy_ of bf16 values {lib:.4f} ms, bound "
+                     f"{bound:.4f} ms (turns: {[round(r[0], 4) for r in runs]})")
+    del pool, timed_inputs
+    s = timed["bfloat16"]            # the main path hands it bf16 values
+    return {K3: {"ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
+                 "bound_by": d_by, "library_ms": None, "shape": d_shape},
+            K4: {**s, "bound_by": "bytes",
+                 "shape": f"pool ({S}, {NP_}, {P}, {Hkv}, {D}) bf16, 12 "
+                          f"pages, values bf16",
+                 "f32_values": timed["float32"]}}
+
+
+def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
+    """``generate`` on the request's page-aligned left-padded prompt: the
+    continuous path's exactness contract."""
+    b = ceng.bucket_len(req.prompt.size)
+    padded = np.zeros((1, b), np.int32)
+    padded[0, b - req.prompt.size:] = req.prompt
+    return eng.generate(padded, max_new_tokens=req.max_new_tokens,
+                        seed=req.seed).tokens[0]
+
+
+def phase_serve_reduced(dev) -> dict:
+    """The continuous engine of reduced internlm2 (and of reduced
+    h2o-danube, whose sliding window the decode kernel masks) in float32 on
+    the card: shared prefixes, copy-on-write forks, a prefill-skipping
+    repeat, eviction and reuse under churn, ragged prompts and budgets --
+    every request's greedy tokens equal to ``generate``'s."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch, page in (("internlm2-1.8b", 8), ("h2o-danube-1.8b", 4)):
+        cfg = get_config(arch).reduced()
+        eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
+        rng = np.random.default_rng(37)
+        V = cfg.vocab_size
+        sys_prompt = rng.integers(1, V, 16).astype(np.int32)
+        mk = lambda t: Request(f"t{t}", np.concatenate(
+            [sys_prompt, rng.integers(1, V, 8).astype(np.int32)]),
+            max_new_tokens=6)
+        wave = [mk(t) for t in range(3)]
+        batches = [wave, [Request("t0", wave[0].prompt.copy(),
+                                  max_new_tokens=6)],
+                   [Request("x", rng.integers(1, V, 32).astype(np.int32),
+                            max_new_tokens=2) for _ in range(6)],
+                   [Request(f"r{i}", rng.integers(1, V, 5 + 7 * i).astype(
+                       np.int32), max_new_tokens=3 + 4 * i)
+                    for i in range(4)],
+                   [mk(t) for t in range(3)]]
+        ceng = ContinuousBatchingEngine(eng, capacity=3, page_size=page,
+                                        inner_steps=4, max_prompt_len=32,
+                                        device=dev)
+        pa.reset_counts()                # just before this run
+        done = []
+        for batch in batches:
+            done += ceng.run_all(batch)
+        launches, plains = dict(pa.launch_counts), dict(pa.plain_counts)
+        n = sum(len(b) for b in batches)
+        check(len(done) == n, f"{arch} reduced: {len(done)} of {n} done")
+        check(launches[K3] > 0 and launches[K4] > 0
+              and not any(plains.values()),
+              f"{arch} reduced: launches {launches}, plain calls {plains}")
+        ceng.kv.assert_conserved()
+        check(ceng.nonfinite_rows == 0, f"{arch} reduced: non-finite logits")
+        if cfg.sliding_window is None:
+            check(ceng.kv.pages_shared > 0 and ceng.prefill_skips >= 1
+                  and ceng.kv.cow_forks + ceng.kv.pristine_forks > 0,
+                  f"{arch} reduced: the sharing lifecycle did not run")
+        for req, toks in done:
+            want = generate_oracle(eng, ceng, req)
+            check(np.array_equal(toks, want),
+                  f"{arch} reduced: continuous {toks.tolist()} != generate "
+                  f"{want.tolist()} (prompt of {req.prompt.size})")
+        out[arch] = dict(requests=n, launches=launches,
+                         pages_shared=ceng.kv.pages_shared,
+                         cow_forks=ceng.kv.cow_forks,
+                         pristine_forks=ceng.kv.pristine_forks,
+                         prefill_skips=ceng.prefill_skips,
+                         pages_reused=ceng.kv.pages_reused)
+        say("serve", f"{arch} reduced, float32 on the card: {n} requests "
+                     f"token-exact with generate; {out[arch]}")
+        del eng, ceng
+    torch.cuda.empty_cache()
+    return out
+
+
+class ServeRecorder:
+    """The ``observe`` hook of ``launch.serve.main``: keeps the scheduler,
+    every retired (request, tokens), and a copy of one live round's paged
+    state (first layer's pools, position pool, page table, positions)."""
+
+    def __init__(self):
+        self.sched = None
+        self.finished = []
+        self.snap = None
+
+    def __call__(self, sched) -> None:
+        eng = sched.continuous_engine
+        if self.sched is None:
+            self.sched = sched
+            collect = eng.collect
+
+            def recording_collect(handle):
+                res = collect(handle)
+                self.finished.extend((r, t) for r, t, _ in res.finished)
+                return res
+
+            eng.collect = recording_collect
+        elif self.snap is None and eng.active_count() == eng.capacity:
+            # enqueued behind the round in flight: the state it leaves
+            st, sub = eng.state, eng.kv.attn_subs[0]
+            self.snap = dict(k_pool=st["caches"][sub]["k"][0].clone(),
+                             v_pool=st["caches"][sub]["v"][0].clone(),
+                             pos_pool=st["pos_pool"].clone(),
+                             page_table=st["page_table"].clone(),
+                             positions=(st["pos"] - 1).clamp_min(0))
+
+
+def phase_serve_full(errs: Errors, dev) -> dict:
+    """The serving main path: ``launch.serve.main`` at the published width
+    of internlm2-1.8b, 12 requests from 3 tenants, without and with a
+    64-token shared prefix (prefix hits, copy-on-write forks as the decode
+    ring wraps onto the shared pages)."""
+    recs = {}
+    walls = {}
+    agg.reset_counts()
+    pa.reset_counts()                    # just before the serving path
+    for spl in SHARED_PREFIXES:
+        rec = ServeRecorder()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        rc = serve_cli.main(SERVE_ARGV + ["--shared-prefix-len", str(spl)],
+                            observe=rec)
+        walls[spl] = time.perf_counter() - t0
+        check(rc == 0, f"serve returned {rc}")
+        rec.peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        recs[spl] = rec
+    launches, plains = dict(pa.launch_counts), dict(pa.plain_counts)
+    agg_launches = sum(agg.launch_counts.values())         # just after
+
+    check(not any(plains.values()) and agg_launches == 0,
+          f"the serving path took another route: plain {plains}, "
+          f"aggregate launches {agg_launches}")
+    want_k3 = want_k4 = 0
+    runs = {}
+    rng = np.random.default_rng(4)
+    for spl, rec in recs.items():
+        sched, eng = rec.sched, rec.sched.continuous_engine
+        cfg = eng.cfg
+        tag = f"shared prefix {spl}"
+        n_sub = len(eng.kv.attn_subs)
+        want_k3 += eng.rounds * eng.inner_steps * eng.n_stages * n_sub
+        want_k4 += 2 * n_sub * (len(rec.finished) - eng.prefill_skips)
+        check(len(rec.finished) == 12 and all(
+            t.shape == (32,) for _, t in rec.finished),
+            f"{tag}: {len(rec.finished)} requests finished, token counts "
+            f"{sorted({t.size for _, t in rec.finished})}")
+        check(all(int(t.min()) >= 0 and int(t.max()) < cfg.vocab_size
+                  for _, t in rec.finished), f"{tag}: token out of vocab")
+        check(eng.nonfinite_rows == 0, f"{tag}: non-finite logits")
+        eng.kv.assert_conserved()
+        check(eng.active_count() == 0 and sched.pending() == 0,
+              f"{tag}: rows left after the drain")
+        if spl:
+            check(eng.kv.pages_shared > 0
+                  and eng.kv.cow_forks + eng.kv.pristine_forks > 0,
+                  f"{tag}: no prefix hits or forks")
+        # one live round's real pool, table and positions: kernel vs plain
+        check(rec.snap is not None, f"{tag}: no live round was observed")
+        q = torch.randn((eng.capacity, cfg.num_heads, cfg.head_dim),
+                        device=dev).to(torch.bfloat16)
+        s = rec.snap
+        state = (q, s["k_pool"], s["v_pool"], s["pos_pool"], s["page_table"],
+                 s["positions"])
+        errs.hold(K3, *decode_pair(state, cfg.sliding_window),
+                  f"{tag}: a live round's pool and table")
+        # agreement with the blocking engine on the same prompts: at bf16
+        # the two paths' GEMMs differ in shape, so this is a number
+        reqs = [r for r, _ in rec.finished]
+        prompts = np.stack([r.prompt for r in reqs])
+        check(prompts.shape[1] % eng.page_size == 0,
+              f"{tag}: prompts need no padding for this comparison")
+        gen = eng.engine.generate(prompts, max_new_tokens=32).tokens
+        got = np.stack([t for _, t in rec.finished])
+        same = got == gen
+        first_diff = [int(np.argmin(row)) if not row.all() else row.size
+                      for row in same]
+        pre, rnd = eng.prefill_ms(), eng.round_ms
+        runs[spl] = dict(
+            wall_s=walls[spl], prefill_calls=len(pre),
+            prefill_ms=pre, rounds=len(rnd), round_ms_mean=float(np.mean(rnd)),
+            round_ms_median=float(np.median(rnd)),
+            decode_tokens=eng.row_steps,
+            decode_tokens_per_s=eng.row_steps / (sum(rnd) * 1e-3),
+            occupancy=eng.occupancy(), peak_gib=rec.peak_gib,
+            pages_allocated=eng.kv.pages_allocated,
+            pages_shared=eng.kv.pages_shared, cow_forks=eng.kv.cow_forks,
+            pristine_forks=eng.kv.pristine_forks,
+            token_agreement=float(same.mean()),
+            requests_identical=int(same.all(axis=1).sum()),
+            mean_first_divergence=float(np.mean(first_diff)),
+            overlap_pairs=sum(timeline_overlaps(sched.timeline)),
+            timeline_rounds=len(sched.timeline))
+        say("serve", f"internlm2-1.8b full width, {tag}: " + ", ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in runs[spl].items() if k != "prefill_ms")
+            + f", prefill ms {[round(x, 3) for x in pre]}")
+    check(launches[K3] == want_k3 and launches[K4] == want_k4,
+          f"launches {launches}, expected decode {want_k3}, scatter "
+          f"{want_k4}")
+    say("serve", f"serving path launches: decode {launches[K3]}, scatter "
+                 f"{launches[K4]}; plain calls 0")
+    max_blocks = max(r.sched.continuous_engine.kv.max_blocks
+                     for r in recs.values())
+    profile = profile_round(recs[0].sched.engine, dev)
+    del recs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "runs": runs, "max_blocks": max_blocks,
+            "profile": profile}
+
+
+def profile_round(eng: ServingEngine, dev) -> dict:
+    """Where a full-width decode round's time goes (after the main path,
+    whose launch counts are already read): 8 live rows of 128-token
+    prompts; one round dispatched under ``set_sync_debug_mode("error")``
+    (a round must never make the host wait for the device), then one round
+    under ``torch.profiler``: device time by kernel against the round's
+    CUDA-event window and the host's enqueue time."""
+    ceng = ContinuousBatchingEngine(eng, capacity=8, page_size=16,
+                                    inner_steps=4, max_prompt_len=256,
+                                    device=dev)
+    rng = np.random.default_rng(5)
+    reqs = [Request("p", rng.integers(1, eng.cfg.vocab_size, 128).astype(
+        np.int32), max_new_tokens=64) for _ in range(8)]
+    check(all(ceng.try_admit_batch(reqs)), "profile: admission failed")
+    ceng.collect(ceng.dispatch_round())              # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = ceng.dispatch_round()
+    except RuntimeError as e:
+        raise PhaseFailed(f"dispatching a decode round synchronised the "
+                          f"host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ceng.collect(handle)
+    torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handle = ceng.dispatch_round()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        ceng.collect(handle)
+    window_ms = ceng.round_ms[-1]
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels)
+    out = dict(round_window_ms=window_ms, host_enqueue_ms=enqueue_ms,
+               launches=sum(k[2] for k in kernels),
+               device_busy_ms=busy_ms if kernels else None,
+               device_idle_share=(1 - busy_ms / window_ms) if kernels
+               else None,
+               top=[(n[:60], round(ms, 4), c) for n, ms, c in kernels[:8]])
+    say("serve", "profiled round (8 live rows, 4 steps): " + (
+        f"CUDA-event window {window_ms:.2f} ms, host enqueue "
+        f"{enqueue_ms:.2f} ms, device busy {busy_ms:.2f} ms over "
+        f"{out['launches']} kernels (idle {out['device_idle_share']:.1%}); "
+        f"by kernel: {out['top']}" if kernels else
+        f"CUDA-event window {window_ms:.2f} ms, host enqueue "
+        f"{enqueue_ms:.2f} ms; the profiler recorded no device time"))
+    say("serve", "no host synchronisation while a round was dispatched")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -576,13 +1122,19 @@ def main() -> int:
         phase_build()
         errs = Errors()
         phase_kernels_small(errs, dev)
+        phase_paged_small(errs, dev)
         cfg = RiskAppConfig()
         tables = phase_tables(cfg)
-        cfg = dataclasses.replace(cfg, num_trials=tables.num_trials)
+        trials = tables.num_trials
+        cfg = dataclasses.replace(cfg, num_trials=trials)
         kern = phase_kernels_full(errs, tables, dev)
         main_path = phase_main_gather(cfg, tables, dev)
+        del tables                       # 4 GB of pinned host memory
         onehot = phase_main_onehot(errs, cfg, dev)
         phase_cli()
+        reduced = phase_serve_reduced(dev)
+        serving = phase_serve_full(errs, dev)
+        kern.update(phase_paged_full(errs, dev, serving["max_blocks"]))
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -591,27 +1143,40 @@ def main() -> int:
                    f"(max abs err {errs.abs[G]:.3g}, max rel err "
                    f"{errs.rel[G]:.3g}), onehot {errs.cases[O]} cases (max abs "
                    f"err {errs.abs[O]:.3g}, max rel err {errs.rel[O]:.3g}); "
-                   f"tolerance rtol={RTOL} atol={ATOL} (summation order)")
-    src = "src/repro_torch/kernels/csrc/aggregate_loss.cu"
+                   f"tolerance rtol={RTOL} atol={ATOL} (summation order); "
+                   f"paged decode {errs.cases[K3]} cases (max abs err "
+                   f"{errs.abs[K3]:.3g}, max rel err {errs.rel[K3]:.3g}; "
+                   f"rtol={PAGED_RTOL} atol={PAGED_ATOL}), paged scatter "
+                   f"{errs.cases[K4]} cases bit-exact")
+    agg_src = "src/repro_torch/kernels/csrc/aggregate_loss.cu"
+    paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     rows = []
-    for name, replaces, numbers in (
-            (G, "src/repro/kernels/aggregate_loss.py:69",
-             {"launches": main_path["launches"], **kern[G]}),
-            (O, "src/repro/kernels/aggregate_loss.py:92",
-             {**onehot, **kern[O]})):
+    for name, src, replaces, numbers in (
+            (G, agg_src, "src/repro/kernels/aggregate_loss.py:69",
+             {"launches": main_path["launches"], "library_ms": None,
+              **kern[G]}),
+            (O, agg_src, "src/repro/kernels/aggregate_loss.py:92",
+             {**onehot, "library_ms": None, **kern[O]}),
+            (K3, paged_src, "src/repro/kernels/paged_attention.py:60",
+             {"launches": serving["launches"][K3], **kern[K3]}),
+            (K4, paged_src, "src/repro/kernels/paged_attention.py:158",
+             {"launches": serving["launches"][K4], **kern[K4]})):
+        keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": numbers["launches"],
                      "max_abs_err": errs.abs[name], "ms": numbers["ms"],
                      "plain_ms": numbers["plain_ms"],
                      "bound_ms": numbers["bound_ms"],
-                     "bound_by": numbers["bound_by"], "library_ms": None,
+                     "bound_by": numbers["bound_by"],
+                     "library_ms": numbers["library_ms"],
                      "max_rel_err": errs.rel[name], "cases": errs.cases[name],
-                     **{k: v for k, v in numbers.items() if k not in (
-                         "launches", "ms", "plain_ms", "bound_ms",
-                         "bound_by")}})
+                     **{k: v for k, v in numbers.items() if k not in keys}})
     say("done", f"{time.perf_counter() - t_start:.1f} s in all")
-    print(json.dumps({"main_path": main_path["runs"],
-                      "trials": tables.num_trials}))
+    print(json.dumps({"main_path": main_path["runs"], "trials": trials}))
+    print(json.dumps({"serving": {str(k): v for k, v in
+                                  serving["runs"].items()},
+                      "serving_reduced": reduced}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

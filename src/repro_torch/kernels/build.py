@@ -6,7 +6,9 @@ build happens at first use (nothing is compiled when a module is imported),
 from the sources in ``csrc/`` and nothing else, into ``_build/`` beside this
 file.  A library's file name carries a hash of its source and flags, so an
 edited source is rebuilt and a stale library is never loaded.  A failed build
-raises; nothing here falls back to another implementation.
+raises; nothing here falls back to another implementation.  The first build
+of a run should go through :func:`compile_all`, which starts one ``nvcc`` per
+source at once instead of one after another.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC_DIR = _HERE / "csrc"
@@ -55,21 +57,53 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def compile_library(name: str) -> str:
-    """Run ``nvcc`` on ``csrc/<name>.cu``; returns the compiler's output
-    (``ptxas`` reports each kernel's registers and spills there)."""
+def sources() -> List[str]:
+    """Names of every kernel source, ``csrc/<name>.cu``, sorted."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def _start(name: str) -> Tuple[subprocess.Popen, pathlib.Path, pathlib.Path]:
     out = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: pathlib.Path,
+            out: pathlib.Path) -> str:
+    log, _ = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
+                           f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)             # atomic: readers never see a partial file
-    return proc.stdout
+    return log
+
+
+def compile_library(name: str) -> str:
+    """Run ``nvcc`` on ``csrc/<name>.cu``; returns the compiler's output
+    (``ptxas`` reports each kernel's registers and spills there)."""
+    return _finish(name, *_start(name))
+
+
+def compile_all() -> Dict[str, str]:
+    """Compile every source at once, one ``nvcc`` process each, all started
+    before any is waited for; returns each source's compiler output.  Raises
+    (after every process has ended) if any build failed."""
+    started = {n: _start(n) for n in sources()}
+    logs: Dict[str, str] = {}
+    errors: List[str] = []
+    for n, job in started.items():
+        try:
+            logs[n] = _finish(n, *job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return logs
 
 
 def load_library(name: str) -> ctypes.CDLL:

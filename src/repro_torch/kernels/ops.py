@@ -1,9 +1,12 @@
-"""Dispatch layer of the kernel package; the risk stack imports only from here.
+"""Dispatch layer of the kernel package; the risk and serving stacks import
+only from here.
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
 plain version — the tensor's device decides, and there is no switch that
-routes a CUDA tensor to a plain version.  What can be chosen is the lookup
-strategy of ``aggregate_loss`` (:func:`use_aggregate_variant`, or the
+routes a CUDA tensor to a plain version (the reference's
+``kernel_backend="jnp"`` dense gather is the paged decode's plain version,
+for CPU tensors only).  What can be chosen is the lookup strategy of
+``aggregate_loss`` (:func:`use_aggregate_variant`, or the
 ``REPRO_AGG_VARIANT`` environment variable, checked when this module is
 imported).
 """
@@ -13,6 +16,7 @@ import os
 from typing import Optional
 
 from repro_torch.kernels import aggregate_loss as _agg
+from repro_torch.kernels import paged_attention as _paged
 
 # single source of truth for aggregate_loss lookup strategies
 _AGG_KERNELS = {"gather": _agg.aggregate_loss_gather,
@@ -58,3 +62,17 @@ def aggregate_loss(event_ids, elt_losses, occ_ret, occ_lim, agg_ret, agg_lim,
         raise ValueError(f"variant {variant!r}: must be one of {AGG_VARIANTS}")
     return _AGG_KERNELS[variant](event_ids, elt_losses, occ_ret, occ_lim,
                                  agg_ret, agg_lim, chunk=chunk)
+
+
+def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
+                           positions, window: Optional[int] = None):
+    """One-token GQA decode read through a page table (see
+    :func:`repro_torch.kernels.paged_attention.paged_attention_decode`)."""
+    return _paged.paged_attention_decode(q, k_pool, v_pool, pos_pool,
+                                         page_table, positions, window=window)
+
+
+def paged_scatter(pool, pages, values):
+    """In-place prefill KV scatter into named pages (see
+    :func:`repro_torch.kernels.paged_attention.paged_prefill_scatter`)."""
+    return _paged.paged_prefill_scatter(pool, pages, values)

@@ -1,10 +1,13 @@
 """Pure-PyTorch oracles for the kernels of this package.
 
 Twins of the JAX package's ``repro/kernels/ref.py`` oracles, same operation
-order, float32 throughout.  Only the two Aggregate Risk Analysis oracles are
-here so far; each further oracle lands with its kernel.
+order.  Here so far: the two Aggregate Risk Analysis oracles and the two
+paged-attention oracles of the serving path; each further oracle lands with
+its kernel.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -49,3 +52,61 @@ def aggregate_loss_chunked_ref(event_ids, elt_losses, occ_ret, occ_lim,
         g = elt[event_ids[:, c0:c0 + chunk].long()]       # (T, chunk, M)
         acc = acc + _occurrence(g, occ_ret, occ_lim).sum(dim=(1, 2))
     return torch.clamp(torch.clamp(acc - agg_ret, min=0.0), max=agg_lim)
+
+
+# ---------------------------------------------------------------------------
+# Paged attention (serving decode hot path) -- gather/scatter oracles
+# ---------------------------------------------------------------------------
+def paged_attention_decode_ref(q, k_pool, v_pool, page_table, positions, *,
+                               kpos: Optional[torch.Tensor] = None,
+                               pos_pool: Optional[torch.Tensor] = None,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """Dense-gather paged decode read.
+
+    q: (C, H, D) compute dtype, already roped; k_pool/v_pool: (NP, P, Hkv, D)
+    storage dtype; page_table: (C, NB) int; positions: (C,) int.  Validity
+    comes from ``kpos`` (C, NB*P), pre-gathered, or is gathered here from
+    ``pos_pool`` (NP, P).  Returns (C, H, D) float32.
+
+    Operation for operation the reference's oracle: gather the logical window
+    through the table, score in float32 (``einsum(..., preferred_element_type
+    =f32)`` on the compute dtype: the operands are upcast first, which is
+    exact for bf16), add a -1e30 bias where ``kpos <= pos`` (and ``kpos > pos
+    - window``) fails, full-row softmax, float32 weighted sum."""
+    C, H, D = q.shape
+    Hkv = k_pool.shape[2]
+    pt = page_table.long()
+
+    def gather(pool):
+        g = pool[pt]                               # (C, NB, P, ...)
+        return g.reshape((g.shape[0], g.shape[1] * g.shape[2])
+                         + tuple(g.shape[3:]))
+
+    k = gather(k_pool)                             # (C, L, Hkv, D)
+    v = gather(v_pool)
+    if kpos is None:
+        kpos = gather(pos_pool[..., None])[..., 0]
+    pos = positions[:, None]
+    valid = kpos <= pos
+    if window is not None:
+        valid &= kpos > pos - window
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    bias = torch.where(valid, zero, torch.full_like(zero, -1e30))   # (C, L)
+    rep = H // Hkv
+    qr = q.reshape(C, 1, Hkv, rep, D)
+    scale = 1.0 / (D ** 0.5)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", qr.float(),
+                     k.to(q.dtype).float()) * scale
+    s = s + bias[:, None, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhrk,bkhd->bqhrd", p, v.to(q.dtype).float())
+    return o.reshape(C, H, D)
+
+
+def paged_scatter_ref(pool, pages, values) -> torch.Tensor:
+    """Scatter oracle for the prefill write: a new pool equal to ``pool``
+    (S, NP, P, ...) with ``values`` (S, nb, P, ...) written at page ids
+    ``pages`` (nb,), cast to the pool dtype."""
+    out = pool.clone()
+    out[:, pages.long()] = values.to(pool.dtype)
+    return out

@@ -1,0 +1,205 @@
+"""Multi-tenant serving driver (continuous batching over a paged KV cache).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+        --no-reduced --tenants 3 --requests 12 --prompt-len 128 \\
+        --new-tokens 32 --capacity 8 --shared-prefix-len 64
+
+Builds the model (weights drawn from ``--seed``, at full width with
+``--no-reduced``), spins up the multi-tenant scheduler in continuous mode
+and drains a synthetic request mix, printing per-tenant utilisation, the
+round-to-round overlap pairs, slot occupancy, page-sharing stats and -- on a
+CUDA device -- the prefill and decode-round times by CUDA events.  Runs on
+the CUDA device unless ``--device cpu`` is given (and fails without one).
+
+The flags are the JAX package's ``repro.launch.serve`` as far as this slice
+of the port reaches.  Deliberate differences: ``--mode`` defaults to (and so
+far only runs) ``continuous``; ``--reduced`` is a boolean pair
+(``--no-reduced`` runs the published width; the reference's ``store_true``
+with ``default=True`` never can); ``--swap`` defaults off; there is no
+``--kernel-backend`` -- the device decides (the hand-written kernels for a
+CUDA device, their plain versions on the CPU).  Flags of later slices
+(``--swap``, ``--max-backlog``, ``--mesh``, the journal and crash flags, the
+telemetry exporters, ``--list-archs``) raise ``NotImplementedError`` naming
+the slice, and so does ``--mode overlapped|blocking`` (``--blocking``);
+``--max-batch`` and ``--stage-depth`` arrive with those two schedules.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.pipeline import timeline_overlaps
+from repro_torch.core.tenancy import TenancyConfig, resolve_devices
+from repro_torch.models.model import build_model, param_count
+from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.multitenant import (MODES, MultiTenantScheduler,
+                                             Request)
+
+# flag -> the slice of the port that brings it
+LATER = {"swap": "slice 3", "max_backlog": "slice 3",
+         "journal_dir": "slice 3", "checkpoint_every": "slice 3",
+         "crash_at_round": "slice 3", "recover": "slice 3",
+         "mesh": "slice 6", "trace_out": "slice 1b",
+         "metrics_out": "slice 1b", "stats_every": "slice 1b",
+         "list_archs": "slice 4", "blocking": "a later slice"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="tiny same-family config (default); --no-reduced "
+                         "serves the published width")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    ap.add_argument("--tenants", type=int, default=3)
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--mode", choices=MODES, default="continuous",
+                    help="serving schedule; the port runs 'continuous' so "
+                         "far")
+    ap.add_argument("--capacity", type=int, default=4,
+                    help="slot-table rows")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="KV-cache page size (tokens)")
+    ap.add_argument("--inner-steps", type=int, default=4,
+                    help="decode steps per micro-round")
+    ap.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="refcounted prefix sharing + copy-on-write over "
+                         "the paged pool")
+    ap.add_argument("--batch-admission",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="batch same-bucket admissions into one prefill")
+    ap.add_argument("--preserve-pristine", choices=("never", "reuse",
+                                                    "always"),
+                    default="reuse",
+                    help="pristine-preserve policy for shared chains")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="prepend a common system-prompt prefix of this "
+                         "many tokens to every request")
+    ap.add_argument("--priority", type=int, default=0, metavar="K",
+                    help="mark every K-th request tier 0 (admitted first; "
+                         "no preemption in this slice).  0 = single tier")
+    ap.add_argument("--swap", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="preemption via KV swap (slice 3 of the port)")
+    for flag, kw in (("--max-backlog", dict(type=int)),
+                     ("--mesh", dict()), ("--journal-dir", dict()),
+                     ("--checkpoint-every", dict(type=int)),
+                     ("--crash-at-round", dict(type=int)),
+                     ("--trace-out", dict()), ("--metrics-out", dict()),
+                     ("--stats-every", dict(type=int))):
+        ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kw)
+    for flag in ("--recover", "--list-archs", "--blocking"):
+        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    return ap
+
+
+def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
+    """Run the driver; ``observe(scheduler)`` (optional) is called once
+    after the scheduler is built and then after every scheduling step."""
+    args = build_parser().parse_args(argv)
+    for name, slice_ in LATER.items():
+        if getattr(args, name):
+            raise NotImplementedError(
+                f"--{name.replace('_', '-')} comes with {slice_} of the port "
+                "(ROADMAP.md)")
+    dev = resolve_devices(1, args.device)[0]           # raises: no card
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = build_model(cfg).init(args.seed, dev)
+    n_params = param_count(params)
+    engine = ServingEngine(cfg, params, device=dev)
+    del params                       # the engine keeps its compute copy
+    preserve = {"never": False, "reuse": True,
+                "always": "always"}[args.preserve_pristine]
+    sched = MultiTenantScheduler(
+        engine, tenancy=TenancyConfig(1, args.tenants), mode=args.mode,
+        continuous=dict(capacity=args.capacity, page_size=args.page_size,
+                        inner_steps=args.inner_steps,
+                        prefix_sharing=args.prefix_sharing,
+                        batch_admission=args.batch_admission,
+                        preserve_pristine=preserve,
+                        max_prompt_len=max(64, 2 * args.prompt_len
+                                           + args.shared_prefix_len)))
+    if observe is not None:
+        observe(sched)
+
+    rng = np.random.default_rng(0)
+    shared_prefix = rng.integers(1, cfg.vocab_size,
+                                 args.shared_prefix_len).astype(np.int32)
+    for i in range(args.requests):
+        tenant = f"tenant-{i % args.tenants}"
+        prompt = rng.integers(1, cfg.vocab_size,
+                              args.prompt_len).astype(np.int32)
+        if args.shared_prefix_len:
+            prompt = np.concatenate([shared_prefix, prompt])
+        tier0 = args.priority > 0 and i % args.priority == args.priority - 1
+        if tier0:
+            tenant += "-hi"          # its own lane: queues are FIFO
+        sched.submit(Request(tenant, prompt,
+                             max(4, args.new_tokens // 4) if tier0
+                             else args.new_tokens,
+                             priority=0 if tier0 else 1))
+
+    responses = []
+    with torch.no_grad():
+        while sched.pending():
+            r = sched.step()
+            if r:
+                responses.extend(r)
+            if observe is not None:
+                observe(sched)
+    sched.drain()                    # nothing left: audits the pool
+    n_done = sum(r.outcome == "completed" for r in responses)
+    print(f"arch={cfg.name} params={n_params / 1e9:.3f}B device={dev} "
+          f"compute={cfg.compute_dtype}")
+    print(f"served {len(responses)} requests (completed={n_done} "
+          f"rejected={sum(r.outcome == 'rejected' for r in responses)})")
+    for t, rep in sorted(sched.utilization_report().items()):
+        print(f"  {t}: requests={rep['requests']:.0f} "
+              f"tokens={rep['tokens']:.0f} busy={rep['busy_s']*1e3:.1f}ms "
+              f"share={rep['busy_share']*100:.1f}%")
+    lat = [r.latency_s for r in responses if r.outcome == "completed"]
+    if lat:
+        print(f"latency p50={np.percentile(lat, 50)*1e3:.1f}ms "
+              f"p99={np.percentile(lat, 99)*1e3:.1f}ms")
+    ov = timeline_overlaps(sched.timeline)
+    print(f"schedule={args.mode} overlap_pairs={sum(ov)}/{len(ov)} "
+          f"(admission + dispatch of round k+1 inside round k's window)")
+    eng = sched.continuous_engine
+    print(f"micro-rounds={eng.rounds} x {eng.inner_steps} steps, "
+          f"slot occupancy={eng.occupancy()*100:.1f}%, "
+          f"pages reused={eng.kv.pages_reused}/{eng.kv.pages_allocated}, "
+          f"nonfinite logit rows={eng.nonfinite_rows}")
+    print(f"prefix sharing={'on' if eng.prefix_sharing else 'off'}: "
+          f"pages allocated={eng.kv.pages_allocated} "
+          f"shared={eng.kv.pages_shared} cow_forks={eng.kv.cow_forks} "
+          f"pristine_forks={eng.kv.pristine_forks}; "
+          f"prefill calls={eng.prefill_calls} skipped={eng.prefill_skips}")
+    if dev.type == "cuda":
+        pre = eng.prefill_ms()
+        rnd = eng.round_ms
+        live = eng.row_steps
+        print(f"device: prefill {len(pre)} calls, {sum(pre):.2f} ms "
+              f"(mean {np.mean(pre) if pre else 0:.2f}); rounds "
+              f"{len(rnd)}, {sum(rnd):.2f} ms (mean "
+              f"{np.mean(rnd) if rnd else 0:.2f}); decode "
+              f"{live / max(sum(rnd) * 1e-3, 1e-9):.1f} tokens/s over "
+              f"round time; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

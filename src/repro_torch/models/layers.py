@@ -1,0 +1,252 @@
+"""Layer library: norms, RoPE, embeddings, GQA attention, SwiGLU MLP.
+
+The JAX package's ``repro/models/layers.py`` as plain functions on tensors.
+Parameters are nested dicts with the reference's key names (``wq``,
+``w_gate``, ``scale``, ...).  Every ``apply_*`` casts a weight to the compute
+dtype where the reference does (``.to`` is free when the engine has already
+cast it once, see :func:`repro_torch.models.model.prepare_params`), and every
+``einsum(..., preferred_element_type=f32)`` of the reference on a lower
+precision becomes a float32 product of operands widened first (exact for
+bf16: a bf16 x bf16 product is representable in float32).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models.attention_core import blockwise_attention
+
+NEG_INF = -1e30
+POS_EMPTY = 2 ** 30        # position of an empty cache slot: never valid
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+def pad_vocab(vocab: int, multiple: int = 256) -> int:
+    return ((vocab + multiple - 1) // multiple) * multiple
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
+           device) -> torch.Tensor:
+    """``scale * N(0, 1)`` drawn in float32 from ``gen``, cast to ``dtype``
+    (the reference's ``params.normal``; the draws differ from jax.random)."""
+    if torch.device(device or "cpu").type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+def init_rmsnorm(dim: int, dtype, device) -> Dict[str, torch.Tensor]:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def apply_rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return apply_rmsnorm_heads(p["scale"], x, eps)
+
+
+def apply_rmsnorm_heads(scale, x: torch.Tensor, eps: float = 1e-6
+                        ) -> torch.Tensor:
+    """RMSNorm over the last axis (also the per-head qk-norm)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (S,) or (B, S)."""
+    D = x.shape[-1]
+    inv = rope_frequencies(D, theta, x.device)
+    if positions.dim() == 1:
+        ang = positions[:, None].float() * inv[None, :]             # (S, half)
+        ang = ang[None, :, None, :]
+    else:
+        ang = positions[..., None].float() * inv                    # (B,S,half)
+        ang = ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def init_embedding(gen, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
+    dt = dtype_of(cfg.param_dtype)
+    v = pad_vocab(cfg.vocab_size)
+    out = {"embedding": normal(gen, (v, cfg.d_model), 0.02, dt, device)}
+    if not cfg.tie_embeddings:
+        out["unembed"] = normal(gen, (cfg.d_model, v),
+                                0.02 / math.sqrt(cfg.d_model), dt, device)
+    return out
+
+
+def apply_embedding(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    emb = p["embedding"].to(dtype_of(cfg.compute_dtype))
+    return emb[tokens.long()]
+
+
+def unembed_operand(p, cfg: ArchConfig) -> torch.Tensor:
+    """The unembedding as the float32 operand of the reference's
+    ``einsum(x, w.astype(compute), preferred_element_type=f32)``: rounded to
+    the compute dtype, then widened.  :func:`repro_torch.models.model.
+    prepare_params` stores it once as ``unembed_f32``."""
+    if "unembed_f32" in p:
+        return p["unembed_f32"]
+    cdt = dtype_of(cfg.compute_dtype)
+    w = p["embedding"].t() if cfg.tie_embeddings else p["unembed"]
+    return w.to(cdt).float()
+
+
+def apply_unembed(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Returns float32 logits over the padded vocab with pad columns masked
+    to -1e30."""
+    w = unembed_operand(p, cfg)
+    logits = torch.matmul(x.float(), w)
+    v_pad = w.shape[-1]
+    if v_pad != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = NEG_INF
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+def init_attention(gen, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
+    dt = dtype_of(cfg.param_dtype)
+    d, H, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s_in = 0.02
+    s_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
+    p = {"wq": normal(gen, (d, H * D), s_in, dt, device),
+         "wk": normal(gen, (d, Hkv * D), s_in, dt, device),
+         "wv": normal(gen, (d, Hkv * D), s_in, dt, device),
+         "wo": normal(gen, (H * D, d), s_out, dt, device)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((D,), dtype=dt, device=device)
+        p["k_norm"] = torch.ones((D,), dtype=dt, device=device)
+    return p
+
+
+def _project_qkv(p, x, x_kv, cfg: ArchConfig):
+    cdt = dtype_of(cfg.compute_dtype)
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B, S = x.shape[0], x.shape[1]
+    Skv = x_kv.shape[1]
+    q = torch.matmul(x, p["wq"].to(cdt)).reshape(B, S, H, D)
+    k = torch.matmul(x_kv, p["wk"].to(cdt)).reshape(B, Skv, Hkv, D)
+    v = torch.matmul(x_kv, p["wv"].to(cdt)).reshape(B, Skv, Hkv, D)
+    if cfg.qk_norm:
+        q = apply_rmsnorm_heads(p["q_norm"], q)
+        k = apply_rmsnorm_heads(p["k_norm"], k)
+    return q, k, v
+
+
+def apply_attention(p, x, cfg: ArchConfig, *,
+                    positions: Optional[torch.Tensor] = None,
+                    causal: bool = True, return_kv: bool = False):
+    """Full-sequence (prefill) self-attention."""
+    q, k, v = _project_qkv(p, x, x, cfg)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = blockwise_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    o = o.reshape(x.shape[0], x.shape[1], -1)
+    out = torch.matmul(o, p["wo"].to(dtype_of(cfg.compute_dtype)))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def apply_attention_decode(p, x, cache: Dict[str, torch.Tensor],
+                           cfg: ArchConfig, cache_index: int):
+    """Single-token decode with a (possibly ring) KV cache.
+
+    cache: {"k": (B, S_c, Hkv, D), "v": ..., "pos": (B, S_c) absolute
+    positions}, updated in place (the reference returns a new cache; here
+    the caller's buffers are the state).  ``cache_index`` is the new
+    token's absolute position.  Returns (out, cache)."""
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, x, x, cfg)
+    pos = int(cache_index)
+    if cfg.use_rope:
+        at = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, at, cfg.rope_theta)
+        k_new = apply_rope(k_new, at, cfg.rope_theta)
+    k, v, kpos = cache["k"], cache["v"], cache["pos"]
+    slot = pos % k.shape[1]
+    k[:, slot] = k_new[:, 0].to(k.dtype)
+    v[:, slot] = v_new[:, 0].to(v.dtype)
+    kpos[:, slot] = pos
+    valid = kpos[0] <= pos
+    if cfg.sliding_window is not None:
+        valid &= kpos[0] > pos - cfg.sliding_window
+    bias = torch.where(valid, 0.0, NEG_INF).float()
+    rep = H // Hkv
+    qr = q.reshape(B, 1, Hkv, rep, D)
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", qr.float(),
+                     k.to(q.dtype).float()) * scale
+    s = s + bias
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhrk,bkhd->bqhrd", pattn, v.to(q.dtype).float())
+    o = o.reshape(B, 1, H * D).to(x.dtype)
+    out = torch.matmul(o, p["wo"].to(dtype_of(cfg.compute_dtype)))
+    return out, cache
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                  dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    s_c = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    shape = (batch, s_c, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            # empty slots get a far-future position so `kpos <= pos` masks
+            # them out
+            "pos": torch.full((batch, s_c), POS_EMPTY, dtype=torch.int32,
+                              device=device)}
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+def init_mlp(gen, cfg: ArchConfig, device, d_ff: Optional[int] = None
+             ) -> Dict[str, Any]:
+    dt = dtype_of(cfg.param_dtype)
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    s_in = 0.02
+    s_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
+    return {"w_gate": normal(gen, (d, ff), s_in, dt, device),
+            "w_up": normal(gen, (d, ff), s_in, dt, device),
+            "w_down": normal(gen, (ff, d), s_out, dt, device)}
+
+
+def apply_mlp(p, x, cfg: ArchConfig) -> torch.Tensor:
+    cdt = dtype_of(cfg.compute_dtype)
+    g = torch.matmul(x, p["w_gate"].to(cdt))
+    u = torch.matmul(x, p["w_up"].to(cdt))
+    h = torch.nn.functional.silu(g) * u
+    return torch.matmul(h, p["w_down"].to(cdt))

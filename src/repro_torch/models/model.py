@@ -1,0 +1,96 @@
+"""Model factory: ArchConfig -> init / prefill / decode callables.
+
+The decoder-only half of the JAX package's ``repro/models/model.py``::
+
+    bundle = build_model(cfg)
+    params = bundle.init(seed, device)             # tree of tensors
+    logits, caches, idx = bundle.prefill_fn(params, batch)
+    logits, caches = bundle.decode_fn(params, tokens, caches, idx)
+
+There is no ``loss_fn`` yet (training is slice 5 of the port), and
+encoder-decoder / vision bundles come with slice 4.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models.layers import (apply_embedding, apply_unembed,
+                                       dtype_of, unembed_operand)
+from repro_torch.models.transformer import (check_supported, init_lm,
+                                            init_lm_caches, lm_backbone,
+                                            lm_decode_backbone, tree_map)
+
+# leaves the reference casts to the compute dtype at every use
+# (``p[...].astype(cdt)``); norm scales stay in the parameter dtype
+COMPUTE_LEAVES = ("embedding", "wq", "wk", "wv", "wo", "w_gate", "w_up",
+                  "w_down")
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    cfg: ArchConfig
+    init: Callable[..., Any]
+    prefill_fn: Callable[..., Tuple[torch.Tensor, Any, int]]
+    decode_fn: Callable[..., Tuple[torch.Tensor, Any]]
+    init_caches: Callable[..., Any]
+
+
+def prepare_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
+    """The parameter tree the engine computes with: every leaf the
+    reference casts at each use is cast to the compute dtype once here, and
+    the unembedding is stored as the float32 operand of its
+    ``preferred_element_type=f32`` product (``unembed_f32``).  The numbers
+    are those of casting at every use; what goes is the cast traffic (at
+    full width, float32 parameters are 7.6 GB read per decode step)."""
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k in COMPUTE_LEAVES:
+                out[k] = v.to(cdt)
+            elif k == "unembed":
+                out["unembed_f32"] = unembed_operand({"unembed": v}, cfg)
+            else:
+                out[k] = v
+        return out
+
+    return walk(params)
+
+
+def _build_decoder_only(cfg: ArchConfig) -> ModelBundle:
+    def init(seed: int = 0, device=None):
+        return init_lm(cfg, seed, device)
+
+    def prefill_fn(params, batch: Dict[str, torch.Tensor]):
+        x = apply_embedding(params["embed"], batch["tokens"], cfg)
+        h, caches = lm_backbone(params, x, cfg, collect_cache=True)
+        logits = apply_unembed(params["embed"], h[:, -1:], cfg)
+        return logits[:, 0], caches, int(x.shape[1])
+
+    def decode_fn(params, tokens, caches, cache_index: int):
+        x = apply_embedding(params["embed"], tokens, cfg)
+        h, caches = lm_decode_backbone(params, x, caches, cache_index, cfg)
+        return apply_unembed(params["embed"], h, cfg)[:, 0], caches
+
+    def init_caches(batch: int, seq_len: int, device=None):
+        return init_lm_caches(cfg, batch, seq_len, device)
+
+    return ModelBundle(cfg, init, prefill_fn, decode_fn, init_caches)
+
+
+def build_model(cfg: ArchConfig) -> ModelBundle:
+    check_supported(cfg)
+    return _build_decoder_only(cfg)
+
+
+def param_count(params: Dict[str, Any]) -> int:
+    n = [0]
+    tree_map(lambda a: n.__setitem__(0, n[0] + a.numel()), params)
+    return n[0]

@@ -1,0 +1,168 @@
+"""Decoder-only transformer stack (pure-attention, dense-MLP block schedules).
+
+The JAX package's ``repro/models/transformer.py`` for the archs the port
+serves so far.  Layers are grouped into ``n_stages`` identical stages of
+``stage_period`` sublayers; every parameter leaf of ``params["stages"]``
+carries the stage axis first (the reference's stacked ``lax.scan`` layout),
+and the port walks the stages with a Python loop over views.  MoE and SSM
+sublayers come with slice 4 of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs import ATTN, DENSE, NONE, ArchConfig
+from repro_torch.models.layers import (apply_attention, apply_attention_decode,
+                                       apply_mlp, apply_rmsnorm, dtype_of,
+                                       init_attention, init_embedding,
+                                       init_kv_cache, init_mlp, init_rmsnorm)
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a block schedule the port does not
+    run yet (anything but attention mixers with dense or no MLP)."""
+    for mixer, mlp in cfg.block_schedule():
+        if mixer != ATTN or mlp not in (DENSE, NONE):
+            raise NotImplementedError(
+                f"{cfg.name}: {mixer}/{mlp} sublayers come with slice 4 of "
+                "the port (ROADMAP.md)")
+    if cfg.enc_dec or cfg.num_patches or not cfg.use_rope:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder, vision and sinusoidal-position "
+            "archs come with slice 4 of the port (ROADMAP.md)")
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def stage_view(stages: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Stage ``i``'s parameters (or caches): views, no copy."""
+    return tree_map(lambda a: a[i], stages)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def init_stage(gen, cfg: ArchConfig, device) -> Dict[str, Any]:
+    sched = cfg.block_schedule()[:cfg.stage_period]
+    dt = dtype_of(cfg.param_dtype)
+    out: Dict[str, Any] = {}
+    for i, (_, mlp) in enumerate(sched):
+        sub: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dt, device),
+                               "attn": init_attention(gen, cfg, device)}
+        if mlp != NONE:
+            sub["norm2"] = init_rmsnorm(cfg.d_model, dt, device)
+            sub["mlp"] = init_mlp(gen, cfg, device)
+        out[f"sub{i}"] = sub
+    return out
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+    """Full decoder-only LM parameter tree, drawn from ``seed`` on
+    ``device`` (the port's own initialiser: the reference's scales and
+    layout, not its ``jax.random`` draws)."""
+    check_supported(cfg)
+    dev = torch.device(device or "cpu")
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(int(seed))
+    n_stages = cfg.num_layers // cfg.stage_period
+    return {"embed": init_embedding(gen, cfg, device),
+            "stages": _stack([init_stage(gen, cfg, device)
+                              for _ in range(n_stages)]),
+            "final_norm": init_rmsnorm(cfg.d_model, dtype_of(cfg.param_dtype),
+                                       device)}
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+def _kv_to_cache(k, v, positions, cfg: ArchConfig):
+    """Turn full-sequence K/V into a decode cache (window-clipped for SWA)."""
+    S = k.shape[1]
+    w = cfg.sliding_window
+    if w is not None and S > w:
+        k, v = k[:, S - w:], v[:, S - w:]
+        pos = positions[S - w:][None, :].expand(k.shape[0], w)
+    else:
+        pos = positions[None, :].expand(k.shape[0], S)
+    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16),
+            "pos": pos.to(torch.int32)}
+
+
+def _stage_forward(sp, x, cfg: ArchConfig, positions, collect_cache: bool):
+    sched = cfg.block_schedule()[:cfg.stage_period]
+    caches = {}
+    for i, (_, mlp) in enumerate(sched):
+        sub = sp[f"sub{i}"]
+        h = apply_rmsnorm(sub["norm1"], x)
+        if collect_cache:
+            h, (k, v) = apply_attention(sub["attn"], h, cfg,
+                                        positions=positions, return_kv=True)
+            caches[f"sub{i}"] = _kv_to_cache(k, v, positions, cfg)
+        else:
+            h = apply_attention(sub["attn"], h, cfg, positions=positions)
+        x = x + h
+        if mlp != NONE:
+            x = x + apply_mlp(sub["mlp"], apply_rmsnorm(sub["norm2"], x), cfg)
+    return x, caches
+
+
+def lm_backbone(params, x, cfg: ArchConfig,
+                positions: Optional[torch.Tensor] = None,
+                collect_cache: bool = False):
+    """x: (B, S, d) embedded inputs -> (hidden, caches|None); caches stack
+    the stage axis first, like the reference's scan output."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    n_stages = cfg.num_layers // cfg.stage_period
+    per_stage = []
+    for i in range(n_stages):
+        x, c = _stage_forward(stage_view(params["stages"], i), x, cfg,
+                              positions, collect_cache)
+        per_stage.append(c)
+    x = apply_rmsnorm(params["final_norm"], x)
+    return x, (_stack(per_stage) if collect_cache else None)
+
+
+# ---------------------------------------------------------------------------
+# decode (single token) forward
+# ---------------------------------------------------------------------------
+def lm_decode_backbone(params, x, caches, cache_index: int, cfg: ArchConfig):
+    """x: (B, 1, d) -> (hidden (B, 1, d), caches); the dense ring caches
+    are updated in place."""
+    sched = cfg.block_schedule()[:cfg.stage_period]
+    n_stages = cfg.num_layers // cfg.stage_period
+    for s in range(n_stages):
+        sp = stage_view(params["stages"], s)
+        sc = stage_view(caches, s)
+        for i, (_, mlp) in enumerate(sched):
+            sub = sp[f"sub{i}"]
+            hout, _ = apply_attention_decode(
+                sub["attn"], apply_rmsnorm(sub["norm1"], x), sc[f"sub{i}"],
+                cfg, cache_index)
+            x = x + hout
+            if mlp != NONE:
+                x = x + apply_mlp(sub["mlp"], apply_rmsnorm(sub["norm2"], x),
+                                  cfg)
+    return apply_rmsnorm(params["final_norm"], x), caches
+
+
+def init_lm_caches(cfg: ArchConfig, batch: int, seq_len: int, device=None):
+    """Empty decode caches: sub{i} -> stacked (n_stages, ...) tensors."""
+    n_stages = cfg.num_layers // cfg.stage_period
+    sched = cfg.block_schedule()[:cfg.stage_period]
+    return {f"sub{i}": tree_map(
+        lambda a: a[None].repeat((n_stages,) + (1,) * a.dim()),
+        init_kv_cache(cfg, batch, seq_len, device=device))
+        for i in range(len(sched))}

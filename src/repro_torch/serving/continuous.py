@@ -1,0 +1,653 @@
+"""Continuous batching over a persistent slot table (paged KV-cache decode).
+
+The JAX package's ``repro/serving/continuous.py`` without preemption,
+restore and swap (slice 3 of the port) and without the SSM / cross-attention
+state kinds (slice 4).  A fixed-capacity *slot table* lives on the device
+and three events interleave per outer step:
+
+* **admission** -- queued requests are prefilled at their page-aligned
+  prompt bucket (same-bucket admissions batched into one prefill call of
+  power-of-two width), their K/V written into
+  :class:`repro_torch.serving.kvcache.PagedKVCache` pages by the scatter
+  kernel, and their sampling state scattered into free slot rows.  With
+  ``prefix_sharing`` each request's longest chain of registered full-prefix
+  blocks maps onto existing pages, and a request whose whole padded prompt
+  is registered (and whose prefill logits are cached) skips its prefill;
+* **one decode micro-round** -- ``inner_steps`` masked decode steps over
+  *all* capacity rows, enqueued on the current stream back to back with no
+  host synchronisation inside (the reference's one ``lax.scan``), followed
+  by a CUDA event that :meth:`RoundHandle.ready` queries;
+* **retirement** -- rows whose token budget ran out are collected on the
+  host, their pages' refcounts dropped, their slots freed.
+
+Rows are masked, not compacted: an inactive row samples into the void (its
+emission is dropped) and writes its K/V and position to the reserved TRASH
+page.  Copy-on-write rides the dispatch path: decode writes land at
+``pos % ring``, so the blocks a round will write are known on the host, and
+:meth:`ContinuousBatchingEngine.dispatch_round` forks every shared page
+among them (:meth:`PagedKVCache.note_write`; one page copy + page-table
+remap per fork) before the round is enqueued.
+
+State is updated in place: the reference donates its state pytree to every
+jit so XLA aliases the pools; here the pools, position pool and page table
+*are* the state, and every write -- position pool first, then per layer the
+new token's K/V, then the decode kernel's read -- is ordered on one stream.
+
+Greedy token-exactness: an admitted request decodes through exactly the same
+prefill (same left-padded bucket prompt; batched prefill rows are
+independent) and per-token arithmetic as ``ServingEngine.generate`` on that
+padded prompt, with the same ``(seed, local step)`` sampling schedule -- so
+each row's greedy tokens match the blocking engine, whatever its neighbours
+do.  Prefix sharing preserves this: a block is shared only when the whole
+padded prompt up to its end is byte-identical, forks copy pages before the
+first divergent write, and cached admission logits are the stored output of
+the identical earlier prefill.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import NONE, ArchConfig
+from repro_torch.core.tenancy import resolve_devices
+from repro_torch.models.layers import (apply_embedding, apply_mlp,
+                                       apply_rmsnorm, apply_unembed,
+                                       pad_vocab)
+from repro_torch.models.transformer import stage_view
+from repro_torch.obs.telemetry import Telemetry, get_telemetry
+from repro_torch.serving.engine import (ServingEngine, resolve_extra_inputs,
+                                        sample_rows, to_device)
+from repro_torch.serving.kvcache import (POS_SENTINEL, PagedKVCache,
+                                         paged_attention_decode,
+                                         paged_scatter, state_kinds)
+
+
+@dataclasses.dataclass
+class _Slot:
+    """Host-side record of one occupied slot-table row."""
+    req: Any                       # duck-typed: .prompt/.max_new_tokens/...
+    target: int
+    temp: float                    # resolved sampling params, mirrored on
+    top_k: int                     # the host so dispatch_round can pick the
+    bucket: int = 0                # sampling strength
+    ring: int = 0
+    planned: int = 0               # decode steps already dispatched (the
+    tokens: List[int] = dataclasses.field(  # CoW write scan runs at dispatch)
+        default_factory=list)
+    t_first: Optional[float] = None  # wall stamp of the first collected token
+
+
+@dataclasses.dataclass
+class RoundHandle:
+    """One dispatched (not yet collected) decode micro-round.
+
+    ``emitted`` / ``act`` / ``nonfinite`` are host tensors (pinned, on a
+    CUDA device) that the round's own copies fill: collecting round k waits
+    for round k's ``done`` event only, never for a round k+1 enqueued behind
+    it on the same stream."""
+    emitted: torch.Tensor          # (steps, C) int32, -1 where row inactive
+    act: torch.Tensor              # (steps, C) bool
+    nonfinite: torch.Tensor        # () int64: live row-steps so far whose
+    steps: int                     # logits were not all finite
+    t_start: float
+    rnd: int = -1                  # round ordinal, for the round-span event
+    done: Any = None               # CUDA event after the round (None: CPU)
+    start: Any = None              # CUDA event before the round
+
+    def ready(self) -> bool:
+        """Non-blocking probe: has the round's device work finished?  A CUDA
+        event query; work on the CPU has finished when dispatch returns."""
+        return True if self.done is None else bool(self.done.query())
+
+    def wait(self) -> None:
+        if self.done is not None:
+            self.done.synchronize()
+
+
+@dataclasses.dataclass
+class CollectResult:
+    finished: List[Tuple[Any, np.ndarray, int]]   # (request, tokens, slot)
+    active_steps: np.ndarray       # (C,) decode steps each row was live for
+    slot_reqs: List[Optional[Any]]  # slot -> request, pre-retirement snapshot
+    retired: List[Any] = dataclasses.field(default_factory=list)
+
+
+class ContinuousBatchingEngine:
+    """Masked fixed-step decode over a persistent slot table.
+
+    Drive it through :class:`repro_torch.serving.multitenant.
+    MultiTenantScheduler` (``mode="continuous"``) or directly::
+
+        eng = ContinuousBatchingEngine(engine, capacity=4)
+        for req, tokens in eng.run_all(requests): ...
+    """
+
+    def __init__(self, engine: ServingEngine, capacity: int = 8,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 inner_steps: int = 4, max_prompt_len: int = 128,
+                 prefix_sharing: bool = True,
+                 preserve_pristine: Any = True,
+                 batch_admission: bool = True,
+                 logits_cache_size: int = 32,
+                 swap: bool = False,
+                 admission_retry_limit: int = 8,
+                 telemetry: Optional[Telemetry] = None,
+                 device=None):
+        if device is not None:
+            dev = resolve_devices(1, device)[0]        # raises: no card
+            if dev != engine.device:
+                raise ValueError(f"device {dev}: the engine's parameters "
+                                 f"live on {engine.device}")
+        if swap:
+            raise NotImplementedError(
+                "swap preemption (serving/swap.py) comes with slice 3 of "
+                "the port")
+        cfg = engine.cfg
+        self.engine = engine
+        self.cfg = cfg
+        self.device = engine.device
+        self.params = engine.params
+        self.bundle = engine.bundle
+        self.capacity = capacity
+        self.inner_steps = inner_steps
+        self.max_prompt_len = max_prompt_len
+        self.n_stages = cfg.num_layers // cfg.stage_period
+        self.sched = cfg.block_schedule()[:cfg.stage_period]
+        self.page_size = page_size
+        self.state_kinds = state_kinds(cfg)
+        max_ring = self._ring_len(self.bucket_len(max_prompt_len))
+        self.kv = PagedKVCache(cfg, capacity, page_size,
+                               -(-max_ring // page_size), num_pages)
+        self.prefix_sharing = bool(prefix_sharing and self.kv.attn_subs)
+        # pristine-preserve policy: False = never copy; True (default) =
+        # reuse-aware (preserve a sole-owner registered page only once its
+        # chain has recorded a sharing hit); "always" = preserve every time
+        self.preserve_pristine = preserve_pristine
+        self.batch_admission = batch_admission
+        self.logits_cache_size = int(logits_cache_size)
+        self._logits_cache: "collections.OrderedDict[bytes, torch.Tensor]" = \
+            collections.OrderedDict()
+        self.admission_retry_limit = int(admission_retry_limit)
+        self.rejected: List[Any] = []   # run_all's terminal REJECTED requests
+        self.prefill_calls = 0     # host-side prefill invocations (batched)
+        self.prefill_skips = 0     # admissions served from the logits cache
+        self.rounds = 0
+        self.row_steps = 0         # sum over rounds of live rows per step
+        self.nonfinite_rows = 0    # live row-steps with a non-finite logit
+        self.pdev = 0
+        self.tel = get_telemetry(telemetry)
+        self._round_log: List[Tuple[int, int, int]] = []
+        self.kv.tel = self.tel
+        # CUDA-event windows: (start, end) per prefill call and per round
+        self._prefill_events: List[Tuple[Any, Any]] = []
+        self.round_ms: List[float] = []
+        self.state = self._init_state()
+        self._slots: List[Optional[_Slot]] = [None] * capacity
+        self._free_slots: List[int] = list(range(capacity - 1, -1, -1))
+
+    # ------------------------------------------------------------------
+    def bucket_len(self, prompt_len: int) -> int:
+        """Prompts are left-padded to a page-aligned bucket."""
+        p = self.page_size
+        return max(p, -(-prompt_len // p) * p)
+
+    def _ring_len(self, bucket: int) -> int:
+        w = self.cfg.sliding_window
+        return min(bucket, w) if w is not None else bucket
+
+    def active_count(self) -> int:
+        return sum(s is not None for s in self._slots)
+
+    def live_after(self, steps: int) -> bool:
+        """Will any current row still be live after ``steps`` more decode
+        steps?  (Host-side: collected tokens exclude any in-flight round.)"""
+        return any(s is not None and s.target - len(s.tokens) > steps
+                   for s in self._slots)
+
+    def free_slot_count(self) -> int:
+        return len(self._free_slots)
+
+    def occupancy(self) -> float:
+        """Fraction of row-steps that decoded a live row, over collected
+        micro-rounds."""
+        total = sum(steps * cap for steps, cap, _ in self._round_log)
+        if not total:
+            return 0.0
+        return sum(live for _, _, live in self._round_log) / total
+
+    @classmethod
+    def supported_modes(cls, cfg: ArchConfig) -> Dict[str, Dict[str, Any]]:
+        """Capability probe: what each serving mode offers for ``cfg`` in
+        the port so far (the reference's table, with the modes and
+        qualifiers later slices bring marked as such)."""
+        names = list(state_kinds(cfg))
+        cont = {
+            "supported": True,
+            "state_kinds": names,
+            "preemptable": False,          # swap: slice 3
+            "prefix_sharing": "attn" in names,
+            "window_phase_keys": ("attn" in names
+                                  and cfg.sliding_window is not None),
+            "exactness": "bitwise",
+        }
+        later = {"supported": False, "slice": "overlapped and blocking "
+                 "schedules come with a later slice of the port"}
+        return {"blocking": dict(later), "overlapped": dict(later),
+                "continuous": cont}
+
+    # ------------------------------------------------------------------
+    def _init_state(self) -> Dict[str, Any]:
+        cfg, c, dev = self.cfg, self.capacity, self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        return {
+            "caches": self.kv.make_pools(self.n_stages, dev),
+            "page_table": self.kv.make_page_table(dev),
+            "pos_pool": self.kv.make_pos_pool(dev),
+            "logits": torch.zeros((c, pad_vocab(cfg.vocab_size)),
+                                  dtype=torch.float32, device=dev),
+            "pos": torch.zeros((c,), **i32),
+            "ring": torch.ones((c,), **i32),
+            "remaining": torch.zeros((c,), **i32),
+            "temps": torch.zeros((c,), dtype=torch.float32, device=dev),
+            "topks": torch.zeros((c,), **i32),
+            "seeds": torch.zeros((c,), dtype=torch.int64, device=dev),
+            "lstep": torch.zeros((c,), **i32),
+            "nonfinite": torch.zeros((), dtype=torch.int64, device=dev),
+            "trash": torch.full((), PagedKVCache.TRASH, **i32),
+            "pos_sentinel": torch.full((), POS_SENTINEL, **i32),
+        }
+
+    def _event(self):
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    # ------------------------------------------------------------------
+    # the decode step (enqueue only: no host synchronisation)
+    # ------------------------------------------------------------------
+    def _decode_step(self, emitted_row: torch.Tensor, act_row: torch.Tensor,
+                     all_greedy: bool, any_topk: bool) -> None:
+        cfg, st, params = self.cfg, self.state, self.params
+        p_sz = self.page_size
+        active = st["remaining"] > 0
+        tok = sample_rows(st["logits"], st["temps"], st["topks"], st["seeds"],
+                          st["lstep"], all_greedy=all_greedy,
+                          any_topk=any_topk)
+        pos, ring, pt = st["pos"], st["ring"], st["page_table"]
+        slot_log = torch.remainder(pos, ring)
+        blk = torch.div(slot_log, p_sz, rounding_mode="floor")
+        off = torch.remainder(slot_log, p_sz)
+        page = torch.gather(pt, 1, blk[:, None].long())[:, 0]
+        page = torch.where(active, page, st["trash"])
+        # this step's positions first: the decode read validates against
+        # them (masked rows write POS_SENTINEL into TRASH)
+        st["pos_pool"][page.long(), off.long()] = torch.where(
+            active, pos, st["pos_sentinel"])
+
+        x = apply_embedding(params["embed"], tok[:, None], cfg)
+        for s in range(self.n_stages):
+            sp = stage_view(params["stages"], s)
+            sc = stage_view(st["caches"], s)
+            for i, (_, mlp) in enumerate(self.sched):
+                sub = sp[f"sub{i}"]
+                hout, _ = paged_attention_decode(
+                    sub["attn"], apply_rmsnorm(sub["norm1"], x),
+                    sc[f"sub{i}"], pt, page, off, pos, cfg, st["pos_pool"])
+                x = x + hout
+                if mlp != NONE:
+                    x = x + apply_mlp(sub["mlp"],
+                                      apply_rmsnorm(sub["norm2"], x), cfg)
+        h = apply_rmsnorm(params["final_norm"], x)
+        new_logits = apply_unembed(params["embed"], h, cfg)[:, 0]
+        st["nonfinite"] += (active
+                            & ~torch.isfinite(new_logits).all(dim=-1)).sum()
+        st["logits"].copy_(torch.where(active[:, None], new_logits,
+                                       st["logits"]))
+        step = active.to(torch.int32)
+        pos.add_(step)
+        st["remaining"].sub_(step)
+        st["lstep"].add_(step)
+        emitted_row.copy_(torch.where(active, tok, -1))
+        act_row.copy_(active)
+
+    # ------------------------------------------------------------------
+    # device halves of admission and copy-on-write
+    # ------------------------------------------------------------------
+    def _write_row(self, slot: int, pages: np.ndarray, logits0: torch.Tensor,
+                   remaining: int, temp: float, topk: int, seed: int,
+                   bucket: int, ring: int) -> torch.Tensor:
+        """Page-table row + the slot's sampling state; returns the row's
+        pages on the device."""
+        st = self.state
+        row = np.full((self.kv.max_blocks,), PagedKVCache.SENTINEL, np.int32)
+        row[:len(pages)] = pages
+        row_dev = to_device(row, self.device)
+        st["page_table"][slot].copy_(row_dev)
+        st["logits"][slot].copy_(logits0)
+        st["pos"][slot] = bucket
+        st["ring"][slot] = ring
+        st["remaining"][slot] = remaining
+        st["temps"][slot] = temp
+        st["topks"][slot] = topk
+        st["seeds"][slot] = seed
+        st["lstep"][slot] = 0
+        return row_dev[:len(pages)]
+
+    def _admit_kv(self, pages_dev: torch.Tensor, caches: Dict[str, Any],
+                  ring: int) -> None:
+        """Fused compute-then-scatter: the bucket's freshly prefilled K/V
+        goes straight into its allocated pages (the scatter kernel), the
+        positions into the position pool."""
+        st, p_sz = self.state, self.page_size
+        nb = pages_dev.shape[0]
+        pos_src = caches[self.kv.attn_subs[0]]["pos"][0, 0]       # (ring,)
+        pos_vals = torch.full((nb * p_sz,), POS_SENTINEL, dtype=torch.int32,
+                              device=self.device)
+        pos_vals[:ring] = pos_src
+        st["pos_pool"][pages_dev.long()] = pos_vals.view(nb, p_sz)
+        pad = nb * p_sz - ring
+        for name in self.kv.attn_subs:
+            for kind in ("k", "v"):
+                leaf = caches[name][kind][:, 0]          # (S, ring, Hkv, D)
+                if pad:
+                    leaf = torch.nn.functional.pad(leaf, (0, 0, 0, 0, 0, pad))
+                vals = leaf.reshape(self.n_stages, nb, p_sz, *leaf.shape[2:])
+                paged_scatter(st["caches"][name][kind], pages_dev, vals)
+
+    def _cow(self, src: int, dst: int, slot: int, blk: int) -> None:
+        """Copy-on-write fork: copy page ``src`` -> ``dst`` in every
+        attention pool and the position pool, and repoint the writer's
+        page-table entry."""
+        st = self.state
+        for name in self.kv.attn_subs:
+            pool = st["caches"][name]
+            pool["k"][:, dst].copy_(pool["k"][:, src])
+            pool["v"][:, dst].copy_(pool["v"][:, src])
+        st["pos_pool"][dst].copy_(st["pos_pool"][src])
+        st["page_table"][slot, blk] = dst
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+    def try_admit(self, req: Any) -> bool:
+        return self.try_admit_batch([req])[0]
+
+    @torch.no_grad()
+    def try_admit_batch(self, reqs: List[Any]) -> List[bool]:
+        """Admit up to ``len(self._free_slots)`` requests in one go: plan
+        (bucket, ring, padded prompt, chain keys, full-prefix probe), one
+        batched prefill per prompt bucket for every plan that cannot skip
+        it, then admit each in order (re-probing the trie, so same-batch
+        prefix sharing works).  Returns one admitted-flag per request;
+        rejected requests (slot or page pressure) are untouched."""
+        with self.tel.span("admit.batch", n=len(reqs)) as admit_span:
+            flags = self._try_admit_batch_inner(reqs)
+            admit_span.note(admitted=sum(flags))
+        return flags
+
+    def _try_admit_batch_inner(self, reqs: List[Any]) -> List[bool]:
+        flags = [False] * len(reqs)
+        plans: List[Dict[str, Any]] = []
+        for i, req in enumerate(reqs):
+            if len(plans) >= len(self._free_slots):
+                break
+            prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+            if prompt.size > self.max_prompt_len:
+                raise ValueError(
+                    f"prompt of {prompt.size} tokens exceeds max_prompt_len="
+                    f"{self.max_prompt_len}")
+            if resolve_extra_inputs(self.cfg, req):
+                raise NotImplementedError(
+                    "non-token prefill inputs come with slice 4 of the port")
+            bucket = self.bucket_len(prompt.size)
+            ring = self._ring_len(bucket)
+            padded = np.zeros((bucket,), np.int32)
+            padded[bucket - prompt.size:] = prompt
+            keys = (self.kv.chain_keys(padded, ring=ring)
+                    if self.prefix_sharing else [])
+            # provisional only -- the authoritative share decision re-probes
+            # at admit time; this just decides whether to prefill
+            skip = bool(keys and len(self.kv.lookup_chain(keys)) == len(keys)
+                        and keys[-1] in self._logits_cache)
+            plans.append(dict(i=i, req=req, bucket=bucket, ring=ring,
+                              padded=padded, keys=keys, skip=skip,
+                              logits=None, caches=None))
+        if not plans:
+            return flags
+        groups: Dict[int, List[Dict[str, Any]]] = {}
+        for pl in plans:
+            if not pl["skip"]:
+                groups.setdefault(pl["bucket"], []).append(pl)
+        for bucket, grp in groups.items():
+            chunks = [grp] if self.batch_admission else [[pl] for pl in grp]
+            for chunk in chunks:
+                width = 1 << (len(chunk) - 1).bit_length()
+                tokens = np.zeros((width, bucket), np.int32)
+                for j, pl in enumerate(chunk):
+                    tokens[j] = pl["padded"]
+                with self.tel.span("admit.prefill", bucket=bucket,
+                                   width=width, n=len(chunk)):
+                    t0 = self._event()
+                    logits, caches, _ = self.bundle.prefill_fn(
+                        self.params, {"tokens": to_device(tokens,
+                                                          self.device)})
+                    t1 = self._event()
+                if t0 is not None:
+                    self._prefill_events.append((t0, t1))
+                self.prefill_calls += 1
+                self.tel.count("admit.prefill_calls")
+                for j, pl in enumerate(chunk):
+                    pl["logits"] = logits[j:j + 1]
+                    pl["caches"] = {name: {k: a[:, j:j + 1]
+                                           for k, a in sub.items()}
+                                    for name, sub in caches.items()}
+        for pl in plans:
+            flags[pl["i"]] = self._admit_planned(pl)
+        return flags
+
+    def _admit_planned(self, pl: Dict[str, Any]) -> bool:
+        """Page mapping + state scatter for one planned request.  False
+        leaves the allocator untouched."""
+        req, bucket, ring = pl["req"], pl["bucket"], pl["ring"]
+        kv = self.kv
+        nb = kv.blocks_for(ring)
+        shared: List[int] = []
+        will_write: Any = ()
+        target = int(req.max_new_tokens)
+        if self.prefix_sharing:
+            shared = kv.lookup_chain(pl["keys"])[:nb]
+            # blocks this request's decode ring-writes will touch
+            will_write = {((bucket + t) % ring) // self.page_size
+                          for t in range(min(target, ring))}
+        cached_logits = None
+        if pl["skip"]:
+            cached_logits = self._logits_cache.get(pl["keys"][-1])
+            if len(shared) < nb or cached_logits is None:
+                # the chain (or its logits) was evicted between planning and
+                # admission: no prefill result to fall back on -- requeue
+                return False
+            self._logits_cache.move_to_end(pl["keys"][-1])
+        slot = self._free_slots[-1]
+        pages = kv.alloc_shared(slot, shared, nb - len(shared), will_write)
+        if pages is None:
+            return False                 # pool pressure: retry later
+        self._free_slots.pop()
+        temp = getattr(req, "temperature", None)
+        if temp is None:
+            temp = self.engine.temperature
+        topk = int(getattr(req, "top_k", 0) or 0)
+        seed = int(getattr(req, "seed", 0) or 0)
+        logits0 = cached_logits if pl["skip"] else pl["logits"][0]
+        pages_dev = self._write_row(slot, pages, logits0, target, float(temp),
+                                    topk, seed, bucket, ring)
+        if pl["skip"]:
+            self.prefill_skips += 1
+            self.tel.count("admit.prefill_skips")
+        else:
+            self._admit_kv(pages_dev, pl["caches"], ring)
+            if self.prefix_sharing and pl["keys"]:
+                self._logits_cache_put(pl["keys"][-1], pl["logits"][0])
+        if self.prefix_sharing and pl["keys"]:
+            kv.register(slot, pl["keys"][:nb])
+        self._slots[slot] = _Slot(req, target, float(temp), topk,
+                                  bucket=bucket, ring=ring)
+        return True
+
+    def _logits_cache_put(self, key: bytes, row: torch.Tensor) -> None:
+        cache = self._logits_cache
+        cache[key] = row
+        cache.move_to_end(key)
+        while len(cache) > self.logits_cache_size:
+            cache.popitem(last=False)
+
+    # ------------------------------------------------------------------
+    # decode micro-rounds
+    # ------------------------------------------------------------------
+    def _resolve_round_writes(self) -> None:
+        """Pre-dispatch copy-on-write scan: the blocks each live row will
+        write in the coming round are known on the host (``pos % ring``),
+        so every shared or pristine-registered page among them is forked
+        before the round is enqueued.  Without sharing the scan is
+        skipped."""
+        if not (self.prefix_sharing and self.kv.attn_subs):
+            return
+        preserve = bool(self.preserve_pristine)
+        require_hit = self.preserve_pristine != "always"
+        for c, s in enumerate(self._slots):
+            if s is None:
+                continue
+            n = min(self.inner_steps, s.target - s.planned)
+            if n <= 0:
+                continue
+            blks = sorted({((s.bucket + s.planned + t) % s.ring)
+                           // self.page_size for t in range(n)})
+            for blk in blks:
+                fork = self.kv.note_write(c, blk, preserve=preserve,
+                                          require_hit=require_hit)
+                if fork is not None:
+                    self._cow(fork[0], fork[1], c, blk)
+            s.planned += n
+
+    @torch.no_grad()
+    def dispatch_round(self) -> RoundHandle:
+        """Enqueue one masked micro-round (non-blocking); the caller may
+        admit the next requests while it runs on the device."""
+        rnd = self.rounds
+        with self.tel.span("round.dispatch", round=rnd, pdev=self.pdev):
+            t0 = time.perf_counter()
+            with self.tel.span("round.cow"):
+                self._resolve_round_writes()
+            live = [s for s in self._slots if s is not None]
+            all_greedy = all(s.temp <= 0 for s in live)
+            any_topk = any(s.top_k > 0 for s in live)
+            steps, c = self.inner_steps, self.capacity
+            emitted = torch.empty((steps, c), dtype=torch.int32,
+                                  device=self.device)
+            act = torch.empty((steps, c), dtype=torch.bool,
+                              device=self.device)
+            with self.tel.span("round.enqueue", steps=steps,
+                               all_greedy=all_greedy):
+                start = self._event()
+                for i in range(steps):
+                    self._decode_step(emitted[i], act[i], all_greedy,
+                                      any_topk)
+                nonfinite = self.state["nonfinite"].clone()
+                if self.device.type == "cuda":
+                    # the round's results leave the device behind the round
+                    # itself, ahead of anything enqueued later
+                    host = [torch.empty(t.shape, dtype=t.dtype,
+                                        pin_memory=True)
+                            for t in (emitted, act, nonfinite)]
+                    for h, t in zip(host, (emitted, act, nonfinite)):
+                        h.copy_(t, non_blocking=True)
+                    emitted, act, nonfinite = host
+                done = self._event()
+            self.rounds += 1
+        return RoundHandle(emitted, act, nonfinite, steps, t0, rnd=rnd,
+                           done=done, start=start)
+
+    def collect(self, handle: RoundHandle) -> CollectResult:
+        """Materialise a round's emissions, append tokens to their rows and
+        retire rows that hit their budget (pages back to the allocator)."""
+        handle.wait()
+        emitted = handle.emitted.numpy()
+        act = handle.act.numpy()
+        if handle.start is not None:
+            self.round_ms.append(handle.start.elapsed_time(handle.done))
+        self.nonfinite_rows = max(self.nonfinite_rows,
+                                  int(handle.nonfinite))
+        slot_reqs = [s.req if s is not None else None for s in self._slots]
+        active_steps = act.sum(axis=0).astype(np.int64)
+        live_steps = int(active_steps.sum())
+        self.row_steps += live_steps
+        self._round_log.append((handle.steps, self.capacity, live_steps))
+        self.tel.record_span("round.device", handle.t_start,
+                             time.perf_counter(), round=handle.rnd,
+                             steps=handle.steps, capacity=self.capacity,
+                             live_steps=live_steps, pdev=self.pdev)
+        finished: List[Tuple[Any, np.ndarray, int]] = []
+        retired: List[_Slot] = []
+        for c, s in enumerate(self._slots):
+            if s is None:
+                continue
+            row = emitted[act[:, c], c]
+            if row.size and s.t_first is None:
+                s.t_first = time.perf_counter()
+            s.tokens.extend(int(t) for t in row)
+            if len(s.tokens) >= s.target:
+                finished.append((s.req,
+                                 np.asarray(s.tokens[:s.target], np.int32),
+                                 c))
+                retired.append(s)
+                self.kv.free(c)
+                self._slots[c] = None
+                self._free_slots.append(c)
+        return CollectResult(finished, active_steps, slot_reqs, retired)
+
+    def prefill_ms(self) -> List[float]:
+        """CUDA-event time of every prefill call so far (waits for them)."""
+        out = []
+        for a, b in self._prefill_events:
+            b.synchronize()
+            out.append(a.elapsed_time(b))
+        return out
+
+    # ------------------------------------------------------------------
+    def run_all(self, requests) -> List[Tuple[Any, np.ndarray]]:
+        """FIFO-drain a request list without a scheduler: admit as slots and
+        pages free up, one micro-round per iteration.  Returns (request,
+        tokens) in completion order.  A head request the pool cannot admit
+        while nothing is in flight is retried ``admission_retry_limit``
+        times, then dropped into ``self.rejected``."""
+        queue: Deque[Any] = collections.deque(requests)
+        done: List[Tuple[Any, np.ndarray]] = []
+        stall = 0
+        while queue or self.active_count():
+            progress = False
+            while queue and self._free_slots:
+                take = [queue.popleft() for _ in
+                        range(min(len(queue), len(self._free_slots)))]
+                flags = self.try_admit_batch(take)
+                for req, ok in reversed(list(zip(take, flags))):
+                    if not ok:
+                        queue.appendleft(req)
+                progress = progress or any(flags)
+                if not all(flags):
+                    break              # pool pressure: decode frees pages
+            if queue and not self.active_count() and not progress:
+                stall += 1
+                if stall > self.admission_retry_limit:
+                    self.rejected.append(queue.popleft())
+                    stall = 0
+                continue
+            stall = 0
+            res = self.collect(self.dispatch_round())
+            done.extend((req, toks) for req, toks, _ in res.finished)
+        return done

@@ -1,0 +1,518 @@
+"""Paged KV-cache for continuous batching (vLLM-style).
+
+The JAX package's ``repro/serving/kvcache.py`` for the attention state kind.
+The pool is broken into fixed-size *pages* so a persistent slot table (see
+:mod:`repro_torch.serving.continuous`) can admit and retire requests
+independently:
+
+* **fixed-size pages** -- the K/V pool per attention sublayer is
+  ``(n_stages, num_pages, page_size, Hkv, D)`` bfloat16; a shared position
+  pool ``(num_pages, page_size)`` int32 carries the absolute token position
+  of every cache entry (the validity source of the attention mask).
+* **per-sequence page tables** -- ``(capacity, max_blocks)`` int32 mapping a
+  slot's logical cache blocks to physical pages.  Unused blocks point at the
+  reserved ``SENTINEL`` page whose positions stay at ``POS_SENTINEL``.
+* **host-side accounting** (:class:`PagedKVCache`), numpy and plain Python,
+  ported line for line: LIFO free list, per-page refcounts, the chain-keyed
+  prefix trie with reuse-aware pristine preservation, the copy-on-write
+  reserve and the conservation audit ``assert_conserved``.  It never touches
+  device tensors: the engine applies the device half of every fork/remap it
+  decides (:meth:`PagedKVCache.note_write`).
+* **device primitives** -- :func:`paged_write` (one entry per row, in
+  place), :func:`paged_attend` and :func:`paged_scatter`, which go through
+  :mod:`repro_torch.kernels.ops`: a CUDA tensor to the hand-written kernels
+  of :mod:`repro_torch.kernels.paged_attention`, a CPU tensor to their plain
+  versions.  The reference's ``backend="jnp"`` dense gather is that plain
+  version; there is no switch that sends a CUDA tensor to it.
+
+Masked (inactive) rows redirect their writes to the reserved ``TRASH`` page,
+which no active row's page table ever references.
+
+Left for later slices of the port: the swap ledgers and host tier of
+preemption (slice 3), the cross-attention page space of encoder-decoder
+archs and the SSM state kind (slice 4).
+
+Exactness contract (as the reference's): the paged read/write replicates the
+dense ring cache of :func:`repro_torch.models.layers.apply_attention_decode`
+slot for slot -- token ``pos`` lands in logical slot ``pos % ring``, validity
+``kpos <= pos`` (plus the sliding window), the same bf16 storage casts and
+mask constants -- so greedy decode through the paged path is token-exact
+with ``ServingEngine.generate`` on the same padded prompt.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional, Set, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ATTN, ArchConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import _project_qkv, apply_rope, dtype_of
+from repro_torch.obs.telemetry import get_telemetry
+
+POS_SENTINEL = 2 ** 30     # matches init_kv_cache's "empty slot" position
+
+
+def attn_subs(cfg: ArchConfig) -> List[str]:
+    """Names of the attention sublayers in one stage (``sub{i}``)."""
+    sched = cfg.block_schedule()[:cfg.stage_period]
+    return [f"sub{i}" for i, (mixer, _) in enumerate(sched) if mixer == ATTN]
+
+
+def state_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
+    """Names of the state kinds an arch's slot rows carry.  The port so far
+    has the paged attention kind only (the cross-attention and SSM kinds
+    come with slice 4)."""
+    return ("attn",) if attn_subs(cfg) else ()
+
+
+class PagedKVCache:
+    """Page pool geometry + host free list / refcounts / trie.
+
+    Device state (pools / position pool / page tables) is *built* here but
+    owned by the engine's state dict.  This class keeps the host-side truth:
+    which pages are free, cached or live, each page's refcount, the prefix
+    trie, the copy-on-write reserve, and the allocation/sharing/reuse
+    counters.  It never touches device tensors.
+    """
+
+    SENTINEL = 0           # page-table padding: never written, never valid
+    TRASH = 1              # masked rows' write target: never read as valid
+    RESERVED = 2
+
+    def __init__(self, cfg: ArchConfig, capacity: int, page_size: int,
+                 max_blocks: int, num_pages: Optional[int] = None):
+        self.cfg = cfg
+        self.capacity = capacity
+        self.page_size = page_size
+        self.max_blocks = max(max_blocks, 1)
+        self.attn_subs = attn_subs(cfg)
+        self.state_kinds = state_kinds(cfg)
+        if num_pages is None:
+            num_pages = self.RESERVED + capacity * self.max_blocks
+        if num_pages < self.RESERVED + self.max_blocks:
+            raise ValueError("num_pages cannot hold even one full sequence")
+        self.num_pages = num_pages
+        # LIFO free list: freshly freed pages are reallocated first
+        self._free: List[int] = list(range(num_pages - 1, self.RESERVED - 1,
+                                           -1))
+        self._owned: Dict[int, List[int]] = {}
+        self._ref: Dict[int, int] = {}          # page -> live slot references
+        self._prefix: Dict[bytes, int] = {}     # block chain key -> page
+        self._page_key: Dict[int, bytes] = {}   # inverse of _prefix
+        # refcount-0 but trie-registered pages: page -> (chain depth, age)
+        self._cached: Dict[int, Tuple[int, int]] = {}
+        self._cache_seq = 0
+        # slot -> block indices not yet first-written (each may need a fork)
+        self._pending: Dict[int, Set[int]] = {}
+        # page -> sharing hits recorded while trie-registered (cleared on
+        # unregister): the evidence the reuse-aware preserve policy needs
+        self._hits: Dict[int, int] = {}
+        self._ever_used: set = set()
+        self.pages_allocated = 0
+        self.pages_reused = 0
+        self.pages_shared = 0
+        self.cow_forks = 0
+        self.pristine_forks = 0
+        # telemetry plane: every host counter above is mirrored as a
+        # ``kv.*`` metric.  The owning engine re-points this at its own
+        # plane; standalone pools report to the global one.
+        self.tel = get_telemetry(None)
+    # ------------------------------------------------------------------
+    # host-side allocator
+    # ------------------------------------------------------------------
+    def blocks_for(self, ring_len: int) -> int:
+        return -(-ring_len // self.page_size)        # ceil div
+
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def cached_pages(self) -> int:
+        return len(self._cached)
+
+    def available(self) -> int:
+        """Pages an allocation can draw on: free plus evictable cached."""
+        return len(self._free) + len(self._cached)
+
+    @property
+    def cow_reserve(self) -> int:
+        """Headroom the allocator must keep for *mandatory* copy-on-write
+        forks: pending first-writes whose page is multi-referenced right
+        now.  Derived from actual sharer counts (a pending write into an
+        exclusively owned page costs nothing -- if it is registered, the
+        write merely unregisters or optionally preserves it, and
+        preservation moves a page from free to cached without shrinking
+        ``available()``)."""
+        need = 0
+        for slot, blks in self._pending.items():
+            pages = self._owned.get(slot, ())
+            for b in blks:
+                if self._ref.get(pages[b], 0) > 1:
+                    need += 1
+        return need
+
+    def chain_keys(self, padded: np.ndarray, ring: Optional[int] = None,
+                   salt: bytes = b"") -> List[bytes]:
+        """Chain key per page block of a padded prompt: the bytes of the
+        whole prompt up to and including the block's last cached position,
+        so two requests share a block only when every earlier token (padding
+        included) agrees -- exactly the condition under which the block's KV
+        is bitwise equal.
+
+        ``ring`` (sliding-window archs) keys by *(content chain, window
+        phase)*: prefill clips the cache to the last ``ring`` positions, so
+        ring block ``b`` holds absolute positions ``base + b*P`` onward
+        (``base = bucket - ring``) and its key is the prompt bytes through
+        the block's last cached position plus a ``(ring, base, block)`` tag
+        -- requests with a different bucket or window hold different
+        positions in the "same" ring block and must never collide.  When
+        the ring covers the whole bucket (``ring is None`` or ``ring >=
+        bucket``) keys are byte-identical to the historical untagged form.
+
+        ``salt`` prefixes every key (non-token prefill inputs -- encoder
+        frames, vision patch embeds -- change the KV a block holds, so they
+        must be part of block identity)."""
+        t = np.ascontiguousarray(np.asarray(padded, np.int32).reshape(-1))
+        p = self.page_size
+        bucket = t.size
+        if ring is None or ring >= bucket:
+            return [salt + t[:(b + 1) * p].tobytes()
+                    for b in range(bucket // p)]
+        base = bucket - ring
+        return [salt + t[:min(base + (b + 1) * p, bucket)].tobytes()
+                + b"|w%d:%d:%d" % (ring, base, b)
+                for b in range(-(-ring // p))]
+
+    def lookup_chain(self, keys: Iterable[bytes]) -> List[int]:
+        """Pages of the longest registered full-block prefix of ``keys``."""
+        pages: List[int] = []
+        for key in keys:
+            page = self._prefix.get(key)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def alloc(self, slot: int, n_blocks: int) -> Optional[np.ndarray]:
+        """Take ``n_blocks`` fresh pages for ``slot``; None if the pool is
+        short (the caller leaves the request queued and retries after
+        eviction)."""
+        return self.alloc_shared(slot, [], n_blocks, ())
+
+    def alloc_shared(self, slot: int, shared: List[int], n_fresh: int,
+                     will_write: Iterable[int]) -> Optional[np.ndarray]:
+        """Build ``slot``'s page row: ``shared`` (a prefix of existing pages,
+        refcounts incremented) followed by ``n_fresh`` fresh pages.
+
+        ``will_write`` are the block indices the request will write during
+        its decode; ``cow_reserve`` headroom is charged only for those that
+        land on *shared* pages (refcount > 1 once this admission joins) --
+        the mandatory forks -- plus any pending writes of other slots whose
+        page this admission newly makes shared.  Writes into exclusively
+        owned pages are free (a coarse one-page-per-block charge would
+        reject admissions the pool could in fact hold).  Returns None
+        (nothing changed) when the pool cannot cover ``n_fresh`` plus the
+        post-admission reserve -- the request stays queued.
+        """
+        if slot in self._owned:
+            # silently overwriting would leak the old pages off both the
+            # free list and the owned map; the engine retires a slot before
+            # reusing it, so this is always a caller bug
+            raise ValueError(
+                f"slot {slot} already owns pages; free() it before "
+                f"re-allocating")
+        will_write = set(will_write)
+        # reviving a cached shared page takes it out of the evictable set,
+        # so it costs availability exactly like a fresh page does
+        revived = sum(self._ref.get(p, 0) == 0 for p in shared)
+        # post-admission reserve: every pending write (existing slots' and
+        # this one's) whose page will be multi-referenced after the shared
+        # refcounts are bumped needs a guaranteed fork page
+        shared_set = set(shared)
+        reserve = 0
+        for s2, blks in self._pending.items():
+            pages2 = self._owned.get(s2, ())
+            for b in blks:
+                p = pages2[b]
+                if self._ref.get(p, 0) + (p in shared_set) > 1:
+                    reserve += 1
+        for b in will_write:
+            if b < len(shared) and self._ref.get(shared[b], 0) + 1 > 1:
+                reserve += 1
+        if self.available() - n_fresh - revived < reserve:
+            self.tel.count("kv.alloc_blocked")
+            return None
+        for p in shared:
+            if self._ref.get(p, 0) == 0:        # revive a cached page
+                self._cached.pop(p, None)
+            self._ref[p] = self._ref.get(p, 0) + 1
+            self._hits[p] = self._hits.get(p, 0) + 1
+        fresh = [self._take_page() for _ in range(n_fresh)]
+        for p in fresh:
+            self._ref[p] = 1
+        self._owned[slot] = list(shared) + fresh
+        self._pending[slot] = will_write
+        self.pages_allocated += n_fresh
+        self.pages_shared += len(shared)
+        tel = self.tel
+        if tel.enabled:
+            tel.count("kv.pages_allocated", n_fresh)
+            if shared:
+                tel.count("kv.pages_shared", len(shared))
+                tel.count("kv.prefix_hits")
+            tel.gauge("kv.free_pages", len(self._free))
+            # zero-length span so the pool's activity lands on the trace
+            # timeline (parents under the enclosing admission span)
+            tel.event("kv.alloc", slot=slot, fresh=n_fresh,
+                      shared=len(shared))
+        return np.asarray(self._owned[slot], np.int32)
+
+    def register(self, slot: int, keys: List[bytes]) -> None:
+        """Enter ``slot``'s pages into the prefix trie under their chain
+        keys.  First registration wins (duplicate-content pages from one
+        admission batch stay private); already-shared prefix pages are
+        naturally skipped because their key is present."""
+        pages = self._owned.get(slot, [])
+        for blk, key in enumerate(keys):
+            if blk >= len(pages):
+                break
+            page = pages[blk]
+            if key in self._prefix or page in self._page_key:
+                continue
+            self._prefix[key] = page
+            self._page_key[page] = key
+
+    def note_write(self, slot: int, blk: int, preserve: bool = True,
+                   require_hit: bool = True) -> Optional[Tuple[int, int]]:
+        """Resolve ``slot``'s upcoming decode write into block ``blk``.
+
+        Returns ``(src, dst)`` when the engine must copy page ``src`` to the
+        freshly mapped page ``dst`` (device-side) before the round runs:
+
+        * refcount > 1 -- mandatory copy-on-write fork (other requests, or
+          the trie's cached readers, still read ``src``);
+        * sole owner of a trie-registered page with ``preserve``, a free
+          page at hand, and -- under the default reuse-aware policy
+          (``require_hit``) -- at least one sharing hit recorded against the
+          page: pristine-preserving fork, ``src`` stays in the trie as a
+          cached page so later identical prefixes can re-share it.  Without
+          a recorded hit there is no evidence the chain is ever re-used, so
+          the copy is skipped (the share-nothing fast path);
+          ``require_hit=False`` preserves on every such write.
+
+        Otherwise returns None; a sole-owner write into a registered page
+        that is not preserved simply unregisters it (its content is about
+        to diverge from its chain key).  Idempotent per block: after the
+        first resolution the slot owns the page exclusively and
+        unregistered, so later ring wraps fall through.
+        """
+        pages = self._owned.get(slot)
+        if pages is None:
+            return None
+        page = pages[blk]
+        pending = self._pending.get(slot)
+        if pending is not None:
+            pending.discard(blk)
+        if self._ref.get(page, 0) > 1:
+            dst = self._take_page()
+            self._ref[page] -= 1
+            self._ref[dst] = 1
+            pages[blk] = dst
+            self.cow_forks += 1
+            self.pages_allocated += 1
+            self.tel.count("kv.cow_forks")
+            return page, dst
+        if page in self._page_key:
+            if (preserve and self._free
+                    and (not require_hit or self._hits.get(page, 0) > 0)):
+                # moves a page free -> live and a page live -> cached, so
+                # available() (free + cached) is unchanged: preservation
+                # can never eat into the mandatory-fork reserve
+                dst = self._free.pop()
+                self.pages_reused += dst in self._ever_used
+                self._ever_used.add(dst)
+                self._ref[dst] = 1
+                pages[blk] = dst
+                self._ref[page] = 0
+                self._cached[page] = (blk, self._cache_seq)
+                self._cache_seq += 1
+                self.pristine_forks += 1
+                self.pages_allocated += 1
+                self.tel.count("kv.pristine_forks")
+                return page, dst
+            self._unregister(page)
+        return None
+
+    def owned_pages(self, slot: int) -> List[int]:
+        """The slot's current page row (block order), read-only."""
+        return list(self._owned.get(slot, ()))
+
+    def free(self, slot: int) -> int:
+        """Retire a slot: decrement its pages' refcounts.  Pages reaching
+        refcount 0 return to the free list -- or stay behind as cached
+        (evictable) pristine pages when still trie-registered, so a later
+        identical prefix can re-share them.  Returns the number of pages
+        whose refcount dropped to 0."""
+        released = 0
+        for blk, page in enumerate(self._owned.pop(slot, [])):
+            self._ref[page] -= 1
+            if self._ref[page] == 0:
+                released += 1
+                if page in self._page_key:
+                    self._cached[page] = (blk, self._cache_seq)
+                    self._cache_seq += 1
+                else:
+                    self._free.append(page)
+        self._pending.pop(slot, None)
+        if self.tel.enabled and released:
+            self.tel.count("kv.pages_freed", released)
+            self.tel.gauge("kv.free_pages", len(self._free))
+        return released
+
+    # ------------------------------------------------------------------
+    def _unregister(self, page: int) -> None:
+        key = self._page_key.pop(page, None)
+        if key is not None:
+            self._prefix.pop(key, None)
+        self._cached.pop(page, None)
+        self._hits.pop(page, None)
+
+    def _take_page(self) -> int:
+        """Pop a free page; when the free list is dry, evict a cached
+        pristine page -- leaf-most chain entry first (deepest block, then
+        oldest), so short shared prefixes survive longest."""
+        if self._free:
+            page = self._free.pop()
+        else:
+            page = max(self._cached,
+                       key=lambda q: (self._cached[q][0],
+                                      -self._cached[q][1]))
+            self._unregister(page)
+            self.tel.count("kv.evictions")
+        self.pages_reused += page in self._ever_used
+        self._ever_used.add(page)
+        return page
+
+    # ------------------------------------------------------------------
+    def assert_conserved(self) -> None:
+        """Audit the allocator: page conservation, refcount integrity, trie
+        consistency and fork-reserve headroom (the swap ledgers of the
+        reference's two-tier audit come with slice 3)."""
+        usable = self.num_pages - self.RESERVED
+        live = {p for p, r in self._ref.items() if r > 0}
+        free_set = set(self._free)
+        cached_set = set(self._cached)
+        assert len(self._free) == len(free_set), "free list has duplicates"
+        assert not (free_set & live), "free page still referenced"
+        assert not (free_set & cached_set), "page both free and cached"
+        assert not (cached_set & live), "cached page still referenced"
+        assert all(p in self._page_key for p in cached_set), \
+            "cached page not trie-registered"
+        assert len(free_set) + len(cached_set) + len(live) == usable, \
+            (len(free_set), len(cached_set), len(live), usable)
+        counts: Dict[int, int] = {}
+        for pages in self._owned.values():
+            for p in pages:
+                counts[p] = counts.get(p, 0) + 1
+        for p in live | set(counts):
+            assert self._ref.get(p, 0) == counts.get(p, 0), \
+                (p, self._ref.get(p, 0), counts.get(p, 0))
+        for key, p in self._prefix.items():
+            assert self._page_key.get(p) == key, "trie inverse out of sync"
+        for p in self._hits:
+            assert p in self._page_key, "hit count on an unregistered page"
+        for slot, blks in self._pending.items():
+            assert slot in self._owned, "pending writes on a retired slot"
+            assert all(b < len(self._owned[slot]) for b in blks)
+        # the refcount-derived reserve (mandatory forks outstanding) must
+        # always be coverable, so a copy-on-write fork can never fail
+        assert self.available() >= self.cow_reserve, \
+            (self.available(), self.cow_reserve)
+        self.tel.count("kv.conservation_checks")
+
+    # ------------------------------------------------------------------
+    # device-state constructors (the engine holds the results in its state)
+    # ------------------------------------------------------------------
+    def make_page_table(self, device=None) -> torch.Tensor:
+        return torch.full((self.capacity, self.max_blocks), self.SENTINEL,
+                          dtype=torch.int32, device=device)
+
+    def make_pos_pool(self, device=None) -> torch.Tensor:
+        return torch.full((self.num_pages, self.page_size), POS_SENTINEL,
+                          dtype=torch.int32, device=device)
+
+    def make_pools(self, n_stages: int, device=None
+                   ) -> Dict[str, Dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        shape = (n_stages, self.num_pages, self.page_size,
+                 cfg.num_kv_heads, cfg.head_dim)
+        return {name: {"k": torch.zeros(shape, dtype=torch.bfloat16,
+                                        device=device),
+                       "v": torch.zeros(shape, dtype=torch.bfloat16,
+                                        device=device)}
+                for name in self.attn_subs}
+
+
+# ---------------------------------------------------------------------------
+# device primitives (used inside the decode step and admission)
+# ---------------------------------------------------------------------------
+def paged_write(pool: torch.Tensor, pages: torch.Tensor, offsets: torch.Tensor,
+                values: torch.Tensor) -> torch.Tensor:
+    """Scatter one entry per row, in place: ``pool[pages[c], offsets[c]] =
+    values[c]``.  Masked rows all target the TRASH page; their collisions
+    are benign because TRASH is never read as valid."""
+    pool[pages.long(), offsets.long()] = values
+    return pool
+
+
+def paged_attend(q: torch.Tensor, pool: Dict[str, torch.Tensor],
+                 page_table: torch.Tensor, positions: torch.Tensor,
+                 cfg: ArchConfig, pos_pool: torch.Tensor) -> torch.Tensor:
+    """Paged attention read: q (C, H, D) already-roped queries; pool
+    {"k","v"} (NP, P, Hkv, D); page_table (C, NB); positions (C,).
+    Returns (C, H, D) float32 -- the decode kernel on a CUDA device, its
+    plain version (the reference's dense-gather oracle) on the CPU."""
+    return ops.paged_attention_decode(q, pool["k"], pool["v"], pos_pool,
+                                      page_table, positions,
+                                      window=cfg.sliding_window)
+
+
+def paged_scatter(pool: torch.Tensor, pages: torch.Tensor,
+                  values: torch.Tensor) -> torch.Tensor:
+    """Admission-time KV scatter, in place: write ``values`` (S, nb, P, Hkv,
+    D) into ``pool`` (S, NP, P, Hkv, D) at ``pages`` (nb,), cast to the pool
+    dtype -- the scatter kernel on a CUDA device, ``index_copy_`` on the
+    CPU; bit-exact with each other."""
+    return ops.paged_scatter(pool, pages, values)
+
+
+def paged_attention_decode(p, x, pool: Dict[str, torch.Tensor],
+                           page_table: torch.Tensor, write_page: torch.Tensor,
+                           write_off: torch.Tensor, positions: torch.Tensor,
+                           cfg: ArchConfig, pos_pool: torch.Tensor):
+    """Single-token GQA decode against a paged cache (per-row positions).
+
+    Mirrors :func:`repro_torch.models.layers.apply_attention_decode`
+    operation for operation (same projections, rope at the row's absolute
+    position, bf16 cache casts, validity ``kpos <= pos`` with optional
+    sliding window) -- only the cache storage is paged: the new token's K/V
+    is written at ``(write_page, write_off)`` per row *before* the read, and
+    ``pos_pool`` already holds this step's positions.
+
+    x: (C, 1, d); positions: (C,) absolute position of the new token.
+    Returns (out (C, 1, d), pool) with the pool updated in place."""
+    H, D = cfg.num_heads, cfg.head_dim
+    C = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, x, x, cfg)
+    if cfg.use_rope:
+        q = apply_rope(q, positions[:, None], cfg.rope_theta)
+        k_new = apply_rope(k_new, positions[:, None], cfg.rope_theta)
+    paged_write(pool["k"], write_page, write_off,
+                k_new[:, 0].to(pool["k"].dtype))
+    paged_write(pool["v"], write_page, write_off,
+                v_new[:, 0].to(pool["v"].dtype))
+    o = paged_attend(q[:, 0], pool, page_table, positions, cfg, pos_pool)
+    o = o.reshape(C, 1, H * D).to(x.dtype)
+    out = torch.matmul(o, p["wo"].to(dtype_of(cfg.compute_dtype)))
+    return out, pool

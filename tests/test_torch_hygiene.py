@@ -39,7 +39,17 @@ IMPORT_ALL = textwrap.dedent("""
             "repro_torch.core.perfmodel", "repro_torch.core.energymodel",
             "repro_torch.obs.telemetry", "repro_torch.risk.analysis",
             "repro_torch.risk.metrics", "repro_torch.risk.tables",
-            "repro_torch.launch.risk", "repro_torch.configs.risk_app"}
+            "repro_torch.launch.risk", "repro_torch.configs.risk_app",
+            "repro_torch.kernels.paged_attention",
+            "repro_torch.configs.internlm2_1_8b",
+            "repro_torch.configs.h2o_danube_1_8b",
+            "repro_torch.configs.qwen3_32b",
+            "repro_torch.models.layers", "repro_torch.models.attention_core",
+            "repro_torch.models.transformer", "repro_torch.models.model",
+            "repro_torch.models.convert", "repro_torch.serving.kvcache",
+            "repro_torch.serving.engine", "repro_torch.serving.continuous",
+            "repro_torch.serving.multitenant",
+            "repro_torch.distributed.fault", "repro_torch.launch.serve"}
     assert want <= set(names), want - set(names)
     print("IMPORTED", len(names))
 """)
@@ -101,10 +111,37 @@ def test_cli_raises_without_a_card():
         cli.main(["--reduced", "--device", "cuda"])
 
 
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_serving_entry_points_raise_without_a_card(device):
+    """The serving stack, like the risk stack, runs on the CPU only when
+    asked: engine, continuous engine, scheduler and the serve CLI."""
+    _skip_if_card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.continuous import ContinuousBatchingEngine
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.multitenant import MultiTenantScheduler
+    cfg = get_config("internlm2-1.8b").reduced()
+    params = build_model(cfg).init(0, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params, device=device)
+    eng = ServingEngine(cfg, params, device="cpu")
+    kw = dict(capacity=2, max_prompt_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ContinuousBatchingEngine(eng, device=device or "cuda", **kw)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiTenantScheduler(eng, continuous=kw, device=device or "cuda")
+    argv = [] if device is None else ["--device", device]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced"] + argv)
+
+
 def test_kernel_wrapper_never_falls_back_for_non_cpu_tensors():
     """A tensor that is not on the CPU goes to the kernel or raises; the
     meta device stands in for a card here."""
     from repro_torch.kernels import aggregate_loss as agg
+    from repro_torch.kernels import paged_attention as pa
     ids = torch.zeros((2, 4), dtype=torch.int32, device="meta")
     elt = torch.zeros((3, 2), device="meta")
     terms = torch.zeros(2, device="meta")
@@ -114,6 +151,20 @@ def test_kernel_wrapper_never_falls_back_for_non_cpu_tensors():
             fn(ids, elt, terms, terms, 0.0, 1.0)
     assert not any(agg.plain_counts.values())
     assert not any(agg.launch_counts.values())
+
+    meta = lambda shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt,
+                                                        device="meta")
+    i32 = torch.int32
+    pa.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pa.paged_attention_decode(meta((2, 4, 8)), meta((6, 4, 2, 8)),
+                                  meta((6, 4, 2, 8)), meta((6, 4), i32),
+                                  meta((2, 3), i32), meta((2,), i32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pa.paged_prefill_scatter(meta((2, 6, 4, 2, 8)), meta((3,), i32),
+                                 meta((2, 3, 4, 2, 8), torch.float32))
+    assert not any(pa.plain_counts.values())
+    assert not any(pa.launch_counts.values())
 
 
 def test_chip_smoke_fails_without_a_card():
