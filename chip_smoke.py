@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through the entry points a user calls:
+Drives the port's three paths through the entry points a user calls:
 
 * Aggregate Risk Analysis under a multi-tenancy plan at the published width
   (K = 1000 events per trial, M = 15 ELTs, a 2,000,000-event catalog,
   T = 1,000,000 trials unless host memory forces fewer);
 * multi-tenant continuous serving of internlm2-1.8b at its published width
   (24 layers, d_model 2048, random weights from a seed) through
-  ``repro_torch.launch.serve``, with and without a shared prompt prefix.
+  ``repro_torch.launch.serve``, with and without a shared prompt prefix;
+* multi-tenant continuous serving of the pure-SSM mamba2-2.7b at its
+  published width and depth (64 Mamba-2 layers, d_model 2560, 80 SSD heads
+  of 64, state 128, random weights from a seed) through the same entry
+  point, every prefill through the SSD scan kernel.
 
 It builds every CUDA kernel from the sources in this checkout (one ``nvcc``
 per source, all started together), holds each against its plain PyTorch
@@ -21,13 +25,16 @@ code; without a CUDA device nothing runs.  The last line of a good run is
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
 Phases: device, build, kernels (aggregate sweep), paged kernels (the
-reference's cases), tables, kernels (full width), main path (gather, full
-width), main path (onehot, catalog cut), cli, paged kernels (full width),
-serving (reduced, token-exact with ``generate``), serving (full width).
+reference's cases), ssd kernel (the reference's sweep and the edges), tables,
+kernels (full width), main path (gather, full width), main path (onehot,
+catalog cut), cli, serving (reduced internlm2, h2o-danube and mamba2,
+token-exact with ``generate``), serving (full width, internlm2), paged
+kernels (full width), serving (full width, mamba2), ssd kernel (full width).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -50,9 +57,10 @@ from repro_torch.kernels import aggregate_loss as agg
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import risk as risk_cli
 from repro_torch.launch import serve as serve_cli
-from repro_torch.models.model import build_model
+from repro_torch.models.model import build_model, param_count
 from repro_torch.risk import metrics
 from repro_torch.risk.analysis import AggregateRiskAnalysis
 from repro_torch.risk.tables import (GENERATE_PEAK_BYTES_PER_EVENT, RiskTables,
@@ -221,22 +229,34 @@ def make_case(rng, T, K, M, cat, device):
 
 G, O = "aggregate_loss_gather", "aggregate_loss_onehot"
 K3, K4 = "paged_attention_decode", "paged_prefill_scatter"
-TOL = {G: (RTOL, ATOL), O: (RTOL, ATOL), K3: (PAGED_RTOL, PAGED_ATOL)}
+K6 = "ssd_chunked"
+# SSD scan vs its plain version: tests/test_kernels_ssd.py's tolerances --
+# float32 1e-4 (the chunk's cumulative decay is summed in another order and
+# exp(a_cum[l] - a_cum[s]) amplifies the difference); bfloat16 inputs are
+# compared in the working type, 5e-2 on y and 2e-2 on the state
+SSD_RTOL = SSD_ATOL = 1e-4
+SSD_BF16_Y, SSD_BF16_STATE = 5e-2, 2e-2
+TOL = {G: (RTOL, ATOL), O: (RTOL, ATOL), K3: (PAGED_RTOL, PAGED_ATOL),
+       K6: (SSD_RTOL, SSD_ATOL)}
 
 
 class Errors:
     """Largest disagreement seen per kernel, over every comparison."""
 
     def __init__(self):
-        self.abs = dict.fromkeys((G, O, K3, K4), 0.0)
+        self.abs = dict.fromkeys((G, O, K3, K4, K6), 0.0)
         self.rel = dict(self.abs)
         self.cases = dict.fromkeys(self.abs, 0)
 
     def hold(self, name: str, got: torch.Tensor, want: torch.Tensor,
-             what: str) -> None:
+             what: str, tol=None) -> None:
+        """``got`` against ``want`` at the kernel's tolerance (or ``tol``);
+        a bfloat16 pair is compared in float32, each side widened."""
         torch.cuda.synchronize()
-        check(got.shape == want.shape and got.dtype == torch.float32,
+        check(got.shape == want.shape and got.dtype == want.dtype
+              and got.dtype in (torch.float32, torch.bfloat16),
               f"{name} {what}: shape/dtype {got.shape} {got.dtype}")
+        got, want = got.float(), want.float()
         check(bool(torch.isfinite(got).all()), f"{name} {what}: not finite")
         diff = (got - want).abs()
         a = float(diff.max()) if diff.numel() else 0.0
@@ -245,7 +265,7 @@ class Errors:
         self.abs[name] = max(self.abs[name], a)
         self.rel[name] = max(self.rel[name], r)
         self.cases[name] += 1
-        rtol, atol = TOL[name]
+        rtol, atol = tol or TOL[name]
         check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
               f"{name} {what}: max abs err {a:.3g}, max rel err {r:.3g} "
               f"outside rtol={rtol} atol={atol}")
@@ -842,6 +862,173 @@ def phase_paged_full(errs: Errors, dev, NB: int) -> dict:
                           f"pages, values bf16",
                  "f32_values": timed["float32"]}}
 
+# ---------------------------------------------------------------------------
+# the SSD scan: the pure-SSM serving path's kernel
+# ---------------------------------------------------------------------------
+# (b, L, H, P, N, chunk): tests/test_kernels_ssd.py::SWEEP, then the serving
+# path's chunk of 256 at its head geometry (P 64, N 128), two chunks long
+SSD_SWEEP = [(2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 32, 32),
+             (2, 32, 8, 4, 8, 8), (1, 256, 1, 64, 128, 64),
+             (2, 512, 4, 64, 128, 256)]
+# the serving path's prefill: 8 admissions of 384-token prompts at once,
+# padded by ops.ssd to two chunks of 256; x, B and C in bfloat16, B and C
+# one group viewed over the 80 heads
+SSD_FULL = dict(b=8, L=384, H=80, P=64, N=128, chunk=256)
+
+
+def ssd_case(rng, b, L, H, P, N, dev, *, decay=1.0, dtype=torch.float32,
+             one_group=False):
+    """x, dt, a, B, C, h0 as tests/test_kernels_ssd.py::_case draws them
+    (A scaled by ``decay``); with ``one_group`` B and C are one group's
+    projection viewed over every head (head stride 0)."""
+    x = rng.standard_normal((b, L, H, P)).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, L, H)), 0.0).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H)) * decay).astype(np.float32)
+    a = (A[None, None, :] * dt).astype(np.float32)
+    G = 1 if one_group else H
+    B = rng.standard_normal((b, L, G, N)).astype(np.float32)
+    C = rng.standard_normal((b, L, G, N)).astype(np.float32)
+    h0 = rng.standard_normal((b, H, P, N)).astype(np.float32)
+    on = lambda v: torch.from_numpy(v).to(dev)
+    x, B, C = (on(v).to(dtype) for v in (x, B, C))
+    if one_group:
+        B, C = (t.expand(-1, -1, H, -1) for t in (B, C))
+    return x, on(dt), on(a), B, C, on(h0)
+
+
+def ssd_pair(args, chunk, h0=None):
+    return (ssd.ssd_chunked(*args, chunk=chunk, initial_state=h0),
+            ssd.ssd_chunked_plain(*args, chunk=chunk, initial_state=h0))
+
+
+def hold_ssd(errs: Errors, pair, what: str) -> None:
+    """y and the final state of the kernel against its plain version, at
+    the tolerance of the inputs' type."""
+    (y, h), (yw, hw) = pair
+    bf16 = y.dtype == torch.bfloat16
+    errs.hold(K6, y, yw, what + " y",
+              tol=(SSD_BF16_Y,) * 2 if bf16 else None)
+    errs.hold(K6, h, hw, what + " state",
+              tol=(SSD_BF16_STATE,) * 2 if bf16 else None)
+
+
+def ssd_bound_ms(b, L, H, P, N, Q, in_bytes, bc_heads, h0=False):
+    """Each input read once (B and C as stored: ``bc_heads`` heads of them)
+    and y and the state written once at the memory rate, or the function's
+    float32 operations at the float32 rate, whichever is larger.  Per (row,
+    head, chunk): the causal half of C.B^T (2N per pair), the masked decay
+    (4 per pair), the product with x (2P per pair), the carried-state term
+    (Q P (2N + 2)), the state update (2 Q P N + Q P + 2 P N) and the chunk's
+    cumulative sum and exponentials (4 Q)."""
+    pairs = Q * (Q + 1) // 2
+    per_chunk = (pairs * (2 * N + 4 + 2 * P) + Q * P * (2 * N + 2)
+                 + 2 * Q * P * N + Q * P + 2 * P * N + 4 * Q)
+    flops = b * H * (L // Q) * per_chunk
+    nbytes = (2 * b * L * H * P * in_bytes + 2 * b * L * H * 4
+              + 2 * b * L * bc_heads * N * in_bytes
+              + (2 if h0 else 1) * b * H * P * N * 4)
+    by, op = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return max(by, op), "bytes" if by >= op else "operations"
+
+
+def phase_ssd_small(errs: Errors, dev) -> None:
+    """The SSD scan kernel against its plain version over the reference's
+    sweep (with and without an initial state), bfloat16 inputs, the pad of
+    ops.ssd, a decay large enough to overflow exp in the masked half, B and
+    C as one group's stride-0 view, x as a strided view."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(6)
+    for b, L, H, P, N, chunk in SSD_SWEEP:
+        for with_h0 in (False, True):
+            *args, h0 = ssd_case(rng, b, L, H, P, N, dev)
+            hold_ssd(errs, ssd_pair(args, chunk, h0 if with_h0 else None),
+                     f"b{b} L{L} H{H} P{P} N{N} chunk{chunk} h0 {with_h0}")
+    for b, L, H, P, N, chunk in ((1, 32, 2, 8, 16, 16), (2, 512, 4, 64, 128,
+                                                         256)):
+        *args, h0 = ssd_case(rng, b, L, H, P, N, dev, dtype=torch.bfloat16)
+        hold_ssd(errs, ssd_pair(args, chunk, h0), f"bf16 b{b} L{L} chunk{chunk}")
+    # L 384 through ops.ssd: padded to two chunks of 256, y cut back to L
+    for with_h0 in (False, True):
+        *args, h0 = ssd_case(rng, 2, 384, 4, 64, 128, dev)
+        init = h0 if with_h0 else None
+        before = ssd.launch_counts[K6]
+        y, h = kops.ssd(*args, chunk=256, initial_state=init)
+        check(ssd.launch_counts[K6] == before + 1 and y.shape[1] == 384,
+              "ops.ssd did not launch the kernel once on the padded input")
+        yw, hw = ssd.ssd_chunked_plain(
+            *(kops._pad_steps(t, 128) for t in args), chunk=256,
+            initial_state=init)
+        hold_ssd(errs, ((y, h), (yw[:, :384], hw)), f"ops.ssd pad L384 h0 "
+                 f"{with_h0}")
+    *args, _ = ssd_case(rng, 2, 128, 3, 16, 32, dev, decay=40.0)
+    a_cum = torch.cumsum(args[2].reshape(2, 2, 64, 3), dim=2)
+    check(float((a_cum[:, :, 0] - a_cum[:, :, -1]).max()) > 89.0,
+          "the large-decay case does not reach exp's overflow")
+    hold_ssd(errs, ssd_pair(args, 64), "large decay (masked half past exp)")
+    # B and C as the serving path hands them over: one group, stride 0
+    *args, h0 = ssd_case(rng, 2, 128, 8, 64, 128, dev, one_group=True)
+    check(args[3].stride(2) == 0, "B is not a stride-0 view")
+    got = ssd.ssd_chunked(*args, chunk=64, initial_state=h0)
+    want = ssd.ssd_chunked_plain(*args[:3], args[3].contiguous(),
+                                 args[4].contiguous(), chunk=64,
+                                 initial_state=h0)
+    hold_ssd(errs, (got, want), "B/C one group, head stride 0")
+    # x as a view into a wider tensor (the conv output's x columns)
+    wide = torch.randn((2, 64, 4 * 16 + 40), device=dev)
+    x = wide[..., :64].reshape(2, 64, 4, 16)
+    *args, _ = ssd_case(rng, 2, 64, 4, 16, 32, dev)
+    hold_ssd(errs, ssd_pair([x] + args[1:], 32), "x a strided view")
+    for P, N in ((80, 128), (64, 256)):
+        *args, _ = ssd_case(rng, 1, 32, 2, P, N, dev)
+        try:
+            ssd.ssd_chunked(*args, chunk=16)
+        except ValueError:
+            pass
+        else:
+            raise PhaseFailed(f"the SSD kernel took P={P}, N={N}")
+    say("ssd", f"sweep and edge cases hold: {errs.cases[K6]} comparisons "
+               f"(float32 rtol=atol={SSD_RTOL}; bfloat16 y {SSD_BF16_Y}, "
+               f"state {SSD_BF16_STATE}); P 80 and N 256 refused")
+
+
+def phase_ssd_full(errs: Errors, dev) -> dict:
+    """The SSD kernel at the serving path's full-width prefill shape, held
+    against its plain version, then timed beside its bound; and at a single
+    admission's width."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    f = SSD_FULL
+    Q, L = f["chunk"], f["L"]
+    pad = (-L) % Q
+    out = {}
+    for b in (f["b"], 1):
+        g = torch.Generator(device=dev).manual_seed(7)
+        rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        x = rnd(b, L, f["H"], f["P"]).to(torch.bfloat16)
+        dt = torch.nn.functional.softplus(rnd(b, L, f["H"]))
+        a = -torch.exp(rnd(f["H"]))[None, None, :] * dt
+        B, C = (rnd(b, L, 1, f["N"]).to(torch.bfloat16).expand(
+            -1, -1, f["H"], -1) for _ in range(2))
+        args = [kops._pad_steps(t, pad) for t in (x, dt, a, B, C)]
+        Lp = L + pad
+        shape = (f"x ({b}, {Lp}, {f['H']}, {f['P']}) bf16, B/C ({b}, {Lp}, 1 "
+                 f"-> {f['H']}, {f['N']}) bf16, chunk {Q}")
+        hold_ssd(errs, ssd_pair(args, Q), "full width " + shape)
+        ms = cuda_ms(lambda: ssd.ssd_chunked(*args, chunk=Q), 10, flush)
+        plain = cuda_ms(lambda: ssd.ssd_chunked_plain(*args, chunk=Q), 3,
+                        flush)
+        bound, by = ssd_bound_ms(b, Lp, f["H"], f["P"], f["N"], Q, 2, 1)
+        say("ssd", f"{shape} ({b * f['H']} blocks): {ms:.4f} ms, plain "
+                   f"{plain:.4f} ms, bound {bound:.4f} ms by {by} "
+                   f"({bound / ms:.1%} of it)")
+        out[b] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                      shape=shape)
+        del args, x, dt, a, B, C
+    full = out[f["b"]]
+    return {K6: {**full, "library_ms": None,
+                 "single_admission": out[1]}}
+
+
 
 def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
     """``generate`` on the request's page-aligned left-padded prompt: the
@@ -855,14 +1042,16 @@ def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
 
 def phase_serve_reduced(dev) -> dict:
     """The continuous engine of reduced internlm2 (and of reduced
-    h2o-danube, whose sliding window the decode kernel masks) in float32 on
+    h2o-danube, whose sliding window the decode kernel masks, and of reduced
+    mamba2, whose prefills go through the SSD scan kernel) in float32 on
     the card: shared prefixes, copy-on-write forks, a prefill-skipping
     repeat, eviction and reuse under churn, ragged prompts and budgets --
     every request's greedy tokens equal to ``generate``'s."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
-    for arch, page in (("internlm2-1.8b", 8), ("h2o-danube-1.8b", 4)):
+    for arch, page in (("internlm2-1.8b", 8), ("h2o-danube-1.8b", 4),
+                       ("mamba2-2.7b", 8)):
         cfg = get_config(arch).reduced()
         eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
         rng = np.random.default_rng(37)
@@ -884,18 +1073,25 @@ def phase_serve_reduced(dev) -> dict:
                                         inner_steps=4, max_prompt_len=32,
                                         device=dev)
         pa.reset_counts()                # just before this run
+        ssd.reset_counts()
         done = []
         for batch in batches:
             done += ceng.run_all(batch)
-        launches, plains = dict(pa.launch_counts), dict(pa.plain_counts)
+        launches = {**pa.launch_counts, **ssd.launch_counts}
+        plains = {**pa.plain_counts, **ssd.plain_counts}
         n = sum(len(b) for b in batches)
         check(len(done) == n, f"{arch} reduced: {len(done)} of {n} done")
-        check(launches[K3] > 0 and launches[K4] > 0
+        ran = (K3, K4) if ceng.kv.attn_subs else (K6,)
+        check(all((launches[k] > 0) == (k in ran) for k in launches)
               and not any(plains.values()),
               f"{arch} reduced: launches {launches}, plain calls {plains}")
+        if not ceng.kv.attn_subs:
+            check(launches[K6] == ceng.prefill_calls * cfg.num_layers,
+                  f"{arch} reduced: {launches[K6]} scan launches for "
+                  f"{ceng.prefill_calls} prefills")
         ceng.kv.assert_conserved()
         check(ceng.nonfinite_rows == 0, f"{arch} reduced: non-finite logits")
-        if cfg.sliding_window is None:
+        if cfg.sliding_window is None and ceng.kv.attn_subs:
             check(ceng.kv.pages_shared > 0 and ceng.prefill_skips >= 1
                   and ceng.kv.cow_forks + ceng.kv.pristine_forks > 0,
                   f"{arch} reduced: the sharing lifecycle did not run")
@@ -939,7 +1135,8 @@ class ServeRecorder:
                 return res
 
             eng.collect = recording_collect
-        elif self.snap is None and eng.active_count() == eng.capacity:
+        elif (self.snap is None and eng.kv.attn_subs
+              and eng.active_count() == eng.capacity):
             # enqueued behind the round in flight: the state it leaves
             st, sub = eng.state, eng.kv.attn_subs[0]
             self.snap = dict(k_pool=st["caches"][sub]["k"][0].clone(),
@@ -957,6 +1154,7 @@ def phase_serve_full(errs: Errors, dev) -> dict:
     recs = {}
     walls = {}
     agg.reset_counts()
+    ssd.reset_counts()
     pa.reset_counts()                    # just before the serving path
     for spl in SHARED_PREFIXES:
         rec = ServeRecorder()
@@ -969,11 +1167,13 @@ def phase_serve_full(errs: Errors, dev) -> dict:
         rec.peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         recs[spl] = rec
     launches, plains = dict(pa.launch_counts), dict(pa.plain_counts)
-    agg_launches = sum(agg.launch_counts.values())         # just after
+    other = sum(agg.launch_counts.values()) + sum(
+        ssd.launch_counts.values()) + sum(ssd.plain_counts.values())
+    # just after
 
-    check(not any(plains.values()) and agg_launches == 0,
+    check(not any(plains.values()) and other == 0,
           f"the serving path took another route: plain {plains}, "
-          f"aggregate launches {agg_launches}")
+          f"aggregate or SSD calls {other}")
     want_k3 = want_k4 = 0
     runs = {}
     rng = np.random.default_rng(4)
@@ -1045,26 +1245,113 @@ def phase_serve_full(errs: Errors, dev) -> dict:
                  f"{launches[K4]}; plain calls 0")
     max_blocks = max(r.sched.continuous_engine.kv.max_blocks
                      for r in recs.values())
-    profile = profile_round(recs[0].sched.engine, dev)
+    profile = profile_round(recs[0].sched.engine, dev, prompt_len=128)
     del recs
+    gc.collect()                         # the recorders' hooks form cycles
     torch.cuda.empty_cache()
     return {"launches": launches, "runs": runs, "max_blocks": max_blocks,
             "profile": profile}
 
 
-def profile_round(eng: ServingEngine, dev) -> dict:
+# the pure-SSM serving path: launch.serve at the published width of mamba2;
+# 384-token prompts bucket to 384, so each prefill's scan runs chunk 256
+# padded to 512 -- two chunks per launch, the state carried between them,
+# and ops.ssd's pad
+MAMBA_ARGV = ["--arch", "mamba2-2.7b", "--no-reduced", "--tenants", "3",
+              "--requests", "12", "--prompt-len", "384", "--new-tokens", "32",
+              "--capacity", "8", "--inner-steps", "4"]
+
+
+def phase_serve_mamba2(dev) -> dict:
+    """The pure-SSM serving path: ``launch.serve.main`` at the published
+    width and depth of mamba2-2.7b, 12 requests from 3 tenants, capacity 8;
+    every prefill through the SSD scan kernel (64 launches a call)."""
+    cfg = get_config("mamba2-2.7b")
+    n_params = param_count(build_model(cfg).init(0, "meta"))
+    rec = ServeRecorder()
+    gc.collect()                         # nothing of earlier phases is held
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    agg.reset_counts()
+    pa.reset_counts()
+    ssd.reset_counts()                   # just before the serving path
+    t0 = time.perf_counter()
+    rc = serve_cli.main(MAMBA_ARGV, observe=rec)
+    wall = time.perf_counter() - t0
+    launches = {**ssd.launch_counts, **pa.launch_counts, **agg.launch_counts}
+    plains = {**ssd.plain_counts, **pa.plain_counts, **agg.plain_counts}
+    # just after
+    check(rc == 0, f"serve returned {rc}")
+    sched, eng = rec.sched, rec.sched.continuous_engine
+    check(len(rec.finished) == 12 and all(t.shape == (32,)
+                                          for _, t in rec.finished),
+          f"mamba2: {len(rec.finished)} requests finished, token counts "
+          f"{sorted({t.size for _, t in rec.finished})}")
+    check(all(int(t.min()) >= 0 and int(t.max()) < cfg.vocab_size
+              for _, t in rec.finished), "mamba2: token out of vocab")
+    check(eng.nonfinite_rows == 0, "mamba2: non-finite logits")
+    check(eng.active_count() == 0 and sched.pending() == 0,
+          "mamba2: rows left after the drain")
+    eng.kv.assert_conserved()
+    check(eng.kv.pages_allocated == 0, "mamba2: pages were allocated")
+    check(launches[K6] == cfg.num_layers * eng.prefill_calls
+          and launches[K6] > 0,
+          f"mamba2: {launches[K6]} scan launches for {eng.prefill_calls} "
+          f"prefill calls of {cfg.num_layers} layers")
+    check(not any(plains.values())
+          and all(v == 0 for k, v in launches.items() if k != K6),
+          f"mamba2: another route was taken: launches {launches}, plain "
+          f"calls {plains}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # agreement with the blocking engine on the same prompts: at bf16 the
+    # two paths' products differ in shape, so this is a number
+    prompts = np.stack([r.prompt for r, _ in rec.finished])
+    check(prompts.shape[1] % eng.page_size == 0,
+          "mamba2: prompts need no padding for this comparison")
+    gen = eng.engine.generate(prompts, max_new_tokens=32).tokens
+    got = np.stack([t for _, t in rec.finished])
+    same = got == gen
+    first_diff = [int(np.argmin(row)) if not row.all() else row.size
+                  for row in same]
+    pre, rnd = eng.prefill_ms(), eng.round_ms
+    run = dict(
+        params=n_params, wall_s=wall, prefill_calls=len(pre),
+        prefill_ms=pre, rounds=len(rnd),
+        round_ms_mean=float(np.mean(rnd)),
+        round_ms_median=float(np.median(rnd)), decode_tokens=eng.row_steps,
+        decode_tokens_per_s=eng.row_steps / (sum(rnd) * 1e-3),
+        occupancy=eng.occupancy(), peak_gib=peak,
+        token_agreement=float(same.mean()),
+        requests_identical=int(same.all(axis=1).sum()),
+        mean_first_divergence=float(np.mean(first_diff)),
+        overlap_pairs=sum(timeline_overlaps(sched.timeline)),
+        timeline_rounds=len(sched.timeline), scan_launches=launches[K6])
+    say("serve", "mamba2-2.7b full width: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in run.items() if k != "prefill_ms")
+        + f", prefill ms {[round(x, 3) for x in pre]}")
+    run["profile"] = profile_round(sched.engine, dev, prompt_len=384)
+    del rec, sched, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches[K6], "run": run}
+
+
+def profile_round(eng: ServingEngine, dev, prompt_len: int) -> dict:
     """Where a full-width decode round's time goes (after the main path,
-    whose launch counts are already read): 8 live rows of 128-token
+    whose launch counts are already read): 8 live rows of ``prompt_len``
     prompts; one round dispatched under ``set_sync_debug_mode("error")``
     (a round must never make the host wait for the device), then one round
     under ``torch.profiler``: device time by kernel against the round's
     CUDA-event window and the host's enqueue time."""
     ceng = ContinuousBatchingEngine(eng, capacity=8, page_size=16,
-                                    inner_steps=4, max_prompt_len=256,
+                                    inner_steps=4,
+                                    max_prompt_len=2 * prompt_len,
                                     device=dev)
     rng = np.random.default_rng(5)
-    reqs = [Request("p", rng.integers(1, eng.cfg.vocab_size, 128).astype(
-        np.int32), max_new_tokens=64) for _ in range(8)]
+    reqs = [Request("p", rng.integers(1, eng.cfg.vocab_size,
+                                      prompt_len).astype(np.int32),
+                    max_new_tokens=64) for _ in range(8)]
     check(all(ceng.try_admit_batch(reqs)), "profile: admission failed")
     ceng.collect(ceng.dispatch_round())              # warm
     torch.cuda.synchronize()
@@ -1098,7 +1385,7 @@ def profile_round(eng: ServingEngine, dev) -> dict:
                device_idle_share=(1 - busy_ms / window_ms) if kernels
                else None,
                top=[(n[:60], round(ms, 4), c) for n, ms, c in kernels[:8]])
-    say("serve", "profiled round (8 live rows, 4 steps): " + (
+    say("serve", f"{eng.cfg.name} profiled round (8 live rows, 4 steps): " + (
         f"CUDA-event window {window_ms:.2f} ms, host enqueue "
         f"{enqueue_ms:.2f} ms, device busy {busy_ms:.2f} ms over "
         f"{out['launches']} kernels (idle {out['device_idle_share']:.1%}); "
@@ -1123,6 +1410,7 @@ def main() -> int:
         errs = Errors()
         phase_kernels_small(errs, dev)
         phase_paged_small(errs, dev)
+        phase_ssd_small(errs, dev)
         cfg = RiskAppConfig()
         tables = phase_tables(cfg)
         trials = tables.num_trials
@@ -1135,6 +1423,8 @@ def main() -> int:
         reduced = phase_serve_reduced(dev)
         serving = phase_serve_full(errs, dev)
         kern.update(phase_paged_full(errs, dev, serving["max_blocks"]))
+        mamba = phase_serve_mamba2(dev)
+        kern.update(phase_ssd_full(errs, dev))
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1147,9 +1437,13 @@ def main() -> int:
                    f"paged decode {errs.cases[K3]} cases (max abs err "
                    f"{errs.abs[K3]:.3g}, max rel err {errs.rel[K3]:.3g}; "
                    f"rtol={PAGED_RTOL} atol={PAGED_ATOL}), paged scatter "
-                   f"{errs.cases[K4]} cases bit-exact")
+                   f"{errs.cases[K4]} cases bit-exact, SSD scan "
+                   f"{errs.cases[K6]} cases (max abs err {errs.abs[K6]:.3g}; "
+                   f"float32 rtol=atol={SSD_RTOL}, bfloat16 y {SSD_BF16_Y} "
+                   f"and state {SSD_BF16_STATE})")
     agg_src = "src/repro_torch/kernels/csrc/aggregate_loss.cu"
     paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
+    ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     rows = []
     for name, src, replaces, numbers in (
             (G, agg_src, "src/repro/kernels/aggregate_loss.py:69",
@@ -1160,7 +1454,9 @@ def main() -> int:
             (K3, paged_src, "src/repro/kernels/paged_attention.py:60",
              {"launches": serving["launches"][K3], **kern[K3]}),
             (K4, paged_src, "src/repro/kernels/paged_attention.py:158",
-             {"launches": serving["launches"][K4], **kern[K4]})):
+             {"launches": serving["launches"][K4], **kern[K4]}),
+            (K6, ssd_src, "src/repro/kernels/ssd_scan.py:29",
+             {"launches": mamba["launches"], **kern[K6]})):
         keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -1176,6 +1472,7 @@ def main() -> int:
     print(json.dumps({"main_path": main_path["runs"], "trials": trials}))
     print(json.dumps({"serving": {str(k): v for k, v in
                                   serving["runs"].items()},
+                      "serving_mamba2": mamba["run"],
                       "serving_reduced": reduced}))
     print(card)
     print(json.dumps({"kernels": rows}))

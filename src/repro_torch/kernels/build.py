@@ -106,6 +106,19 @@ def compile_all() -> Dict[str, str]:
     return logs
 
 
+def require_cuda(*tensors) -> None:
+    """The launch precondition every kernel wrapper checks: all arguments
+    on one CUDA device (raises otherwise; nothing falls back)."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"arguments on different devices: "
+                         f"{sorted(map(str, devs))}")
+    dev = next(iter(devs))
+    if dev.type != "cuda":
+        raise RuntimeError(f"tensors on {dev}: the kernel runs on CUDA "
+                           "tensors only")
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<name>.cu``, built first if need be."""
     with _LOCK:

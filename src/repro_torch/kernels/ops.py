@@ -1,5 +1,5 @@
-"""Dispatch layer of the kernel package; the risk and serving stacks import
-only from here.
+"""Dispatch layer of the kernel package; the risk, serving and model stacks
+import only from here.
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the kernel's
 plain version — the tensor's device decides, and there is no switch that
@@ -15,8 +15,12 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels import aggregate_loss as _agg
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 # single source of truth for aggregate_loss lookup strategies
 _AGG_KERNELS = {"gather": _agg.aggregate_loss_gather,
@@ -62,6 +66,42 @@ def aggregate_loss(event_ids, elt_losses, occ_ret, occ_lim, agg_ret, agg_lim,
         raise ValueError(f"variant {variant!r}: must be one of {AGG_VARIANTS}")
     return _AGG_KERNELS[variant](event_ids, elt_losses, occ_ret, occ_lim,
                                  agg_ret, agg_lim, chunk=chunk)
+
+
+def _pad_steps(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` (b, L, ...) with ``pad`` zero steps appended.  A head axis of
+    stride 0 (one group's B or C viewed over every head) stays a view: the
+    group is padded once, not each head."""
+    if t.dim() == 4 and t.shape[2] > 1 and t.stride(2) == 0:
+        one = torch.nn.functional.pad(t[:, :, :1], (0, 0, 0, 0, 0, pad))
+        return one.expand(t.shape[0], t.shape[1] + pad, *t.shape[2:])
+    return torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+
+def ssd(x, dt, a_log_decay, B, C, chunk: int,
+        initial_state: Optional[torch.Tensor] = None):
+    """Chunked SSD scan; see :func:`repro_torch.kernels.ref.ssd_chunked_ref`
+    for the contract (the scan kernel of
+    :func:`repro_torch.kernels.ssd_scan.ssd_chunked` on a CUDA device, its
+    plain version on the CPU).
+
+    Pads the sequence up to a chunk multiple (dt=0, a=0 pads are
+    state-neutral: decay exp(0)=1 and zero input leave the recurrence
+    unchanged)."""
+    L = x.shape[1]
+    pad = (-L) % chunk
+    if pad:
+        y, h = ssd(*(_pad_steps(t, pad) for t in (x, dt, a_log_decay, B, C)),
+                   chunk, initial_state)
+        return y[:, :L], h
+    return _ssd.ssd_chunked(x, dt, a_log_decay, B, C, chunk=chunk,
+                            initial_state=initial_state)
+
+
+def ssd_decode_step(state, x_t, dt_t, a_t, B_t, C_t):
+    """One SSD decode step: a composite of a few elementwise operations and
+    one product (the reference has no kernel for it)."""
+    return _ref.ssd_decode_step_ref(state, x_t, dt_t, a_t, B_t, C_t)
 
 
 def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,

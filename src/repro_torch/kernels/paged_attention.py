@@ -88,17 +88,6 @@ def paged_prefill_scatter_plain(pool, pages, values) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
-def _require_cuda(*tensors: torch.Tensor) -> None:
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"arguments on different devices: "
-                         f"{sorted(map(str, devs))}")
-    dev = next(iter(devs))
-    if dev.type != "cuda":
-        raise RuntimeError(f"tensors on {dev}: the kernel runs on CUDA "
-                           "tensors only")
-
-
 _ENTRIES: Dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -157,7 +146,7 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
         return paged_attention_decode_plain(q, k_pool, v_pool, pos_pool,
                                             page_table, positions,
                                             window=window)
-    _require_cuda(q, k_pool, v_pool, pos_pool, page_table, positions)
+    build.require_cuda(q, k_pool, v_pool, pos_pool, page_table, positions)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: need float32 or bfloat16")
     if k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16:
@@ -211,7 +200,7 @@ def paged_prefill_scatter(pool, pages, values) -> torch.Tensor:
                          f"{(S, nb, P, Hkv, D)}")
     if pool.device.type == "cpu":
         return paged_prefill_scatter_plain(pool, pages, values)
-    _require_cuda(pool, pages, values)
+    build.require_cuda(pool, pages, values)
     if pool.dtype != torch.bfloat16:
         raise TypeError(f"pool dtype {pool.dtype}: need bfloat16")
     if values.dtype not in (torch.float32, torch.bfloat16):

@@ -1,15 +1,111 @@
 """Pure-PyTorch oracles for the kernels of this package.
 
 Twins of the JAX package's ``repro/kernels/ref.py`` oracles, same operation
-order.  Here so far: the two Aggregate Risk Analysis oracles and the two
-paged-attention oracles of the serving path; each further oracle lands with
-its kernel.
+order.  Here so far: the three Mamba-2 SSD oracles, the two Aggregate Risk
+Analysis oracles and the two paged-attention oracles of the serving path;
+each further oracle lands with its kernel.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) -- chunked form and step oracle
+# ---------------------------------------------------------------------------
+def ssd_chunked_ref(x, dt, a_log_decay, B, C, chunk: int,
+                    initial_state: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (Mamba-2, arXiv:2405.21060 §6).
+
+    x : (b, L, H, P)   per-head inputs
+    dt: (b, L, H)      positive step sizes (already softplus'ed)
+    a_log_decay: (b, L, H)  log a_t = A * dt_t (A negative)
+    B : (b, L, H, N)   input projections (already head-expanded)
+    C : (b, L, H, N)   output projections
+    Returns (y: (b,L,H,P) in x's dtype, final_state: (b,H,P,N) float32).
+
+    Recurrence: h_t = exp(a_t) h_{t-1} + dt_t * (B_t ⊗ x_t);  y_t = C_t · h_t.
+    The masked half of the decay matrix is a select, never a product with a
+    0/1 mask: there ``a_cum[l] - a_cum[s] > 0`` and its ``exp`` may be inf.
+    """
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    if L % chunk:
+        raise ValueError(f"L={L} is not a multiple of chunk={chunk}")
+    nc = L // chunk
+    f32 = torch.float32
+
+    xc = x.float().reshape(b, nc, chunk, H, P)
+    dtc = dt.float().reshape(b, nc, chunk, H)
+    ac = a_log_decay.float().reshape(b, nc, chunk, H)
+    Bc = B.float().reshape(b, nc, chunk, H, N)
+    Cc = C.float().reshape(b, nc, chunk, H, N)
+
+    a_cum = torch.cumsum(ac, dim=2)                     # inclusive (b,nc,Q,H)
+    a_tot = a_cum[:, :, -1]                             # (b,nc,H)
+
+    # ---- intra-chunk (quadratic within the chunk) ---------------------------
+    seg = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]   # (b,nc,l,s,H)
+    li = torch.arange(chunk, device=x.device)
+    causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
+    Lmat = torch.where(causal, torch.exp(seg),
+                       torch.zeros((), dtype=f32, device=x.device))
+    CB = torch.einsum("bclhn,bcshn->bclsh", Cc, Bc)
+    M = CB * Lmat * dtc[:, :, None, :, :]               # dt_s enters at source
+    y_diag = torch.einsum("bclsh,bcshp->bclhp", M, xc)
+
+    # ---- per-chunk end states ----------------------------------------------
+    decay_states = torch.exp(a_tot[:, :, None] - a_cum)  # (b,nc,Q,H)
+    states = torch.einsum("bcshn,bcsh,bcshp->bchpn",
+                          Bc, decay_states * dtc, xc)    # (b,nc,H,P,N)
+
+    # ---- inter-chunk recurrence over chunk index ----------------------------
+    h = (torch.zeros((b, H, P, N), dtype=f32, device=x.device)
+         if initial_state is None else initial_state.float())
+    h_before = []
+    for c in range(nc):                                 # emit state BEFORE chunk
+        h_before.append(h)
+        h = torch.exp(a_tot[:, c])[:, :, None, None] * h + states[:, c]
+    h_before = torch.stack(h_before, dim=1)             # (b,nc,H,P,N)
+
+    # ---- inter-chunk output contribution ------------------------------------
+    y_off = torch.einsum("bclhn,bchpn,bclh->bclhp",
+                         Cc, h_before, torch.exp(a_cum))
+    y = (y_diag + y_off).reshape(b, L, H, P)
+    return y.to(x.dtype), h
+
+
+def ssd_recurrent_ref(x, dt, a_log_decay, B, C,
+                      initial_state: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step-by-step recurrence oracle (same contract as ssd_chunked_ref)."""
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    h = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(L):
+        x_t, dt_t, a_t, B_t, C_t = (v[:, t].float()
+                                    for v in (x, dt, a_log_decay, B, C))
+        h = torch.exp(a_t)[..., None, None] * h + \
+            dt_t[..., None, None] * (x_t[..., :, None] * B_t[..., None, :])
+        ys.append(torch.einsum("bhn,bhpn->bhp", C_t, h))
+    y = torch.stack(ys, dim=1)
+    return y.to(x.dtype), h
+
+
+def ssd_decode_step_ref(state, x_t, dt_t, a_t, B_t, C_t):
+    """One decode step.  state: (b,H,P,N); x_t: (b,H,P); dt/a: (b,H);
+    B_t/C_t: (b,H,N).  Returns (y_t, new_state)."""
+    state = state.float()
+    h = torch.exp(a_t.float())[..., None, None] * state + \
+        dt_t.float()[..., None, None] * (
+            x_t.float()[..., :, None] * B_t.float()[..., None, :])
+    y = torch.einsum("bhn,bhpn->bhp", C_t.float(), h)
+    return y.to(x_t.dtype), h
 
 
 def _occurrence(gathered, occ_ret, occ_lim):

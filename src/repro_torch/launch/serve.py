@@ -4,12 +4,18 @@
         --no-reduced --tenants 3 --requests 12 --prompt-len 128 \\
         --new-tokens 32 --capacity 8 --shared-prefix-len 64
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
+        --no-reduced --tenants 3 --requests 12 --prompt-len 384 \\
+        --new-tokens 32 --capacity 8
+
 Builds the model (weights drawn from ``--seed``, at full width with
 ``--no-reduced``), spins up the multi-tenant scheduler in continuous mode
 and drains a synthetic request mix, printing per-tenant utilisation, the
 round-to-round overlap pairs, slot occupancy, page-sharing stats and -- on a
 CUDA device -- the prefill and decode-round times by CUDA events.  Runs on
 the CUDA device unless ``--device cpu`` is given (and fails without one).
+A pure-SSM arch (mamba2) pages nothing: its rows carry their SSM state in
+the slot table, and ``--shared-prefix-len`` only lengthens the prompts.
 
 The flags are the JAX package's ``repro.launch.serve`` as far as this slice
 of the port reaches.  Deliberate differences: ``--mode`` defaults to (and so

@@ -109,13 +109,14 @@ def apply_embedding(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 def unembed_operand(p, cfg: ArchConfig) -> torch.Tensor:
     """The unembedding as the float32 operand of the reference's
     ``einsum(x, w.astype(compute), preferred_element_type=f32)``: rounded to
-    the compute dtype, then widened.  :func:`repro_torch.models.model.
+    the compute dtype, then widened, contiguous (a tied arch's is the
+    embedding's transpose).  :func:`repro_torch.models.model.
     prepare_params` stores it once as ``unembed_f32``."""
     if "unembed_f32" in p:
         return p["unembed_f32"]
     cdt = dtype_of(cfg.compute_dtype)
     w = p["embedding"].t() if cfg.tie_embeddings else p["unembed"]
-    return w.to(cdt).float()
+    return w.to(cdt).float().contiguous()
 
 
 def apply_unembed(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Model factory: ArchConfig -> init / prefill / decode callables.
 
-The decoder-only half of the JAX package's ``repro/models/model.py``::
+The decoder-only half of the JAX package's ``repro/models/model.py``
+(attention and Mamba-2 mixers)::
 
     bundle = build_model(cfg)
     params = bundle.init(seed, device)             # tree of tensors
@@ -25,9 +26,10 @@ from repro_torch.models.transformer import (check_supported, init_lm,
                                             lm_decode_backbone, tree_map)
 
 # leaves the reference casts to the compute dtype at every use
-# (``p[...].astype(cdt)``); norm scales stay in the parameter dtype
+# (``p[...].astype(cdt)``); norm scales and the SSM's a_log, dt_bias, d_skip
+# and norm_scale stay in the parameter dtype, as the reference reads them
 COMPUTE_LEAVES = ("embedding", "wq", "wk", "wv", "wo", "w_gate", "w_up",
-                  "w_down")
+                  "w_down", "in_proj", "conv_w", "conv_b", "out_proj")
 
 
 @dataclasses.dataclass
@@ -43,9 +45,12 @@ def prepare_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     """The parameter tree the engine computes with: every leaf the
     reference casts at each use is cast to the compute dtype once here, and
     the unembedding is stored as the float32 operand of its
-    ``preferred_element_type=f32`` product (``unembed_f32``).  The numbers
-    are those of casting at every use; what goes is the cast traffic (at
-    full width, float32 parameters are 7.6 GB read per decode step)."""
+    ``preferred_element_type=f32`` product (``unembed_f32``, contiguous),
+    for a tied arch too (the embedding's transpose).  The numbers are those
+    of casting at every use; what goes is the cast traffic (at full width,
+    float32 parameters are 7.6 GB read per decode step) and, for a tied
+    arch, a fresh float32 copy of the embedding per call (0.52 GB for
+    mamba2)."""
     cdt = dtype_of(cfg.compute_dtype)
 
     def walk(tree):
@@ -61,7 +66,10 @@ def prepare_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
                 out[k] = v
         return out
 
-    return walk(params)
+    out = walk(params)
+    if cfg.tie_embeddings:
+        out["embed"]["unembed_f32"] = unembed_operand(params["embed"], cfg)
+    return out
 
 
 def _build_decoder_only(cfg: ArchConfig) -> ModelBundle:

@@ -1,11 +1,12 @@
-"""Decoder-only transformer stack (pure-attention, dense-MLP block schedules).
+"""Decoder-only transformer stack (attention or Mamba-2 mixers, dense or no
+MLP).
 
 The JAX package's ``repro/models/transformer.py`` for the archs the port
 serves so far.  Layers are grouped into ``n_stages`` identical stages of
 ``stage_period`` sublayers; every parameter leaf of ``params["stages"]``
 carries the stage axis first (the reference's stacked ``lax.scan`` layout),
-and the port walks the stages with a Python loop over views.  MoE and SSM
-sublayers come with slice 4 of the port.
+and the port walks the stages with a Python loop over views.  MoE sublayers
+come with slice 4 of the port.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs import ATTN, DENSE, NONE, ArchConfig
+from repro_torch.configs import ATTN, DENSE, MAMBA, NONE, ArchConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_attention, apply_attention_decode,
                                        apply_mlp, apply_rmsnorm, dtype_of,
                                        init_attention, init_embedding,
@@ -22,9 +24,10 @@ from repro_torch.models.layers import (apply_attention, apply_attention_decode,
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a block schedule the port does not
-    run yet (anything but attention mixers with dense or no MLP)."""
+    run yet (anything but attention or Mamba-2 mixers with dense or no
+    MLP)."""
     for mixer, mlp in cfg.block_schedule():
-        if mixer != ATTN or mlp not in (DENSE, NONE):
+        if mixer not in (ATTN, MAMBA) or mlp not in (DENSE, NONE):
             raise NotImplementedError(
                 f"{cfg.name}: {mixer}/{mlp} sublayers come with slice 4 of "
                 "the port (ROADMAP.md)")
@@ -52,9 +55,12 @@ def init_stage(gen, cfg: ArchConfig, device) -> Dict[str, Any]:
     sched = cfg.block_schedule()[:cfg.stage_period]
     dt = dtype_of(cfg.param_dtype)
     out: Dict[str, Any] = {}
-    for i, (_, mlp) in enumerate(sched):
-        sub: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dt, device),
-                               "attn": init_attention(gen, cfg, device)}
+    for i, (mixer, mlp) in enumerate(sched):
+        sub: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dt, device)}
+        if mixer == ATTN:
+            sub["attn"] = init_attention(gen, cfg, device)
+        else:
+            sub["mamba"] = ssm_mod.init_ssm(gen, cfg, device)
         if mlp != NONE:
             sub["norm2"] = init_rmsnorm(cfg.d_model, dt, device)
             sub["mlp"] = init_mlp(gen, cfg, device)
@@ -103,15 +109,20 @@ def _kv_to_cache(k, v, positions, cfg: ArchConfig):
 def _stage_forward(sp, x, cfg: ArchConfig, positions, collect_cache: bool):
     sched = cfg.block_schedule()[:cfg.stage_period]
     caches = {}
-    for i, (_, mlp) in enumerate(sched):
+    for i, (mixer, mlp) in enumerate(sched):
         sub = sp[f"sub{i}"]
         h = apply_rmsnorm(sub["norm1"], x)
-        if collect_cache:
+        if mixer == ATTN and collect_cache:
             h, (k, v) = apply_attention(sub["attn"], h, cfg,
                                         positions=positions, return_kv=True)
             caches[f"sub{i}"] = _kv_to_cache(k, v, positions, cfg)
-        else:
+        elif mixer == ATTN:
             h = apply_attention(sub["attn"], h, cfg, positions=positions)
+        elif collect_cache:
+            h, caches[f"sub{i}"] = ssm_mod.apply_ssm(sub["mamba"], h, cfg,
+                                                     return_state=True)
+        else:
+            h = ssm_mod.apply_ssm(sub["mamba"], h, cfg)
         x = x + h
         if mlp != NONE:
             x = x + apply_mlp(sub["mlp"], apply_rmsnorm(sub["norm2"], x), cfg)
@@ -140,17 +151,24 @@ def lm_backbone(params, x, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 def lm_decode_backbone(params, x, caches, cache_index: int, cfg: ArchConfig):
     """x: (B, 1, d) -> (hidden (B, 1, d), caches); the dense ring caches
-    are updated in place."""
+    and the SSM states are updated in place."""
     sched = cfg.block_schedule()[:cfg.stage_period]
     n_stages = cfg.num_layers // cfg.stage_period
     for s in range(n_stages):
         sp = stage_view(params["stages"], s)
         sc = stage_view(caches, s)
-        for i, (_, mlp) in enumerate(sched):
+        for i, (mixer, mlp) in enumerate(sched):
             sub = sp[f"sub{i}"]
-            hout, _ = apply_attention_decode(
-                sub["attn"], apply_rmsnorm(sub["norm1"], x), sc[f"sub{i}"],
-                cfg, cache_index)
+            hin = apply_rmsnorm(sub["norm1"], x)
+            if mixer == ATTN:
+                hout, _ = apply_attention_decode(sub["attn"], hin,
+                                                 sc[f"sub{i}"], cfg,
+                                                 cache_index)
+            else:
+                hout, new = ssm_mod.apply_ssm_decode(sub["mamba"], hin,
+                                                     sc[f"sub{i}"], cfg)
+                for k, v in new.items():
+                    sc[f"sub{i}"][k].copy_(v)
             x = x + hout
             if mlp != NONE:
                 x = x + apply_mlp(sub["mlp"], apply_rmsnorm(sub["norm2"], x),
@@ -164,5 +182,6 @@ def init_lm_caches(cfg: ArchConfig, batch: int, seq_len: int, device=None):
     sched = cfg.block_schedule()[:cfg.stage_period]
     return {f"sub{i}": tree_map(
         lambda a: a[None].repeat((n_stages,) + (1,) * a.dim()),
-        init_kv_cache(cfg, batch, seq_len, device=device))
-        for i in range(len(sched))}
+        init_kv_cache(cfg, batch, seq_len, device=device) if mixer == ATTN
+        else ssm_mod.init_ssm_state(cfg, batch, device=device))
+        for i, (mixer, _) in enumerate(sched)}

@@ -1,8 +1,8 @@
 """Continuous batching over a persistent slot table (paged KV-cache decode).
 
 The JAX package's ``repro/serving/continuous.py`` without preemption,
-restore and swap (slice 3 of the port) and without the SSM / cross-attention
-state kinds (slice 4).  A fixed-capacity *slot table* lives on the device
+restore and swap (slice 3 of the port) and without the cross-attention
+state kind (slice 4).  A fixed-capacity *slot table* lives on the device
 and three events interleave per outer step:
 
 * **admission** -- queued requests are prefilled at their page-aligned
@@ -19,6 +19,14 @@ and three events interleave per outer step:
   by a CUDA event that :meth:`RoundHandle.ready` queries;
 * **retirement** -- rows whose token budget ran out are collected on the
   host, their pages' refcounts dropped, their slots freed.
+
+SSM sublayers (mamba2) keep their decode state dense in the slot table, a
+``(n_stages, capacity, H, P, N)`` SSD state and a ``(n_stages, capacity,
+W-1, conv_dim)`` convolution window per sublayer: admission writes the
+prefilled state into the slot's row, a decode step writes every row's new
+state in place through ``torch.where(active, new, old)`` (masked rows stay
+frozen, with no host synchronisation), and an arch without attention pages
+nothing.
 
 Rows are masked, not compacted: an inactive row samples into the void (its
 emission is dropped) and writes its K/V and position to the reserved TRASH
@@ -53,18 +61,20 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import NONE, ArchConfig
+from repro_torch.configs import ATTN, NONE, ArchConfig
 from repro_torch.core.tenancy import resolve_devices
 from repro_torch.models.layers import (apply_embedding, apply_mlp,
                                        apply_rmsnorm, apply_unembed,
                                        pad_vocab)
+from repro_torch.models.ssm import apply_ssm_decode, init_ssm_state
 from repro_torch.models.transformer import stage_view
 from repro_torch.obs.telemetry import Telemetry, get_telemetry
 from repro_torch.serving.engine import (ServingEngine, resolve_extra_inputs,
                                         sample_rows, to_device)
 from repro_torch.serving.kvcache import (POS_SENTINEL, PagedKVCache,
                                          paged_attention_decode,
-                                         paged_scatter, state_kinds)
+                                         paged_scatter, ssm_subs,
+                                         state_kinds)
 
 
 @dataclasses.dataclass
@@ -160,6 +170,7 @@ class ContinuousBatchingEngine:
         self.sched = cfg.block_schedule()[:cfg.stage_period]
         self.page_size = page_size
         self.state_kinds = state_kinds(cfg)
+        self.ssm_subs = ssm_subs(cfg)
         max_ring = self._ring_len(self.bucket_len(max_prompt_len))
         self.kv = PagedKVCache(cfg, capacity, page_size,
                                -(-max_ring // page_size), num_pages)
@@ -224,7 +235,8 @@ class ContinuousBatchingEngine:
     def supported_modes(cls, cfg: ArchConfig) -> Dict[str, Dict[str, Any]]:
         """Capability probe: what each serving mode offers for ``cfg`` in
         the port so far (the reference's table, with the modes and
-        qualifiers later slices bring marked as such)."""
+        qualifiers later slices bring marked as such; SSM rows keep their
+        state in the slot table, so they share no prefix)."""
         names = list(state_kinds(cfg))
         cont = {
             "supported": True,
@@ -244,8 +256,13 @@ class ContinuousBatchingEngine:
     def _init_state(self) -> Dict[str, Any]:
         cfg, c, dev = self.cfg, self.capacity, self.device
         i32 = dict(dtype=torch.int32, device=dev)
+        caches = self.kv.make_pools(self.n_stages, dev)
+        for name in self.ssm_subs:
+            caches[name] = {k: v[None].repeat((self.n_stages,)
+                                              + (1,) * v.dim())
+                            for k, v in init_ssm_state(cfg, c, dev).items()}
         return {
-            "caches": self.kv.make_pools(self.n_stages, dev),
+            "caches": caches,
             "page_table": self.kv.make_page_table(dev),
             "pos_pool": self.kv.make_pos_pool(dev),
             "logits": torch.zeros((c, pad_vocab(cfg.vocab_size)),
@@ -281,25 +298,37 @@ class ContinuousBatchingEngine:
                           st["lstep"], all_greedy=all_greedy,
                           any_topk=any_topk)
         pos, ring, pt = st["pos"], st["ring"], st["page_table"]
-        slot_log = torch.remainder(pos, ring)
-        blk = torch.div(slot_log, p_sz, rounding_mode="floor")
-        off = torch.remainder(slot_log, p_sz)
-        page = torch.gather(pt, 1, blk[:, None].long())[:, 0]
-        page = torch.where(active, page, st["trash"])
-        # this step's positions first: the decode read validates against
-        # them (masked rows write POS_SENTINEL into TRASH)
-        st["pos_pool"][page.long(), off.long()] = torch.where(
-            active, pos, st["pos_sentinel"])
+        page = off = None
+        if self.kv.attn_subs:
+            slot_log = torch.remainder(pos, ring)
+            blk = torch.div(slot_log, p_sz, rounding_mode="floor")
+            off = torch.remainder(slot_log, p_sz)
+            page = torch.gather(pt, 1, blk[:, None].long())[:, 0]
+            page = torch.where(active, page, st["trash"])
+            # this step's positions first: the decode read validates
+            # against them (masked rows write POS_SENTINEL into TRASH)
+            st["pos_pool"][page.long(), off.long()] = torch.where(
+                active, pos, st["pos_sentinel"])
 
         x = apply_embedding(params["embed"], tok[:, None], cfg)
         for s in range(self.n_stages):
             sp = stage_view(params["stages"], s)
             sc = stage_view(st["caches"], s)
-            for i, (_, mlp) in enumerate(self.sched):
+            for i, (mixer, mlp) in enumerate(self.sched):
                 sub = sp[f"sub{i}"]
-                hout, _ = paged_attention_decode(
-                    sub["attn"], apply_rmsnorm(sub["norm1"], x),
-                    sc[f"sub{i}"], pt, page, off, pos, cfg, st["pos_pool"])
+                hin = apply_rmsnorm(sub["norm1"], x)
+                if mixer == ATTN:
+                    hout, _ = paged_attention_decode(
+                        sub["attn"], hin, sc[f"sub{i}"], pt, page, off, pos,
+                        cfg, st["pos_pool"])
+                else:
+                    hout, new = apply_ssm_decode(sub["mamba"], hin,
+                                                 sc[f"sub{i}"], cfg)
+                    # masked rows keep their state (attention rows are
+                    # masked by writing TRASH instead)
+                    for k, old in sc[f"sub{i}"].items():
+                        keep = active.reshape((-1,) + (1,) * (old.dim() - 1))
+                        old.copy_(torch.where(keep, new[k], old))
                 x = x + hout
                 if mlp != NONE:
                     x = x + apply_mlp(sub["mlp"],
@@ -457,11 +486,11 @@ class ContinuousBatchingEngine:
         leaves the allocator untouched."""
         req, bucket, ring = pl["req"], pl["bucket"], pl["ring"]
         kv = self.kv
-        nb = kv.blocks_for(ring)
+        nb = kv.blocks_for(ring)             # 0 without attention sublayers
         shared: List[int] = []
         will_write: Any = ()
         target = int(req.max_new_tokens)
-        if self.prefix_sharing:
+        if nb and self.prefix_sharing:
             shared = kv.lookup_chain(pl["keys"])[:nb]
             # blocks this request's decode ring-writes will touch
             will_write = {((bucket + t) % ring) // self.page_size
@@ -475,9 +504,12 @@ class ContinuousBatchingEngine:
                 return False
             self._logits_cache.move_to_end(pl["keys"][-1])
         slot = self._free_slots[-1]
-        pages = kv.alloc_shared(slot, shared, nb - len(shared), will_write)
-        if pages is None:
-            return False                 # pool pressure: retry later
+        pages = np.zeros((0,), np.int32)
+        if nb:
+            pages = kv.alloc_shared(slot, shared, nb - len(shared),
+                                    will_write)
+            if pages is None:
+                return False             # pool pressure: retry later
         self._free_slots.pop()
         temp = getattr(req, "temperature", None)
         if temp is None:
@@ -491,7 +523,11 @@ class ContinuousBatchingEngine:
             self.prefill_skips += 1
             self.tel.count("admit.prefill_skips")
         else:
-            self._admit_kv(pages_dev, pl["caches"], ring)
+            if nb:
+                self._admit_kv(pages_dev, pl["caches"], ring)
+            for name in self.ssm_subs:       # the prefilled state, one row
+                for k, rows in self.state["caches"][name].items():
+                    rows[:, slot].copy_(pl["caches"][name][k][:, 0])
             if self.prefix_sharing and pl["keys"]:
                 self._logits_cache_put(pl["keys"][-1], pl["logits"][0])
         if self.prefix_sharing and pl["keys"]:

@@ -1,6 +1,7 @@
 """Paged KV-cache for continuous batching (vLLM-style).
 
-The JAX package's ``repro/serving/kvcache.py`` for the attention state kind.
+The JAX package's ``repro/serving/kvcache.py`` for the attention and SSM
+state kinds.
 The pool is broken into fixed-size *pages* so a persistent slot table (see
 :mod:`repro_torch.serving.continuous`) can admit and retire requests
 independently:
@@ -28,9 +29,15 @@ independently:
 Masked (inactive) rows redirect their writes to the reserved ``TRASH`` page,
 which no active row's page table ever references.
 
+State kinds: ``attn`` (the page space above) and ``ssm``.  SSM slot state is
+not paged: it lives dense in the engine's slot table, one row per slot.  An
+arch without attention sublayers (mamba2) therefore has no page space at
+all -- ``blocks_for`` gives 0, nothing is allocated, shared or registered,
+and the conservation audit holds trivially.
+
 Left for later slices of the port: the swap ledgers and host tier of
 preemption (slice 3), the cross-attention page space of encoder-decoder
-archs and the SSM state kind (slice 4).
+archs (slice 4).
 
 Exactness contract (as the reference's): the paged read/write replicates the
 dense ring cache of :func:`repro_torch.models.layers.apply_attention_decode`
@@ -60,11 +67,17 @@ def attn_subs(cfg: ArchConfig) -> List[str]:
     return [f"sub{i}" for i, (mixer, _) in enumerate(sched) if mixer == ATTN]
 
 
+def ssm_subs(cfg: ArchConfig) -> List[str]:
+    """Names of the SSM sublayers in one stage (``sub{i}``)."""
+    sched = cfg.block_schedule()[:cfg.stage_period]
+    return [f"sub{i}" for i, (mixer, _) in enumerate(sched) if mixer != ATTN]
+
+
 def state_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
-    """Names of the state kinds an arch's slot rows carry.  The port so far
-    has the paged attention kind only (the cross-attention and SSM kinds
-    come with slice 4)."""
-    return ("attn",) if attn_subs(cfg) else ()
+    """Names of the state kinds an arch's slot rows carry, in the
+    reference's order (the cross-attention kind comes with slice 4)."""
+    return (("attn",) if attn_subs(cfg) else ()) + \
+        (("ssm",) if ssm_subs(cfg) else ())
 
 
 class PagedKVCache:
@@ -89,9 +102,11 @@ class PagedKVCache:
         self.max_blocks = max(max_blocks, 1)
         self.attn_subs = attn_subs(cfg)
         self.state_kinds = state_kinds(cfg)
-        if num_pages is None:
+        if not self.attn_subs:
+            num_pages = self.RESERVED      # no page space: nothing is paged
+        elif num_pages is None:
             num_pages = self.RESERVED + capacity * self.max_blocks
-        if num_pages < self.RESERVED + self.max_blocks:
+        if self.attn_subs and num_pages < self.RESERVED + self.max_blocks:
             raise ValueError("num_pages cannot hold even one full sequence")
         self.num_pages = num_pages
         # LIFO free list: freshly freed pages are reallocated first
@@ -123,6 +138,10 @@ class PagedKVCache:
     # host-side allocator
     # ------------------------------------------------------------------
     def blocks_for(self, ring_len: int) -> int:
+        """Pages a ring of ``ring_len`` positions takes (0 without
+        attention sublayers: nothing is paged)."""
+        if not self.attn_subs:
+            return 0
         return -(-ring_len // self.page_size)        # ceil div
 
     def free_pages(self) -> int:

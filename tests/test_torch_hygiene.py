@@ -49,7 +49,9 @@ IMPORT_ALL = textwrap.dedent("""
             "repro_torch.models.convert", "repro_torch.serving.kvcache",
             "repro_torch.serving.engine", "repro_torch.serving.continuous",
             "repro_torch.serving.multitenant",
-            "repro_torch.distributed.fault", "repro_torch.launch.serve"}
+            "repro_torch.distributed.fault", "repro_torch.launch.serve",
+            "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
+            "repro_torch.configs.mamba2_2_7b"}
     assert want <= set(names), want - set(names)
     print("IMPORTED", len(names))
 """)
@@ -74,6 +76,10 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     for d, _, fs in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) > 15
+    names = {os.path.relpath(f, ROOT) for f in files}
+    assert {"src/repro_torch/kernels/ssd_scan.py",
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/configs/mamba2_2_7b.py"} <= names
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
@@ -165,6 +171,20 @@ def test_kernel_wrapper_never_falls_back_for_non_cpu_tensors():
                                  meta((2, 3, 4, 2, 8), torch.float32))
     assert not any(pa.plain_counts.values())
     assert not any(pa.launch_counts.values())
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan
+    f32 = torch.float32
+    x, B = meta((1, 32, 2, 8), f32), meta((1, 32, 2, 16), f32)
+    dt = meta((1, 32, 2), f32)
+    ssd_scan.reset_counts()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ssd_scan.ssd_chunked(x, dt, dt, B, B, chunk=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.ssd(x[:, :30], dt[:, :30], dt[:, :30], B[:, :30], B[:, :30],
+                chunk=16, initial_state=meta((1, 2, 8, 16), f32))
+    assert not any(ssd_scan.plain_counts.values())
+    assert not any(ssd_scan.launch_counts.values())
 
 
 def test_chip_smoke_fails_without_a_card():
