@@ -14,7 +14,15 @@ Drives the port's three paths through the entry points a user calls:
 * multi-tenant continuous serving of the pure-SSM mamba2-2.7b at its
   published width and depth (64 Mamba-2 layers, d_model 2560, 80 SSD heads
   of 64, state 128, random weights from a seed) through the same entry
-  point, every prefill through the SSD scan kernel.
+  point, every prefill through the SSD scan kernel;
+* multi-tenant continuous serving of the MoE olmoe-1b-7b at its published
+  width and depth (16 layers, d_model 2048, 16 heads x 128 with qk-norm, 64
+  experts top-8, random weights from a seed) through the same entry point,
+  every prefill's attention through the FlashAttention kernel and every
+  decode step's through the paged decode kernel at group size 1.
+
+Every attention prefill of every path (internlm2's, h2o-danube's and
+olmoe's) runs the FlashAttention kernel.
 
 It builds every CUDA kernel from the sources in this checkout (one ``nvcc``
 per source, all started together), holds each against its plain PyTorch
@@ -25,11 +33,14 @@ code; without a CUDA device nothing runs.  The last line of a good run is
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
 Phases: device, build, kernels (aggregate sweep), paged kernels (the
-reference's cases), ssd kernel (the reference's sweep and the edges), tables,
-kernels (full width), main path (gather, full width), main path (onehot,
-catalog cut), cli, serving (reduced internlm2, h2o-danube and mamba2,
-token-exact with ``generate``), serving (full width, internlm2), paged
-kernels (full width), serving (full width, mamba2), ssd kernel (full width).
+reference's cases), ssd kernel (the reference's sweep and the edges), flash
+kernel (the reference's sweep and the edges), tables, kernels (full width),
+main path (gather, full width), main path (onehot, catalog cut), cli,
+serving (reduced internlm2, h2o-danube and mamba2, token-exact with
+``generate``, and reduced olmoe), serving (full width, internlm2), paged
+kernels (full width), serving (full width, mamba2), ssd kernel (full
+width), serving (full width, olmoe), paged decode (olmoe's shape), flash
+kernel (full width).
 """
 from __future__ import annotations
 
@@ -55,7 +66,9 @@ from repro_torch.core.pipeline import timeline_overlaps
 from repro_torch.core.tenancy import TenancyConfig
 from repro_torch.kernels import aggregate_loss as agg
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import risk as risk_cli
@@ -71,7 +84,7 @@ from repro_torch.serving.kvcache import POS_SENTINEL, PagedKVCache
 from repro_torch.serving.multitenant import Request
 
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
-# tensor cores (all four kernels do their arithmetic in plain float32)
+# tensor cores (every kernel here does its arithmetic in plain float32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
@@ -230,21 +243,33 @@ def make_case(rng, T, K, M, cat, device):
 G, O = "aggregate_loss_gather", "aggregate_loss_onehot"
 K3, K4 = "paged_attention_decode", "paged_prefill_scatter"
 K6 = "ssd_chunked"
+K5 = "flash_attention"
 # SSD scan vs its plain version: tests/test_kernels_ssd.py's tolerances --
 # float32 1e-4 (the chunk's cumulative decay is summed in another order and
 # exp(a_cum[l] - a_cum[s]) amplifies the difference); bfloat16 inputs are
 # compared in the working type, 5e-2 on y and 2e-2 on the state
 SSD_RTOL = SSD_ATOL = 1e-4
 SSD_BF16_Y, SSD_BF16_STATE = 5e-2, 2e-2
+# FlashAttention vs its plain version: tests/test_kernels_flash.py's
+# float32 tolerance, 2e-4 (online softmax over other blocks, sums in
+# another order).  Both sides compute bfloat16 inputs in float32, so a
+# bfloat16 output is the same float32 result rounded: held to a few bf16
+# ulps (rtol 1e-2 > 2^-8), against the plain version's bfloat16 output or
+# its float32 output on the same rounded inputs.  Against
+# scaled_dot_product_attention, whose P.V is in bfloat16, the reference's
+# bfloat16 tolerance, 5e-2
+FLASH_RTOL = FLASH_ATOL = 2e-4
+FLASH_BF16_RTOL, FLASH_BF16_ATOL = 1e-2, 1e-3
+FLASH_SDPA = 5e-2
 TOL = {G: (RTOL, ATOL), O: (RTOL, ATOL), K3: (PAGED_RTOL, PAGED_ATOL),
-       K6: (SSD_RTOL, SSD_ATOL)}
+       K6: (SSD_RTOL, SSD_ATOL), K5: (FLASH_RTOL, FLASH_ATOL)}
 
 
 class Errors:
     """Largest disagreement seen per kernel, over every comparison."""
 
     def __init__(self):
-        self.abs = dict.fromkeys((G, O, K3, K4, K6), 0.0)
+        self.abs = dict.fromkeys((G, O, K3, K4, K6, K5), 0.0)
         self.rel = dict(self.abs)
         self.cases = dict.fromkeys(self.abs, 0)
 
@@ -1029,6 +1054,170 @@ def phase_ssd_full(errs: Errors, dev) -> dict:
                  "single_admission": out[1]}}
 
 
+# ---------------------------------------------------------------------------
+# FlashAttention: every attention prefill's kernel
+# ---------------------------------------------------------------------------
+# (B, Sq, Skv, Hq, Hkv, D, causal, window): tests/test_kernels_flash.py's
+# SWEEP and test_cross_lengths, then the edges: a ragged length, a length
+# whose reference blocks would be 4 rows (1500), h2o-danube's head size of
+# 80, windows whose rows' early key tiles are masked whole, causal Sq != Skv
+# both ways (top-left), rows that admit no key at all (they average every
+# key), a non-causal window, and the serving archs' head geometries
+FLASH_SWEEP = [
+    (2, 64, 64, 4, 2, 16, True, None), (1, 128, 128, 8, 2, 32, True, None),
+    (2, 64, 64, 4, 4, 16, False, None), (1, 128, 128, 4, 1, 16, True, 32),
+    (1, 32, 32, 2, 2, 64, False, 8), (1, 32, 128, 4, 2, 16, False, None),
+    (1, 100, 100, 4, 2, 16, True, None), (1, 1500, 1500, 2, 2, 64, False, None),
+    (1, 200, 200, 8, 2, 80, True, 64), (2, 300, 300, 4, 1, 32, True, 100),
+    (1, 48, 32, 4, 2, 16, True, None), (1, 32, 96, 4, 2, 16, True, None),
+    (1, 140, 20, 2, 1, 16, True, 8), (1, 24, 200, 4, 2, 16, False, 16),
+    (2, 130, 130, 16, 8, 128, True, None), (1, 192, 192, 16, 16, 128, True, None),
+    (2, 40, 40, 4, 2, 8, True, None),
+]
+# the full-width shapes of the serving paths: olmoe's prefill at widths 8
+# and 1 (1024-token prompts, MHA), internlm2's at width 8 (GQA 2:1)
+FLASH_FULL = [("olmoe-1b-7b width 8", 8, 1024, 16, 16, 128),
+              ("olmoe-1b-7b width 1", 1, 1024, 16, 16, 128),
+              ("internlm2-1.8b width 8", 8, 128, 16, 8, 128)]
+
+
+def flash_case(rng, B, Sq, Skv, Hq, Hkv, D, dev, dtype=torch.float32):
+    on = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype)
+    return on(B, Sq, Hq, D), on(B, Skv, Hkv, D), on(B, Skv, Hkv, D)
+
+
+def flash_pair(q, k, v, causal, window):
+    return (fa.flash_attention(q, k, v, causal=causal, window=window),
+            fa.flash_attention_plain(q, k, v, causal=causal, window=window))
+
+
+def flash_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, in_bytes):
+    """q, k and v read once and o written once at the memory rate, or the
+    products the function needs -- two of 2D flops per admissible (query,
+    key) pair and head, the pairs this mask admits -- at the peak rate for
+    the inputs' type (bf16 tensor cores, or float32), whichever is larger;
+    beside it the same operations at the float32 rate the kernel computes
+    in."""
+    qp = np.arange(Sq)[:, None]
+    kp = np.arange(Skv)[None, :]
+    ok = np.ones((Sq, Skv), bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    flops = 4 * D * B * Hq * int(ok.sum())
+    nbytes = (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D) * in_bytes
+    rate = PEAK_BF16_FLOPS if in_bytes == 2 else PEAK_F32_FLOPS
+    by, op = nbytes / PEAK_BYTES_PER_S * 1e3, flops / rate * 1e3
+    return (max(by, op), "bytes" if by >= op else "operations",
+            flops / PEAK_F32_FLOPS * 1e3)
+
+
+def phase_flash_small(errs: Errors, dev) -> None:
+    """The FlashAttention kernel against its plain version over the
+    reference's sweep and the edges, float32 and bfloat16, a strided q,
+    and the head sizes it refuses."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(8)
+    for B, Sq, Skv, Hq, Hkv, D, causal, window in FLASH_SWEEP:
+        what = (f"B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} D{D} causal {causal} "
+                f"window {window}")
+        q, k, v = flash_case(rng, B, Sq, Skv, Hq, Hkv, D, dev)
+        errs.hold(K5, *flash_pair(q, k, v, causal, window), what)
+        # bfloat16 inputs against the float32 plain version of the same
+        # (rounded) numbers
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        got = fa.flash_attention(qb, kb, vb, causal=causal, window=window)
+        check(got.dtype == torch.bfloat16, f"{what}: bf16 output dtype")
+        want = fa.flash_attention_plain(qb.float(), kb.float(), vb.float(),
+                                        causal=causal, window=window)
+        errs.hold(K5, got.float(), want, what + " bf16",
+                  tol=(FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+    # rows that admit no key: the dense oracle's uniform average
+    q, k, v = flash_case(rng, 1, 140, 20, 2, 1, 16, dev)
+    errs.hold(K5, fa.flash_attention(q, k, v, causal=True, window=8),
+              kref.flash_attention_ref(q, k, v, True, 8),
+              "rows with no admissible key vs the dense oracle")
+    # q a strided view (a wider projection's columns), k and v views too
+    wide = torch.randn((2, 96, 4, 48), device=dev)
+    q, k, v = wide[..., :16], wide[:, :, :2, 16:32], wide[:, :, 2:, 32:48]
+    check(not q.is_contiguous(), "q is not a strided view")
+    errs.hold(K5, *flash_pair(q, k, v, True, None), "strided q, k, v")
+    for D in (12, 136):
+        q, k, v = flash_case(rng, 1, 16, 16, 2, 2, D, dev)
+        try:
+            fa.flash_attention(q, k, v)
+        except ValueError:
+            pass
+        else:
+            raise PhaseFailed(f"the flash kernel took a head size of {D}")
+    say("flash", f"sweep and edge cases hold: {errs.cases[K5]} comparisons "
+                 f"(float32 rtol=atol={FLASH_RTOL}; bfloat16 inputs "
+                 f"rtol={FLASH_BF16_RTOL} atol={FLASH_BF16_ATOL} against "
+                 "float32); D 12 and 136 refused")
+
+
+def phase_flash_full(errs: Errors, dev) -> dict:
+    """The FlashAttention kernel at the serving paths' full-width prefill
+    shapes (causal): held against its plain version on the same inputs in
+    float32 and in bf16, then timed (bf16) beside its bound, its plain
+    version and one PyTorch call computing the same function
+    (``scaled_dot_product_attention``, used nowhere in the port)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, B, S, Hq, Hkv, D in FLASH_FULL:
+        g = torch.Generator(device=dev).manual_seed(9)
+        q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(
+            torch.bfloat16) for h in (Hq, Hkv, Hkv))
+        errs.hold(K5, *flash_pair(q.float(), k.float(), v.float(), True,
+                                  None), f"full width {name} float32")
+        got, want = flash_pair(q, k, v, True, None)
+        errs.hold(K5, got, want, f"full width {name} bf16",
+                  tol=(FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = sdpa(qt, kt, vt, is_causal=True,
+                   enable_gqa=Hq != Hkv).transpose(1, 2).float()
+        lib_err = float((got.float() - lib).abs().max())
+        check(bool(torch.allclose(got.float(), lib, rtol=FLASH_SDPA,
+                                  atol=FLASH_SDPA)),
+              f"{K5} full width {name} vs scaled_dot_product_attention: "
+              f"max abs err {lib_err:.3g} outside rtol=atol={FLASH_SDPA}")
+        turns = []
+        for _ in range(2):             # kernel, library, library, kernel
+            turns.append(cuda_ms(lambda: fa.flash_attention(q, k, v), 10,
+                                 flush))
+            turns.append(cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                              enable_gqa=Hq != Hkv),
+                                 10, flush))
+        ms = statistics.median(turns[0::2])
+        lib_ms = statistics.median(turns[1::2])
+        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, flush)
+        bound, by, f32_ms = flash_bound_ms(B, S, S, Hq, Hkv, D, True, None, 2)
+        shape = (f"q ({B}, {S}, {Hq}, {D}), k/v ({B}, {S}, {Hkv}, {D}) bf16, "
+                 "causal")
+        say("flash", f"{name}: held against the plain version in float32 "
+                     f"and bf16 (running max abs err {errs.abs[K5]:.3g}) and "
+                     f"against scaled_dot_product_attention (max abs err "
+                     f"{lib_err:.3g})")
+        say("flash", f"{name}: {shape}: {ms:.4f} ms, plain {plain:.4f} ms, "
+                     f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+                     f"{bound:.4f} ms by {by} (bf16 tensor-core rate; at the "
+                     f"float32 rate the kernel computes in {f32_ms:.4f} ms, "
+                     f"{f32_ms / ms:.1%} of it) (turns "
+                     f"{[round(t, 4) for t in turns]})")
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=by, bound_f32_ms=f32_ms,
+                         shape=shape)
+        del q, k, v, qt, kt, vt, got, want, lib
+    main = out[FLASH_FULL[0][0]]
+    return {K5: {**main, "other_shapes": {n: r for n, r in out.items()
+                                          if r is not main}}}
+
 
 def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
     """``generate`` on the request's page-aligned left-padded prompt: the
@@ -1042,16 +1231,20 @@ def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
 
 def phase_serve_reduced(dev) -> dict:
     """The continuous engine of reduced internlm2 (and of reduced
-    h2o-danube, whose sliding window the decode kernel masks, and of reduced
-    mamba2, whose prefills go through the SSD scan kernel) in float32 on
-    the card: shared prefixes, copy-on-write forks, a prefill-skipping
-    repeat, eviction and reuse under churn, ragged prompts and budgets --
-    every request's greedy tokens equal to ``generate``'s."""
+    h2o-danube, whose sliding window the decode and prefill kernels mask,
+    and of reduced mamba2, whose prefills go through the SSD scan kernel)
+    in float32 on the card: shared prefixes, copy-on-write forks, a
+    prefill-skipping repeat, eviction and reuse under churn, ragged prompts
+    and budgets -- every request's greedy tokens equal to ``generate``'s,
+    every attention prefill through the FlashAttention kernel.  Reduced
+    olmoe runs the same schedule with its own gates (completion, finite
+    rows, page conservation): its capacity routing couples rows, so its
+    agreement with ``generate`` is a number."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     for arch, page in (("internlm2-1.8b", 8), ("h2o-danube-1.8b", 4),
-                       ("mamba2-2.7b", 8)):
+                       ("mamba2-2.7b", 8), ("olmoe-1b-7b", 8)):
         cfg = get_config(arch).reduced()
         eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
         rng = np.random.default_rng(37)
@@ -1072,42 +1265,51 @@ def phase_serve_reduced(dev) -> dict:
         ceng = ContinuousBatchingEngine(eng, capacity=3, page_size=page,
                                         inner_steps=4, max_prompt_len=32,
                                         device=dev)
+        moe = ContinuousBatchingEngine.supported_modes(cfg)[
+            "continuous"]["exactness"] == "statistical"
         pa.reset_counts()                # just before this run
         ssd.reset_counts()
+        fa.reset_counts()
         done = []
         for batch in batches:
             done += ceng.run_all(batch)
-        launches = {**pa.launch_counts, **ssd.launch_counts}
-        plains = {**pa.plain_counts, **ssd.plain_counts}
+        launches = {**pa.launch_counts, **ssd.launch_counts,
+                    **fa.launch_counts}
+        plains = {**pa.plain_counts, **ssd.plain_counts, **fa.plain_counts}
         n = sum(len(b) for b in batches)
         check(len(done) == n, f"{arch} reduced: {len(done)} of {n} done")
-        ran = (K3, K4) if ceng.kv.attn_subs else (K6,)
+        ran = (K3, K4, K5) if ceng.kv.attn_subs else (K6,)
         check(all((launches[k] > 0) == (k in ran) for k in launches)
               and not any(plains.values()),
               f"{arch} reduced: launches {launches}, plain calls {plains}")
-        if not ceng.kv.attn_subs:
-            check(launches[K6] == ceng.prefill_calls * cfg.num_layers,
-                  f"{arch} reduced: {launches[K6]} scan launches for "
-                  f"{ceng.prefill_calls} prefills")
+        per_prefill = K5 if ceng.kv.attn_subs else K6
+        check(launches[per_prefill] == ceng.prefill_calls * cfg.num_layers,
+              f"{arch} reduced: {launches[per_prefill]} {per_prefill} "
+              f"launches for {ceng.prefill_calls} prefills")
         ceng.kv.assert_conserved()
         check(ceng.nonfinite_rows == 0, f"{arch} reduced: non-finite logits")
         if cfg.sliding_window is None and ceng.kv.attn_subs:
             check(ceng.kv.pages_shared > 0 and ceng.prefill_skips >= 1
                   and ceng.kv.cow_forks + ceng.kv.pristine_forks > 0,
                   f"{arch} reduced: the sharing lifecycle did not run")
+        same = []
         for req, toks in done:
             want = generate_oracle(eng, ceng, req)
-            check(np.array_equal(toks, want),
+            check(moe or np.array_equal(toks, want),
                   f"{arch} reduced: continuous {toks.tolist()} != generate "
                   f"{want.tolist()} (prompt of {req.prompt.size})")
+            same.append(float(np.mean(toks == want)))
         out[arch] = dict(requests=n, launches=launches,
                          pages_shared=ceng.kv.pages_shared,
                          cow_forks=ceng.kv.cow_forks,
                          pristine_forks=ceng.kv.pristine_forks,
                          prefill_skips=ceng.prefill_skips,
-                         pages_reused=ceng.kv.pages_reused)
+                         pages_reused=ceng.kv.pages_reused,
+                         token_agreement=float(np.mean(same)))
         say("serve", f"{arch} reduced, float32 on the card: {n} requests "
-                     f"token-exact with generate; {out[arch]}")
+                     + ("(MoE: agreement with generate is a number)"
+                        if moe else "token-exact with generate")
+                     + f"; {out[arch]}")
         del eng, ceng
     torch.cuda.empty_cache()
     return out
@@ -1122,10 +1324,14 @@ class ServeRecorder:
         self.sched = None
         self.finished = []
         self.snap = None
+        self.init_peak_gib = None
 
     def __call__(self, sched) -> None:
         eng = sched.continuous_engine
         if self.sched is None:
+            # first call: the weights are drawn, cast and the float32 draw
+            # dropped; nothing has run yet
+            self.init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
             self.sched = sched
             collect = eng.collect
 
@@ -1155,6 +1361,7 @@ def phase_serve_full(errs: Errors, dev) -> dict:
     walls = {}
     agg.reset_counts()
     ssd.reset_counts()
+    fa.reset_counts()
     pa.reset_counts()                    # just before the serving path
     for spl in SHARED_PREFIXES:
         rec = ServeRecorder()
@@ -1166,7 +1373,8 @@ def phase_serve_full(errs: Errors, dev) -> dict:
         check(rc == 0, f"serve returned {rc}")
         rec.peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         recs[spl] = rec
-    launches, plains = dict(pa.launch_counts), dict(pa.plain_counts)
+    launches = {**pa.launch_counts, **fa.launch_counts}
+    plains = {**pa.plain_counts, **fa.plain_counts}
     other = sum(agg.launch_counts.values()) + sum(
         ssd.launch_counts.values()) + sum(ssd.plain_counts.values())
     # just after
@@ -1174,7 +1382,7 @@ def phase_serve_full(errs: Errors, dev) -> dict:
     check(not any(plains.values()) and other == 0,
           f"the serving path took another route: plain {plains}, "
           f"aggregate or SSD calls {other}")
-    want_k3 = want_k4 = 0
+    want_k3 = want_k4 = want_k5 = 0
     runs = {}
     rng = np.random.default_rng(4)
     for spl, rec in recs.items():
@@ -1184,6 +1392,7 @@ def phase_serve_full(errs: Errors, dev) -> dict:
         n_sub = len(eng.kv.attn_subs)
         want_k3 += eng.rounds * eng.inner_steps * eng.n_stages * n_sub
         want_k4 += 2 * n_sub * (len(rec.finished) - eng.prefill_skips)
+        want_k5 += eng.n_stages * n_sub * eng.prefill_calls
         check(len(rec.finished) == 12 and all(
             t.shape == (32,) for _, t in rec.finished),
             f"{tag}: {len(rec.finished)} requests finished, token counts "
@@ -1238,11 +1447,12 @@ def phase_serve_full(errs: Errors, dev) -> dict:
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in runs[spl].items() if k != "prefill_ms")
             + f", prefill ms {[round(x, 3) for x in pre]}")
-    check(launches[K3] == want_k3 and launches[K4] == want_k4,
+    check(launches[K3] == want_k3 and launches[K4] == want_k4
+          and launches[K5] == want_k5,
           f"launches {launches}, expected decode {want_k3}, scatter "
-          f"{want_k4}")
+          f"{want_k4}, flash {want_k5}")
     say("serve", f"serving path launches: decode {launches[K3]}, scatter "
-                 f"{launches[K4]}; plain calls 0")
+                 f"{launches[K4]}, flash {launches[K5]}; plain calls 0")
     max_blocks = max(r.sched.continuous_engine.kv.max_blocks
                      for r in recs.values())
     profile = profile_round(recs[0].sched.engine, dev, prompt_len=128)
@@ -1274,12 +1484,15 @@ def phase_serve_mamba2(dev) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     agg.reset_counts()
     pa.reset_counts()
+    fa.reset_counts()
     ssd.reset_counts()                   # just before the serving path
     t0 = time.perf_counter()
     rc = serve_cli.main(MAMBA_ARGV, observe=rec)
     wall = time.perf_counter() - t0
-    launches = {**ssd.launch_counts, **pa.launch_counts, **agg.launch_counts}
-    plains = {**ssd.plain_counts, **pa.plain_counts, **agg.plain_counts}
+    launches = {**ssd.launch_counts, **pa.launch_counts, **agg.launch_counts,
+                **fa.launch_counts}
+    plains = {**ssd.plain_counts, **pa.plain_counts, **agg.plain_counts,
+              **fa.plain_counts}
     # just after
     check(rc == 0, f"serve returned {rc}")
     sched, eng = rec.sched, rec.sched.continuous_engine
@@ -1321,6 +1534,7 @@ def phase_serve_mamba2(dev) -> dict:
         round_ms_median=float(np.median(rnd)), decode_tokens=eng.row_steps,
         decode_tokens_per_s=eng.row_steps / (sum(rnd) * 1e-3),
         occupancy=eng.occupancy(), peak_gib=peak,
+        init_peak_gib=rec.init_peak_gib,
         token_agreement=float(same.mean()),
         requests_identical=int(same.all(axis=1).sum()),
         mean_first_divergence=float(np.mean(first_diff)),
@@ -1335,6 +1549,173 @@ def phase_serve_mamba2(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": launches[K6], "run": run}
+
+
+# the MoE serving path: launch.serve at the published width of olmoe; every
+# admission's prefill attention (1024-token prompts, MHA) through the
+# FlashAttention kernel, every decode step's through the paged decode kernel
+# at group size 1
+OLMOE_ARGV = ["--arch", "olmoe-1b-7b", "--no-reduced", "--tenants", "3",
+              "--requests", "12", "--prompt-len", "1024", "--new-tokens", "32",
+              "--capacity", "8", "--page-size", "16", "--inner-steps", "4",
+              "--shared-prefix-len", "0"]
+
+
+def phase_serve_olmoe(dev) -> dict:
+    """The MoE serving path: ``launch.serve.main`` at the published width
+    and depth of olmoe-1b-7b (16 layers, 64 experts top-8), 12 requests of
+    1024 random tokens from 3 tenants, capacity 8."""
+    cfg = get_config("olmoe-1b-7b")
+    n_params = param_count(build_model(cfg).init(0, "meta"))
+    rec = ServeRecorder()
+    gc.collect()                         # nothing of earlier phases is held
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    agg.reset_counts()
+    ssd.reset_counts()
+    pa.reset_counts()
+    fa.reset_counts()                    # just before the serving path
+    t0 = time.perf_counter()
+    rc = serve_cli.main(OLMOE_ARGV, observe=rec)
+    wall = time.perf_counter() - t0
+    launches = {**fa.launch_counts, **pa.launch_counts, **ssd.launch_counts,
+                **agg.launch_counts}
+    plains = {**fa.plain_counts, **pa.plain_counts, **ssd.plain_counts,
+              **agg.plain_counts}
+    # just after
+    check(rc == 0, f"serve returned {rc}")
+    sched, eng = rec.sched, rec.sched.continuous_engine
+    check(len(rec.finished) == 12 and all(t.shape == (32,)
+                                          for _, t in rec.finished),
+          f"olmoe: {len(rec.finished)} requests finished, token counts "
+          f"{sorted({t.size for _, t in rec.finished})}")
+    check(all(int(t.min()) >= 0 and int(t.max()) < cfg.vocab_size
+              for _, t in rec.finished), "olmoe: token out of vocab")
+    check(eng.nonfinite_rows == 0, "olmoe: non-finite logits")
+    check(eng.active_count() == 0 and sched.pending() == 0,
+          "olmoe: rows left after the drain")
+    eng.kv.assert_conserved()
+    n_attn = eng.n_stages * len(eng.kv.attn_subs)
+    want = {K5: n_attn * eng.prefill_calls,
+            K3: n_attn * eng.rounds * eng.inner_steps,
+            # one scatter of every stage's K and one of its V per admission
+            K4: 2 * len(eng.kv.attn_subs) * (len(rec.finished)
+                                             - eng.prefill_skips)}
+    check(n_attn == cfg.num_layers and launches[K5] > 0
+          and all(launches[k] == n for k, n in want.items()),
+          f"olmoe: launches {launches}, expected {want} ({eng.prefill_calls}"
+          f" prefill calls, {eng.rounds} rounds of {eng.inner_steps} steps)")
+    check(not any(plains.values())
+          and all(v == 0 for k, v in launches.items() if k not in want),
+          f"olmoe: another route was taken: launches {launches}, plain "
+          f"calls {plains}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # agreement with the blocking engine on the same prompts: capacity
+    # routing couples rows (and the widths differ), so this is a number
+    prompts = np.stack([r.prompt for r, _ in rec.finished])
+    gen = eng.engine.generate(prompts, max_new_tokens=32).tokens
+    got = np.stack([t for _, t in rec.finished])
+    same = got == gen
+    first_diff = [int(np.argmin(row)) if not row.all() else row.size
+                  for row in same]
+    pre, rnd = eng.prefill_ms(), eng.round_ms
+    run = dict(
+        params=n_params, wall_s=wall, prefill_calls=len(pre),
+        prefill_ms=pre, rounds=len(rnd),
+        round_ms_mean=float(np.mean(rnd)),
+        round_ms_median=float(np.median(rnd)), decode_tokens=eng.row_steps,
+        decode_tokens_per_s=eng.row_steps / (sum(rnd) * 1e-3),
+        occupancy=eng.occupancy(), peak_gib=peak,
+        init_peak_gib=rec.init_peak_gib,
+        pages_allocated=eng.kv.pages_allocated,
+        token_agreement=float(same.mean()),
+        requests_identical=int(same.all(axis=1).sum()),
+        mean_first_divergence=float(np.mean(first_diff)),
+        overlap_pairs=sum(timeline_overlaps(sched.timeline)),
+        timeline_rounds=len(sched.timeline),
+        launches={k: launches[k] for k in want})
+    say("serve", "olmoe-1b-7b full width: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in run.items() if k != "prefill_ms")
+        + f", prefill ms {[round(x, 3) for x in pre]}")
+    run["profile"] = profile_round(sched.engine, dev, prompt_len=1024)
+    run["profile_prefill"] = profile_prefill(sched.engine, dev, 8, 1024)
+    run["max_blocks"] = eng.kv.max_blocks
+    del rec, sched, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": run["launches"], "run": run}
+
+
+def phase_paged_olmoe(errs: Errors, dev, NB: int) -> dict:
+    """The paged decode kernel at olmoe's decode shape -- group size 1
+    (16 query heads over 16 kv heads), every row's ring of 1024 tokens 64
+    pages long -- held against its plain version and timed beside its
+    bound: with the path's page table (``NB`` entries a row, the rest
+    SENTINEL padding, which the kernel walks as the reference's gather does)
+    and with a table of the 64 named pages alone."""
+    rng = np.random.default_rng(10)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    C, H, D, P = 8, 16, 128, 16
+    named = int(OLMOE_ARGV[OLMOE_ARGV.index("--prompt-len") + 1]) // P
+    st = rand_paged_state(rng, C=C, NB=named, P=P, H=H, Hkv=H, D=D, dev=dev,
+                          q_dtype=torch.bfloat16, full=True)
+    pad = torch.full((C, NB - named), PagedKVCache.SENTINEL,
+                     dtype=torch.int32, device=dev)
+    path = st[:4] + (torch.cat([st[4], pad], dim=1),) + st[5:]
+    out = {}
+    for tag, state, nb in (("path", path, NB), ("named", st, named)):
+        errs.hold(K3, *decode_pair(state),
+                  f"olmoe shape C{C} table {nb} ({named} named) group 1")
+        ms = cuda_ms(lambda: pa.paged_attention_decode(*state), 50, flush)
+        plain = cuda_ms(lambda: pa.paged_attention_decode_plain(*state), 10,
+                        flush)
+        # the named pages read once (the SENTINEL page adds one page)
+        bound, by = decode_bound_ms(C, named, P, H, H, D, 2)
+        shape = (f"q ({C}, {H}, {D}) bf16, pools ({st[1].shape[0]}, {P}, {H},"
+                 f" {D}) bf16, table ({C}, {nb}), {named} pages named a row")
+        say("paged", f"decode at olmoe's shape {shape}: {ms:.4f} ms, plain "
+                     f"{plain:.4f} ms, bound {bound:.4f} ms by {by}")
+        out[tag] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                        shape=shape)
+    return {**out["path"], "named_pages_only": out["named"]}
+
+
+def profile_prefill(eng: ServingEngine, dev, width: int, prompt_len: int
+                    ) -> dict:
+    """Where one full-width prefill call's time goes: ``width`` random
+    prompts of ``prompt_len`` through ``ServingEngine.prefill`` under
+    ``torch.profiler``, device time by kernel against the call's CUDA-event
+    window."""
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(
+        1, eng.cfg.vocab_size, (width, prompt_len)).astype(np.int32)).to(dev)
+    eng.prefill({"tokens": tokens})                  # warm
+    torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        eng.prefill({"tokens": tokens})
+        b.record()
+        b.synchronize()
+    window_ms = a.elapsed_time(b)
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels)
+    out = dict(window_ms=window_ms, launches=sum(k[2] for k in kernels),
+               device_busy_ms=busy_ms if kernels else None,
+               top=[(n[:60], round(ms, 4), c) for n, ms, c in kernels[:8]])
+    say("serve", f"{eng.cfg.name} profiled prefill (width {width} x "
+                 f"{prompt_len}): CUDA-event window {window_ms:.2f} ms, "
+                 f"device busy {busy_ms:.2f} ms over {out['launches']} "
+                 f"kernels; by kernel: {out['top']}")
+    return out
 
 
 def profile_round(eng: ServingEngine, dev, prompt_len: int) -> dict:
@@ -1411,6 +1792,7 @@ def main() -> int:
         phase_kernels_small(errs, dev)
         phase_paged_small(errs, dev)
         phase_ssd_small(errs, dev)
+        phase_flash_small(errs, dev)
         cfg = RiskAppConfig()
         tables = phase_tables(cfg)
         trials = tables.num_trials
@@ -1425,6 +1807,10 @@ def main() -> int:
         kern.update(phase_paged_full(errs, dev, serving["max_blocks"]))
         mamba = phase_serve_mamba2(dev)
         kern.update(phase_ssd_full(errs, dev))
+        olmoe = phase_serve_olmoe(dev)
+        kern[K3]["olmoe_group1"] = phase_paged_olmoe(
+            errs, dev, olmoe["run"]["max_blocks"])
+        kern.update(phase_flash_full(errs, dev))
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1440,10 +1826,19 @@ def main() -> int:
                    f"{errs.cases[K4]} cases bit-exact, SSD scan "
                    f"{errs.cases[K6]} cases (max abs err {errs.abs[K6]:.3g}; "
                    f"float32 rtol=atol={SSD_RTOL}, bfloat16 y {SSD_BF16_Y} "
-                   f"and state {SSD_BF16_STATE})")
+                   f"and state {SSD_BF16_STATE}), flash attention "
+                   f"{errs.cases[K5]} cases (max abs err {errs.abs[K5]:.3g}; "
+                   f"float32 rtol=atol={FLASH_RTOL}, bfloat16 "
+                   f"rtol={FLASH_BF16_RTOL} atol={FLASH_BF16_ATOL})")
     agg_src = "src/repro_torch/kernels/csrc/aggregate_loss.cu"
     paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+    flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    # launches on the serving paths, each read just after its own run
+    paths = {"internlm2-1.8b": serving["launches"],
+             "olmoe-1b-7b": olmoe["launches"]}
+    on_paths = {k: sum(p[k] for p in paths.values()) for k in (K3, K4, K5)}
+    by_path = {k: {a: p[k] for a, p in paths.items()} for k in (K3, K4, K5)}
     rows = []
     for name, src, replaces, numbers in (
             (G, agg_src, "src/repro/kernels/aggregate_loss.py:69",
@@ -1452,11 +1847,16 @@ def main() -> int:
             (O, agg_src, "src/repro/kernels/aggregate_loss.py:92",
              {**onehot, "library_ms": None, **kern[O]}),
             (K3, paged_src, "src/repro/kernels/paged_attention.py:60",
-             {"launches": serving["launches"][K3], **kern[K3]}),
+             {"launches": on_paths[K3], "launches_by_path": by_path[K3],
+              **kern[K3]}),
             (K4, paged_src, "src/repro/kernels/paged_attention.py:158",
-             {"launches": serving["launches"][K4], **kern[K4]}),
+             {"launches": on_paths[K4], "launches_by_path": by_path[K4],
+              **kern[K4]}),
             (K6, ssd_src, "src/repro/kernels/ssd_scan.py:29",
-             {"launches": mamba["launches"], **kern[K6]})):
+             {"launches": mamba["launches"], **kern[K6]}),
+            (K5, flash_src, "src/repro/kernels/flash_attention.py:32",
+             {"launches": on_paths[K5], "launches_by_path": by_path[K5],
+              **kern[K5]})):
         keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -1473,6 +1873,7 @@ def main() -> int:
     print(json.dumps({"serving": {str(k): v for k, v in
                                   serving["runs"].items()},
                       "serving_mamba2": mamba["run"],
+                      "serving_olmoe": olmoe["run"],
                       "serving_reduced": reduced}))
     print(card)
     print(json.dumps({"kernels": rows}))

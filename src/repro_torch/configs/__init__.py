@@ -6,10 +6,11 @@ and, cut to size by ``.reduced()``, by the CPU tests.  The classes and
 ``reduced()`` are the JAX package's, field for field, so a config built here
 and one built there describe the same model.
 
-The port so far serves the pure-attention dense decoder archs and the
-pure-SSM mamba2 (``PORTED_ARCHS``); ``get_config`` raises
-``NotImplementedError`` naming the slice that brings any other arch (MoE,
-hybrid, encoder-decoder, vision).
+The port so far serves the pure-attention dense decoder archs, the
+pure-SSM mamba2 and the MoE olmoe (``PORTED_ARCHS``); ``get_config`` raises
+``NotImplementedError`` naming the slice that brings any other arch
+(llama4's MoE with a shared expert at 400 B, hybrid, encoder-decoder,
+vision).
 """
 from __future__ import annotations
 
@@ -219,11 +220,11 @@ ARCH_IDS = (
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 _MODULE_FOR["risk-analysis"] = "risk_app"
 
-# archs whose whole serving path the port runs today (decoder only, dense or
-# no MLP: pure attention, or pure SSM with the SSD scan kernel); the others
-# come with slice 4 of the port (ROADMAP.md)
+# archs whose whole serving path the port runs today (decoder only: pure
+# attention with a dense or routed MLP, or pure SSM with the SSD scan
+# kernel); the others come with slice 4 of the port (ROADMAP.md)
 PORTED_ARCHS = ("internlm2-1.8b", "qwen3-32b", "h2o-danube-1.8b",
-                "mamba2-2.7b", "risk-analysis")
+                "mamba2-2.7b", "olmoe-1b-7b", "risk-analysis")
 
 
 def get_config(arch_id: str) -> ArchConfig:
@@ -231,8 +232,8 @@ def get_config(arch_id: str) -> ArchConfig:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULE_FOR)}")
     if arch_id not in PORTED_ARCHS:
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: MoE, hybrid, "
-            "encoder-decoder and vision archs come with slice 4 of the port "
+            f"arch {arch_id!r} is not ported yet: hybrid, encoder-decoder, "
+            "vision and the 400B MoE archs come with slice 4 of the port "
             "(ROADMAP.md); ported: "
             f"{', '.join(a for a in PORTED_ARCHS if a != 'risk-analysis')}")
     mod = importlib.import_module(

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import aggregate_loss as _agg
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
@@ -116,3 +117,12 @@ def paged_scatter(pool, pages, values):
     """In-place prefill KV scatter into named pages (see
     :func:`repro_torch.kernels.paged_attention.paged_prefill_scatter`)."""
     return _paged.paged_prefill_scatter(pool, pages, values)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None):
+    """Prefill attention forward (see
+    :func:`repro_torch.kernels.flash_attention.flash_attention`): the
+    FlashAttention kernel for CUDA tensors, for CPU tensors its plain
+    version -- the reference layers' ``blockwise_attention``."""
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)

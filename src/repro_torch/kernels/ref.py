@@ -1,15 +1,21 @@
 """Pure-PyTorch oracles for the kernels of this package.
 
 Twins of the JAX package's ``repro/kernels/ref.py`` oracles, same operation
-order.  Here so far: the three Mamba-2 SSD oracles, the two Aggregate Risk
-Analysis oracles and the two paged-attention oracles of the serving path;
-each further oracle lands with its kernel.
+order.  Here: the three Mamba-2 SSD oracles, the two Aggregate Risk
+Analysis oracles, the two paged-attention oracles of the serving path, and
+the FlashAttention forward's (the reference has none of its own: its kernel
+is held against ``naive_attention``; this is the Pallas kernel's function
+written densely), and the reference's blockwise attention, the plain
+version the FlashAttention wrapper takes on the CPU.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
+
+NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -206,3 +212,124 @@ def paged_scatter_ref(pool, pages, values) -> torch.Tensor:
     out = pool.clone()
     out[:, pages.long()] = values.to(pool.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# FlashAttention forward (prefill attention)
+# ---------------------------------------------------------------------------
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """What the Pallas kernel ``flash_attention_pallas`` computes, in one
+    pass over the whole key axis.
+
+    q ``(B, Sq, Hq, D)``, k/v ``(B, Skv, Hkv, D)``; query head ``h`` reads kv
+    head ``h // (Hq // Hkv)``.  Operands widened to float32, scale
+    ``1/sqrt(D)``; query and key positions both start at 0, so ``causal``
+    admits ``k <= q`` even when ``Sq != Skv`` (top-left); ``window`` admits
+    ``k > q - window``.  An inadmissible score becomes -1e30, never -inf (a
+    row with no admissible key averages every key uniformly); the softmax
+    keeps the kernel's ``l == 0`` guard; the output is cast to q's type."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    qr = q.float().reshape(B, Sq, Hkv, rep, D)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", qr, k.float()) * (1.0 / math.sqrt(D))
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    s = torch.where(ok[None, :, None, None, :], s,
+                    torch.full((), NEG_INF, device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.einsum("bqhrk,bkhd->bqhrd", p, v.float()) / l_safe[..., None]
+    return o.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention: the reference's jnp stand-in for the FlashAttention
+# kernel (``repro/models/attention_core.py``), which its layers compute on
+# every prefill; the plain version of the port's kernel
+# ---------------------------------------------------------------------------
+def _pick_block(size: int, target: int) -> int:
+    """Largest divisor of ``size`` that is <= target (prefers powers of two)."""
+    if size <= target:
+        return size
+    b = math.gcd(size, target)
+    if b >= 16 or b == size:
+        return b
+    for cand in range(target, 0, -1):
+        if size % cand == 0:
+            return cand
+    return size
+
+
+def mask_bias(q_pos, k_pos, causal: bool, window: Optional[int],
+              kv_valid: Optional[int] = None) -> torch.Tensor:
+    """(q, k) additive bias: 0 where attendable, -1e30 elsewhere."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > (q_pos[:, None] - window)
+    if kv_valid is not None:
+        ok &= k_pos[None, :] < kv_valid
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def _blockwise_fwd(q, k, v, causal: bool, window: Optional[int],
+                   block_q: int, block_kv: int) -> torch.Tensor:
+    """q: (B, Sq, Hkv, rep, D); returns the float32 output, same shape."""
+    B, Sq, Hkv, rep, D = q.shape
+    Skv = k.shape[1]
+    nq, nk = Sq // block_q, Skv // block_kv
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qblk = q[:, qi * block_q:(qi + 1) * block_q].float()
+        q_pos = qi * block_q + torch.arange(block_q, device=dev)
+        m = torch.full((B, block_q, Hkv, rep), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, block_q, Hkv, rep), dtype=torch.float32,
+                        device=dev)
+        acc = torch.zeros((B, block_q, Hkv, rep, D), dtype=torch.float32,
+                          device=dev)
+        for j in range(nk):
+            kj = k[:, j * block_kv:(j + 1) * block_kv].float()
+            vj = v[:, j * block_kv:(j + 1) * block_kv].float()
+            s = torch.einsum("bqhrd,bkhd->bqhrk", qblk, kj) * scale
+            k_pos = j * block_kv + torch.arange(block_kv, device=dev)
+            s = s + mask_bias(q_pos, k_pos, causal, window)[
+                None, :, None, None, :]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqhrk,bkhd->bqhrd", p, vj)
+            m = m_new
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        outs.append(acc / l_safe[..., None])
+    return torch.cat(outs, dim=1)
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        block_q: int = 512, block_kv: int = 1024):
+    """Flash-style attention.  q: (B,Sq,Hq,D); k/v: (B,Skv,Hkv,D)."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    assert Hq % Hkv == 0, (Hq, Hkv)
+    rep = Hq // Hkv
+    bq = _pick_block(Sq, block_q)
+    bk = _pick_block(k.shape[1], block_kv)
+    qr = q.reshape(B, Sq, Hkv, rep, D)
+    o = _blockwise_fwd(qr, k, v, causal, window, bq, bk)
+    return o.to(q.dtype).reshape(B, Sq, Hq, D)

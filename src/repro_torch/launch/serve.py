@@ -8,6 +8,10 @@
         --no-reduced --tenants 3 --requests 12 --prompt-len 384 \\
         --new-tokens 32 --capacity 8
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+        --no-reduced --tenants 3 --requests 12 --prompt-len 1024 \\
+        --new-tokens 32 --capacity 8
+
 Builds the model (weights drawn from ``--seed``, at full width with
 ``--no-reduced``), spins up the multi-tenant scheduler in continuous mode
 and drains a synthetic request mix, printing per-tenant utilisation, the
@@ -15,7 +19,10 @@ round-to-round overlap pairs, slot occupancy, page-sharing stats and -- on a
 CUDA device -- the prefill and decode-round times by CUDA events.  Runs on
 the CUDA device unless ``--device cpu`` is given (and fails without one).
 A pure-SSM arch (mamba2) pages nothing: its rows carry their SSM state in
-the slot table, and ``--shared-prefix-len`` only lengthens the prompts.
+the slot table, and ``--shared-prefix-len`` only lengthens the prompts.  A
+MoE arch (olmoe) routes every token top-k over its experts with capacity
+per routing group, so its rows are coupled (see
+``serving/continuous.py``).
 
 The flags are the JAX package's ``repro.launch.serve`` as far as this slice
 of the port reaches.  Deliberate differences: ``--mode`` defaults to (and so

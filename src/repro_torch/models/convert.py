@@ -5,7 +5,8 @@ port's (:func:`repro_torch.models.transformer.init_lm`) have the same keys
 and shapes: ``embed/embedding``, ``embed/unembed``, ``stages/sub0/attn/wq``,
 ..., every ``stages`` leaf with the stage axis first.  Given that tree with
 numpy leaves, :func:`params_from_jax` returns the port's tensors, checking
-every key, shape and dtype against what the port would build.  This is how
+every key, shape and dtype against what the port would build (the MoE
+router, say, is float32 whatever the parameter type).  This is how
 the tests hold the port to the reference on identical weights; the port's
 own initialiser serves runs that need no such parity.
 """
@@ -17,28 +18,26 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.layers import dtype_of
 
 
-def _leaf(a: Any, want_dtype: torch.dtype, device) -> torch.Tensor:
+def _leaf(a: Any, want_dtype: torch.dtype, device, path: str
+          ) -> torch.Tensor:
     a = np.array(a, copy=True, order="C")    # writable, owned by the tensor
     if a.dtype.name == "bfloat16":           # ml_dtypes: no numpy twin
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
     if t.dtype != want_dtype:
-        raise TypeError(f"leaf dtype {t.dtype}: the config's parameter dtype "
-                        f"is {want_dtype}")
+        raise TypeError(f"{path}: leaf dtype {t.dtype}, expected "
+                        f"{want_dtype}")
     return t.to(device)
 
 
 def params_from_jax(cfg: ArchConfig, tree: Dict[str, Any],
                     device="cpu") -> Dict[str, Any]:
     """The port's parameter tree from the reference's (numpy leaves)."""
-    want = torch.device("meta")
     from repro_torch.models.transformer import init_lm
-    template = init_lm(cfg, 0, want)
-    dt = dtype_of(cfg.param_dtype)
+    template = init_lm(cfg, 0, "meta")
 
     def walk(tmpl, src, path):
         if isinstance(tmpl, dict):
@@ -47,7 +46,7 @@ def params_from_jax(cfg: ArchConfig, tree: Dict[str, Any],
                 raise KeyError(f"{path or '/'}: keys {got}, expected "
                                f"{sorted(tmpl)}")
             return {k: walk(tmpl[k], src[k], f"{path}/{k}") for k in tmpl}
-        t = _leaf(src, dt, device)
+        t = _leaf(src, tmpl.dtype, device, path)
         if tuple(t.shape) != tuple(tmpl.shape):
             raise ValueError(f"{path}: shape {tuple(t.shape)}, expected "
                              f"{tuple(tmpl.shape)}")

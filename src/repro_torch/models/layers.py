@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.attention_core import blockwise_attention
+from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 POS_EMPTY = 2 ** 30        # position of an empty cache slot: never valid
@@ -165,14 +165,16 @@ def _project_qkv(p, x, x_kv, cfg: ArchConfig):
 def apply_attention(p, x, cfg: ArchConfig, *,
                     positions: Optional[torch.Tensor] = None,
                     causal: bool = True, return_kv: bool = False):
-    """Full-sequence (prefill) self-attention."""
+    """Full-sequence (prefill) self-attention; the attention itself is
+    ``ops.flash_attention`` (the FlashAttention kernel on the card, the
+    reference's blockwise attention on the CPU)."""
     q, k, v = _project_qkv(p, x, x, cfg)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = blockwise_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    o = ops.flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     o = o.reshape(x.shape[0], x.shape[1], -1)
     out = torch.matmul(o, p["wo"].to(dtype_of(cfg.compute_dtype)))
     if return_kv:

@@ -1,7 +1,7 @@
 """Model factory: ArchConfig -> init / prefill / decode callables.
 
 The decoder-only half of the JAX package's ``repro/models/model.py``
-(attention and Mamba-2 mixers)::
+(attention and Mamba-2 mixers, dense and routed MLPs)::
 
     bundle = build_model(cfg)
     params = bundle.init(seed, device)             # tree of tensors
@@ -26,8 +26,10 @@ from repro_torch.models.transformer import (check_supported, init_lm,
                                             lm_decode_backbone, tree_map)
 
 # leaves the reference casts to the compute dtype at every use
-# (``p[...].astype(cdt)``); norm scales and the SSM's a_log, dt_bias, d_skip
-# and norm_scale stay in the parameter dtype, as the reference reads them
+# (``p[...].astype(cdt)``; a MoE sublayer's experts w_gate/w_up/w_down too);
+# norm scales, the SSM's a_log, dt_bias, d_skip and norm_scale and the MoE
+# router (float32, read as float32) stay as they are, as the reference
+# reads them
 COMPUTE_LEAVES = ("embedding", "wq", "wk", "wv", "wo", "w_gate", "w_up",
                   "w_down", "in_proj", "conv_w", "conv_b", "out_proj")
 

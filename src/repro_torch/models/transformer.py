@@ -1,12 +1,14 @@
-"""Decoder-only transformer stack (attention or Mamba-2 mixers, dense or no
-MLP).
+"""Decoder-only transformer stack (attention or Mamba-2 mixers; dense, routed
+or no MLP).
 
 The JAX package's ``repro/models/transformer.py`` for the archs the port
 serves so far.  Layers are grouped into ``n_stages`` identical stages of
 ``stage_period`` sublayers; every parameter leaf of ``params["stages"]``
 carries the stage axis first (the reference's stacked ``lax.scan`` layout),
-and the port walks the stages with a Python loop over views.  MoE sublayers
-come with slice 4 of the port.
+and the port walks the stages with a Python loop over views.  A MoE
+sublayer (``mlp == "moe"``) runs :func:`repro_torch.models.moe.apply_moe`;
+its aux losses are dropped here, as the reference's prefill and decode drop
+them (they matter to a loss, which is slice 5's).
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs import ATTN, DENSE, MAMBA, NONE, ArchConfig
+from repro_torch.configs import ATTN, DENSE, MAMBA, MOE, NONE, ArchConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_attention, apply_attention_decode,
                                        apply_mlp, apply_rmsnorm, dtype_of,
@@ -24,10 +27,10 @@ from repro_torch.models.layers import (apply_attention, apply_attention_decode,
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for a block schedule the port does not
-    run yet (anything but attention or Mamba-2 mixers with dense or no
-    MLP)."""
+    run yet (anything but attention or Mamba-2 mixers with a dense, routed
+    or no MLP)."""
     for mixer, mlp in cfg.block_schedule():
-        if mixer not in (ATTN, MAMBA) or mlp not in (DENSE, NONE):
+        if mixer not in (ATTN, MAMBA) or mlp not in (DENSE, MOE, NONE):
             raise NotImplementedError(
                 f"{cfg.name}: {mixer}/{mlp} sublayers come with slice 4 of "
                 "the port (ROADMAP.md)")
@@ -41,6 +44,13 @@ def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def tree_map2(fn, a, b):
+    """``fn`` over the leaves of two trees of the same structure."""
+    if isinstance(a, dict):
+        return {k: tree_map2(fn, v, b[k]) for k, v in a.items()}
+    return fn(a, b)
 
 
 def stage_view(stages: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -63,7 +73,10 @@ def init_stage(gen, cfg: ArchConfig, device) -> Dict[str, Any]:
             sub["mamba"] = ssm_mod.init_ssm(gen, cfg, device)
         if mlp != NONE:
             sub["norm2"] = init_rmsnorm(cfg.d_model, dt, device)
-            sub["mlp"] = init_mlp(gen, cfg, device)
+            if mlp == MOE:
+                sub["moe"] = moe_mod.init_moe(gen, cfg, device)
+            else:
+                sub["mlp"] = init_mlp(gen, cfg, device)
         out[f"sub{i}"] = sub
     return out
 
@@ -77,15 +90,26 @@ def _stack(trees):
 def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Full decoder-only LM parameter tree, drawn from ``seed`` on
     ``device`` (the port's own initialiser: the reference's scales and
-    layout, not its ``jax.random`` draws)."""
+    layout, not its ``jax.random`` draws).  Each stacked leaf is allocated
+    once, ``(n_stages, ...)``, and each stage is drawn and copied into its
+    slice: the numbers of stacking the stages, with one stage, not a second
+    copy of all of them, alive beside the tree."""
     check_supported(cfg)
     dev = torch.device(device or "cpu")
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(int(seed))
     n_stages = cfg.num_layers // cfg.stage_period
-    return {"embed": init_embedding(gen, cfg, device),
-            "stages": _stack([init_stage(gen, cfg, device)
-                              for _ in range(n_stages)]),
+    embed = init_embedding(gen, cfg, device)
+    stages = tree_map(lambda t: torch.empty((n_stages,) + tuple(t.shape),
+                                            dtype=t.dtype, device=device),
+                      init_stage(None, cfg, "meta"))
+    if dev.type != "meta":
+        for i in range(n_stages):
+            drawn = init_stage(gen, cfg, device)
+            tree_map2(lambda dst, src: dst.copy_(src),
+                      stage_view(stages, i), drawn)
+            del drawn
+    return {"embed": embed, "stages": stages,
             "final_norm": init_rmsnorm(cfg.d_model, dtype_of(cfg.param_dtype),
                                        device)}
 
@@ -93,6 +117,15 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # full-sequence forward (prefill)
 # ---------------------------------------------------------------------------
+def apply_ffn(sub: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig
+              ) -> torch.Tensor:
+    """A sublayer's MLP on its normed input: the routed experts where the
+    sublayer has them (aux losses dropped), else the dense SwiGLU."""
+    if "moe" in sub:
+        return moe_mod.apply_moe(sub["moe"], h, cfg)[0]
+    return apply_mlp(sub["mlp"], h, cfg)
+
+
 def _kv_to_cache(k, v, positions, cfg: ArchConfig):
     """Turn full-sequence K/V into a decode cache (window-clipped for SWA)."""
     S = k.shape[1]
@@ -125,7 +158,7 @@ def _stage_forward(sp, x, cfg: ArchConfig, positions, collect_cache: bool):
             h = ssm_mod.apply_ssm(sub["mamba"], h, cfg)
         x = x + h
         if mlp != NONE:
-            x = x + apply_mlp(sub["mlp"], apply_rmsnorm(sub["norm2"], x), cfg)
+            x = x + apply_ffn(sub, apply_rmsnorm(sub["norm2"], x), cfg)
     return x, caches
 
 
@@ -171,8 +204,7 @@ def lm_decode_backbone(params, x, caches, cache_index: int, cfg: ArchConfig):
                     sc[f"sub{i}"][k].copy_(v)
             x = x + hout
             if mlp != NONE:
-                x = x + apply_mlp(sub["mlp"], apply_rmsnorm(sub["norm2"], x),
-                                  cfg)
+                x = x + apply_ffn(sub, apply_rmsnorm(sub["norm2"], x), cfg)
     return apply_rmsnorm(params["final_norm"], x), caches
 
 

@@ -50,6 +50,13 @@ do.  Prefix sharing preserves this: a block is shared only when the whole
 padded prompt up to its end is byte-identical, forks copy pages before the
 first divergent write, and cached admission logits are the stored output of
 the identical earlier prefill.
+
+MoE archs (olmoe) are the exception, as in the reference: expert-capacity
+routing couples the rows of a batch -- a prefill's rows, and every decode
+step's capacity rows, masked ones included -- so a MoE row is only
+statistically exchangeable with ``generate``, and a shared page holds *a*
+valid prefill of its chain.  The contract there is engine against engine on
+identical admissions (``supported_modes`` says ``"statistical"``).
 """
 from __future__ import annotations
 
@@ -61,13 +68,12 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import ATTN, NONE, ArchConfig
+from repro_torch.configs import ATTN, MOE, NONE, ArchConfig
 from repro_torch.core.tenancy import resolve_devices
-from repro_torch.models.layers import (apply_embedding, apply_mlp,
-                                       apply_rmsnorm, apply_unembed,
-                                       pad_vocab)
+from repro_torch.models.layers import (apply_embedding, apply_rmsnorm,
+                                       apply_unembed, pad_vocab)
 from repro_torch.models.ssm import apply_ssm_decode, init_ssm_state
-from repro_torch.models.transformer import stage_view
+from repro_torch.models.transformer import apply_ffn, stage_view
 from repro_torch.obs.telemetry import Telemetry, get_telemetry
 from repro_torch.serving.engine import (ServingEngine, resolve_extra_inputs,
                                         sample_rows, to_device)
@@ -236,8 +242,11 @@ class ContinuousBatchingEngine:
         """Capability probe: what each serving mode offers for ``cfg`` in
         the port so far (the reference's table, with the modes and
         qualifiers later slices bring marked as such; SSM rows keep their
-        state in the slot table, so they share no prefix)."""
+        state in the slot table, so they share no prefix; MoE capacity
+        routing couples rows, so a MoE arch's continuous decode is only
+        statistically exchangeable with ``generate``)."""
         names = list(state_kinds(cfg))
+        moe = any(mlp == MOE for _, mlp in cfg.block_schedule())
         cont = {
             "supported": True,
             "state_kinds": names,
@@ -245,7 +254,7 @@ class ContinuousBatchingEngine:
             "prefix_sharing": "attn" in names,
             "window_phase_keys": ("attn" in names
                                   and cfg.sliding_window is not None),
-            "exactness": "bitwise",
+            "exactness": "statistical" if moe else "bitwise",
         }
         later = {"supported": False, "slice": "overlapped and blocking "
                  "schedules come with a later slice of the port"}
@@ -331,8 +340,10 @@ class ContinuousBatchingEngine:
                         old.copy_(torch.where(keep, new[k], old))
                 x = x + hout
                 if mlp != NONE:
-                    x = x + apply_mlp(sub["mlp"],
-                                      apply_rmsnorm(sub["norm2"], x), cfg)
+                    # every capacity row, masked ones too: under MoE they
+                    # compete for expert capacity, as in the reference
+                    x = x + apply_ffn(sub, apply_rmsnorm(sub["norm2"], x),
+                                      cfg)
         h = apply_rmsnorm(params["final_norm"], x)
         new_logits = apply_unembed(params["embed"], h, cfg)[:, 0]
         st["nonfinite"] += (active

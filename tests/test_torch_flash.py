@@ -1,0 +1,180 @@
+"""The port's FlashAttention forward (K5) against the JAX package's, on the
+same inputs.
+
+Inputs are drawn with numpy from a seed and handed to both packages.  On the
+CPU the port's ``flash_attention`` takes its plain version (the blockwise
+attention at the reference's blocks); ``ref.flash_attention_ref`` is the
+Pallas kernel's function written densely.  Both are held against the
+reference's Pallas kernel in interpret mode (``flash_attention_pallas``) and
+its ``naive_attention`` at the reference's own tolerances
+(``tests/test_kernels_flash.py``): ``rtol = atol = 2e-4`` in float32 (an
+online softmax over blocks against one over the whole row), ``5e-2`` for
+bfloat16 inputs against the float32 oracle.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models import attention_core as jac
+from repro_torch.configs import get_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import layers as tl
+from repro_torch.models.model import build_model
+
+F32 = dict(rtol=2e-4, atol=2e-4)
+BF16 = dict(rtol=5e-2, atol=5e-2)
+
+# tests/test_kernels_flash.py::SWEEP: B, S, Hq, Hkv, D, causal, window, bq, bk
+SWEEP = [
+    (2, 64, 4, 2, 16, True, None, 16, 32),
+    (1, 128, 8, 2, 32, True, None, 32, 32),
+    (2, 64, 4, 4, 16, False, None, 32, 16),
+    (1, 128, 4, 1, 16, True, 32, 32, 32),      # MQA + sliding window
+    (1, 32, 2, 2, 64, False, 8, 16, 16),
+]
+# the edges the port adds: a ragged length, h2o-danube's head size of 80,
+# a window whose rows' early key tiles are all masked, the kernel's own
+# 64-key tiles crossed by a causal window
+EDGES = [
+    (1, 100, 4, 2, 16, True, None, 20, 20),    # ragged S
+    (1, 48, 4, 1, 80, True, 16, 16, 16),       # D 80, GQA 4:1, window
+    (2, 160, 2, 2, 32, True, 40, 32, 32),      # window across 64-key tiles
+    (1, 96, 2, 1, 128, True, None, 32, 32),    # D 128, MQA
+]
+
+
+def _qkv(B, Sq, Skv, Hq, Hkv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Sq, Hq, D)).astype(np.float32),
+            rng.standard_normal((B, Skv, Hkv, D)).astype(np.float32),
+            rng.standard_normal((B, Skv, Hkv, D)).astype(np.float32))
+
+
+def _t(arrs, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrs]
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **(tol or F32))
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,causal,window,bq,bk", SWEEP + EDGES)
+def test_matches_pallas_interpret_and_naive(B, S, Hq, Hkv, D, causal, window,
+                                            bq, bk):
+    """The plain version (what the CPU runs) and the dense oracle against
+    the Pallas kernel in interpret mode and the reference's naive
+    attention."""
+    arrs = _qkv(B, S, S, Hq, Hkv, D)
+    j = [jnp.asarray(a) for a in arrs]
+    pallas = flash_attention_pallas(*j, causal=causal, window=window,
+                                    block_q=bq, block_kv=bk)
+    naive = jac.naive_attention(*j, causal=causal, window=window)
+    fa.reset_counts()
+    got = fa.flash_attention(*_t(arrs), causal=causal, window=window)
+    assert fa.plain_counts["flash_attention_plain"] == 1
+    assert fa.launch_counts["flash_attention"] == 0
+    oracle = tref.flash_attention_ref(*_t(arrs), causal, window)
+    for mine in (got, oracle):
+        assert mine.dtype == torch.float32 and tuple(mine.shape) == (
+            B, S, Hq, D)
+        _close(mine.numpy(), pallas)
+        _close(mine.numpy(), naive)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (32, 128, False, None),     # tests/test_kernels_flash.py::test_cross_lengths
+    (48, 32, True, None),       # causal, Sq > Skv: top-left alignment
+    (32, 96, True, None),       # causal, Sq < Skv
+    (40, 24, True, 8),          # rows past Skv + window - 1 admit no key
+    (24, 80, False, 16),        # non-causal window, Sq < Skv
+])
+def test_cross_lengths(Sq, Skv, causal, window):
+    """Sq != Skv: query and key positions both start at 0.  Rows that admit
+    no key at all average every key uniformly, as the reference's softmax
+    over an all -1e30 row does."""
+    arrs = _qkv(1, Sq, Skv, 4, 2, 16, seed=1)
+    j = [jnp.asarray(a) for a in arrs]
+    naive = np.asarray(jac.naive_attention(*j, causal=causal, window=window))
+    if window is None:
+        pallas = flash_attention_pallas(*j, causal=causal, window=window,
+                                        block_q=8, block_kv=16)
+        _close(pallas, naive)
+    got = fa.flash_attention(*_t(arrs), causal=causal, window=window)
+    oracle = tref.flash_attention_ref(*_t(arrs), causal, window)
+    _close(got.numpy(), naive)
+    _close(oracle.numpy(), naive)
+    if window is not None and Sq > Skv + window - 1:
+        uniform = arrs[2].mean(axis=1)                   # (1, Hkv, D)
+        _close(oracle.numpy()[0, -1].reshape(2, 2, 16),
+               np.repeat(uniform[0][:, None], 2, axis=1))
+
+
+def test_bf16_inputs():
+    """tests/test_kernels_flash.py::test_bf16_inputs: bfloat16 in, bfloat16
+    out, against the float32 naive oracle at 5e-2."""
+    arrs = _qkv(1, 32, 32, 2, 2, 16)
+    want = jac.naive_attention(*[jnp.asarray(a) for a in arrs], causal=True)
+    pallas = flash_attention_pallas(*[jnp.asarray(a, jnp.bfloat16)
+                                      for a in arrs], causal=True,
+                                    block_q=16, block_kv=16)
+    _close(np.asarray(pallas, np.float32), want, **BF16)
+    for fn in (lambda *a: fa.flash_attention(*a, causal=True),
+               lambda *a: tref.flash_attention_ref(*a, True)):
+        got = fn(*_t(arrs, torch.bfloat16))
+        assert got.dtype == torch.bfloat16
+        _close(got.float().numpy(), want, **BF16)
+
+
+def test_blockwise_hlo_standin_and_strided_q():
+    """test_matches_blockwise_hlo_standin's pair on the port's side: the
+    dense oracle equals the blockwise plain version; a strided q (a view
+    into a wider projection) gives what its contiguous copy gives."""
+    q, k, v = _t(_qkv(1, 64, 64, 4, 2, 16))
+    _close(tref.flash_attention_ref(q, k, v, True, None).numpy(),
+           fa.flash_attention_plain(q, k, v, causal=True).numpy())
+    wide = torch.randn((1, 64, 4, 24))
+    qs = wide[..., :16]
+    assert not qs.is_contiguous()
+    _close(fa.flash_attention(qs, k, v, causal=True).numpy(),
+           fa.flash_attention(qs.contiguous(), k, v, causal=True).numpy(),
+           rtol=0, atol=0)
+
+
+def test_wrapper_checks_shapes():
+    q, k, v = _t(_qkv(1, 16, 16, 4, 2, 8))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v[..., :4])
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[:, :, :3], k, v)              # Hq % Hkv
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :0], v[:, :0])          # no keys
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[0], k, v)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "h2o-danube-1.8b",
+                                  "olmoe-1b-7b"])
+def test_every_prefill_attention_goes_through_ops(arch):
+    """``apply_attention`` is the one call site: a prefill calls
+    ``ops.flash_attention`` once per attention layer, and the layer gives
+    what the reference's blockwise attention gives."""
+    cfg = get_config(arch).reduced()
+    bundle = build_model(cfg)
+    params = bundle.init(0)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (2, 20)).astype(np.int32))
+    fa.reset_counts()
+    bundle.prefill_fn(params, {"tokens": toks})
+    assert fa.plain_counts["flash_attention_plain"] == cfg.num_layers
+    assert fa.launch_counts["flash_attention"] == 0
+    q, k, v = _t(_qkv(2, 20, 20, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.head_dim))
+    _close(ops.flash_attention(q, k, v, window=cfg.sliding_window).numpy(),
+           tref.flash_attention_ref(q, k, v, True,
+                                    cfg.sliding_window).numpy())
+    assert tl.ops is ops

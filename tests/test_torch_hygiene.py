@@ -51,7 +51,9 @@ IMPORT_ALL = textwrap.dedent("""
             "repro_torch.serving.multitenant",
             "repro_torch.distributed.fault", "repro_torch.launch.serve",
             "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
-            "repro_torch.configs.mamba2_2_7b"}
+            "repro_torch.configs.mamba2_2_7b",
+            "repro_torch.kernels.flash_attention", "repro_torch.models.moe",
+            "repro_torch.configs.olmoe_1b_7b"}
     assert want <= set(names), want - set(names)
     print("IMPORTED", len(names))
 """)
@@ -79,7 +81,10 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"src/repro_torch/kernels/ssd_scan.py",
             "src/repro_torch/models/ssm.py",
-            "src/repro_torch/configs/mamba2_2_7b.py"} <= names
+            "src/repro_torch/configs/mamba2_2_7b.py",
+            "src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/configs/olmoe_1b_7b.py"} <= names
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
@@ -185,6 +190,27 @@ def test_kernel_wrapper_never_falls_back_for_non_cpu_tensors():
                 chunk=16, initial_state=meta((1, 2, 8, 16), f32))
     assert not any(ssd_scan.plain_counts.values())
     assert not any(ssd_scan.launch_counts.values())
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+    from repro_torch.configs import get_config
+    fa.reset_counts()
+    q, kv = meta((2, 16, 4, 8)), meta((2, 16, 2, 8))
+    for fn in (fa.flash_attention, ops.flash_attention):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(q, kv, kv, causal=True, window=4)
+    # the prefill's one call site, reached with the weights on the card
+    cfg = get_config("olmoe-1b-7b").reduced()
+    d, H, D = cfg.d_model, cfg.num_heads, cfg.head_dim
+    p = {"wq": meta((d, H * D), f32),
+         "wk": meta((d, cfg.num_kv_heads * D), f32),
+         "wv": meta((d, cfg.num_kv_heads * D), f32),
+         "wo": meta((H * D, d), f32),
+         "q_norm": meta((D,), f32), "k_norm": meta((D,), f32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layers.apply_attention(p, meta((2, 16, d), f32), cfg)
+    assert not any(fa.plain_counts.values())
+    assert not any(fa.launch_counts.values())
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -4,8 +4,9 @@ Weights come from the reference's own initialiser (``jax.random``), cross to
 the port as numpy through ``models.convert.params_from_jax``, and both
 models run the same seeded tokens.  Held at rtol/atol 1e-5 in float32
 (reduced configs): prefill and decode logits of internlm2 (plain GQA),
-h2o-danube (sliding window: window-clipped caches, a ring that wraps) and
-qwen3 (per-head qk-norm), the layer library and the attention primitives.
+h2o-danube (sliding window: window-clipped caches, a ring that wraps),
+qwen3 (per-head qk-norm) and olmoe (qk-norm, every MLP a top-k routed MoE
+with capacity), the layer library and the attention primitives.
 The configs and the parameter tree's layout are compared at full width
 (shapes only: JAX's ``eval_shape``, the port's meta device).
 """
@@ -29,9 +30,10 @@ from repro_torch.models import attention_core as tac
 from repro_torch.models import layers as tl
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import build_model, param_count, prepare_params
-from repro_torch.models.transformer import init_lm
+from repro_torch.models.transformer import (_stack, init_lm, init_stage,
+                                            tree_map)
 
-ARCHS = ("internlm2-1.8b", "h2o-danube-1.8b", "qwen3-32b")
+ARCHS = ("internlm2-1.8b", "h2o-danube-1.8b", "qwen3-32b", "olmoe-1b-7b")
 SH = null_sharder()
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -201,3 +203,26 @@ def test_attention_primitives_match_jax(causal, window):
                                    window=window).numpy(),
            tac.naive_attention(tq, tk, tv, causal=causal,
                                window=window).numpy())
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b",
+                                  "olmoe-1b-7b"])
+def test_init_lm_in_place_draws_are_bit_identical(arch):
+    """``init_lm`` allocates each stacked leaf once and copies each stage,
+    as it is drawn, into its slice: the same bits, from the same generator
+    in the same order, as drawing the stages one by one and stacking
+    them."""
+    cfg = get_config(arch).reduced()
+    n_stages = cfg.num_layers // cfg.stage_period
+    gen = torch.Generator().manual_seed(5)
+    tl.init_embedding(gen, cfg, None)             # drawn first in both
+    old = _stack([init_stage(gen, cfg, None) for _ in range(n_stages)])
+    new = init_lm(cfg, 5)["stages"]
+    flat_old, flat_new = [], []
+    tree_map(flat_old.append, old)
+    tree_map(flat_new.append, new)
+    assert len(flat_new) == len(flat_old) > 0
+    for a, b in zip(flat_new, flat_old):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert a.is_contiguous()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

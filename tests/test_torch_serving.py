@@ -32,6 +32,7 @@ from repro.serving.multitenant import MultiTenantScheduler as JaxSched
 from repro.serving.multitenant import Request as JaxRequest
 from repro_torch.configs import get_config
 from repro_torch.distributed import fault
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.launch import serve
 from repro_torch.models.convert import params_from_jax
@@ -106,8 +107,12 @@ def test_continuous_sharing_cow_and_skip_match_jax(engines):
     ceng = ContinuousBatchingEngine(eng, **kw)
     jceng = JaxCont(jeng, backend="jnp", **kw)
     pa.reset_counts()
+    fa.reset_counts()
+    flash_calls = 0                  # the continuous engine's own prefills
     for batch in batches:
+        before = fa.plain_counts["flash_attention_plain"]
         got = {id(r): t for r, t in ceng.run_all(batch)}
+        flash_calls += fa.plain_counts["flash_attention_plain"] - before
         want = {id(r): t for r, t in jceng.run_all(batch)}
         for r in batch:
             np.testing.assert_array_equal(got[id(r)], want[id(r)])
@@ -121,6 +126,10 @@ def test_continuous_sharing_cow_and_skip_match_jax(engines):
                                 "paged_prefill_scatter": 0}
     assert pa.plain_counts["paged_attention_decode_plain"] > 0
     assert pa.plain_counts["paged_prefill_scatter_plain"] > 0
+    # every prefill's attention went through ops.flash_attention: on the
+    # CPU its plain version, once per layer and prefill call
+    assert fa.launch_counts == {"flash_attention": 0}
+    assert flash_calls == ceng.prefill_calls * cfg.num_layers > 0
 
 
 def test_continuous_eviction_and_reuse_match_jax(engines):
