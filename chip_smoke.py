@@ -733,6 +733,39 @@ def decode_pair(state, window=None):
             pa.paged_attention_decode_plain(*state, window=window))
 
 
+def with_sentinel_column(state, j):
+    """The state with a SENTINEL entry at column ``j`` of every table row."""
+    table = state[4]
+    pad = torch.full((table.shape[0], 1), PagedKVCache.SENTINEL,
+                     dtype=table.dtype, device=table.device)
+    return (*state[:4], torch.cat([table[:, :j], pad, table[:, j:]], dim=1),
+            state[5])
+
+
+def unreadable_entries(state, window=None) -> int:
+    """Table entries naming a page with no key the row admits: the pages
+    the decode kernel skips (unless the row admits no key at all)."""
+    pos_pool, table, positions = (t.cpu() for t in state[3:6])
+    kpos = pos_pool[table.long()]                        # (C, NB, P)
+    ok = kpos <= positions[:, None, None]
+    if window is not None:
+        ok &= kpos > positions[:, None, None] - window
+    return int((~ok.any(-1)).sum())
+
+
+def rows_alone_match(state, window=None) -> bool:
+    """Each row decoded alone gives the bits it gets inside the batch: the
+    split of a row's walk depends on its own shape, not on the row count."""
+    q, kp, vp, pp_, table, positions = state
+    batch = pa.paged_attention_decode(*state, window=window)
+    alone = [pa.paged_attention_decode(q[c:c + 1], kp, vp, pp_,
+                                       table[c:c + 1], positions[c:c + 1],
+                                       window=window)
+             for c in range(q.shape[0])]
+    torch.cuda.synchronize()
+    return all(torch.equal(batch[c:c + 1], a) for c, a in enumerate(alone))
+
+
 def scatter_pair(pool, pages, values):
     return (pa.paged_prefill_scatter(pool.clone(), pages, values),
             pa.paged_prefill_scatter_plain(pool.clone(), pages, values))
@@ -779,6 +812,45 @@ def phase_paged_small(errs: Errors, dev) -> None:
     st = rand_paged_state(rng, C=4, NB=3, P=4, H=4, Hkv=2, D=8, dev=dev,
                           full=True)
     errs.hold(K3, *decode_pair(st), "every row one full ring")
+    # the split walk's edges through the wrapper's own split
+    # (pa.decode_split, from a row's kv heads and table width): at 2 kv
+    # heads every split is one entry; at 24 a split takes ceil(NB / 3)
+    # entries (NB 7: 3 + 3 + 1, NB 11: 4 + 4 + 3); at 66 up to 8 (NB 7: one
+    # split, NB 11: 8 + 3).  NB 1, table lengths no split divides, SENTINEL
+    # in the middle of every row, a window that masks rows' early pages
+    # whole, an all-masked row beside live ones; each row alone gives the
+    # bits it gets in the batch
+    for C, Hkv in ((3, 2), (5, 24), (4, 66)):
+        geo = dict(C=C, P=4, H=2 * Hkv, Hkv=Hkv, D=8, dev=dev)
+        for NB in (1, 7, 11):
+            st = rand_paged_state(rng, NB=NB, q_dtype=torch.bfloat16, **geo)
+            errs.hold(K3, *decode_pair(st),
+                      f"C{C} Hkv{Hkv} NB{NB}, split "
+                      f"{pa.decode_split(Hkv, NB)}")
+            check(rows_alone_match(st), f"C{C} Hkv{Hkv} NB{NB}: a row "
+                                        "decoded alone differs from its batch")
+        st = with_sentinel_column(rand_paged_state(rng, NB=5, full=True,
+                                                   **geo), 2)
+        check(unreadable_entries(st) == C, "SENTINEL column not in place")
+        errs.hold(K3, *decode_pair(st), f"C{C} Hkv{Hkv}: SENTINEL in the "
+                                        "middle of every row")
+        st = rand_paged_state(rng, NB=6, full=True, **geo)
+        check(unreadable_entries(st, 6) > 0, "the window masks no page whole")
+        errs.hold(K3, *decode_pair(st, 6),
+                  f"C{C} Hkv{Hkv}: window 6 masking early pages")
+        check(rows_alone_match(st, 6), f"C{C} Hkv{Hkv} window 6: a row "
+                                       "decoded alone differs from its batch")
+        st = list(rand_paged_state(rng, NB=4, **geo))
+        st[4][1] = PagedKVCache.SENTINEL
+        errs.hold(K3, *decode_pair(st),
+                  f"C{C} Hkv{Hkv}: an all-masked row beside live ones")
+    # no atomics in any sum: two calls give the same bits
+    for C, Hkv in ((4, 2), (33, 8)):
+        st = rand_paged_state(rng, C=C, NB=9, P=4, H=4 * Hkv, Hkv=Hkv, D=32,
+                              dev=dev, q_dtype=torch.bfloat16)
+        a, b = (pa.paged_attention_decode(*st) for _ in range(2))
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"C{C} Hkv{Hkv}: two decode calls differ")
     # a head size the 16-byte loads cannot take is refused, not computed
     st = rand_paged_state(rng, C=2, NB=2, P=4, H=2, Hkv=2, D=12, dev=dev)
     try:
@@ -792,13 +864,13 @@ def phase_paged_small(errs: Errors, dev) -> None:
     for _ in range(6):
         q, kp, vp, pp_, pt, pos = rand_paged_state(rng, C=3, NB=3, P=4, H=4,
                                                    Hkv=2, D=8, dev=dev)
-        base = pa.paged_attention_decode(q, kp, vp, pp_, pt, pos)
         perm = np.arange(kp.shape[0])
         body = perm[PagedKVCache.RESERVED:].copy()
         rng.shuffle(body)
         perm[PagedKVCache.RESERVED:] = body
         inv = torch.from_numpy(np.argsort(perm)).to(dev)
         relabel = torch.from_numpy(perm.astype(np.int32)).to(dev)
+        base = pa.paged_attention_decode(q, kp, vp, pp_, pt, pos)
         got = pa.paged_attention_decode(q, kp[inv], vp[inv], pp_[inv],
                                         relabel[pt.long()], pos)
         torch.cuda.synchronize()
@@ -819,8 +891,11 @@ def phase_paged_small(errs: Errors, dev) -> None:
                 errs.hold_bits(K4, *scatter_pair(pool, pg, values),
                                f"S{S} NP{NP_} P{P} Hkv{Hkv} D{D} {vdt} {tag}")
     say("paged", f"reference cases hold: decode {errs.cases[K3]} comparisons "
-                 f"(rtol={PAGED_RTOL} atol={PAGED_ATOL}), six page "
-                 f"permutations bit for bit, scatter {errs.cases[K4]} "
+                 f"(rtol={PAGED_RTOL} atol={PAGED_ATOL}; split edges at "
+                 f"1, ceil(NB / 3) and up to 8 entries a split), six page "
+                 f"permutations bit for bit, two calls bit-identical, each "
+                 f"row alone bit-identical with its batch, "
+                 f"scatter {errs.cases[K4]} "
                  f"comparisons bit-exact")
 
 
@@ -833,6 +908,8 @@ def phase_paged_full(errs: Errors, dev, NB: int) -> dict:
     st = rand_paged_state(rng, C=C, NB=NB, P=P, H=H, Hkv=Hkv, D=D, dev=dev,
                           q_dtype=torch.bfloat16, full=True)
     errs.hold(K3, *decode_pair(st), f"full width C{C} NB{NB}")
+    check(rows_alone_match(st), f"full width C{C} NB{NB}: a row decoded "
+                                "alone differs from its batch")
     d_ms = cuda_ms(lambda: pa.paged_attention_decode(*st), 50, flush)
     d_plain = cuda_ms(lambda: pa.paged_attention_decode_plain(*st), 10, flush)
     d_bound, d_by = decode_bound_ms(C, NB, P, H, Hkv, D, 2)
@@ -1062,7 +1139,11 @@ def phase_ssd_full(errs: Errors, dev) -> dict:
 # whose reference blocks would be 4 rows (1500), h2o-danube's head size of
 # 80, windows whose rows' early key tiles are masked whole, causal Sq != Skv
 # both ways (top-left), rows that admit no key at all (they average every
-# key), a non-causal window, and the serving archs' head geometries
+# key), a non-causal window, and the serving archs' head geometries; then
+# the tensor-core kernel's own edges: D 24 (padded to 32 in shared memory),
+# Sq not a multiple of its query tile (64 / G positions for G heads of a
+# group in a block), GQA 4:1 and 8:1 (one K/V tile for the whole group),
+# and a group of 32 (two blocks of 16 heads)
 FLASH_SWEEP = [
     (2, 64, 64, 4, 2, 16, True, None), (1, 128, 128, 8, 2, 32, True, None),
     (2, 64, 64, 4, 4, 16, False, None), (1, 128, 128, 4, 1, 16, True, 32),
@@ -1073,6 +1154,9 @@ FLASH_SWEEP = [
     (1, 140, 20, 2, 1, 16, True, 8), (1, 24, 200, 4, 2, 16, False, 16),
     (2, 130, 130, 16, 8, 128, True, None), (1, 192, 192, 16, 16, 128, True, None),
     (2, 40, 40, 4, 2, 8, True, None),
+    (1, 77, 77, 4, 4, 24, True, None), (2, 37, 37, 8, 2, 64, True, None),
+    (1, 45, 90, 16, 2, 32, False, None), (1, 203, 203, 8, 1, 128, True, 50),
+    (1, 50, 50, 32, 1, 16, True, 12),
 ]
 # the full-width shapes of the serving paths: olmoe's prefill at widths 8
 # and 1 (1024-token prompts, MHA), internlm2's at width 8 (GQA 2:1)
@@ -1096,9 +1180,8 @@ def flash_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, in_bytes):
     """q, k and v read once and o written once at the memory rate, or the
     products the function needs -- two of 2D flops per admissible (query,
     key) pair and head, the pairs this mask admits -- at the peak rate for
-    the inputs' type (bf16 tensor cores, or float32), whichever is larger;
-    beside it the same operations at the float32 rate the kernel computes
-    in."""
+    the inputs' type (bf16 tensor cores, or float32), whichever is
+    larger."""
     qp = np.arange(Sq)[:, None]
     kp = np.arange(Skv)[None, :]
     ok = np.ones((Sq, Skv), bool)
@@ -1110,8 +1193,7 @@ def flash_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, window, in_bytes):
     nbytes = (2 * B * Sq * Hq * D + 2 * B * Skv * Hkv * D) * in_bytes
     rate = PEAK_BF16_FLOPS if in_bytes == 2 else PEAK_F32_FLOPS
     by, op = nbytes / PEAK_BYTES_PER_S * 1e3, flops / rate * 1e3
-    return (max(by, op), "bytes" if by >= op else "operations",
-            flops / PEAK_F32_FLOPS * 1e3)
+    return max(by, op), "bytes" if by >= op else "operations"
 
 
 def phase_flash_small(errs: Errors, dev) -> None:
@@ -1135,11 +1217,19 @@ def phase_flash_small(errs: Errors, dev) -> None:
                                         causal=causal, window=window)
         errs.hold(K5, got.float(), want, what + " bf16",
                   tol=(FLASH_BF16_RTOL, FLASH_BF16_ATOL))
-    # rows that admit no key: the dense oracle's uniform average
+    # rows that admit no key: the dense oracle's uniform average, through
+    # either kernel
     q, k, v = flash_case(rng, 1, 140, 20, 2, 1, 16, dev)
     errs.hold(K5, fa.flash_attention(q, k, v, causal=True, window=8),
               kref.flash_attention_ref(q, k, v, True, 8),
               "rows with no admissible key vs the dense oracle")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    errs.hold(K5, fa.flash_attention(qb, kb, vb, causal=True,
+                                     window=8).float(),
+              kref.flash_attention_ref(qb.float(), kb.float(), vb.float(),
+                                       True, 8),
+              "rows with no admissible key vs the dense oracle, bf16",
+              tol=(FLASH_BF16_RTOL, FLASH_BF16_ATOL))
     # q a strided view (a wider projection's columns), k and v views too
     wide = torch.randn((2, 96, 4, 48), device=dev)
     q, k, v = wide[..., :16], wide[:, :, :2, 16:32], wide[:, :, 2:, 32:48]
@@ -1197,7 +1287,7 @@ def phase_flash_full(errs: Errors, dev) -> dict:
         ms = statistics.median(turns[0::2])
         lib_ms = statistics.median(turns[1::2])
         plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, flush)
-        bound, by, f32_ms = flash_bound_ms(B, S, S, Hq, Hkv, D, True, None, 2)
+        bound, by = flash_bound_ms(B, S, S, Hq, Hkv, D, True, None, 2)
         shape = (f"q ({B}, {S}, {Hq}, {D}), k/v ({B}, {S}, {Hkv}, {D}) bf16, "
                  "causal")
         say("flash", f"{name}: held against the plain version in float32 "
@@ -1206,17 +1296,14 @@ def phase_flash_full(errs: Errors, dev) -> dict:
                      f"{lib_err:.3g})")
         say("flash", f"{name}: {shape}: {ms:.4f} ms, plain {plain:.4f} ms, "
                      f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-                     f"{bound:.4f} ms by {by} (bf16 tensor-core rate; at the "
-                     f"float32 rate the kernel computes in {f32_ms:.4f} ms, "
-                     f"{f32_ms / ms:.1%} of it) (turns "
+                     f"{bound:.4f} ms by {by} (bf16 tensor-core rate) (turns "
                      f"{[round(t, 4) for t in turns]})")
         out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=bound, bound_by=by, bound_f32_ms=f32_ms,
-                         shape=shape)
+                         bound_ms=bound, bound_by=by, shape=shape)
         del q, k, v, qt, kt, vt, got, want, lib
     main = out[FLASH_FULL[0][0]]
-    return {K5: {**main, "other_shapes": {n: r for n, r in out.items()
-                                          if r is not main}}}
+    return {K5: {**main, "other_shapes": {
+        n: r for n, r in out.items() if r is not main}}}
 
 
 def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
@@ -1275,6 +1362,7 @@ def phase_serve_reduced(dev) -> dict:
             done += ceng.run_all(batch)
         launches = {**pa.launch_counts, **ssd.launch_counts,
                     **fa.launch_counts}
+        variants = dict(fa.variant_counts)
         plains = {**pa.plain_counts, **ssd.plain_counts, **fa.plain_counts}
         n = sum(len(b) for b in batches)
         check(len(done) == n, f"{arch} reduced: {len(done)} of {n} done")
@@ -1286,6 +1374,8 @@ def phase_serve_reduced(dev) -> dict:
         check(launches[per_prefill] == ceng.prefill_calls * cfg.num_layers,
               f"{arch} reduced: {launches[per_prefill]} {per_prefill} "
               f"launches for {ceng.prefill_calls} prefills")
+        check(variants == {"bf16_mma": 0, "f32_simt": launches[K5]},
+              f"{arch} reduced (float32): flash variants {variants}")
         ceng.kv.assert_conserved()
         check(ceng.nonfinite_rows == 0, f"{arch} reduced: non-finite logits")
         if cfg.sliding_window is None and ceng.kv.attn_subs:
@@ -1374,6 +1464,7 @@ def phase_serve_full(errs: Errors, dev) -> dict:
         rec.peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         recs[spl] = rec
     launches = {**pa.launch_counts, **fa.launch_counts}
+    variants = dict(fa.variant_counts)
     plains = {**pa.plain_counts, **fa.plain_counts}
     other = sum(agg.launch_counts.values()) + sum(
         ssd.launch_counts.values()) + sum(ssd.plain_counts.values())
@@ -1451,16 +1542,19 @@ def phase_serve_full(errs: Errors, dev) -> dict:
           and launches[K5] == want_k5,
           f"launches {launches}, expected decode {want_k3}, scatter "
           f"{want_k4}, flash {want_k5}")
+    check(variants == {"bf16_mma": launches[K5], "f32_simt": 0},
+          f"internlm2 full width (bf16): flash variants {variants}")
     say("serve", f"serving path launches: decode {launches[K3]}, scatter "
-                 f"{launches[K4]}, flash {launches[K5]}; plain calls 0")
+                 f"{launches[K4]}, flash {launches[K5]} (variants "
+                 f"{variants}); plain calls 0")
     max_blocks = max(r.sched.continuous_engine.kv.max_blocks
                      for r in recs.values())
     profile = profile_round(recs[0].sched.engine, dev, prompt_len=128)
     del recs
     gc.collect()                         # the recorders' hooks form cycles
     torch.cuda.empty_cache()
-    return {"launches": launches, "runs": runs, "max_blocks": max_blocks,
-            "profile": profile}
+    return {"launches": launches, "variants": variants, "runs": runs,
+            "max_blocks": max_blocks, "profile": profile}
 
 
 # the pure-SSM serving path: launch.serve at the published width of mamba2;
@@ -1580,6 +1674,7 @@ def phase_serve_olmoe(dev) -> dict:
     wall = time.perf_counter() - t0
     launches = {**fa.launch_counts, **pa.launch_counts, **ssd.launch_counts,
                 **agg.launch_counts}
+    variants = dict(fa.variant_counts)
     plains = {**fa.plain_counts, **pa.plain_counts, **ssd.plain_counts,
               **agg.plain_counts}
     # just after
@@ -1609,6 +1704,8 @@ def phase_serve_olmoe(dev) -> dict:
           and all(v == 0 for k, v in launches.items() if k not in want),
           f"olmoe: another route was taken: launches {launches}, plain "
           f"calls {plains}")
+    check(variants == {"bf16_mma": launches[K5], "f32_simt": 0},
+          f"olmoe full width (bf16): flash variants {variants}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     # agreement with the blocking engine on the same prompts: capacity
     # routing couples rows (and the widths differ), so this is a number
@@ -1633,7 +1730,7 @@ def phase_serve_olmoe(dev) -> dict:
         mean_first_divergence=float(np.mean(first_diff)),
         overlap_pairs=sum(timeline_overlaps(sched.timeline)),
         timeline_rounds=len(sched.timeline),
-        launches={k: launches[k] for k in want})
+        launches={k: launches[k] for k in want}, flash_variants=variants)
     say("serve", "olmoe-1b-7b full width: " + ", ".join(
         f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in run.items() if k != "prefill_ms")
@@ -1644,7 +1741,7 @@ def phase_serve_olmoe(dev) -> dict:
     del rec, sched, eng
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": run["launches"], "run": run}
+    return {"launches": run["launches"], "variants": variants, "run": run}
 
 
 def phase_paged_olmoe(errs: Errors, dev, NB: int) -> dict:
@@ -1652,8 +1749,8 @@ def phase_paged_olmoe(errs: Errors, dev, NB: int) -> dict:
     (16 query heads over 16 kv heads), every row's ring of 1024 tokens 64
     pages long -- held against its plain version and timed beside its
     bound: with the path's page table (``NB`` entries a row, the rest
-    SENTINEL padding, which the kernel walks as the reference's gather does)
-    and with a table of the 64 named pages alone."""
+    SENTINEL padding, whose pages the kernel skips after reading their
+    positions) and with a table of the 64 named pages alone."""
     rng = np.random.default_rng(10)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     C, H, D, P = 8, 16, 128, 16
@@ -1667,6 +1764,12 @@ def phase_paged_olmoe(errs: Errors, dev, NB: int) -> dict:
     for tag, state, nb in (("path", path, NB), ("named", st, named)):
         errs.hold(K3, *decode_pair(state),
                   f"olmoe shape C{C} table {nb} ({named} named) group 1")
+        again = [pa.paged_attention_decode(*state) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(torch.equal(*again), f"olmoe shape table {nb}: two decode "
+                                   "calls differ")
+        check(rows_alone_match(state), f"olmoe shape table {nb}: a row "
+                                       "decoded alone differs from its batch")
         ms = cuda_ms(lambda: pa.paged_attention_decode(*state), 50, flush)
         plain = cuda_ms(lambda: pa.paged_attention_decode_plain(*state), 10,
                         flush)
@@ -1856,6 +1959,9 @@ def main() -> int:
              {"launches": mamba["launches"], **kern[K6]}),
             (K5, flash_src, "src/repro/kernels/flash_attention.py:32",
              {"launches": on_paths[K5], "launches_by_path": by_path[K5],
+              "variant_launches_by_path": {
+                  "internlm2-1.8b": serving["variants"],
+                  "olmoe-1b-7b": olmoe["variants"]},
               **kern[K5]})):
         keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")

@@ -5,7 +5,7 @@
 //
 //   * `_decode_kernel` (entry paged_attention_decode_pallas): one-token GQA
 //     decode read through a page table.  For row c and query head h (kv head
-//     g = h / rep) it streams the NB pages page_table[c, :] names, scores each
+//     g = h / rep) it reads the pages page_table[c, :] names, scores each
 //     cached key s = (q . k) / sqrt(D), adds -1e30 where the key's position
 //     fails `kpos <= pos` (and `kpos > pos - window`), and folds the page into
 //     an online softmax (running max m, sum l, f32 accumulator) -- the TPU
@@ -15,23 +15,39 @@
 //     cast to bf16, in place; pages not named are never touched.
 //
 // decode -- what bounds it: bytes.  Per row and kv head it must read the K
-//   and V tiles of every page the table names (2 * P * D bf16 each) and the
-//   page's positions; the arithmetic (2 * rep * P * D multiply-adds per page)
-//   is far below the card's byte/flop balance.  What the design does about
-//   it: one block per (row, kv head) with one warp per query head of the
-//   group, so each K/V tile is staged in shared memory once and read by all
-//   `rep` query heads; tiles are copied 16 bytes at a time (the wrapper
-//   requires D % 8 == 0 and aligned pools, which every config meets); page
-//   ids are read from the table in the kernel (the TPU kernel's scalar
-//   prefetch).  Like the TPU kernel it reads every page the
-//   table names, SENTINEL padding included, and masks by an additive bias
-//   rather than skipping keys, so an all-masked row averages its values
-//   uniformly exactly as the full softmax of the oracle does.  A row's pages
-//   are walked in order by one block, two shared-memory buffers deep: page
-//   j+1's tiles and positions are in flight (cp.async) while page j is
-//   scored, and page ids are read one page ahead, so the walk does not wait
-//   out a memory latency per page.  No split over pages and no tensor cores
-//   yet.
+//   and V tiles of every page whose keys the row can attend (2 * P * D bf16
+//   each) and the pages' positions; the arithmetic (2 * rep * P * D
+//   multiply-adds a page) is far below the card's byte/flop balance.  What
+//   the design does about it:
+//   - Pages that cannot count are not read.  A block first reads the P
+//     positions of each page of its range (64 bytes a page) and fetches the
+//     K/V tiles only of pages with at least one key that passes the mask:
+//     SENTINEL padding (positions 2^30) and pages outside a sliding window
+//     are skipped.  Exact for a row with an admissible key: a masked key's
+//     score is exactly -1e30 in f32, so its weight exp(-1e30 - m) is exactly
+//     0 once m is a real score.  A row with no admissible key at all must
+//     return the reference's uniform average over every entry its table
+//     names: a block whose range holds no admissible key scans the rest of
+//     the row's positions, and if the row has none it walks every page of
+//     its range unmasked-by-skipping (all scores -1e30, every weight 1).
+//   - The walk is split across blocks (flash-decoding): grid (kv head, row,
+//     split), each split a contiguous range of table entries, so a decode
+//     of a few rows still fills the 132 SMs.  The wrapper sizes the splits
+//     from a row's own shape (kv heads, table width), never from the row
+//     count, so a row gives the same bits alone or in any batch.  Each
+//     split writes its partial
+//     (m, l, acc) in f32; the last block of a (row, kv head) to finish --
+//     a per-(row, kv head) ticket, which that block resets -- combines the
+//     partials in split order in the same launch.  No atomics in any sum:
+//     two calls on the same inputs give the same bits, and the output
+//     depends on page contents and table order, never on page ids.
+//   - Inside a block (4 warps) keys go to lanes: a group of 8 lanes scores
+//     one (query head, key) pair, 16-byte loads along D and a 3-step
+//     shuffle, 16 pairs at once; the weighted sum of V gives each thread a
+//     (head, column pair, key subset).  Each K/V tile is staged in shared
+//     memory once for all `rep` query heads of the group.  Pages stream
+//     through a ring of up to 4 shared-memory stages (cp.async), so 3 pages
+//     are in flight while one is scored.
 //
 // scatter -- what bounds it: bytes (read values once, write the named pages
 //   once).  A grid of (page block, 8-element chunk) threads: each reads 8
@@ -45,14 +61,18 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kNegInf = -1e30f;      // the mask bias of the reference
 constexpr int kScatterThreads = 256;
+constexpr int kDecodeThreads = 128;    // 4 warps
+constexpr int kLanesPerKey = 8;        // lanes that score one (head, key)
+constexpr int kMaxStages = 4;          // pages in the shared-memory ring
+constexpr size_t kMaxSmem = 232448;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -60,8 +80,7 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 }
 
 // ---------------------------------------------------------------------------
-// asynchronous global -> shared copies (sm_80+): a page is in flight while
-// the previous one is being scored
+// asynchronous global -> shared copies (sm_80+)
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -69,183 +88,325 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-// wait until every group but the most recent one has landed
-__device__ __forceinline__ void cp_async_wait_all_but_last() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// wait until at most n of the most recent groups are in flight (n < 3)
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+struct DecodeSmem {                    // byte offsets into dynamic memory
+  size_t q, acc, sc, stats, kpos, ids;
+  size_t total;
+};
+
+// tiles [nst][K, V][P][D] bf16 | q [rep][D] f32 | acc [KS][rep][D] f32 |
+// scores [rep][P] f32 | m, l, alpha [3][rep] f32 | positions [chunk][P] i32
+// | page ids, flags, visit list [3][chunk] i32 | n_vis, last-block flag
+__host__ __device__ inline DecodeSmem decode_smem(int P, int D, int rep,
+                                                  int chunk, int nst,
+                                                  int KS) {
+  DecodeSmem s;
+  s.q = (size_t)nst * 2 * P * D * 2;
+  s.acc = s.q + (size_t)rep * D * 4;
+  s.sc = s.acc + (size_t)KS * rep * D * 4;
+  s.stats = s.sc + (size_t)rep * P * 4;
+  s.kpos = s.stats + (size_t)3 * rep * 4;
+  s.ids = s.kpos + (size_t)chunk * P * 4;
+  s.total = s.ids + (size_t)(3 * chunk + 2) * 4;
+  return s;
 }
 
 // ---------------------------------------------------------------------------
-// decode: grid (Hkv, C), block rep warps.  Dynamic shared memory holds two
-// buffers of a page's K tile and V tile (P x D bf16 each), the two pages'
-// P positions, and each warp's P scores.  DPL = elements of a D-vector per
-// lane (d = lane + 32 * i).
+// decode: grid (Hkv, C, S), kDecodeThreads threads.  Split sp covers table
+// entries [sp * chunk, min(NB, sp * chunk + chunk)).  With S == 1 the block
+// writes out itself; else it writes its partial (m, l) to part_ml and acc to
+// part_acc, and the last block of (c, g) combines them.
 // ---------------------------------------------------------------------------
-template <int DPL, typename QT>
-__global__ void paged_decode_kernel(const QT* __restrict__ q,
-                                    const __nv_bfloat16* __restrict__ k_pool,
-                                    const __nv_bfloat16* __restrict__ v_pool,
-                                    const int* __restrict__ pos_pool,
-                                    const int* __restrict__ page_table,
-                                    const int* __restrict__ positions,
-                                    float* __restrict__ out, int NB, int P,
-                                    int Hkv, int D, int rep, int window,
-                                    float scale) {
+template <typename QT>
+__global__ void __launch_bounds__(kDecodeThreads)
+    paged_decode_kernel(const QT* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k_pool,
+                        const __nv_bfloat16* __restrict__ v_pool,
+                        const int* __restrict__ pos_pool,
+                        const int* __restrict__ page_table,
+                        const int* __restrict__ positions,
+                        float* __restrict__ out, float2* part_ml,
+                        float* part_acc, int* tickets, int NB, int P,
+                        int Hkv, int D, int rep, int window, float scale,
+                        int chunk, int nst, int KS) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int tile = P * D;               // bf16 elements of one K or V tile
-  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][K,V]
-  int* kps = reinterpret_cast<int*>(tiles + 4 * tile);            // [2][P]
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  float* sc = reinterpret_cast<float*>(kps + 2 * P) + warp * P;
+  const DecodeSmem L = decode_smem(P, D, rep, chunk, nst, KS);
+  const int tile = P * D;              // bf16 elements of one K or V tile
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  float* acc_s = reinterpret_cast<float*>(smem + L.acc);
+  float* sc_s = reinterpret_cast<float*>(smem + L.sc);
+  float* m_s = reinterpret_cast<float*>(smem + L.stats);
+  float* l_s = m_s + rep;
+  float* al_s = l_s + rep;
+  int* kpos_s = reinterpret_cast<int*>(smem + L.kpos);
+  int* pid_s = reinterpret_cast<int*>(smem + L.ids);
+  int* flag_s = pid_s + chunk;
+  int* vis_s = flag_s + chunk;
+  int* misc = vis_s + chunk;
 
-  const int g = blockIdx.x;
-  const int c = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int g = blockIdx.x, c = blockIdx.y, sp = blockIdx.z;
+  const int S = gridDim.z;
   const int H = Hkv * rep;
-  const int h = g * rep + warp;
   const int pos = positions[c];
   const int* row = page_table + (size_t)c * NB;
+  const int e0 = sp * chunk;
+  const int ne = min(NB, e0 + chunk) - e0;
+  auto admits = [&](int kpos) {
+    return kpos <= pos && (window < 0 || kpos > pos - window);
+  };
 
-  float qv[DPL], acc[DPL];
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + kWarp * i;
-    qv[i] = d < D ? to_float(q[((size_t)c * H + h) * D + d]) : 0.0f;
-    acc[i] = 0.0f;
+  // the range's page ids; the group's queries as f32; the running state
+  for (int e = tid; e < ne; e += kDecodeThreads) {
+    pid_s[e] = row[e0 + e];
+    flag_s[e] = 0;
   }
-  float m = kNegInf, l = 0.0f;
-  const size_t page_elems = (size_t)P * Hkv * D;
-  const int chunks = D / 8;             // 16-byte chunks per K/V row
+  const size_t qbase = ((size_t)c * H + (size_t)g * rep) * D;
+  for (int i = tid; i < rep * D; i += kDecodeThreads) {
+    q_s[i] = to_float(q[qbase + i]);
+  }
+  for (int i = tid; i < KS * rep * D; i += kDecodeThreads) acc_s[i] = 0.0f;
+  for (int h = tid; h < rep; h += kDecodeThreads) {
+    m_s[h] = kNegInf;
+    l_s[h] = 0.0f;
+  }
+  __syncthreads();
 
-  // copy page `pid`'s K/V tiles of kv head g and its positions into
-  // buffer b, asynchronously
-  auto stage = [&](int pid, int b) {
-    const size_t base = (size_t)pid * page_elems + (size_t)g * D;
+  // which pages of the range hold a key the row admits
+  int mine = 0;
+  for (int i = tid; i < ne * P; i += kDecodeThreads) {
+    const int e = i / P;
+    const int kp = pos_pool[(size_t)pid_s[e] * P + i % P];
+    kpos_s[i] = kp;
+    if (admits(kp)) {
+      flag_s[e] = 1;
+      mine = 1;
+    }
+  }
+  int walk_all = 0, none = 0;
+  if (!__syncthreads_or(mine)) {
+    // nothing here: does any other entry of the row admit a key?
+    int other = 0;
+    for (int i = tid; i < (NB - ne) * P; i += kDecodeThreads) {
+      const int e = i / P;
+      const int j = e < e0 ? e : e + ne;
+      other |= admits(pos_pool[(size_t)row[j] * P + i % P]) ? 1 : 0;
+    }
+    if (__syncthreads_or(other))
+      none = 1;                        // this split carries no weight
+    else
+      walk_all = 1;                    // the row admits no key: average all
+  }
+  if (tid == 0) {
+    int n = 0;
+    if (!none)
+      for (int e = 0; e < ne; ++e)
+        if (walk_all || flag_s[e]) vis_s[n++] = e;
+    misc[0] = n;
+  }
+  __syncthreads();
+  const int n_vis = misc[0];
+
+  const size_t page_elems = (size_t)P * Hkv * D;
+  const int chunks = D / 8;            // 16-byte chunks per K/V row
+  auto stage = [&](int j, int b) {     // the j-th visited page into buffer b
+    const size_t base =
+        (size_t)pid_s[vis_s[j]] * page_elems + (size_t)g * D;
     __nv_bfloat16* kd = tiles + 2 * b * tile;
     __nv_bfloat16* vd = kd + tile;
-    for (int t = threadIdx.x; t < P * chunks; t += blockDim.x) {
+    for (int t = tid; t < P * chunks; t += kDecodeThreads) {
       const int p = t / chunks, ch = t % chunks;
       const size_t src = base + (size_t)p * Hkv * D + ch * 8;
       cp_async16(kd + t * 8, k_pool + src);
       cp_async16(vd + t * 8, v_pool + src);
     }
-    for (int p = threadIdx.x; p < P; p += blockDim.x)
-      cp_async4(kps + b * P + p, pos_pool + (size_t)pid * P + p);
   };
+  for (int st = 0; st < nst - 1; ++st) {
+    if (st < n_vis) stage(st, st);
+    cp_async_commit();
+  }
 
-  stage(row[0], 0);
-  cp_async_commit();
-  int pid_next = NB > 1 ? row[1] : 0;   // page ids are read one page ahead
-  for (int j = 0; j < NB; ++j) {
-    const int b = j & 1;
-    if (j + 1 < NB) {
-      stage(pid_next, b ^ 1);           // page j+1 flies while j is scored
-      if (j + 2 < NB) pid_next = row[j + 2];
-    }
-    cp_async_commit();                  // one group per page, empty or not
-    cp_async_wait_all_but_last();       // page j has landed
-    __syncthreads();
-    const __nv_bfloat16* ks = tiles + 2 * b * tile;
+  const int grp = tid / kLanesPerKey, sub = tid % kLanesPerKey;
+  constexpr int kGroups = kDecodeThreads / kLanesPerKey;
+  const int pairs = rep * P;
+  const int half = D / 2, items = rep * half;
+  float2* acc2 = reinterpret_cast<float2*>(acc_s);
+  for (int j = 0; j < n_vis; ++j) {
+    cp_async_wait(nst - 2);            // page j has landed
+    __syncthreads();                   // for every thread; page j-1 is read
+    if (j + nst - 1 < n_vis) stage(j + nst - 1, (j + nst - 1) % nst);
+    cp_async_commit();
+    const __nv_bfloat16* ks = tiles + 2 * (j % nst) * tile;
     const __nv_bfloat16* vs = ks + tile;
-    const int* kp = kps + b * P;
+    const int* kp = kpos_s + vis_s[j] * P;
 
-    // scores of this warp's query head against the page's P keys
-    for (int p = 0; p < P; ++p) {
+    // scores: 8 lanes a (head, key) pair, 16 pairs at once
+    for (int base = 0; base < pairs; base += kGroups) {
+      const int it = base + grp;
       float part = 0.0f;
+      if (it < pairs) {
+        const int h = it / P, p = it % P;
+        for (int ch = sub; ch < chunks; ch += kLanesPerKey) {
+          const uint4 kv =
+              *reinterpret_cast<const uint4*>(ks + p * D + ch * 8);
+          const float4 qa =
+              *reinterpret_cast<const float4*>(q_s + h * D + ch * 8);
+          const float4 qb =
+              *reinterpret_cast<const float4*>(q_s + h * D + ch * 8 + 4);
+          const uint32_t w[4] = {kv.x, kv.y, kv.z, kv.w};
+          const float qq[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + kWarp * i;
-        if (d < D) part += qv[i] * __bfloat162float(ks[p * D + d]);
+          for (int u = 0; u < 4; ++u) {
+            part += qq[2 * u] * __uint_as_float(w[u] << 16);
+            part += qq[2 * u + 1] * __uint_as_float(w[u] & 0xffff0000u);
+          }
+        }
       }
 #pragma unroll
-      for (int o = kWarp / 2; o > 0; o >>= 1)
+      for (int o = kLanesPerKey / 2; o > 0; o >>= 1)
         part += __shfl_xor_sync(kFullMask, part, o);
-      const int kpos = kp[p];
-      const bool valid = kpos <= pos && (window < 0 || kpos > pos - window);
-      if (lane == 0) sc[p] = part * scale + (valid ? 0.0f : kNegInf);
+      if (it < pairs && sub == 0)
+        sc_s[it] = part * scale + (admits(kp[it % P]) ? 0.0f : kNegInf);
     }
-    __syncwarp();
+    __syncthreads();
 
-    // online softmax across pages
-    float m_new = m;
-    for (int p = 0; p < P; ++p) m_new = fmaxf(m_new, sc[p]);
-    const float alpha = expf(m - m_new);
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
-    float psum = 0.0f;
-    for (int p = 0; p < P; ++p) {
-      const float e = expf(sc[p] - m_new);
-      psum += e;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + kWarp * i;
-        if (d < D) acc[i] += e * __bfloat162float(vs[p * D + d]);
+    // online softmax across pages, one thread a head
+    for (int h = tid; h < rep; h += kDecodeThreads) {
+      float* sh = sc_s + h * P;
+      float m_new = m_s[h];
+      for (int p = 0; p < P; ++p) m_new = fmaxf(m_new, sh[p]);
+      const float alpha = expf(m_s[h] - m_new);
+      float psum = 0.0f;
+      for (int p = 0; p < P; ++p) {
+        const float e = expf(sh[p] - m_new);
+        sh[p] = e;
+        psum += e;
       }
+      l_s[h] = l_s[h] * alpha + psum;
+      m_s[h] = m_new;
+      al_s[h] = alpha;
     }
-    l = l * alpha + psum;
-    m = m_new;
-    __syncthreads();                    // buffer b is free for page j+2
-  }
+    __syncthreads();
 
-  const float l_safe = l == 0.0f ? 1.0f : l;
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = lane + kWarp * i;
-    if (d < D) out[((size_t)c * H + h) * D + d] = acc[i] / l_safe;
+    // acc = acc * alpha + sum_p e_p v_p: a thread a (key subset, head,
+    // column pair); key subset u takes keys u, u + KS, ...
+    for (int it = tid; it < KS * items; it += kDecodeThreads) {
+      const int u = it / items, r = it % items;
+      const int h = r / half, d2 = r % half;
+      const float alpha = al_s[h];
+      float2 a = acc2[it];
+      a.x *= alpha;
+      a.y *= alpha;
+      const float* eh = sc_s + h * P;
+      for (int p = u; p < P; p += KS) {
+        const float e = eh[p];
+        const __nv_bfloat162 vv =
+            *reinterpret_cast<const __nv_bfloat162*>(vs + p * D + 2 * d2);
+        a.x += e * __low2float(vv);
+        a.y += e * __high2float(vv);
+      }
+      acc2[it] = a;
+    }
   }
+  cp_async_wait(0);
+  __syncthreads();
+
+  // this split's (m, l, acc); the key subsets summed in order
+  if (S == 1) {
+    for (int i = tid; i < rep * D; i += kDecodeThreads) {
+      const int h = i / D;
+      float a = 0.0f;
+      for (int u = 0; u < KS; ++u) a += acc_s[u * rep * D + i];
+      const float l = l_s[h];
+      out[qbase + i] = a / (l == 0.0f ? 1.0f : l);
+    }
+    return;
+  }
+  for (int i = tid; i < rep * D; i += kDecodeThreads) {
+    const int h = i / D, d = i % D;
+    float a = 0.0f;
+    for (int u = 0; u < KS; ++u) a += acc_s[u * rep * D + i];
+    part_acc[(((size_t)c * H + g * rep + h) * S + sp) * D + d] = a;
+  }
+  for (int h = tid; h < rep; h += kDecodeThreads)
+    part_ml[((size_t)c * H + g * rep + h) * S + sp] =
+        make_float2(m_s[h], l_s[h]);
+  __threadfence();                     // the partial is visible device-wide
+  __syncthreads();                     // ... before the ticket is taken
+  if (tid == 0) {
+    const int t = atomicAdd(tickets + (size_t)c * Hkv + g, 1);
+    misc[1] = t == S - 1;
+  }
+  __syncthreads();
+  if (!misc[1]) return;
+  __threadfence();
+
+  // the last block: combine the S partials in split order
+  for (int i = tid; i < rep * D; i += kDecodeThreads) {
+    const int h = i / D, d = i % D;
+    const size_t hrow = (size_t)c * H + g * rep + h;
+    const float2* ml = part_ml + hrow * S;
+    float M = kNegInf;
+    for (int s = 0; s < S; ++s) M = fmaxf(M, __ldcg(&ml[s].x));
+    float Lsum = 0.0f, A = 0.0f;
+    for (int s = 0; s < S; ++s) {
+      const float2 v = __ldcg(ml + s);
+      const float w = expf(v.x - M);
+      Lsum += w * v.y;
+      A += w * __ldcg(part_acc + (hrow * S + s) * D + d);
+    }
+    out[hrow * D + d] = A / (Lsum == 0.0f ? 1.0f : Lsum);
+  }
+  if (tid == 0) tickets[(size_t)c * Hkv + g] = 0;   // ready for the next call
 }
 
-template <int DPL, typename QT>
+template <typename QT>
 int launch_decode(const void* q, const void* k_pool, const void* v_pool,
                   const void* pos_pool, const void* page_table,
-                  const void* positions, void* out, int C, int NB, int P,
-                  int Hkv, int D, int rep, int window, float scale,
+                  const void* positions, void* out, void* part_ml,
+                  void* part_acc, void* tickets, int C, int NB, int P,
+                  int Hkv, int D, int rep, int window, float scale, int chunk,
                   cudaStream_t s) {
-  const size_t smem = (size_t)4 * P * D * sizeof(__nv_bfloat16) +
-                      (size_t)2 * P * sizeof(int) +
-                      (size_t)rep * P * sizeof(float);
-  auto kernel = paged_decode_kernel<DPL, QT>;
+  // key subsets of the weighted sum: enough (head, column pair, subset)
+  // items for every thread of the block
+  const int pairs = rep * D / 2;
+  int KS = pairs < kDecodeThreads ? kDecodeThreads / pairs : 1;
+  if (KS > P) KS = P;
+  int nst = kMaxStages;
+  while (nst > 2 && decode_smem(P, D, rep, chunk, nst, KS).total > kMaxSmem)
+    --nst;
+  const size_t smem = decode_smem(P, D, rep, chunk, nst, KS).total;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = paged_decode_kernel<QT>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned)Hkv, (unsigned)C);
-  kernel<<<grid, rep * kWarp, smem, s>>>(
+  const int S = (NB + chunk - 1) / chunk;
+  const dim3 grid((unsigned)Hkv, (unsigned)C, (unsigned)S);
+  kernel<<<grid, kDecodeThreads, smem, s>>>(
       static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool),
       static_cast<const int*>(pos_pool), static_cast<const int*>(page_table),
-      static_cast<const int*>(positions), static_cast<float*>(out), NB, P,
-      Hkv, D, rep, window, scale);
+      static_cast<const int*>(positions), static_cast<float*>(out),
+      static_cast<float2*>(part_ml), static_cast<float*>(part_acc),
+      static_cast<int*>(tickets), NB, P, Hkv, D, rep, window, scale, chunk,
+      nst, KS);
   return (int)cudaGetLastError();
-}
-
-template <typename QT>
-int dispatch_decode(const void* q, const void* k_pool, const void* v_pool,
-                    const void* pos_pool, const void* page_table,
-                    const void* positions, void* out, int C, int NB, int P,
-                    int Hkv, int D, int rep, int window, float scale,
-                    cudaStream_t s) {
-#define LAUNCH_DECODE(DPL)                                                   \
-  return launch_decode<DPL, QT>(q, k_pool, v_pool, pos_pool, page_table,     \
-                                positions, out, C, NB, P, Hkv, D, rep,       \
-                                window, scale, s)
-  switch ((D + kWarp - 1) / kWarp) {
-    case 1: LAUNCH_DECODE(1);
-    case 2: LAUNCH_DECODE(2);
-    case 3: LAUNCH_DECODE(3);
-    case 4: LAUNCH_DECODE(4);
-    default: LAUNCH_DECODE(8);          // D <= 256, checked by the caller
-  }
-#undef LAUNCH_DECODE
 }
 
 // ---------------------------------------------------------------------------
@@ -297,27 +458,34 @@ extern "C" {
 // q: (C, H, D) float32 (q_bf16 == 0) or bfloat16, contiguous; k_pool/v_pool:
 // (NP, P, Hkv, D) bfloat16, contiguous; pos_pool: (NP, P) int32; page_table:
 // (C, NB) int32; positions: (C,) int32; out: (C, H, D) float32.  window < 0
-// means no sliding window.  The caller guarantees D % 8 == 0 and 16-byte
-// aligned pools.
+// means no sliding window.  The walk is split into ceil(NB / chunk) ranges
+// of `chunk` table entries; with more than one, part_ml (C * H * splits
+// float2), part_acc (C * H * splits * D float32) and tickets (C * Hkv
+// int32, all 0, and left 0) are the scratch the splits combine through.
+// The caller guarantees D % 8 == 0 and 16-byte aligned pools.
 int paged_attention_decode_launch(const void* q, int q_bf16,
                                   const void* k_pool, const void* v_pool,
                                   const void* pos_pool, const void* page_table,
-                                  const void* positions, void* out, int C,
-                                  int NB, int P, int Hkv, int D, int rep,
-                                  int window, float scale, void* stream) {
+                                  const void* positions, void* out,
+                                  void* part_ml, void* part_acc,
+                                  void* tickets, int C, int NB, int P,
+                                  int Hkv, int D, int rep, int window,
+                                  float scale, int chunk, void* stream) {
   if (C <= 0 || Hkv <= 0) return (int)cudaSuccess;
   if (NB <= 0 || P <= 0 || D <= 0 || D > 256 || D % 8 || rep <= 0 ||
-      rep * kWarp > 1024 || Hkv > 65535 || C > 65535)
+      rep > 32 || Hkv > 65535 || C > 65535 || chunk <= 0 ||
+      (NB + chunk - 1) / chunk > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_bf16)
-    return dispatch_decode<__nv_bfloat16>(q, k_pool, v_pool, pos_pool,
-                                          page_table, positions, out, C, NB,
-                                          P, Hkv, D, rep, window, scale, s);
-  return dispatch_decode<float>(q, k_pool, v_pool, pos_pool, page_table,
-                                positions, out, C, NB, P, Hkv, D, rep, window,
-                                scale, s);
+    return launch_decode<__nv_bfloat16>(
+        q, k_pool, v_pool, pos_pool, page_table, positions, out, part_ml,
+        part_acc, tickets, C, NB, P, Hkv, D, rep, window, scale, chunk, s);
+  return launch_decode<float>(q, k_pool, v_pool, pos_pool, page_table,
+                              positions, out, part_ml, part_acc, tickets, C,
+                              NB, P, Hkv, D, rep, window, scale, chunk, s);
 }
+
 
 // pool: S stages of (NP, P, Hkv, D) bfloat16 blocks, stage stride
 // pool_stage_stride elements, each stage contiguous; pages: (nb,) int32;

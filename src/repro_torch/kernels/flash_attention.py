@@ -9,27 +9,33 @@ its jnp stand-in for the kernel; the port's layers reach this kernel for
 every prefill on the card (``models.layers.apply_attention`` ->
 ``kernels.ops.flash_attention``).
 
-What bounds it on the card, and what the design does about it: operations.
-The causal half of ``Q K^T`` and ``P V`` is ``~2 B Hq Sq Skv D`` flops
-(~34 GFLOP at an olmoe prefill of 8 x 1024 tokens) against tens of
-megabytes of q, k, v and o.  This version computes in plain float32 FMAs:
-one block per (64-row query tile, head, batch row) walks the key tiles its
-rows admit -- tiles masked whole by the causal or window mask are skipped,
-exactly -- 64 keys at a time, staged as float32 rows in shared memory, with
-the online-softmax state and the accumulator in registers; a row's max and
-sum reduce across 16 lanes of one warp.  Fixed 64 x 64 tiles, so any
-length works (the ragged edges are masked in the kernel); q, k and v are
-read through their strides.  Tensor cores (bf16 ``Q K^T``, a split operand
-for ``P V``) are later work.
+What bounds it on the card: operations.  The causal half of ``Q K^T`` and
+``P V`` is ``~2 B Hq Sq Skv D`` flops (~34 GFLOP at an olmoe prefill of 8 x
+1024 tokens) against tens of megabytes of q, k, v and o.  The inputs' type
+picks one of two kernels (``variant_counts`` says which ran):
 
-Beside the kernel stands its plain PyTorch version
+* ``bf16_mma`` (every full-width path): FlashAttention-2 on the tensor
+  cores, ``mma.sync.m16n8k16`` bf16 -> f32.  A block of 4 warps takes 64
+  rows of (query position, query head of one kv head's group), so one K/V
+  tile serves the whole group; each warp keeps its 16 rows' Q fragments in
+  registers; K/V tiles of 64 keys stream through a 2-stage ``cp.async``
+  ring; the online softmax runs on the accumulator fragments.  P is split
+  into two bf16 halves (``P = P_hi + P_lo``) and both products are summed
+  in f32, so P carries ~2^-17 relative error, not a bf16 rounding.
+* ``f32_simt`` (the reduced configs, the float32 holds): plain float32 FMAs
+  on 64 x 64 tiles staged as float32 rows in shared memory.
+
+Both skip key tiles that the causal or window mask hides whole (exactly),
+mask ragged edges in the kernel and read q, k and v through their strides.
+
+Beside the kernels stands their plain PyTorch version
 (:func:`flash_attention_plain`): the port's
 :func:`repro_torch.kernels.ref.blockwise_attention` at the
 reference's blocks (512 queries x 1024 keys), which is what the
 reference's ``models/layers.py`` computes.  The wrapper takes the plain
 version only for tensors that lie on the CPU; for CUDA tensors it launches
-the kernel or raises.  ``launch_counts`` and ``plain_counts`` record which
-way each call went.
+the kernel of their type or raises.  ``launch_counts`` and ``plain_counts``
+record which way each call went.
 """
 from __future__ import annotations
 
@@ -46,12 +52,16 @@ from repro_torch.kernels.ref import blockwise_attention
 launch_counts: Dict[str, int] = {"flash_attention": 0}
 #: plain-version calls (any caller, any device)
 plain_counts: Dict[str, int] = {"flash_attention_plain": 0}
+#: launches of each kernel variant: the tensor-core kernel (bfloat16
+#: inputs) and the SIMT kernel (float32 inputs); they sum to
+#: ``launch_counts["flash_attention"]``
+variant_counts: Dict[str, int] = {"bf16_mma": 0, "f32_simt": 0}
 
-MAX_HEAD_DIM = 128           # the accumulator's float4 groups per thread
+MAX_HEAD_DIM = 128           # the accumulators' width in both kernels
 
 
 def reset_counts() -> None:
-    for d in (launch_counts, plain_counts):
+    for d in (launch_counts, plain_counts, variant_counts):
         for k in d:
             d[k] = 0
 
@@ -114,7 +124,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
     q ``(B, Sq, Hq, D)``, k/v ``(B, Skv, Hkv, D)`` with ``Hq % Hkv == 0``,
-    float32 or bfloat16 (one type for all three); ``causal`` top-left
+    float32 or bfloat16 (one type for all three: bfloat16 goes to the
+    tensor-core kernel, float32 to the SIMT kernel); ``causal`` top-left
     aligned (query and key positions both from 0); ``window`` admits keys
     ``k > q - window``, or None.  Returns ``(B, Sq, Hq, D)`` in q's type.
     CUDA tensors go to the kernel (D a multiple of 8 up to 128), CPU tensors
@@ -148,4 +159,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
                            f"(B={B}, Sq={Sq}, Skv={Skv}, Hq={Hq}, Hkv={Hkv}, "
                            f"D={D})")
     launch_counts["flash_attention"] += 1
+    variant_counts["bf16_mma" if q.dtype == torch.bfloat16 else
+                   "f32_simt"] += 1
     return out

@@ -9,18 +9,26 @@ Replaces the two Pallas kernels of the JAX package's
 
 What bounds them on the card, and what the design does about it:
 
-* **decode** is bound by bytes: every page a row's table names is read, K
-  and V tiles of ``P x D`` bf16 per kv head, plus the page's positions.  One
-  block per (row, kv head), one warp per query head of the group: a tile is
-  staged in shared memory once and scored by all ``H / Hkv`` query heads.
-  The row's pages are walked two buffers deep -- the next page's tiles are
-  in flight (16-byte asynchronous copies; head sizes are multiples of 8 in
-  every config, and the wrapper raises for any other) while one is scored,
-  and page ids are read from the table inside the kernel, one page ahead.  Online softmax across pages in float32; invalid
-  keys get the reference's -1e30 additive bias (not skipped), so an
-  all-masked row averages uniformly like the full softmax of the oracle.
-  Deterministic (no atomics); the output depends on page content reached
-  through the table, never on physical page ids.
+* **decode** is bound by bytes: the K and V tiles (``P x D`` bf16 per kv
+  head) of every page whose keys a row can attend, plus the pages'
+  positions.  The kernel reads each page's positions first and fetches the
+  tiles only of pages with a key that passes the mask, so SENTINEL padding
+  and pages outside a sliding window cost 64 bytes, not a tile (exact: a
+  masked key's weight is exactly 0 once the row has a real score; a row
+  with no admissible key walks every entry and averages it, as the
+  reference's softmax does).  The walk is split across blocks
+  (flash-decoding): grid (kv head, row, split), each split a contiguous
+  range of table entries (:func:`decode_split`, from the row's own shape,
+  so a row's bits do not depend on its batch), its partial ``(m, l,
+  acc)`` in f32 combined in split order by the last block of its (row, kv
+  head) in the same launch -- one launch a call, no atomics in any sum, so
+  two calls give the same bits.  In a block, 8 lanes score a (head, key)
+  pair and each tile is staged once for all ``H / Hkv`` query heads; pages
+  stream through a 4-deep ``cp.async`` ring.  The partials and the
+  per-(row, kv head) tickets live in a per-(device, stream) scratch cache
+  (:func:`_scratch`), not a fresh allocation per call.  Online softmax in
+  float32; the output depends on page content reached through the table,
+  never on physical page ids.
 * **scatter** is bound by bytes: the values are read once and the named
   pages written once, eight elements a thread, cast by round-to-nearest-even
   -- bit-exact with ``index_copy_`` of ``values.to(torch.bfloat16)``.  It
@@ -52,8 +60,11 @@ launch_counts: Dict[str, int] = {"paged_attention_decode": 0,
 plain_counts: Dict[str, int] = {"paged_attention_decode_plain": 0,
                                 "paged_prefill_scatter_plain": 0}
 
-MAX_HEAD_DIM = 256           # the decode kernel keeps D/32 values per lane
-MAX_GROUP = 32               # query heads per kv head: one warp each
+MAX_HEAD_DIM = 256           # the decode kernel's widest K/V row
+MAX_GROUP = 32               # query heads per kv head sharing a block
+ROW_BLOCKS = 66              # decode blocks one row aims for: 8 rows put ~4
+                             # on each of an H100's 132 SMs
+MAX_SPLIT_ENTRIES = 8        # table entries of one split at most
 
 
 def reset_counts() -> None:
@@ -105,8 +116,8 @@ def _entry(name: str, argtypes):
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
-_DECODE_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                _F, _P]
+_DECODE_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                _I, _I, _I, _F, _I, _P]
 _SCATTER_ARGS = [_P, _P, _P, _I, _I, _I, _L, _L, _L, _P]
 
 
@@ -126,6 +137,42 @@ def _check_decode(q, k_pool, v_pool, pos_pool, page_table, positions):
     if tuple(positions.shape) != (C,):
         raise ValueError(f"positions {tuple(positions.shape)}: need ({C},)")
     return C, H, D, NP, P, Hkv, page_table.shape[1]
+
+
+def decode_split(Hkv: int, NB: int) -> int:
+    """Table entries per split of the decode kernel's walk: enough splits
+    that ``Hkv * splits`` blocks of one row reach ``ROW_BLOCKS``, at most
+    ``MAX_SPLIT_ENTRIES`` entries each, so a split that holds only skipped
+    pages ends early and the live ones are short.  It depends on the row's
+    own shape only, never on how many rows share the launch, so a row gives
+    the same bits alone or in any batch."""
+    want = -(-ROW_BLOCKS // max(1, Hkv))
+    return max(1, min(MAX_SPLIT_ENTRIES, -(-NB // want)))
+
+
+#: (device index, stream) -> the decode kernel's partials and tickets
+_SCRATCH: Dict[tuple, Dict[str, torch.Tensor]] = {}
+
+
+def _scratch(dev: torch.device, stream: int, n_parts: int, D: int,
+             n_tickets: int) -> Dict[str, torch.Tensor]:
+    """The decode kernel's scratch for launches on ``stream``: partial
+    ``(m, l)`` pairs and accumulators of ``n_parts`` (row, head, split)
+    triples, and ``n_tickets`` per-(row, kv head) tickets that start at 0
+    and that the kernel leaves at 0.  Kept per (device, stream) -- launches
+    on one stream run in order, so they never share it at once -- and grown,
+    never shrunk; growing allocates on the stream and does not
+    synchronise."""
+    need = dict(ml=2 * n_parts, acc=n_parts * D, tickets=n_tickets)
+    sc = _SCRATCH.get((dev.index, stream))
+    if sc is None or any(sc[k].numel() < n for k, n in need.items()):
+        size = {k: max(n, sc[k].numel() if sc else 0) for k, n in need.items()}
+        sc = _SCRATCH[(dev.index, stream)] = dict(
+            ml=torch.empty(size["ml"], dtype=torch.float32, device=dev),
+            acc=torch.empty(size["acc"], dtype=torch.float32, device=dev),
+            tickets=torch.zeros(size["tickets"], dtype=torch.int32,
+                                device=dev))
+    return sc
 
 
 def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
@@ -160,6 +207,9 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
                          f"{MAX_GROUP} query heads per kv head")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("k_pool/v_pool must be 16-byte aligned")
+    if NB == 0:
+        raise ValueError("page_table has no entries")
+    chunk = decode_split(Hkv, NB)
     q = q.contiguous()
     pos_pool = pos_pool.to(torch.int32).contiguous()
     page_table = page_table.to(torch.int32).contiguous()
@@ -167,17 +217,21 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
     out = torch.empty((C, H, D), dtype=torch.float32, device=q.device)
     if C == 0:
         return out                     # nothing to launch, nothing counted
+    splits = -(-NB // chunk)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        sc = _scratch(q.device, stream, C * H * splits, D, C * Hkv)
         err = _entry("paged_attention_decode_launch", _DECODE_ARGS)(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pool.data_ptr(),
             v_pool.data_ptr(), pos_pool.data_ptr(), page_table.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), C, NB, P, Hkv, D, H // Hkv,
-            -1 if window is None else int(window), 1.0 / math.sqrt(D), stream)
+            positions.data_ptr(), out.data_ptr(), sc["ml"].data_ptr(),
+            sc["acc"].data_ptr(), sc["tickets"].data_ptr(), C, NB, P, Hkv, D,
+            H // Hkv, -1 if window is None else int(window),
+            1.0 / math.sqrt(D), chunk, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention_decode: CUDA error {err} at "
                            f"launch (C={C}, H={H}, Hkv={Hkv}, D={D}, P={P}, "
-                           f"NB={NB})")
+                           f"NB={NB}, split={chunk})")
     launch_counts["paged_attention_decode"] += 1
     return out
 

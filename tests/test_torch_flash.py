@@ -178,3 +178,91 @@ def test_every_prefill_attention_goes_through_ops(arch):
            tref.flash_attention_ref(q, k, v, True,
                                     cfg.sliding_window).numpy())
     assert tl.ops is ops
+
+
+def _tensor_core_emulation(q, k, v, causal, window, tile=64, split_p=True):
+    """The numerics of the bf16 tensor-core kernel, written out in float32:
+    bf16 operands (exact in f32), scores in f32, the online softmax walked
+    over 64-key tiles, P split into bf16 hi + lo with both products summed
+    in f32, the output rounded to bf16.  q (B, Sq, Hq, D), k/v (B, Skv,
+    Hkv, D), all holding bf16 values.  ``split_p=False`` drops P_lo: one
+    bf16 rounding of P, the design the kernel does not use."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    qh = q.permute(0, 2, 1, 3)                                 # (B, Hq, Sq, D)
+    kh = k.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)   # (B, Hq, Skv, D)
+    vh = v.permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+    qpos = torch.arange(Sq)[:, None]
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, D))
+    for k0 in range(0, Skv, tile):
+        kt, vt = kh[:, :, k0:k0 + tile], vh[:, :, k0:k0 + tile]
+        s = (qh @ kt.transpose(-1, -2)) / D ** 0.5
+        kpos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones((Sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        s = torch.where(ok, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float() if split_p else 0.0 * p
+        acc = acc * alpha + p_hi @ vt + p_lo @ vt
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    out = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+TENSOR_CORE_CASES = [
+    (B, S, S, Hq, Hkv, D, c, w) for B, S, Hq, Hkv, D, c, w, _, _
+    in SWEEP + EDGES] + [
+    (1, 256, 256, 16, 16, 128, True, None),    # olmoe's head geometry
+    (1, 40, 24, 4, 2, 16, True, 8),            # rows that admit no key
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,D,causal,window",
+                         TENSOR_CORE_CASES)
+def test_tensor_core_numerics_meet_the_bf16_hold(B, Sq, Skv, Hq, Hkv, D,
+                                                 causal, window):
+    """The bf16 kernel's arithmetic (bf16 operands, f32 scores, online
+    softmax per 64-key tile, P split into bf16 hi + lo, two f32-accumulated
+    products, output rounded to bf16) against the reference's
+    ``naive_attention`` and the port's plain version on the widened
+    inputs, at the hold the card applies to the bf16 kernel:
+    ``rtol=1e-2, atol=1e-3``.  This checks the design's numerics; the
+    kernel itself is held on the card by ``chip_smoke.py``."""
+    q, k, v = (t.to(torch.bfloat16).float()
+               for t in _t(_qkv(B, Sq, Skv, Hq, Hkv, D, seed=7)))
+    got = _tensor_core_emulation(q, k, v, causal, window)
+    naive = np.asarray(jac.naive_attention(
+        *[jnp.asarray(t.numpy()) for t in (q, k, v)], causal=causal,
+        window=window))
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _close(got.float().numpy(), naive, rtol=1e-2, atol=1e-3)
+    _close(got.float().numpy(), want.numpy(), rtol=1e-2, atol=1e-3)
+
+
+def test_one_bf16_rounding_of_p_misses_the_bf16_hold():
+    """Why the kernel splits P: with P rounded once to bf16 (error up to
+    2^-9 a weight) the same emulation misses ``rtol=1e-2, atol=1e-3``
+    against the reference's ``naive_attention`` on most of the cases above,
+    where the output is near zero."""
+    misses = 0
+    for B, Sq, Skv, Hq, Hkv, D, causal, window in TENSOR_CORE_CASES:
+        q, k, v = (t.to(torch.bfloat16).float()
+                   for t in _t(_qkv(B, Sq, Skv, Hq, Hkv, D, seed=7)))
+        got = _tensor_core_emulation(q, k, v, causal, window, split_p=False)
+        want = np.asarray(jac.naive_attention(
+            *[jnp.asarray(t.numpy()) for t in (q, k, v)], causal=causal,
+            window=window))
+        misses += not np.allclose(got.float().numpy(), want, rtol=1e-2,
+                                  atol=1e-3)
+    assert misses > len(TENSOR_CORE_CASES) // 2

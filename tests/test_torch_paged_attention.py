@@ -260,3 +260,162 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         pa.paged_prefill_scatter(pool, torch.tensor([2, 3]),
                                  torch.zeros((2, 3, 4, 2, 8)))
+
+
+def _admits(kpos, pos, window):
+    ok = kpos <= pos
+    if window is not None:
+        ok &= kpos > pos - window
+    return ok
+
+
+def _readable(pos_pool, row, pos, window):
+    """Which entries of a table row name a page holding a key the row
+    admits (the pages the kernel reads)."""
+    return [bool(_admits(pos_pool[int(p)], pos, window).any()) for p in row]
+
+
+def _with_sentinel_middle(state, rng):
+    """The state with a SENTINEL entry inserted at a random place of every
+    row's table (the named pages keep their order)."""
+    q, k, v, pp_, table, pos = state
+    C, NB = table.shape
+    wide = np.full((C, NB + 1), SENTINEL, np.int32)
+    for c in range(C):
+        j = int(rng.integers(0, NB + 1))
+        wide[c, :j], wide[c, j + 1:] = table[c, :j], table[c, j:]
+    return q, k, v, pp_, wide, pos
+
+
+def _windowed(state, window):
+    """Every row's position moved late enough that its window masks the
+    pages early in its table whole (each row keeps one admissible key)."""
+    q, k, v, pp_, table, pos = state
+    pos = pos.copy()
+    for c in range(table.shape[0]):
+        named = pp_[table[c][table[c] != SENTINEL]]
+        pos[c] = int(named[named != POS_SENTINEL].max())
+    return q, k, v, pp_, table, pos
+
+
+@pytest.mark.parametrize("layout", ["sentinel padding", "sentinel middle",
+                                    "window masks early pages"])
+def test_dropping_unreadable_entries_keeps_every_live_row(layout):
+    """K3 reads only pages holding a key the row admits.  For a row with an
+    admissible key, the plain version over that row's table with every
+    other entry dropped agrees with the reference's oracle over the full
+    table at the paged tolerance: the dropped entries' weights are exactly
+    0."""
+    rng = np.random.default_rng(29)
+    window = 5 if layout.startswith("window") else None
+    state = rand_paged_state(rng, C=4, NB=4, P=4, H=4, Hkv=2, D=8)
+    if layout == "sentinel padding":
+        q, k, v, pp_, table, pos = state
+        state = (q, k, v, pp_, np.concatenate(
+            [table, np.full((4, 5), SENTINEL, np.int32)], axis=1), pos)
+    elif layout == "sentinel middle":
+        state = _with_sentinel_middle(state, rng)
+    else:
+        state = _windowed(state, window)
+    q, k, v, pp_, table, pos = state
+    j = as_jax(*state)
+    full = np.asarray(jax_decode_ref(j[0], j[1], j[2], j[4], j[5],
+                                     pos_pool=j[3], window=window))
+    dropped = 0
+    for c in range(table.shape[0]):
+        keep = _readable(pp_, table[c], pos[c], window)
+        assert any(keep)
+        dropped += keep.count(False)
+        row = table[c][keep][None]
+        one = pa.paged_attention_decode_plain(*as_torch(
+            q[c:c + 1], k, v, pp_, row, pos[c:c + 1]), window=window)
+        agree(one[0].numpy(), full[c])
+    assert dropped > 0
+
+
+def _split_decode(q, k_pool, v_pool, pos_pool, table, positions, window,
+                  chunk):
+    """The K3 kernel's walk, written out in float32: the table cut into
+    splits of ``chunk`` entries; a split reads only pages holding an
+    admissible key, or -- when the whole row has none -- every page of its
+    range; an online softmax over its pages gives a partial (m, l, acc);
+    the partials are combined in split order."""
+    C, H, D = q.shape
+    NB = table.shape[1]
+    Hkv = k_pool.shape[2]
+    rep = H // Hkv
+    qf = q.float()
+    out = torch.empty((C, H, D))
+    for c in range(C):
+        pos = int(positions[c])
+        ok = [_admits(pos_pool[int(p)], pos, window) for p in table[c]]
+        row_any = any(bool(o.any()) for o in ok)
+        parts = []
+        for e0 in range(0, NB, chunk):
+            m = torch.full((H,), -1e30)
+            l = torch.zeros((H,))
+            acc = torch.zeros((H, D))
+            for e in range(e0, min(NB, e0 + chunk)):
+                if row_any and not bool(ok[e].any()):
+                    continue                      # a page the row cannot read
+                kt = k_pool[int(table[c, e])].float()     # (P, Hkv, D)
+                vt = v_pool[int(table[c, e])].float()
+                kh = kt.repeat_interleave(rep, dim=1)     # (P, H, D)
+                vh = vt.repeat_interleave(rep, dim=1)
+                s = (kh * qf[c][None]).sum(-1).T / D ** 0.5   # (H, P)
+                s = s + torch.where(ok[e], 0.0, -1e30)[None].float()
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[:, None])
+                alpha = torch.exp(m - m_new)
+                acc = acc * alpha[:, None] + torch.einsum("hp,phd->hd", p, vh)
+                l = l * alpha + p.sum(-1)
+                m = m_new
+            parts.append((m, l, acc))
+        M = torch.stack([p[0] for p in parts]).amax(0)
+        L = sum(torch.exp(p[0] - M) * p[1] for p in parts)
+        A = sum(torch.exp(p[0] - M)[:, None] * p[2] for p in parts)
+        out[c] = A / torch.where(L == 0, torch.ones_like(L), L)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 3, 5, 6])
+@pytest.mark.parametrize("layout", ["sentinel padding", "sentinel middle",
+                                    "window masks early pages",
+                                    "all-masked row"])
+def test_split_and_combine_equals_the_full_softmax(layout, chunk):
+    """The kernel's split walk -- splits of 1 .. NB entries, some of them
+    holding only skipped pages -- equals the full-row softmax of the
+    reference's oracle and of the port's plain version at the paged
+    tolerance; an all-masked row keeps its uniform average over every
+    entry, SENTINEL pages included.  This checks the design's numerics; the
+    kernel itself is held on the card by ``chip_smoke.py``."""
+    rng = np.random.default_rng(31 + chunk)
+    window = 5 if layout.startswith("window") else None
+    state = rand_paged_state(rng, C=3, NB=4, P=4, H=4, Hkv=2, D=8)
+    q, k, v, pp_, table, pos = state
+    if layout == "sentinel padding":
+        state = (q, k, v, pp_, np.concatenate(
+            [table, np.full((3, 2), SENTINEL, np.int32)], axis=1), pos)
+    elif layout == "sentinel middle":
+        state = _with_sentinel_middle(state, rng)
+    elif layout.startswith("window"):
+        state = _windowed(state, window)
+    else:
+        table = table.copy()
+        table[1] = SENTINEL
+        table[1, 2] = table[0, 0]                 # a named page, all ahead
+        pos = pos.copy()
+        pos[1] = -1                               # ... of a row at -1
+        state = (q, k, v, pp_, table, pos)
+    ts = as_torch(*state)
+    j = as_jax(*state)
+    oracle = jax_decode_ref(j[0], j[1], j[2], j[4], j[5], pos_pool=j[3],
+                            window=window)
+    want = pa.paged_attention_decode_plain(*ts, window=window)
+    got = _split_decode(*ts, window, chunk)
+    agree(got.numpy(), oracle)
+    agree(got.numpy(), want.numpy())
+    if layout == "all-masked row":
+        v_row = ts[2][ts[4][1].long()].float()     # (NB, P, Hkv, D)
+        uniform = v_row.reshape(-1, 2, 8).mean(0).repeat_interleave(2, 0)
+        agree(got[1].numpy(), uniform.numpy())
