@@ -22,7 +22,10 @@ Drives the port's three paths through the entry points a user calls:
   decode step's through the paged decode kernel at group size 1.
 
 Every attention prefill of every path (internlm2's, h2o-danube's and
-olmoe's) runs the FlashAttention kernel.
+olmoe's) runs the FlashAttention kernel.  The gather of the risk path runs
+two kernels a call (a row pass writing each catalog row's clipped loss, then
+the trial pass over the ids), the SSD scan of mamba2's bf16 prefill its
+tensor-core kernel.
 
 It builds every CUDA kernel from the sources in this checkout (one ``nvcc``
 per source, all started together), holds each against its plain PyTorch
@@ -241,6 +244,7 @@ def make_case(rng, T, K, M, cat, device):
 
 
 G, O = "aggregate_loss_gather", "aggregate_loss_onehot"
+R = "aggregate_row_losses"           # the gather's row pass
 K3, K4 = "paged_attention_decode", "paged_prefill_scatter"
 K6 = "ssd_chunked"
 K5 = "flash_attention"
@@ -269,7 +273,7 @@ class Errors:
     """Largest disagreement seen per kernel, over every comparison."""
 
     def __init__(self):
-        self.abs = dict.fromkeys((G, O, K3, K4, K6, K5), 0.0)
+        self.abs = dict.fromkeys((G, R, O, K3, K4, K6, K5), 0.0)
         self.rel = dict(self.abs)
         self.cases = dict.fromkeys(self.abs, 0)
 
@@ -344,6 +348,15 @@ def bound_ms(T, K, M, rows):
     return max(by, op), "bytes" if by >= op else "operations"
 
 
+def row_bound_ms(rows, M):
+    """The row pass alone: the table's M columns read once and f written
+    once at the memory rate, or its 4 M operations a row at the float32
+    rate, whichever is larger."""
+    by = (rows * M * 4 + 2 * M * 4 + rows * 4) / PEAK_BYTES_PER_S * 1e3
+    op = 4 * rows * M / PEAK_F32_FLOPS * 1e3
+    return max(by, op), "bytes" if by >= op else "operations"
+
+
 def gather_traffic_ms(T, K):
     """Not the bound: what the gather algorithm pulls if no row is reused,
     an id and one 64 B row per event, at the memory rate."""
@@ -367,6 +380,8 @@ def phase_kernels_small(errs: Errors, dev) -> None:
         padded = (args[0], agg.pad_elt_columns(args[1]), *args[2:])
         errs.hold(G, agg.aggregate_loss_gather(*padded, chunk=chunk), want,
                   what)
+        errs.hold_bits(R, agg.aggregate_row_losses(*padded[1:4]),
+                       agg.aggregate_row_losses_plain(*args[1:4]), what)
         errs.hold(O, agg.aggregate_loss_onehot(*args, chunk=chunk,
                                                rows_tile=rt),
                   agg.aggregate_loss_onehot_plain(*args, chunk=chunk,
@@ -415,8 +430,15 @@ def phase_kernels_small(errs: Errors, dev) -> None:
                   agg.aggregate_loss_gather_plain(clean, *args[1:], chunk=16),
                   "ids outside the table")
 
+    before = (agg.launch_counts[G], agg.launch_counts[R])
+    agg.aggregate_loss_gather(*padded, chunk=16)
+    check((agg.launch_counts[G], agg.launch_counts[R])
+          == (before[0] + 1, before[1] + 1),
+          "a gather call did not launch the row pass and the trial pass "
+          "once each")
     say("kernels", f"sweep and edge cases hold: gather {errs.cases[G]}, "
-                   f"onehot {errs.cases[O]} comparisons")
+                   f"row pass {errs.cases[R]} bit for bit, onehot "
+                   f"{errs.cases[O]} comparisons")
 
 
 def phase_kernels_full(errs: Errors, tables: RiskTables, dev) -> dict:
@@ -450,12 +472,44 @@ def phase_kernels_full(errs: Errors, tables: RiskTables, dev) -> dict:
         ids, *terms, chunk=128), 1, flush)
     g_bound, g_by = bound_ms(T, K, M, rows)
     g_shape = f"T{T} K{K} M{M} rows{rows}"
-    say("kernels", f"gather {g_shape}: {g_ms:.3f} ms, plain "
-                   f"{g_plain:.1f} ms (first call {plain_wall * 1e3:.0f} ms), "
-                   f"bound {g_bound:.3f} ms by {g_by}; id + 64 B row per event "
+    # the row pass alone, against its plain version bit for bit
+    f = agg.aggregate_row_losses(elt, ret, lim)
+    errs.hold_bits(R, f, agg.aggregate_row_losses_plain(elt, ret, lim),
+                   f"full width rows{rows}")
+    r_ms = cuda_ms(lambda: agg.aggregate_row_losses(elt, ret, lim), 10, flush)
+    r_plain = cuda_ms(lambda: agg.aggregate_row_losses_plain(elt, ret, lim),
+                      3, flush)
+    r_bound, r_by = row_bound_ms(rows, M)
+    # the yardstick: one PyTorch call computing the trial pass on the same
+    # f (the aggregate terms are not in it); never called by the port
+    bag = lambda: torch.nn.functional.embedding_bag(ids, f[:, None],
+                                                    mode="sum")
+    lib = torch.clamp(torch.clamp(bag()[:, 0] - tables.agg_ret, min=0.0),
+                      max=tables.agg_lim)
+    check(bool(torch.allclose(lib, got, rtol=RTOL, atol=ATOL)),
+          "embedding_bag on the row losses, with the aggregate terms, "
+          "disagrees with the gather kernel")
+    lib_ms = cuda_ms(bag, 5, flush)
+    # where the trial pass's time goes: the same call with every id the pad
+    # 0 (the ids streamed, every gather one cached row) and with the ids cut
+    # to the first 65,536 rows (256 KB of f, held near the SMs)
+    probe = {}
+    for tag, alt in (("ids all 0", torch.zeros_like(ids)),
+                     ("ids in 65,536 rows", ids & 0xFFFF)):
+        probe[tag] = cuda_ms(lambda: agg.aggregate_loss_gather(
+            alt, *terms, chunk=128), 5, flush)
+        del alt
+    say("kernels", f"gather probes, same shape: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in probe.items()))
+    say("kernels", f"gather {g_shape}: {g_ms:.3f} ms (row pass {r_ms:.4f} "
+                   f"ms of it, plain {r_plain:.3f} ms, bound {r_bound:.4f} ms "
+                   f"by {r_by}), plain {g_plain:.1f} ms (first call "
+                   f"{plain_wall * 1e3:.0f} ms), bound {g_bound:.3f} ms by "
+                   f"{g_by}; embedding_bag on the same f (the trial pass "
+                   f"only) {lib_ms:.3f} ms; an id and a 64 B row per event "
                    f"would take {gather_traffic_ms(T, K):.3f} ms at the "
                    f"memory rate")
-    del ids, got, want
+    del ids, got, want, f, lib
 
     # onehot at the sweep's largest shape and at a larger catalog
     o_rows = []
@@ -483,7 +537,13 @@ def phase_kernels_full(errs: Errors, tables: RiskTables, dev) -> dict:
                        f"gather kernel on the same inputs {gather_ms:.3f} ms")
 
     return {G: {"shape": g_shape, "ms": g_ms, "plain_ms": g_plain,
-                "bound_ms": g_bound, "bound_by": g_by},
+                "bound_ms": g_bound, "bound_by": g_by, "library_ms": lib_ms,
+                "library_call": "embedding_bag(ids, f[:, None], mode='sum')"
+                                " on the row losses: the trial pass only",
+                "probe_ms": probe},
+            R: {"shape": f"ELT ({rows}, {M}->16) f32", "ms": r_ms,
+                "plain_ms": r_plain, "bound_ms": r_bound, "bound_by": r_by,
+                "library_ms": None},
             O: {"sweep_largest": o_rows[0], "larger_catalog": o_rows[1]}}
 
 
@@ -554,8 +614,11 @@ def phase_main_gather(cfg: RiskAppConfig, tables: RiskTables, dev) -> dict:
         del ara, rep
         torch.cuda.empty_cache()           # the next engine has its own streams
     launches = agg.launch_counts[G]        # just after the main path
+    row_launches = agg.launch_counts[R]
     check(launches == expected and launches > 0,
           f"gather launches {launches}, expected {expected}")
+    check(row_launches == launches,
+          f"row-pass launches {row_launches} for {launches} gather calls")
     check(not any(agg.plain_counts.values()),
           f"the main path called a plain version: {agg.plain_counts}")
     check(agg.launch_counts["aggregate_loss_onehot"] == 0,
@@ -601,7 +664,8 @@ def phase_main_gather(cfg: RiskAppConfig, tables: RiskTables, dev) -> dict:
           and summ["pml10"] <= summ["pml100"] <= summ["pml1000"]
           <= tables.agg_lim * (1 + 1e-6), f"summary out of order: {summ}")
     say("main", "summary " + ", ".join(f"{k}={v:,.0f}" for k, v in summ.items()))
-    return {"launches": launches, "runs": runs}
+    return {"launches": launches, "row_launches": row_launches,
+            "runs": runs}
 
 
 def phase_main_onehot(errs: Errors, cfg: RiskAppConfig, dev) -> dict:
@@ -976,6 +1040,12 @@ SSD_SWEEP = [(2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 32, 32),
 # padded by ops.ssd to two chunks of 256; x, B and C in bfloat16, B and C
 # one group viewed over the 80 heads
 SSD_FULL = dict(b=8, L=384, H=80, P=64, N=128, chunk=256)
+# (b, L, H, P, N, chunk) in bfloat16 through the tensor-core kernel
+SSD_MMA_EDGES = [(2, 200, 3, 32, 64, 100), (1, 128, 5, 24, 40, 64),
+                 (8, 512, 6, 64, 128, 256), (1, 512, 80, 64, 128, 256)]
+# one group's B/C at widths where the wrapper takes two heads a block and a
+# row alone one (ssd.head_tile on 132 SMs), the last head tile ragged
+SSD_TILE_EDGES = [(2, 128, 81, 64, 128, 64), (4, 200, 67, 24, 40, 100)]
 
 
 def ssd_case(rng, b, L, H, P, N, dev, *, decay=1.0, dtype=torch.float32,
@@ -1003,6 +1073,27 @@ def ssd_pair(args, chunk, h0=None):
             ssd.ssd_chunked_plain(*args, chunk=chunk, initial_state=h0))
 
 
+def ssd_rows_alone_match(args, chunk, h0=None) -> bool:
+    """Each row scanned alone gives the bits it gets inside the batch,
+    whatever head tile the wrapper picks at either width."""
+    y, h = ssd.ssd_chunked(*args, chunk=chunk, initial_state=h0)
+    for i in range(y.shape[0]):
+        yi, hi = ssd.ssd_chunked(*(t[i:i + 1] for t in args), chunk=chunk,
+                                 initial_state=None if h0 is None
+                                 else h0[i:i + 1])
+        if not (torch.equal(y[i:i + 1], yi) and torch.equal(h[i:i + 1], hi)):
+            return False
+    return True
+
+
+def check_two_tilings(b, H, P, sms, what: str) -> None:
+    """The batch of ``b`` rows takes two heads a block, a row alone one."""
+    tiles = (ssd.head_tile(b, H, P, True, sms), ssd.head_tile(1, H, P, True,
+                                                              sms))
+    check(tiles == (2, 1), f"{what}: head tiles {tiles} for the batch and a "
+                           f"row alone on {sms} SMs, need (2, 1)")
+
+
 def hold_ssd(errs: Errors, pair, what: str) -> None:
     """y and the final state of the kernel against its plain version, at
     the tolerance of the inputs' type."""
@@ -1017,11 +1108,12 @@ def hold_ssd(errs: Errors, pair, what: str) -> None:
 def ssd_bound_ms(b, L, H, P, N, Q, in_bytes, bc_heads, h0=False):
     """Each input read once (B and C as stored: ``bc_heads`` heads of them)
     and y and the state written once at the memory rate, or the function's
-    float32 operations at the float32 rate, whichever is larger.  Per (row,
-    head, chunk): the causal half of C.B^T (2N per pair), the masked decay
-    (4 per pair), the product with x (2P per pair), the carried-state term
-    (Q P (2N + 2)), the state update (2 Q P N + Q P + 2 P N) and the chunk's
-    cumulative sum and exponentials (4 Q)."""
+    operations at the peak rate for the inputs' type (the bf16 tensor rate
+    for bfloat16 inputs, the float32 rate otherwise), whichever is larger.
+    Per (row, head, chunk): the causal half of C.B^T (2N per pair), the
+    masked decay (4 per pair), the product with x (2P per pair), the
+    carried-state term (Q P (2N + 2)), the state update (2 Q P N + Q P + 2 P
+    N) and the chunk's cumulative sum and exponentials (4 Q)."""
     pairs = Q * (Q + 1) // 2
     per_chunk = (pairs * (2 * N + 4 + 2 * P) + Q * P * (2 * N + 2)
                  + 2 * Q * P * N + Q * P + 2 * P * N + 4 * Q)
@@ -1029,7 +1121,8 @@ def ssd_bound_ms(b, L, H, P, N, Q, in_bytes, bc_heads, h0=False):
     nbytes = (2 * b * L * H * P * in_bytes + 2 * b * L * H * 4
               + 2 * b * L * bc_heads * N * in_bytes
               + (2 if h0 else 1) * b * H * P * N * 4)
-    by, op = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    peak = PEAK_BF16_FLOPS if in_bytes == 2 else PEAK_F32_FLOPS
+    by, op = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(by, op), "bytes" if by >= op else "operations"
 
 
@@ -1050,6 +1143,41 @@ def phase_ssd_small(errs: Errors, dev) -> None:
                                                          256)):
         *args, h0 = ssd_case(rng, b, L, H, P, N, dev, dtype=torch.bfloat16)
         hold_ssd(errs, ssd_pair(args, chunk, h0), f"bf16 b{b} L{L} chunk{chunk}")
+    # the tensor-core kernel's edges: per-head B/C (one head a block), Q not
+    # a multiple of its 64-step tiles, P 32 and N 64, P and N not multiples
+    # of 16, an initial state or none, one group's B/C at widths 1 and 8;
+    # then widths where the batch takes two heads a block (a ragged last
+    # tile at H 81 and 67) and a row alone one: every row bit for bit
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, L, H, P, N, chunk in SSD_MMA_EDGES + SSD_TILE_EDGES:
+        for with_h0 in (False, True):
+            what = f"bf16 b{b} L{L} H{H} P{P} N{N} chunk{chunk} h0 {with_h0}"
+            if (b, L, H, P, N, chunk) in SSD_MMA_EDGES:
+                *args, h0 = ssd_case(rng, b, L, H, P, N, dev,
+                                     dtype=torch.bfloat16)
+                hold_ssd(errs, ssd_pair(args, chunk, h0 if with_h0 else None),
+                         what + " per-head B/C")
+            *args, h0 = ssd_case(rng, b, L, H, P, N, dev,
+                                 dtype=torch.bfloat16, one_group=True)
+            init = h0 if with_h0 else None
+            hold_ssd(errs, ssd_pair(args, chunk, init), what + " one group")
+            if (b, L, H, P, N, chunk) in SSD_TILE_EDGES:
+                check_two_tilings(b, H, P, sms, what)
+                check(ssd_rows_alone_match(args, chunk, init),
+                      f"{what}: a row alone (one head a block) differs from "
+                      "its bits in the batch (two heads a block)")
+    *args, _ = ssd_case(rng, 2, 128, 3, 16, 32, dev, decay=40.0,
+                        dtype=torch.bfloat16, one_group=True)
+    hold_ssd(errs, ssd_pair(args, 64), "bf16 large decay (masked half)")
+    # rows not on 16 bytes: the kernel's element-wise tile loads
+    wide = torch.randn((2, 64, 4 * 16 + 41), device=dev).to(torch.bfloat16)
+    x = wide[..., 1:65].reshape(2, 64, 4, 16)
+    *args, _ = ssd_case(rng, 2, 64, 4, 16, 32, dev, dtype=torch.bfloat16)
+    check(x.data_ptr() % 16 != 0, "the unaligned x view is aligned")
+    hold_ssd(errs, ssd_pair([x] + args[1:], 32), "bf16 x an unaligned view")
+    check(ssd.variant_counts["bf16_mma"] > 0
+          and ssd.variant_counts["f32_simt"] > 0,
+          f"SSD variants {ssd.variant_counts}: both kernels should have run")
     # L 384 through ops.ssd: padded to two chunks of 256, y cut back to L
     for with_h0 in (False, True):
         *args, h0 = ssd_case(rng, 2, 384, 4, 64, 128, dev)
@@ -1097,11 +1225,13 @@ def phase_ssd_small(errs: Errors, dev) -> None:
 def phase_ssd_full(errs: Errors, dev) -> dict:
     """The SSD kernel at the serving path's full-width prefill shape, held
     against its plain version, then timed beside its bound; and at a single
-    admission's width."""
+    admission's width.  At width 8 (two heads a block) each row scanned
+    alone (one head a block) gives its bits in the batch."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     f = SSD_FULL
     Q, L = f["chunk"], f["L"]
     pad = (-L) % Q
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
     for b in (f["b"], 1):
         g = torch.Generator(device=dev).manual_seed(7)
@@ -1112,19 +1242,31 @@ def phase_ssd_full(errs: Errors, dev) -> dict:
         B, C = (rnd(b, L, 1, f["N"]).to(torch.bfloat16).expand(
             -1, -1, f["H"], -1) for _ in range(2))
         args = [kops._pad_steps(t, pad) for t in (x, dt, a, B, C)]
+        check(args[3].stride(2) == 0, "the padded B is not a stride-0 view")
         Lp = L + pad
+        ht = ssd.head_tile(b, f["H"], f["P"], True, sms)
+        blocks = b * -(-f["H"] // ht) * -(-f["P"] // ssd.P_TILE)
         shape = (f"x ({b}, {Lp}, {f['H']}, {f['P']}) bf16, B/C ({b}, {Lp}, 1 "
                  f"-> {f['H']}, {f['N']}) bf16, chunk {Q}")
+        before = ssd.variant_counts["bf16_mma"]
         hold_ssd(errs, ssd_pair(args, Q), "full width " + shape)
+        check(ssd.variant_counts["bf16_mma"] == before + 1,
+              f"{shape}: the tensor-core kernel did not run")
         ms = cuda_ms(lambda: ssd.ssd_chunked(*args, chunk=Q), 10, flush)
         plain = cuda_ms(lambda: ssd.ssd_chunked_plain(*args, chunk=Q), 3,
                         flush)
         bound, by = ssd_bound_ms(b, Lp, f["H"], f["P"], f["N"], Q, 2, 1)
-        say("ssd", f"{shape} ({b * f['H']} blocks): {ms:.4f} ms, plain "
+        say("ssd", f"{shape} ({blocks} blocks of {ht} heads x "
+                   f"{ssd.P_TILE} columns): {ms:.4f} ms, plain "
                    f"{plain:.4f} ms, bound {bound:.4f} ms by {by} "
                    f"({bound / ms:.1%} of it)")
         out[b] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
-                      shape=shape)
+                      shape=shape, head_tile=ht, blocks=blocks)
+        if b == f["b"]:
+            check_two_tilings(b, f["H"], f["P"], sms, "full width")
+            check(ssd_rows_alone_match(args, Q),
+                  f"full width {shape}: a row alone (one head a block) "
+                  "differs from its bits in the batch (two heads a block)")
         del args, x, dt, a, B, C
     full = out[f["b"]]
     return {K6: {**full, "library_ms": None,
@@ -1376,6 +1518,9 @@ def phase_serve_reduced(dev) -> dict:
               f"launches for {ceng.prefill_calls} prefills")
         check(variants == {"bf16_mma": 0, "f32_simt": launches[K5]},
               f"{arch} reduced (float32): flash variants {variants}")
+        check(ssd.variant_counts == {"bf16_mma": 0,
+                                     "f32_simt": launches[K6]},
+              f"{arch} reduced (float32): SSD variants {ssd.variant_counts}")
         ceng.kv.assert_conserved()
         check(ceng.nonfinite_rows == 0, f"{arch} reduced: non-finite logits")
         if cfg.sliding_window is None and ceng.kv.attn_subs:
@@ -1587,6 +1732,7 @@ def phase_serve_mamba2(dev) -> dict:
                 **fa.launch_counts}
     plains = {**ssd.plain_counts, **pa.plain_counts, **agg.plain_counts,
               **fa.plain_counts}
+    variants = dict(ssd.variant_counts)
     # just after
     check(rc == 0, f"serve returned {rc}")
     sched, eng = rec.sched, rec.sched.continuous_engine
@@ -1609,6 +1755,8 @@ def phase_serve_mamba2(dev) -> dict:
           and all(v == 0 for k, v in launches.items() if k != K6),
           f"mamba2: another route was taken: launches {launches}, plain "
           f"calls {plains}")
+    check(variants == {"bf16_mma": launches[K6], "f32_simt": 0},
+          f"mamba2 full width (bf16): SSD variants {variants}")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     # agreement with the blocking engine on the same prompts: at bf16 the
     # two paths' products differ in shape, so this is a number
@@ -1633,7 +1781,8 @@ def phase_serve_mamba2(dev) -> dict:
         requests_identical=int(same.all(axis=1).sum()),
         mean_first_divergence=float(np.mean(first_diff)),
         overlap_pairs=sum(timeline_overlaps(sched.timeline)),
-        timeline_rounds=len(sched.timeline), scan_launches=launches[K6])
+        timeline_rounds=len(sched.timeline), scan_launches=launches[K6],
+        scan_variants=variants)
     say("serve", "mamba2-2.7b full width: " + ", ".join(
         f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in run.items() if k != "prefill_ms")
@@ -1920,7 +2069,8 @@ def main() -> int:
 
     say("kernels", f"held against plain versions: gather {errs.cases[G]} cases "
                    f"(max abs err {errs.abs[G]:.3g}, max rel err "
-                   f"{errs.rel[G]:.3g}), onehot {errs.cases[O]} cases (max abs "
+                   f"{errs.rel[G]:.3g}), its row pass {errs.cases[R]} cases "
+                   f"bit for bit, onehot {errs.cases[O]} cases (max abs "
                    f"err {errs.abs[O]:.3g}, max rel err {errs.rel[O]:.3g}); "
                    f"tolerance rtol={RTOL} atol={ATOL} (summation order); "
                    f"paged decode {errs.cases[K3]} cases (max abs err "
@@ -1945,8 +2095,9 @@ def main() -> int:
     rows = []
     for name, src, replaces, numbers in (
             (G, agg_src, "src/repro/kernels/aggregate_loss.py:69",
-             {"launches": main_path["launches"], "library_ms": None,
-              **kern[G]}),
+             {"launches": main_path["launches"], **kern[G]}),
+            (R, agg_src, "src/repro/kernels/aggregate_loss.py:69",
+             {"launches": main_path["row_launches"], **kern[R]}),
             (O, agg_src, "src/repro/kernels/aggregate_loss.py:92",
              {**onehot, "library_ms": None, **kern[O]}),
             (K3, paged_src, "src/repro/kernels/paged_attention.py:60",

@@ -8,15 +8,18 @@ CUDA C++ in ``csrc/aggregate_loss.cu``, built by :mod:`.build` at first use.
 
 What bounds them on the card, and what the design does about it:
 
-* **gather** is bound by memory traffic — 4 B of event id plus one ELT row
-  per event, a random read.  A warp owns a trial; lanes read its ids
-  coalesced and fetch each event's row straight from global memory.  With the
-  table's columns padded to a multiple of 4 (15 -> 16: one aligned 64 B
-  segment per row, see :func:`pad_elt_columns`) a row is up to four ``float4``
-  loads and a lane keeps four events in flight; wider tables are walked in
-  column groups of 16.  The kernel reads that layout only, so the wrapper
-  asks for it.  No catalog tiling, no atomics, one shuffle reduction per
-  trial: deterministic.
+* **gather** is bound by memory traffic.  An event's row enters only
+  through its clipped sum ``f[r] = sum_m min(max(ELT[r, m] - occ_ret[m], 0),
+  occ_lim[m])``, so each call runs two kernels: a row pass writes ``f``
+  (2,000,001 floats, 8 MB at the published size, which L2 holds) from the
+  table in its :func:`pad_elt_columns` layout (one aligned 64 B segment a
+  row at M = 15), a row's columns summed four at a time, in order; then a
+  trial pass streams the ids once (coalesced, evict-first), gathers
+  ``f[id]`` and adds each lane's events in ascending order.  At M <= 16
+  that is, bit for bit, what a single pass fetching every event's 64 B row
+  and summing it the same way gives, from ~2 GB of reads where that pass
+  makes ~34 GB.  ``f`` is scratch of each call, never cached.  A warp owns
+  a trial; no atomics, one shuffle reduction per trial: deterministic.
 * **onehot** is bound by operations — ``T*K*rows*M`` multiply-adds.  A block
   owns a few trials and loops over catalog tiles staged in shared memory; the
   one-hot operand lives in registers (``local_id == r``) and the product is
@@ -30,7 +33,8 @@ by a copy) and let an id outside ``[0, rows)`` contribute 0 without reading
 the table.
 
 Beside each kernel stands its plain PyTorch version
-(:func:`aggregate_loss_gather_plain`, :func:`aggregate_loss_onehot_plain`).
+(:func:`aggregate_loss_gather_plain`, :func:`aggregate_loss_onehot_plain`,
+and :func:`aggregate_row_losses_plain` for the row pass).
 A wrapper takes the plain version only for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``launch_counts`` and
 ``plain_counts`` record which way each call went.
@@ -46,9 +50,11 @@ from repro_torch.kernels import build
 
 #: kernel launches per wrapper, bumped where the kernel is launched
 launch_counts: Dict[str, int] = {"aggregate_loss_gather": 0,
+                                 "aggregate_row_losses": 0,
                                  "aggregate_loss_onehot": 0}
 #: plain-version calls per function (any caller, any device)
 plain_counts: Dict[str, int] = {"aggregate_loss_gather_plain": 0,
+                                "aggregate_row_losses_plain": 0,
                                 "aggregate_loss_onehot_plain": 0}
 
 # the onehot kernel's ELT tile lives in 48 KB of static-limit shared memory:
@@ -84,6 +90,30 @@ def pad_elt_columns(elt_losses: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def _finish(acc: torch.Tensor, agg_ret: float, agg_lim: float) -> torch.Tensor:
     return torch.clamp(torch.clamp(acc - agg_ret, min=0.0), max=agg_lim)
+
+
+def aggregate_row_losses_plain(elt_losses, occ_ret, occ_lim) -> torch.Tensor:
+    """Plain PyTorch version of the gather's row pass: ``f[r] = sum_m
+    min(max(ELT[r, m] - occ_ret[m], 0), occ_lim[m])`` as ``(rows,)``
+    float32, summed in the kernel's order -- four columns at a time, each
+    group's four terms left to right, the groups left to right, and tables
+    wider than 16 columns one group of 16 after another -- so it equals the
+    kernel bit for bit."""
+    plain_counts["aggregate_row_losses_plain"] += 1
+    rows, M = elt_losses.shape
+    m4 = 4 * (-(-M // 4))
+    occ = torch.minimum(torch.clamp(elt_losses.float() - occ_ret.float(),
+                                    min=0.0), occ_lim.float())
+    # padding columns get a zero term, as in the kernel
+    occ = torch.nn.functional.pad(occ, (0, m4 - M)).reshape(rows, m4 // 4, 4)
+    four = ((occ[..., 0] + occ[..., 1]) + occ[..., 2]) + occ[..., 3]
+    total = None
+    for g0 in range(0, m4 // 4, 4):          # column groups of 16
+        s = four[:, g0]
+        for v in range(g0 + 1, min(g0 + 4, m4 // 4)):
+            s = s + four[:, v]
+        total = s if total is None else total + s
+    return total.contiguous()
 
 
 def aggregate_loss_gather_plain(event_ids, elt_losses, occ_ret, occ_lim,
@@ -215,49 +245,64 @@ def _require_padded_rows(elt: torch.Tensor) -> None:
             "pad_elt_columns(elt_losses), made once per table")
 
 
-_PTR = ctypes.c_void_p
-_COMMON_ARGS = [_PTR, _PTR, _PTR, _PTR, ctypes.c_float, ctypes.c_float, _PTR,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+_PTR, _INT, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+# each C entry's arguments before the stream
+_ARGTYPES = {
+    "aggregate_row_losses_launch": [_PTR, _PTR, _PTR, _INT, _LL, _INT, _PTR],
+    "aggregate_loss_gather_launch": [_PTR, _PTR, _F, _F, _PTR, _LL, _INT,
+                                     _INT, _INT],
+    "aggregate_loss_onehot_launch": [_PTR, _PTR, _PTR, _PTR, _F, _F, _PTR,
+                                     _LL, _INT, _INT, _LL, _INT, _INT, _INT],
+}
 
 
-def _entry(name: str, n_extra: int):
-    """The C entry ``name`` of the built library: the common arguments up to
-    ``chunk``, ``n_extra`` ints of its own, then the stream."""
-    fn = getattr(build.load_library("aggregate_loss"), name)
-    fn.argtypes = _COMMON_ARGS + [ctypes.c_int] * n_extra + [_PTR]
+def _call(entry: str, counter: str, device, *args) -> None:
+    """Launch C entry ``entry`` on the current stream of ``device``; raises
+    on a launch error, counts the launch otherwise."""
+    fn = getattr(build.load_library("aggregate_loss"), entry)
+    fn.argtypes = _ARGTYPES[entry] + [_PTR]
     fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(entry: str, counter: str, ids, elt, ret, lim, agg_ret, agg_lim,
-            T, K, rows, M, chunk, *extra: int) -> torch.Tensor:
-    out = torch.empty(T, dtype=torch.float32, device=ids.device)
-    if T == 0:
-        return out                     # nothing to launch, nothing counted
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry(entry, len(extra))(
-            ids.data_ptr(), elt.data_ptr(), ret.data_ptr(), lim.data_ptr(),
-            float(agg_ret), float(agg_lim), out.data_ptr(), T, K, M,
-            elt.stride(0), rows, chunk, *extra, stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{entry}: CUDA error {err} at launch "
-                           f"(T={T}, K={K}, M={M}, rows={rows})")
+        raise RuntimeError(f"{entry}: CUDA error {err} at launch")
     launch_counts[counter] += 1
-    return out
+
+
+def aggregate_row_losses(elt_losses, occ_ret, occ_lim) -> torch.Tensor:
+    """The gather's row pass: ``(rows,)`` float32 ``f[r] = sum_m
+    min(max(ELT[r, m] - occ_ret[m], 0), occ_lim[m])``.  On a CUDA device the
+    table must be in the layout of :func:`pad_elt_columns`; CPU tensors go
+    to :func:`aggregate_row_losses_plain`."""
+    rows, M = elt_losses.shape
+    if elt_losses.device.type == "cpu":
+        return aggregate_row_losses_plain(elt_losses, occ_ret, occ_lim)
+    build.require_cuda(elt_losses, occ_ret, occ_lim)
+    if elt_losses.dtype != torch.float32:
+        raise TypeError(f"ELT dtype {elt_losses.dtype}: need float32 in the "
+                        "layout of pad_elt_columns")
+    _require_padded_rows(elt_losses)
+    ret, lim = occ_ret.float().contiguous(), occ_lim.float().contiguous()
+    f = torch.empty(rows, dtype=torch.float32, device=elt_losses.device)
+    _call("aggregate_row_losses_launch", "aggregate_row_losses",
+          elt_losses.device, elt_losses.data_ptr(), ret.data_ptr(),
+          lim.data_ptr(), M, elt_losses.stride(0), rows, f.data_ptr())
+    return f
 
 
 def aggregate_loss_gather(event_ids, elt_losses, occ_ret, occ_lim, agg_ret,
                           agg_lim, chunk: int = 128) -> torch.Tensor:
-    """Year loss per trial, ELT rows gathered from global memory.
+    """Year loss per trial: the row pass, then the ids gathered from its
+    row losses.
 
     event_ids ``(T, K)`` int32 (int64 is converted), elt_losses ``(rows, M)``
     float32 (row 0 the zero pad event; on a CUDA device in the row layout of
     :func:`pad_elt_columns`, else the call raises), occ_ret /
     occ_lim ``(M,)`` float32, agg_ret / agg_lim Python numbers passed to the
     kernel by value.  Returns ``(T,)`` float32 on the inputs' device.  CUDA
-    tensors go to the kernel, CPU tensors to the plain version."""
+    tensors go to the two kernels (one count each), CPU tensors to the plain
+    version."""
     T, K, rows, M, chunk = _check(event_ids, elt_losses, occ_ret, occ_lim,
                                   chunk)
     if event_ids.device.type == "cpu":
@@ -267,9 +312,14 @@ def aggregate_loss_gather(event_ids, elt_losses, occ_ret, occ_lim, agg_ret,
     ids, elt, ret, lim = _cuda_operands(event_ids, elt_losses, occ_ret,
                                         occ_lim)
     _require_padded_rows(elt)
-    return _launch("aggregate_loss_gather_launch", "aggregate_loss_gather",
-                   ids, elt, ret, lim, agg_ret, agg_lim, T, K, rows, M,
-                   chunk)
+    out = torch.empty(T, dtype=torch.float32, device=ids.device)
+    if T == 0:
+        return out                     # nothing to launch, nothing counted
+    f = aggregate_row_losses(elt, ret, lim)
+    _call("aggregate_loss_gather_launch", "aggregate_loss_gather",
+          ids.device, ids.data_ptr(), f.data_ptr(), float(agg_ret),
+          float(agg_lim), out.data_ptr(), T, K, rows, chunk)
+    return out
 
 
 def aggregate_loss_onehot(event_ids, elt_losses, occ_ret, occ_lim, agg_ret,
@@ -291,6 +341,11 @@ def aggregate_loss_onehot(event_ids, elt_losses, occ_ret, occ_lim, agg_ret,
                                            rows_tile=rt)
     ids, elt, ret, lim = _cuda_operands(event_ids, elt_losses, occ_ret,
                                         occ_lim)
-    return _launch("aggregate_loss_onehot_launch", "aggregate_loss_onehot",
-                   ids, elt, ret, lim, agg_ret, agg_lim, T, K, rows, M,
-                   chunk, rt)
+    out = torch.empty(T, dtype=torch.float32, device=ids.device)
+    if T == 0:
+        return out                     # nothing to launch, nothing counted
+    _call("aggregate_loss_onehot_launch", "aggregate_loss_onehot",
+          ids.device, ids.data_ptr(), elt.data_ptr(), ret.data_ptr(),
+          lim.data_ptr(), float(agg_ret), float(agg_lim), out.data_ptr(), T,
+          K, M, elt.stride(0), rows, chunk, rt)
+    return out

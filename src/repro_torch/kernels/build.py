@@ -8,7 +8,9 @@ file.  A library's file name carries a hash of its source and flags, so an
 edited source is rebuilt and a stale library is never loaded.  A failed build
 raises; nothing here falls back to another implementation.  The first build
 of a run should go through :func:`compile_all`, which starts one ``nvcc`` per
-source at once instead of one after another.
+source at once instead of one after another.  A source may include headers
+of ``csrc/`` (``#include "name.cuh"``); their bytes enter the hash of every
+library that includes them, so an edited header rebuilds its libraries too.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -48,13 +51,35 @@ def find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_headers(name: str) -> List[pathlib.Path]:
+    """The headers of ``csrc/`` that ``csrc/<name>.cu`` includes, directly
+    or through another such header, sorted."""
+    seen: Dict[str, pathlib.Path] = {}
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        for inc in _LOCAL_INCLUDE.findall(todo.pop().read_bytes()):
+            path = CSRC_DIR / inc.decode()
+            if path.name not in seen:
+                if not path.is_file():
+                    raise FileNotFoundError(f"{name}.cu includes {path}, "
+                                            "which is not in csrc/")
+                seen[path.name] = path
+                todo.append(path)
+    return [seen[k] for k in sorted(seen)]
+
+
 def library_path(name: str) -> pathlib.Path:
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"no kernel source {src}")
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1(src.read_bytes())
+    for header in local_headers(name):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def sources() -> List[str]:

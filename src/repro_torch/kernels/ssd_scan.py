@@ -4,21 +4,31 @@ Replaces the Pallas kernel of the JAX package's ``repro/kernels/ssd_scan.py``
 (``_kernel``, entry ``ssd_chunked_pallas``) with :func:`ssd_chunked`, CUDA
 C++ in ``csrc/ssd_scan.cu``, built by :mod:`.build` at first use.
 
-What bounds it on the card, and what the design does about it: operations.
-Per (row, head, chunk of Q steps) the causal half of ``C B^T``, its product
-with ``x``, the carried-state term and the state update are
-``~Q^2 (N + P) + 4 Q P N`` flops -- ~21 MFLOP at Q 256, P 64, N 128 --
-against a few hundred kilobytes of inputs, in plain float32 (no tensor
-cores: TF32 would miss the reference's 1e-4).  One block per (row, head)
-walks its chunks in order with the ``P x N`` state in shared memory (the TPU
-grid's sequential chunk axis); a chunk's ``Q x Q`` matrices are never
-formed -- output rows and source columns are cut into 64-row tiles, tiles
-above the diagonal skipped, each ``64 x 64`` tile of ``C B^T`` masked by a
-select (``exp`` only where ``s <= l``: the masked half may overflow) and
-multiplied into the output tile in registers.  ``x``, ``B`` and ``C`` are
-read through their strides, so ``B`` and ``C`` may be one group's
-projection viewed over every head with a stride of 0, and ``x`` a view into
-the convolution's output.
+Two kernels, picked by the inputs' type:
+
+* **bfloat16** (the serving path) -- on the tensor cores
+  (``mma.sync.m16n8k16``).  What bounds it on the card: bytes (~110 MB at
+  the path's width-8 prefill, 0.033 ms, against 27 GFLOP, 0.028 ms at the
+  bf16 rate).  A block takes one row, a tile of :func:`head_tile` heads
+  (2 when B and C are one group's stride-0 view and the grid still fills
+  the card, else 1) and 32 columns of P, and walks the chunks in order with
+  its slice of the state in the accumulators of 4 warps.  For each 64-row
+  l-tile of a chunk the s-tiles ``s <= l`` stream through a 2-stage
+  ``cp.async`` ring in bf16; ``C B^T`` of a pair is formed once for the
+  head tile; ``M = C B^T . decay . dt`` is built in registers (off the
+  diagonal from a row and a column factor of the decay, ~Q exponentials a
+  head a chunk; on it by a select, ``exp`` only where ``s <= l``) and
+  multiplied into ``y``; the state update rides on the diagonal pair.  The
+  float32 operands of the products (M, the carried state, the weighted
+  ``x``) go in as bf16 ``hi + lo`` pairs, ``x``, B and C as they are.
+* **float32** -- the SIMT kernel, plain float32 FMAs (TF32 would miss the
+  reference's 1e-4): one block per (row, head), the ``P x N`` state in
+  shared memory, 64-row tiles of the chunk, tiles above the diagonal
+  skipped, the masked half a select.
+
+Both read ``x``, ``B`` and ``C`` through their strides, so ``B`` and ``C``
+may be one group's projection viewed over every head with a stride of 0,
+and ``x`` a view into the convolution's output -- no copy is made.
 
 Beside the kernel stands its plain PyTorch version
 (:func:`ssd_chunked_plain`, the chunked oracle of
@@ -41,17 +51,31 @@ from repro_torch.kernels import ref as _ref
 launch_counts: Dict[str, int] = {"ssd_chunked": 0}
 #: plain-version calls (any caller, any device)
 plain_counts: Dict[str, int] = {"ssd_chunked_plain": 0}
+#: launches by kernel: ``bf16_mma`` (tensor cores), ``f32_simt``
+variant_counts: Dict[str, int] = {"bf16_mma": 0, "f32_simt": 0}
 
-MAX_HEAD_DIM = 64            # P: the kernel's 16 x 16 thread grid covers
+MAX_HEAD_DIM = 64            # P: the SIMT kernel's 16 x 16 thread grid
 MAX_STATE = 128              # N: ... and the state rows it walks
 MAX_CHUNK = 4096             # Q: the chunk's arrays share the block's
                              # shared memory with the tiles
+P_TILE = 32                  # columns of P a block of it takes
 
 
 def reset_counts() -> None:
-    for d in (launch_counts, plain_counts):
+    for d in (launch_counts, plain_counts, variant_counts):
         for k in d:
             d[k] = 0
+
+
+def head_tile(b: int, H: int, P: int, shared_bc: bool, sms: int) -> int:
+    """Heads a block of the tensor-core kernel takes: 2 when ``B`` and ``C``
+    are one group's projection over every head (head stride 0: one ``C
+    B^T`` serves both) and the grid of ``b * ceil(H / 2) * ceil(P / 32)``
+    blocks still puts one on each of the card's ``sms`` multiprocessors,
+    else 1."""
+    if shared_bc and b * -(-H // 2) * -(-P // P_TILE) >= sms:
+        return 2
+    return 1
 
 
 def ssd_chunked_plain(x, dt, a_log_decay, B, C, *, chunk: int,
@@ -73,7 +97,7 @@ def _entry():
         fn = build.load_library("ssd_scan").ssd_chunked_launch
         P_, I_ = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [P_, P_, P_, P_, P_, P_, P_, P_, I_, I_, I_, I_, I_,
-                       I_, I_, ctypes.POINTER(ctypes.c_longlong), P_]
+                       I_, I_, ctypes.POINTER(ctypes.c_longlong), I_, P_]
         fn.restype = ctypes.c_int
         _ENTRY.append(fn)
     return _ENTRY[0]
@@ -111,7 +135,9 @@ def ssd_chunked(x, dt, a_log_decay, B, C, *, chunk: int,
     axis; a head stride of 0 is read as such); ``L % chunk == 0``;
     initial_state ``(b, H, P, N)`` or None (zeros).  Returns ``(y (b, L, H,
     P) in x's type, final state (b, H, P, N) float32)``.  CUDA tensors go to
-    the kernel, CPU tensors to the plain version."""
+    the kernel, CPU tensors to the plain version.  The bfloat16 kernel
+    cuts the heads into tiles of :func:`head_tile`; a row's result does not
+    depend on the cut."""
     b, L, H, P, N = _check(x, dt, a_log_decay, B, C, chunk, initial_state)
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, a_log_decay, B, C, chunk=chunk,
@@ -129,6 +155,10 @@ def ssd_chunked(x, dt, a_log_decay, B, C, *, chunk: int,
                          f"{MAX_HEAD_DIM}, N <= {MAX_STATE}, chunk <= "
                          f"{MAX_CHUNK}")
     x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
+    bf16 = x.dtype == torch.bfloat16
+    shared_bc = B.stride(2) == 0 and C.stride(2) == 0
+    ht = head_tile(b, H, P, shared_bc, torch.cuda.get_device_properties(
+        x.device).multi_processor_count) if bf16 else 1
     dt, a = dt.float(), a_log_decay.float()
     h0 = None if initial_state is None else \
         initial_state.float().contiguous()
@@ -143,10 +173,12 @@ def ssd_chunked(x, dt, a_log_decay, B, C, *, chunk: int,
         err = _entry()(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), B.data_ptr(),
             C.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h.data_ptr(), int(x.dtype == torch.bfloat16), b, L, H, P, N,
-            chunk, strides, stream)
+            h.data_ptr(), int(bf16), b, L, H, P, N, chunk, strides, ht,
+            stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunked: CUDA error {err} at launch (b={b}, "
-                           f"L={L}, H={H}, P={P}, N={N}, chunk={chunk})")
+                           f"L={L}, H={H}, P={P}, N={N}, chunk={chunk}, "
+                           f"head_tile={ht})")
     launch_counts["ssd_chunked"] += 1
+    variant_counts["bf16_mma" if bf16 else "f32_simt"] += 1
     return y, h

@@ -17,6 +17,8 @@ from repro_torch.launch import risk as cli
 from repro_torch.risk.analysis import AggregateRiskAnalysis
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+DIAGNOSTICS = [os.path.join(ROOT, "diagnostics", f)
+               for f in ("f1_internlm2.py", "ssd_head_tiles.py")]
 
 IMPORT_ALL = textwrap.dedent("""
     import importlib, pkgutil, sys
@@ -74,7 +76,7 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     import re
     pat = re.compile(r"^\s*(import jax|from jax|from repro\b|import repro\b)",
                      re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + DIAGNOSTICS
     for d, _, fs in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) > 15
@@ -220,3 +222,50 @@ def test_chip_smoke_fails_without_a_card():
                           cwd=ROOT)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.parametrize("script", DIAGNOSTICS,
+                         ids=[os.path.basename(f) for f in DIAGNOSTICS])
+def test_diagnostics_fail_without_a_card(script):
+    _skip_if_card()
+    proc = subprocess.run([sys.executable, script], capture_output=True,
+                          text=True, timeout=600, cwd=ROOT)
+    assert proc.returncode == 1
+    assert "no CUDA device" in proc.stderr
+
+
+def test_f1_diagnostic_runs_reduced_on_the_cpu():
+    """The F1 measurement end to end at the reduced width on the host,
+    where the continuous path and ``generate`` agree token for token: no
+    divergence, every step counted as agreeing."""
+    import json
+    proc = subprocess.run(
+        [sys.executable, DIAGNOSTICS[0], "--reduced", "--device", "cpu",
+         "--dtypes", "float32"], capture_output=True, text=True,
+        timeout=600, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])["float32"]
+    assert out["token_agreement"] == 1.0 and out["divergent"] == 0
+    assert out["requests_identical"] == 12
+    assert out["agreeing_steps"] == 12 * 32
+
+
+def test_a_header_edit_renames_every_library_that_includes_it(tmp_path,
+                                                              monkeypatch):
+    """Kernel libraries are named by a hash of their source, the csrc/
+    headers it includes, and the flags: editing the shared tensor-core
+    header renames the libraries of both kernels that include it (so a
+    stale build is never loaded) and no other."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    users = {n for n in build.sources()
+             if "mma_bf16.cuh" in {h.name for h in build.local_headers(n)}}
+    assert users == {"flash_attention", "ssd_scan"}
+    before = {n: build.library_path(n).name for n in build.sources()}
+    header = csrc / "mma_bf16.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n).name for n in build.sources()}
+    assert {n for n in before if before[n] != after[n]} == users

@@ -222,3 +222,94 @@ def test_wrapper_rejects_bad_arguments(rng):
         tagg.aggregate_loss_onehot(ids, elt, r, l, ar, al, rows_tile=0)
     with pytest.raises(ValueError):
         tagg.aggregate_loss_gather(ids, elt, r, l, ar, al, chunk=0)
+
+
+# ---------------------------------------------------------------------------
+# the gather's two passes: row losses f, then a gather of f per event
+# ---------------------------------------------------------------------------
+def _occurrence4_order(elt, occ_r, occ_l):
+    """f[r] summed as a single pass over an event's 64 B row sums it
+    (``occurrence4`` of the kernel source), in numpy float32 scalars: four
+    columns at a time, each four left to right, the groups of four left to
+    right (and groups of 16 one after another)."""
+    rows, M = elt.shape
+    m4 = 4 * (-(-M // 4))
+    o = np.minimum(np.maximum(elt - occ_r, np.float32(0)), occ_l)
+    o = np.pad(o.astype(np.float32), ((0, 0), (0, m4 - M)))
+    f = np.zeros(rows, np.float32)
+    for i in range(rows):
+        total = None
+        for g0 in range(0, m4 // 4, 4):
+            s = np.float32(0)
+            for v in range(g0, min(g0 + 4, m4 // 4)):
+                q = o[i, 4 * v:4 * v + 4]
+                s = np.float32(s + np.float32(np.float32(
+                    np.float32(q[0] + q[1]) + q[2]) + q[3]))
+            total = s if total is None else np.float32(total + s)
+        f[i] = total
+    return f
+
+
+@pytest.mark.parametrize("M", [1, 3, 4, 5, 15, 16, 20, 33])
+def test_row_pass_plain_equals_the_occurrence4_order(rng, M):
+    """The row pass's plain version equals that per-row order bit for bit,
+    on losses from 1 to 10^7 (the published range); the kernel is held
+    against the plain version bit for bit on the card."""
+    elt = (np.abs(rng.normal(size=(60, M)))
+           * rng.choice([1.0, 1e4, 1e7], size=(60, M))).astype(np.float32)
+    occ_r = (np.abs(rng.normal(size=M)) * 0.5).astype(np.float32)
+    occ_l = (np.abs(rng.normal(size=M)) * 1e6 + 1.0).astype(np.float32)
+    tagg.reset_counts()
+    f = tagg.aggregate_row_losses(*(torch.from_numpy(v)
+                                    for v in (elt, occ_r, occ_l)))
+    assert tagg.plain_counts["aggregate_row_losses_plain"] == 1
+    assert tagg.launch_counts["aggregate_row_losses"] == 0
+    want = _occurrence4_order(elt, occ_r, occ_l)
+    assert f.dtype == torch.float32 and f.shape == (60,)
+    assert np.array_equal(f.numpy().view(np.int32), want.view(np.int32))
+
+
+def _two_pass(ids, elt, occ_r, occ_l, agg_ret, agg_lim, chunk):
+    """The kernel's function in its two steps: f from the row pass's plain
+    version, then per trial the sum of f over its in-range ids, chunk by
+    chunk, and the aggregate terms."""
+    ids, elt, occ_r, occ_l = (torch.from_numpy(v)
+                              for v in (ids, elt, occ_r, occ_l))
+    f = tagg.aggregate_row_losses_plain(elt, occ_r, occ_l)
+    rows = f.shape[0]
+    acc = torch.zeros(ids.shape[0])
+    for c0 in range(0, ids.shape[1], chunk):
+        part = ids[:, c0:c0 + chunk].long()
+        valid = (part >= 0) & (part < rows)
+        acc += torch.where(valid, f[part.clamp(0, rows - 1)],
+                           torch.zeros(())).sum(-1)
+    return torch.clamp(torch.clamp(acc - agg_ret, min=0.0), max=agg_lim)
+
+
+TWO_PASS = SWEEP + [
+    (33, 1000, 15, 2000, 100, 16, None),   # the published K and M
+    (24, 70, 20, 150, 32, 8, None),        # M > 16: two column groups
+]
+
+
+@pytest.mark.parametrize("T,K,M,cat,chunk,tb,rt", TWO_PASS)
+def test_two_pass_form_matches_pallas_and_oracle(rng, T, K, M, cat, chunk,
+                                                 tb, rt):
+    """Row losses then a gather of them against the reference's Pallas
+    kernel (interpret mode) and its jnp oracle at ``rtol=1e-6``: the pad id
+    0 (a zero row), ids past the table and below 0 (they add 0, as in the
+    Pallas body), and ``occ_ret`` 0 in some columns."""
+    ids, elt, occ_r, occ_l, ar, al = _case(rng, T, K, M, cat)
+    occ_r[::3] = 0.0
+    ids[:, ::9] = 0
+    bad = ids.copy()
+    bad[:, 1::11] = cat + 5
+    bad[:, 2::13] = -2
+    got = _two_pass(bad, elt, occ_r, occ_l, ar, al, chunk).numpy()
+    pallas = aggregate_loss_pallas(*_j((bad, elt, occ_r, occ_l, ar, al)),
+                                   chunk=chunk, trial_block=tb,
+                                   rows_tile=rt, variant="gather")
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-6)
+    clean = np.where((bad < 0) | (bad > cat), 0, bad).astype(np.int32)
+    oracle = jax_ref(*_j((clean, elt, occ_r, occ_l, ar, al)))
+    np.testing.assert_allclose(got, np.asarray(oracle), rtol=1e-6)

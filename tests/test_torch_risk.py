@@ -223,6 +223,7 @@ def test_main_path_goes_through_the_wrapper(cfg, tables):
     _engine(cfg, 4).run_tenant_chunked(tables)
     assert tagg.plain_counts["aggregate_loss_gather_plain"] == 4
     assert tagg.launch_counts == {"aggregate_loss_gather": 0,
+                                  "aggregate_row_losses": 0,
                                   "aggregate_loss_onehot": 0}
 
 
