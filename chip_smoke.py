@@ -22,10 +22,12 @@ Drives the port's three paths through the entry points a user calls:
   decode step's through the paged decode kernel at group size 1.
 
 Every attention prefill of every path (internlm2's, h2o-danube's and
-olmoe's) runs the FlashAttention kernel.  The gather of the risk path runs
-two kernels a call (a row pass writing each catalog row's clipped loss, then
-the trial pass over the ids), the SSD scan of mamba2's bf16 prefill its
-tensor-core kernel.
+olmoe's) runs the FlashAttention kernel, and every admission writes its K,
+V and positions with one launch of the scatter kernel per attention
+sub-layer.  Both variants of the risk path run two kernels a call (a row
+pass writing each catalog row's clipped loss, then the gather's trial pass
+over the ids, or the onehot variant's per-trial event histogram times the
+row losses), the SSD scan of mamba2's bf16 prefill its tensor-core kernel.
 
 It builds every CUDA kernel from the sources in this checkout (one ``nvcc``
 per source, all started together), holds each against its plain PyTorch
@@ -38,12 +40,12 @@ code; without a CUDA device nothing runs.  The last line of a good run is
 Phases: device, build, kernels (aggregate sweep), paged kernels (the
 reference's cases), ssd kernel (the reference's sweep and the edges), flash
 kernel (the reference's sweep and the edges), tables, kernels (full width),
-main path (gather, full width), main path (onehot, catalog cut), cli,
-serving (reduced internlm2, h2o-danube and mamba2, token-exact with
-``generate``, and reduced olmoe), serving (full width, internlm2), paged
-kernels (full width), serving (full width, mamba2), ssd kernel (full
-width), serving (full width, olmoe), paged decode (olmoe's shape), flash
-kernel (full width).
+main path (gather, full width), main path (onehot, 1,000,000 trials,
+catalog cut), cli, serving (reduced internlm2, h2o-danube and mamba2,
+token-exact with ``generate``, and reduced olmoe), serving (full width,
+internlm2), paged kernels (full width), serving (full width, mamba2), ssd
+kernel (full width), serving (full width, olmoe), paged decode (olmoe's
+shape), flash kernel (full width).
 """
 from __future__ import annotations
 
@@ -117,10 +119,15 @@ SWEEP = [
     (40, 200, 10, 300, 64, 128),     # three float4 per row
     (24, 70, 20, 150, 32, 64),       # M > 16: two column groups
 ]
-ONEHOT_TIMED = [(256, 128, 15, 4096, 128, 512),      # largest of the sweep
-                (1024, 128, 15, 65536, 128, 512)]    # a larger catalog
-ONEHOT_MAIN_CATALOG = 4096   # catalog of the main-path run of the onehot variant
-ONEHOT_MAIN_TRIALS = 4096
+ONEHOT_TIMED = [(256, 128, 15, 4096, 128, None),     # largest of the sweep
+                (1024, 128, 15, 65536, 128, None)]   # five catalog tiles
+# the onehot variant's main path: the paper's 1,000,000 trials, the catalog
+# cut to 4,096 events (one tile of the kernel; the published 2,000,000 would
+# take 140 tiles, each a read of the ids)
+ONEHOT_MAIN_CATALOG = 4096
+ONEHOT_MAIN_TRIALS = 1_000_000
+ONEHOT_CUT_TRIALS = 2048     # a small call, timed beside the chunk
+ONEHOT_BLOCK = 4096          # trials of a block held against the plain version
 
 
 class PhaseFailed(Exception):
@@ -318,9 +325,10 @@ HOLD_CYCLES = 2_000_000      # ~1 ms of device clock: the host's lead
 
 def cuda_ms(fn, reps: int, flush: torch.Tensor) -> float:
     """Median time of ``fn`` by CUDA events, the L2 cache flushed before
-    each.  The device spins after the flush, so the host has enqueued all
-    of ``fn`` before the first event fires: the window holds device time
-    only, not the host's launch gaps (which matter for calls of a few µs)."""
+    each, after one untimed call.  The device spins after the flush, so
+    the host has enqueued all of ``fn`` before the first event fires: the
+    window holds device time only, not the host's launch gaps (which matter
+    for calls of a few µs)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -363,10 +371,11 @@ def gather_traffic_ms(T, K):
     return (T * K * (4 + 64) + T * 4) / PEAK_BYTES_PER_S * 1e3
 
 
-def onehot_fma_ms(T, K, M, rows):
-    """Not the bound: the one-hot product's own multiply-adds at the float32
-    rate, the cost of that algorithm."""
-    return 2 * T * K * rows * M / PEAK_F32_FLOPS * 1e3
+def onehot_ids_ms(T, K, rows):
+    """Not the bound: what the onehot design reads, the ids once per catalog
+    tile of the kernel and the row pass's table, at the memory rate."""
+    tiles = -(-rows // agg.ONEHOT_MAX_ROWS_TILE)
+    return (tiles * T * K * 4 + rows * 16 * 4) / PEAK_BYTES_PER_S * 1e3
 
 
 def phase_kernels_small(errs: Errors, dev) -> None:
@@ -387,8 +396,8 @@ def phase_kernels_small(errs: Errors, dev) -> None:
                   agg.aggregate_loss_onehot_plain(*args, chunk=chunk,
                                                   rows_tile=rt), what)
         errs.hold(O, agg.aggregate_loss_onehot(*padded, chunk=chunk,
-                                               rows_tile=rt), want,
-                  what + " vs gather plain")
+                                               rows_tile=rt),
+                  want, what + " vs gather plain")
 
     # all-pad trials, clipping, int64 ids, ids outside the table
     ids = torch.zeros((8, 16), dtype=torch.int32, device=dev)
@@ -430,12 +439,23 @@ def phase_kernels_small(errs: Errors, dev) -> None:
                   agg.aggregate_loss_gather_plain(clean, *args[1:], chunk=16),
                   "ids outside the table")
 
-    before = (agg.launch_counts[G], agg.launch_counts[R])
-    agg.aggregate_loss_gather(*padded, chunk=16)
-    check((agg.launch_counts[G], agg.launch_counts[R])
-          == (before[0] + 1, before[1] + 1),
-          "a gather call did not launch the row pass and the trial pass "
-          "once each")
+    # a trial whose events all hit one row (a count of 1000, and of 4000)
+    for K in (1000, 4000):
+        args = list(make_case(rng, 20, K, 15, 300, dev))
+        args[0][3] = 7
+        args[0][5, ::2] = 299
+        want = agg.aggregate_loss_gather_plain(*args, chunk=128)
+        errs.hold(O, agg.aggregate_loss_onehot(*args, rows_tile=64), want,
+                  f"K{K} one row a trial, 5 tiles")
+
+    for name, fn in ((G, agg.aggregate_loss_gather),
+                     (O, agg.aggregate_loss_onehot)):
+        before = (agg.launch_counts[name], agg.launch_counts[R])
+        fn(*padded, chunk=16)
+        check((agg.launch_counts[name], agg.launch_counts[R])
+              == (before[0] + 1, before[1] + 1),
+              f"a {name} call did not launch the row pass and its own "
+              f"kernel once each")
     say("kernels", f"sweep and edge cases hold: gather {errs.cases[G]}, "
                    f"row pass {errs.cases[R]} bit for bit, onehot "
                    f"{errs.cases[O]} comparisons")
@@ -511,14 +531,16 @@ def phase_kernels_full(errs: Errors, tables: RiskTables, dev) -> dict:
                    f"memory rate")
     del ids, got, want, f, lib
 
-    # onehot at the sweep's largest shape and at a larger catalog
+    # onehot at the sweep's largest shape and at five catalog tiles, beside
+    # the gather on the same inputs
     o_rows = []
     for T, K, M, cat, chunk, rt in ONEHOT_TIMED:
         args = make_case(rng, T, K, M, cat, dev)
-        errs.hold(O, agg.aggregate_loss_onehot(*args, chunk=chunk, rows_tile=rt),
-                  agg.aggregate_loss_onehot_plain(*args, chunk=chunk,
-                                                  rows_tile=rt),
-                  f"T{T} K{K} M{M} cat{cat}")
+        want = agg.aggregate_loss_onehot_plain(*args, chunk=chunk,
+                                               rows_tile=rt)
+        errs.hold(O, agg.aggregate_loss_onehot(*args, chunk=chunk,
+                                               rows_tile=rt),
+                  want, f"T{T} K{K} M{M} cat{cat}")
         ms = cuda_ms(lambda: agg.aggregate_loss_onehot(
             *args, chunk=chunk, rows_tile=rt), 5, flush)
         plain = cuda_ms(lambda: agg.aggregate_loss_onehot_plain(
@@ -527,14 +549,16 @@ def phase_kernels_full(errs: Errors, tables: RiskTables, dev) -> dict:
         padded = (args[0], agg.pad_elt_columns(args[1]), *args[2:])
         gather_ms = cuda_ms(lambda: agg.aggregate_loss_gather(
             *padded, chunk=chunk), 5, flush)
-        o_rows.append({"shape": f"T{T} K{K} M{M} cat{cat} rows_tile{rt}",
-                       "ms": ms, "plain_ms": plain, "bound_ms": bound,
-                       "bound_by": by, "gather_ms_same_shape": gather_ms})
-        say("kernels", f"onehot {o_rows[-1]['shape']}: {ms:.3f} ms, plain "
-                       f"{plain:.2f} ms, bound {bound:.4f} ms by {by}; the "
-                       f"one-hot product alone is "
-                       f"{onehot_fma_ms(T, K, M, cat + 1):.4f} ms of FMAs; "
-                       f"gather kernel on the same inputs {gather_ms:.3f} ms")
+        o_rows.append({"shape": f"T{T} K{K} M{M} cat{cat}", "ms": ms,
+                       "plain_ms": plain,
+                       "bound_ms": bound, "bound_by": by,
+                       "gather_ms_same_shape": gather_ms})
+        say("kernels", f"onehot {o_rows[-1]['shape']}: {ms:.4f} ms, "
+                       f"plain {plain:.2f} ms, bound "
+                       f"{bound:.4f} ms by {by}; the ids once per tile "
+                       f"take {onehot_ids_ms(T, K, cat + 1):.4f} ms at the "
+                       f"memory rate; gather kernel on the same inputs "
+                       f"{gather_ms:.4f} ms")
 
     return {G: {"shape": g_shape, "ms": g_ms, "plain_ms": g_plain,
                 "bound_ms": g_bound, "bound_by": g_by, "library_ms": lib_ms,
@@ -669,12 +693,24 @@ def phase_main_gather(cfg: RiskAppConfig, tables: RiskTables, dev) -> dict:
 
 
 def phase_main_onehot(errs: Errors, cfg: RiskAppConfig, dev) -> dict:
-    """The same entry points with the onehot variant.  Its work grows with
-    T*K*rows*M, so the catalog (and T) are cut here; K and M stay.  Then the
-    kernel at the shape this run gave it, against its plain version."""
+    """The same entry points with the onehot variant at the paper's
+    1,000,000 trials, the catalog cut to 4,096 events (one tile of the
+    kernel; the ids are read once per tile); K and M stay.  Then the kernel
+    at the chunk this run gave it, held against its plain version on blocks
+    of trials and timed beside the gather and ``embedding_bag`` on the same
+    inputs, and at the chunk's first 2,048 trials, a small call.  The plain
+    version is timed on one held block, not on the whole chunk."""
     small = dataclasses.replace(cfg, num_trials=ONEHOT_MAIN_TRIALS,
                                 event_catalog=ONEHOT_MAIN_CATALOG)
+    t0 = time.perf_counter()
     tables = generate(small, seed=1)
+    t1 = time.perf_counter()
+    tables = tables.pinned()
+    t2 = time.perf_counter()
+    say("tables", f"onehot path: T={small.num_trials} catalog="
+                  f"{small.event_catalog}: YET "
+                  f"{tables.nbytes()['yet'] / 1e9:.2f} GB; generate "
+                  f"{t1 - t0:.1f} s, pin {t2 - t1:.1f} s")
     ara = AggregateRiskAnalysis(small, TenancyConfig(1, 2, "sequential"))
     want = ara.run_tenant_chunked(tables).ylt          # gather variant
     prev = kops.aggregate_variant()
@@ -683,45 +719,86 @@ def phase_main_onehot(errs: Errors, cfg: RiskAppConfig, dev) -> dict:
         agg.reset_counts()                 # just before the main path
         rep = ara.run_tenant_chunked(tables)
         launches = agg.launch_counts[O]    # just after
+        row_launches = agg.launch_counts[R]
     finally:
         kops.use_aggregate_variant(prev)
-    check(launches == 2, f"onehot launches {launches} for 2 tenants")
-    check(agg.launch_counts["aggregate_loss_gather"] == 0
-          and not any(agg.plain_counts.values()),
+    check(launches == 2 and row_launches == 2,
+          f"onehot launches {launches}, row passes {row_launches} for 2 "
+          f"tenants")
+    check(agg.launch_counts[G] == 0 and not any(agg.plain_counts.values()),
           "the onehot main path took another route")
-    check(bool(np.isfinite(rep.ylt).all())
+    check(rep.ylt.shape == (small.num_trials,)
+          and bool(np.isfinite(rep.ylt).all())
           and np.allclose(rep.ylt, want, rtol=RTOL, atol=ATOL),
           "onehot YLT disagrees with the gather YLT")
     k = sum(tl.device_ms["compute_end"] - tl.device_ms["compute_start"]
             for tl in rep.timeline)
     say("main", f"onehot variant, T={small.num_trials} K={small.events_per_trial}"
                 f" M={small.num_elts} catalog={small.event_catalog} (cut), 1x2 "
-                f"sequential: {launches} launches, kernels {k:.2f} ms, wall "
-                f"{rep.wall_s * 1e3:.1f} ms, YLT agrees with the gather variant")
+                f"sequential: {launches} launches, kernels "
+                f"{k:.3f} ms, wall {rep.wall_s * 1e3:.1f} ms, YLT agrees "
+                f"with the gather variant")
+    ara.clear_table_cache()
+    del ara, rep, want
+
     T, K = small.num_trials // 2, small.events_per_trial
     rows, M = tables.elt_losses.shape
-    args = (torch.from_numpy(tables.yet[:T]).to(dev),
-            agg.pad_elt_columns(torch.from_numpy(tables.elt_losses).to(dev)),
-            torch.from_numpy(tables.occ_ret).to(dev),
-            torch.from_numpy(tables.occ_lim).to(dev),
-            tables.agg_ret, tables.agg_lim)
-    rt = agg.ONEHOT_DEFAULT_ROWS_TILE
-    shape = f"T{T} K{K} M{M} rows{rows} rows_tile{rt}"
-    errs.hold(O, agg.aggregate_loss_onehot(*args, chunk=small.chunk_events),
-              agg.aggregate_loss_onehot_plain(*args, chunk=small.chunk_events),
-              "main-path shape " + shape)
+    terms = (agg.pad_elt_columns(torch.from_numpy(tables.elt_losses).to(dev)),
+             torch.from_numpy(tables.occ_ret).to(dev),
+             torch.from_numpy(tables.occ_lim).to(dev),
+             tables.agg_ret, tables.agg_lim)
+    chunk = small.chunk_events
+    ids = torch.from_numpy(tables.yet[:T]).to(dev)
+    del tables                            # 4 GB of pinned host memory
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
-    ms = cuda_ms(lambda: agg.aggregate_loss_onehot(
-        *args, chunk=small.chunk_events), 5, flush)
-    plain = cuda_ms(lambda: agg.aggregate_loss_onehot_plain(
-        *args, chunk=small.chunk_events), 1, flush)
-    bound, by = bound_ms(T, K, M, rows)
-    say("kernels", f"onehot {shape}: {ms:.3f} ms, plain {plain:.1f} ms, bound "
-                   f"{bound:.4f} ms by {by}; the one-hot product alone is "
-                   f"{onehot_fma_ms(T, K, M, rows):.3f} ms of FMAs")
+    f = agg.aggregate_row_losses(*terms[:3])
+    out = {"launches": launches, "row_launches": row_launches,
+           "generate_s": t1 - t0,
+           "main_kernels_ms": k}
+    for tag, n in (("chunk", T), ("cut", ONEHOT_CUT_TRIALS)):
+        part = ids[:n]
+        shape = f"T{n} K{K} M{M} rows{rows}"
+        got = agg.aggregate_loss_onehot(part, *terms, chunk=chunk)
+        # blocks of trials against the plain version (the whole cut)
+        block = min(n, ONEHOT_BLOCK)
+        for start in sorted({0, max(0, n // 2 - block // 2), n - block}):
+            want = agg.aggregate_loss_onehot_plain(
+                part[start:start + block], *terms, chunk=chunk)
+            errs.hold(O, got[start:start + block], want,
+                      f"main-path {tag} {shape}, trials {start}..")
+        ms = cuda_ms(lambda: agg.aggregate_loss_onehot(
+            part, *terms, chunk=chunk), 5, flush)
+        gather_ms = cuda_ms(lambda: agg.aggregate_loss_gather(
+            part, *terms, chunk=chunk), 5, flush)
+        # the yardstick, as for the gather: one PyTorch call on the same f
+        bag = lambda: torch.nn.functional.embedding_bag(part, f[:, None],
+                                                        mode="sum")
+        lib = torch.clamp(torch.clamp(bag()[:, 0] - terms[3], min=0.0),
+                          max=terms[4])
+        check(bool(torch.allclose(lib, got, rtol=RTOL, atol=ATOL)),
+              f"embedding_bag on the row losses disagrees with the onehot "
+              f"kernel at {shape}")
+        lib_ms = cuda_ms(bag, 5, flush)
+        bound, by = bound_ms(n, K, M, rows)
+        # the plain version on the first held block, beside that block's
+        # shape (on the whole chunk it would be a call of seconds)
+        first = part[:block]
+        plain_ms = cuda_ms(lambda: agg.aggregate_loss_onehot_plain(
+            first, *terms, chunk=chunk), 1, flush)
+        out[tag] = {"shape": shape, "ms": ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": lib_ms,
+                    "gather_ms_same_inputs": gather_ms, "plain_ms": plain_ms,
+                    "plain_shape": f"T{block} K{K} M{M} rows{rows}"}
+        say("kernels", f"onehot {shape}: {ms:.4f} ms, plain "
+                       f"{plain_ms:.1f} ms at T{block}, bound {bound:.4f} ms "
+                       f"by {by}; the ids once per tile take "
+                       f"{onehot_ids_ms(n, K, rows):.4f} ms at the memory "
+                       f"rate; gather on the same inputs {gather_ms:.4f} ms; "
+                       f"embedding_bag on the same f {lib_ms:.4f} ms")
+        del got, part
+    del ids, f
     agg.reset_counts()
-    return {"launches": launches, "shape": shape, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": by}
+    return out
 
 
 def phase_cli() -> None:
@@ -835,6 +912,40 @@ def scatter_pair(pool, pages, values):
             pa.paged_prefill_scatter_plain(pool.clone(), pages, values))
 
 
+def admission_case(rng, S, NP_, P, Hkv, D, pages, ring, vdt, dev):
+    """One attention sub-layer's admission: random bf16 pools and position
+    pool, and a dense ring of K and V as a row of a batched prefill (stage
+    stride three rows' worth), as the continuous engine hands it over."""
+    pools = [torch.from_numpy(rng.standard_normal(
+        (S, NP_, P, Hkv, D)).astype(np.float32)).to(dev, torch.bfloat16)
+        for _ in range(2)]
+    pos_pool = torch.from_numpy(rng.integers(
+        0, 1 << 20, (NP_, P)).astype(np.int32)).to(dev)
+    srcs = [torch.from_numpy(rng.standard_normal(
+        (S, 3, ring, Hkv, D)).astype(np.float32)).to(dev, vdt)[:, 1]
+        for _ in range(2)]
+    pos_src = torch.arange(1000, 1000 + ring, dtype=torch.int32, device=dev)
+    return (*pools, pos_pool, torch.tensor(pages, dtype=torch.int32,
+                                           device=dev), *srcs, pos_src)
+
+
+def hold_admission(errs: Errors, case, what: str,
+                   positions: bool = True) -> None:
+    """The admission entry against its plain version on copies of the same
+    pools, bit for bit: K, V and (unless ``positions`` is False, a second
+    sub-layer) the position pool, which is otherwise left alone."""
+    kp, vp, pp = case[:3]
+    got = [t.clone() for t in (kp, vp, pp)]
+    want = [t.clone() for t in (kp, vp, pp)]
+    if not positions:
+        got[2] = want[2] = None
+    pa.paged_admit_kv(*got, *case[3:])
+    pa.paged_admit_kv_plain(*want, *case[3:])
+    for tag, a, b in zip(("K", "V", "positions"), got, want):
+        if b is not None:
+            errs.hold_bits(K4, a, b, f"admission {what}: {tag}")
+
+
 def decode_bound_ms(C, NB, P, H, Hkv, D, q_bytes):
     """Each named page's K and V tile and positions read once, the table,
     positions and q read once, the f32 output written once, at the memory
@@ -851,6 +962,15 @@ def scatter_bound_ms(S, nb, E, value_bytes):
     """The values read once and the named pages written once (bf16), at the
     memory rate; the cast is no arithmetic to speak of."""
     return (S * nb * E * (value_bytes + 2) + nb * 4) / PEAK_BYTES_PER_S * 1e3
+
+
+def admission_bound_ms(S, nb, P, row, ring, value_bytes):
+    """One sub-layer's admission: the dense K and V rings read once, their
+    pages written once (bf16), the positions read and their pages' rows
+    written once, the page list read once, at the memory rate."""
+    nbytes = (2 * S * ring * row * value_bytes + 2 * S * nb * P * row * 2
+              + ring * 4 + nb * P * 4 + nb * 4)
+    return nbytes / PEAK_BYTES_PER_S * 1e3
 
 
 def phase_paged_small(errs: Errors, dev) -> None:
@@ -954,13 +1074,26 @@ def phase_paged_small(errs: Errors, dev) -> None:
                                 ("stage-strided", wide[:, 1])):
                 errs.hold_bits(K4, *scatter_pair(pool, pg, values),
                                f"S{S} NP{NP_} P{P} Hkv{Hkv} D{D} {vdt} {tag}")
+    # admission's entry into the same kernel: rings that fill their last
+    # page, leave one position of it, and take one position of it
+    n_scatter = errs.cases[K4]
+    for vdt in (torch.float32, torch.bfloat16):
+        for S, NP_, P, Hkv, D, pages in SCATTER_CASES:
+            full = len(pages) * P
+            for ring in (full, full - 1, full - P + 1):
+                hold_admission(errs, admission_case(
+                    rng, S, NP_, P, Hkv, D, pages, ring, vdt, dev),
+                    f"S{S} NP{NP_} P{P} Hkv{Hkv} D{D} ring {ring} {vdt}")
+    hold_admission(errs, admission_case(rng, 2, 9, 4, 2, 8, [4, 2, 7], 10,
+                                        torch.bfloat16, dev),
+                   "a second sub-layer", positions=False)
     say("paged", f"reference cases hold: decode {errs.cases[K3]} comparisons "
                  f"(rtol={PAGED_RTOL} atol={PAGED_ATOL}; split edges at "
                  f"1, ceil(NB / 3) and up to 8 entries a split), six page "
                  f"permutations bit for bit, two calls bit-identical, each "
                  f"row alone bit-identical with its batch, "
-                 f"scatter {errs.cases[K4]} "
-                 f"comparisons bit-exact")
+                 f"scatter {n_scatter} and admission "
+                 f"{errs.cases[K4] - n_scatter} comparisons bit-exact")
 
 
 def phase_paged_full(errs: Errors, dev, NB: int) -> dict:
@@ -996,8 +1129,8 @@ def phase_paged_full(errs: Errors, dev, NB: int) -> dict:
                            f"full width S{S} nb{nb} {vdt}")
             if nb == 12:             # the bucket of a 64 + 128-token prompt
                 timed_inputs[str(vdt).split(".")[1]] = (pages, values)
-    # timed in turns (f32, bf16, bf16, f32 values), each figure the median
-    # of its two turns
+    # the scatter entry alone (one pool), timed in turns (f32, bf16, bf16,
+    # f32 values), each figure the median of its two turns
     turns = {"float32": [], "bfloat16": []}
     for name in ("float32", "bfloat16", "bfloat16", "float32"):
         pages, values = timed_inputs[name]
@@ -1009,24 +1142,78 @@ def phase_paged_full(errs: Errors, dev, NB: int) -> dict:
                                                            values),
                     20, flush),
             cuda_ms(lambda: pool.index_copy_(1, long_pages, vb), 20, flush)))
-    timed = {}
+    scatter = {}
     for name, runs in turns.items():
         k, plain, lib = (statistics.median(col) for col in zip(*runs))
         bound = scatter_bound_ms(S, 12, E, 4 if name == "float32" else 2)
-        timed[name] = dict(ms=k, plain_ms=plain, library_ms=lib,
-                           bound_ms=bound)
+        scatter[name] = dict(ms=k, plain_ms=plain, library_ms=lib,
+                             bound_ms=bound)
         say("paged", f"scatter pool ({S}, {NP_}, {P}, {Hkv}, {D}) bf16, 12 "
                      f"pages, values {name}: {k:.4f} ms, plain {plain:.4f} "
                      f"ms, index_copy_ of bf16 values {lib:.4f} ms, bound "
                      f"{bound:.4f} ms (turns: {[round(r[0], 4) for r in runs]})")
     del pool, timed_inputs
-    s = timed["bfloat16"]            # the main path hands it bf16 values
+
+    # admission (the path's entry): K, V and positions of one attention
+    # sub-layer in one call, from a ring that fills its 12 pages (a 64 +
+    # 128-token prompt) and from one that does not; held bit for bit, then
+    # timed in turns (f32, bf16, bf16, f32 sources) beside its plain
+    # version (the ops admission ran before) and two index_copy_ calls of
+    # the already padded bf16 page blocks (K, then V; no positions)
+    row = Hkv * D
+    cases = {}
+    for vdt in (torch.float32, torch.bfloat16):
+        for ring in (12 * P, 12 * P - 7):
+            pages = rng.permutation(np.arange(PagedKVCache.RESERVED,
+                                              NP_))[:12].tolist()
+            case = admission_case(rng, S, NP_, P, Hkv, D, pages, ring, vdt,
+                                  dev)
+            hold_admission(errs, case, f"full width S{S} 12 pages ring "
+                                       f"{ring} {vdt}")
+            if ring == 12 * P:
+                cases[str(vdt).split(".")[1]] = case
+    turns = {"float32": [], "bfloat16": []}
+    for name in ("float32", "bfloat16", "bfloat16", "float32"):
+        case = cases[name]
+        kp, vp, _, pages, ks, vs, _ = case
+        long_pages = pages.long()
+        blocks = [src.to(torch.bfloat16).reshape(S, 12, P, Hkv, D)
+                  for src in (ks, vs)]
+
+        def two_index_copies():
+            kp.index_copy_(1, long_pages, blocks[0])
+            vp.index_copy_(1, long_pages, blocks[1])
+
+        turns[name].append((
+            cuda_ms(lambda: pa.paged_admit_kv(*case), 50, flush),
+            cuda_ms(lambda: pa.paged_admit_kv_plain(*case), 20, flush),
+            cuda_ms(two_index_copies, 20, flush)))
+    timed = {}
+    for name, runs in turns.items():
+        k, plain, lib = (statistics.median(col) for col in zip(*runs))
+        bound = admission_bound_ms(S, 12, P, row, 12 * P,
+                                   4 if name == "float32" else 2)
+        timed[name] = dict(ms=k, plain_ms=plain, library_ms=lib,
+                           bound_ms=bound)
+        say("paged", f"admission pools 2 x ({S}, {NP_}, {P}, {Hkv}, {D}) "
+                     f"bf16, 12 pages, ring {12 * P}, sources {name}: "
+                     f"{k:.4f} ms, plain {plain:.4f} ms, two index_copy_ "
+                     f"{lib:.4f} ms, bound {bound:.4f} ms (turns: "
+                     f"{[round(r[0], 4) for r in runs]})")
+    del cases
+    a = timed["bfloat16"]            # the main path hands it bf16 values
     return {K3: {"ms": d_ms, "plain_ms": d_plain, "bound_ms": d_bound,
                  "bound_by": d_by, "library_ms": None, "shape": d_shape},
-            K4: {**s, "bound_by": "bytes",
-                 "shape": f"pool ({S}, {NP_}, {P}, {Hkv}, {D}) bf16, 12 "
-                          f"pages, values bf16",
-                 "f32_values": timed["float32"]}}
+            K4: {**a, "bound_by": "bytes",
+                 "shape": f"admission: pools 2 x ({S}, {NP_}, {P}, {Hkv}, "
+                          f"{D}) bf16, 12 pages, ring {12 * P}, bf16 "
+                          f"sources, positions",
+                 "library_call": "index_copy_ of K, then of V (padded bf16 "
+                                 "page blocks, no positions)",
+                 "f32_sources": timed["float32"],
+                 "scatter_entry": {"shape": f"pool ({S}, {NP_}, {P}, {Hkv}, "
+                                            f"{D}) bf16, 12 pages",
+                                   **scatter}}}
 
 # ---------------------------------------------------------------------------
 # the SSD scan: the pure-SSM serving path's kernel
@@ -1627,7 +1814,7 @@ def phase_serve_full(errs: Errors, dev) -> dict:
         tag = f"shared prefix {spl}"
         n_sub = len(eng.kv.attn_subs)
         want_k3 += eng.rounds * eng.inner_steps * eng.n_stages * n_sub
-        want_k4 += 2 * n_sub * (len(rec.finished) - eng.prefill_skips)
+        want_k4 += n_sub * (len(rec.finished) - eng.prefill_skips)
         want_k5 += eng.n_stages * n_sub * eng.prefill_calls
         check(len(rec.finished) == 12 and all(
             t.shape == (32,) for _, t in rec.finished),
@@ -1685,11 +1872,11 @@ def phase_serve_full(errs: Errors, dev) -> dict:
             + f", prefill ms {[round(x, 3) for x in pre]}")
     check(launches[K3] == want_k3 and launches[K4] == want_k4
           and launches[K5] == want_k5,
-          f"launches {launches}, expected decode {want_k3}, scatter "
+          f"launches {launches}, expected decode {want_k3}, admission "
           f"{want_k4}, flash {want_k5}")
     check(variants == {"bf16_mma": launches[K5], "f32_simt": 0},
           f"internlm2 full width (bf16): flash variants {variants}")
-    say("serve", f"serving path launches: decode {launches[K3]}, scatter "
+    say("serve", f"serving path launches: decode {launches[K3]}, admission "
                  f"{launches[K4]}, flash {launches[K5]} (variants "
                  f"{variants}); plain calls 0")
     max_blocks = max(r.sched.continuous_engine.kv.max_blocks
@@ -1842,9 +2029,10 @@ def phase_serve_olmoe(dev) -> dict:
     n_attn = eng.n_stages * len(eng.kv.attn_subs)
     want = {K5: n_attn * eng.prefill_calls,
             K3: n_attn * eng.rounds * eng.inner_steps,
-            # one scatter of every stage's K and one of its V per admission
-            K4: 2 * len(eng.kv.attn_subs) * (len(rec.finished)
-                                             - eng.prefill_skips)}
+            # one launch (every stage's K and V, the positions) per
+            # attention sub-layer and admission
+            K4: len(eng.kv.attn_subs) * (len(rec.finished)
+                                         - eng.prefill_skips)}
     check(n_attn == cfg.num_layers and launches[K5] > 0
           and all(launches[k] == n for k, n in want.items()),
           f"olmoe: launches {launches}, expected {want} ({eng.prefill_calls}"
@@ -2075,8 +2263,8 @@ def main() -> int:
                    f"tolerance rtol={RTOL} atol={ATOL} (summation order); "
                    f"paged decode {errs.cases[K3]} cases (max abs err "
                    f"{errs.abs[K3]:.3g}, max rel err {errs.rel[K3]:.3g}; "
-                   f"rtol={PAGED_RTOL} atol={PAGED_ATOL}), paged scatter "
-                   f"{errs.cases[K4]} cases bit-exact, SSD scan "
+                   f"rtol={PAGED_RTOL} atol={PAGED_ATOL}), paged scatter and "
+                   f"admission {errs.cases[K4]} cases bit-exact, SSD scan "
                    f"{errs.cases[K6]} cases (max abs err {errs.abs[K6]:.3g}; "
                    f"float32 rtol=atol={SSD_RTOL}, bfloat16 y {SSD_BF16_Y} "
                    f"and state {SSD_BF16_STATE}), flash attention "
@@ -2099,7 +2287,11 @@ def main() -> int:
             (R, agg_src, "src/repro/kernels/aggregate_loss.py:69",
              {"launches": main_path["row_launches"], **kern[R]}),
             (O, agg_src, "src/repro/kernels/aggregate_loss.py:92",
-             {**onehot, "library_ms": None, **kern[O]}),
+             {**onehot["chunk"], **{k: v for k, v in onehot.items()
+                                    if k != "chunk"},
+              "library_call": "embedding_bag(ids, f[:, None], mode='sum') "
+                              "on the row losses: the trial sums only",
+              **kern[O]}),
             (K3, paged_src, "src/repro/kernels/paged_attention.py:60",
              {"launches": on_paths[K3], "launches_by_path": by_path[K3],
               **kern[K3]}),

@@ -19,7 +19,21 @@ part because their GEMMs round differently, the difference at a request's
 first divergent token is of the size seen at the steps where they agree,
 and there both margins are below it.  A fault that shifts the logits at
 the step where they part shows a difference there above every agreeing
-step's.  The script reports both and decides nothing.
+step's.
+
+Then, layer by layer: both paths run again (the same engines, the same
+tokens) with the port's ``apply_rmsnorm`` patched where the decode loops
+call it (``mock.patch``), which records its input -- the residual stream
+before each layer's attention and MLP and before the final norm -- for
+every request that parts at a decode step, at that step and at each
+agreeing decode step before it; after each of those steps the K and V the
+paths hold for the request are read: the engine's pages through its page
+table and position pool, ``generate``'s dense ring cache by its
+positions.  For every layer the script reports the largest absolute
+difference of the residual after attention and after the layer, and of
+the held K and V, at the parting step and the largest over the agreeing
+steps, and names the first layer whose parting difference exceeds twice
+its agreeing largest (``PERF.md`` states the rule that reads it).
 """
 from __future__ import annotations
 
@@ -29,6 +43,7 @@ import gc
 import json
 import os
 import sys
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -37,9 +52,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.models import transformer
+from repro_torch.models.layers import POS_EMPTY
 from repro_torch.models.model import build_model
+from repro_torch.serving import continuous
 from repro_torch.serving.continuous import ContinuousBatchingEngine
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.kvcache import POS_SENTINEL
 from repro_torch.serving.multitenant import Request
 
 ARCH, REQUESTS, PROMPT_LEN, NEW_TOKENS = "internlm2-1.8b", 12, 128, 32
@@ -65,6 +84,92 @@ class RecordingEngine(ContinuousBatchingEngine):
         return super()._decode_step(*args)
 
 
+class ResidualRecorder:
+    """``apply_rmsnorm`` for the decode loops of both paths: while ``on``,
+    keeps each call's input (the residual stream: before a layer's
+    attention, before its MLP, and before the final norm)."""
+
+    def __init__(self):
+        self.on, self.calls = False, []
+        self.real = transformer.apply_rmsnorm
+
+    def __call__(self, p, x, *args, **kwargs):
+        if self.on:
+            self.calls.append(x.detach().float().clone())
+        return self.real(p, x, *args, **kwargs)
+
+    def patches(self):
+        """Both call sites: the continuous decode step and the model's
+        backbone (``generate``'s decode)."""
+        return (mock.patch.object(continuous, "apply_rmsnorm", self),
+                mock.patch.object(transformer, "apply_rmsnorm", self))
+
+    def run(self, fn, *args):
+        """``fn(*args)`` with recording on; returns its result and the
+        inputs recorded."""
+        self.calls, self.on = [], True
+        try:
+            return fn(*args), self.calls
+        finally:
+            self.on = False
+
+
+def held_kv_paged(eng: ContinuousBatchingEngine, c: int):
+    """The K and V slot ``c`` holds, read through its page table and the
+    position pool: positions (n,) and per attention sublayer K, V (S, n,
+    Hkv, D), in position order, on the host."""
+    st = eng.state
+    pt = st["page_table"][c].long()
+    pos = st["pos_pool"][pt].reshape(-1)
+    keep = pos < POS_SENTINEL
+    order = torch.argsort(pos[keep])
+    out = {"pos": pos[keep][order].cpu()}
+    for name in eng.kv.attn_subs:
+        for kind in ("k", "v"):
+            pool = st["caches"][name][kind][:, pt]       # (S, NB, P, Hkv, D)
+            flat = pool.reshape(pool.shape[0], -1, *pool.shape[3:])
+            out[(name, kind)] = flat[:, keep][:, order].cpu()
+    return out
+
+
+def held_kv_dense(caches, i: int):
+    """The same for row ``i`` of ``generate``'s dense ring caches."""
+    name0 = next(iter(caches))
+    pos = caches[name0]["pos"][0, i]
+    keep = pos < POS_EMPTY
+    order = torch.argsort(pos[keep])
+    out = {"pos": pos[keep][order].cpu()}
+    for name, sub in caches.items():
+        for kind in ("k", "v"):
+            out[(name, kind)] = sub[kind][:, i][:, keep][:, order].cpu()
+    return out
+
+
+class LayerRecordingEngine(RecordingEngine):
+    """The recording engine, also keeping per (request, step) the residual
+    rows of the forward that gave that step's logits and the K/V held
+    after it, for the requests and steps in ``targets`` (request -> its
+    parting step)."""
+
+    def __init__(self, *args, recorder: ResidualRecorder, targets, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.recorder, self.targets = recorder, targets
+        self.residuals, self.held = {}, {}
+
+    def _decode_step(self, *args):
+        slots = [None if sl is None else self.request_of[id(sl.req)]
+                 for sl in self._slots]
+        lstep = self.state["lstep"].cpu().numpy().copy()
+        live = (self.state["remaining"] > 0).cpu().numpy()
+        _, calls = self.recorder.run(super()._decode_step, *args)
+        for c, i in enumerate(slots):
+            step = int(lstep[c]) + 1            # the logits this forward gave
+            if i in self.targets and live[c] and step <= self.targets[i]:
+                self.residuals[(i, step)] = torch.stack(
+                    [x[c, 0] for x in calls]).cpu()
+                self.held[(i, step)] = held_kv_paged(self, c)
+
+
 def prompts_of_serve(vocab: int) -> np.ndarray:
     """The prompts ``launch.serve`` submits with no shared prefix."""
     rng = np.random.default_rng(0)
@@ -73,10 +178,15 @@ def prompts_of_serve(vocab: int) -> np.ndarray:
                      for _ in range(REQUESTS)])
 
 
-def generate_keeping_logits(eng: ServingEngine, prompts: np.ndarray):
+def generate_keeping_logits(eng: ServingEngine, prompts: np.ndarray,
+                            after_decode=None):
     """``eng.generate`` with the logits of its prefill and of each decode
-    call kept (through its model bundle): tokens (B, n), logits (n, B, V)."""
+    call kept (through its model bundle): tokens (B, n), logits (n, B, V).
+    ``after_decode(n, caches, calls)``, if given, runs after decode call
+    ``n`` (the forward giving step ``n + 1``'s logits) with the residual
+    inputs a :class:`ResidualRecorder` recorded in it."""
     bundle, kept = eng.bundle, []
+    recorder = ResidualRecorder()
 
     def prefill_fn(params, batch):
         logits, caches, idx = bundle.prefill_fn(params, batch)
@@ -84,17 +194,95 @@ def generate_keeping_logits(eng: ServingEngine, prompts: np.ndarray):
         return logits, caches, idx
 
     def decode_fn(params, tok, caches, idx):
-        logits, caches = bundle.decode_fn(params, tok, caches, idx)
+        n = len(kept) - 1
+        (logits, caches), calls = recorder.run(bundle.decode_fn, params, tok,
+                                               caches, idx)
         kept.append(logits.float().clone())
+        if after_decode is not None:
+            after_decode(n, caches, calls)
         return logits, caches
 
     eng.bundle = dataclasses.replace(bundle, prefill_fn=prefill_fn,
                                      decode_fn=decode_fn)
     try:
-        tokens = eng.generate(prompts, max_new_tokens=NEW_TOKENS).tokens
+        with recorder.patches()[1]:
+            tokens = eng.generate(prompts, max_new_tokens=NEW_TOKENS).tokens
     finally:
         eng.bundle = bundle
     return tokens, torch.stack(kept[:NEW_TOKENS])
+
+
+def compare_layers(eng: ServingEngine, cfg, prompts: np.ndarray, dev,
+                   targets, cont_tokens: np.ndarray, gen_tokens: np.ndarray
+                   ) -> list:
+    """Both paths again, recording; per target request (request -> its
+    first divergent step, a decode step) the per-layer differences at that
+    step and at the agreeing decode steps before it."""
+    recorder = ResidualRecorder()
+    ceng = LayerRecordingEngine(eng, capacity=8, page_size=16, inner_steps=4,
+                                max_prompt_len=2 * PROMPT_LEN, device=dev,
+                                recorder=recorder, targets=targets)
+    reqs = [Request(f"f1-{i}", p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    ceng.request_of = {id(r): i for i, r in enumerate(reqs)}
+    with recorder.patches()[0]:
+        done = {ceng.request_of[id(r)]: t for r, t in ceng.run_all(reqs)}
+    again = np.stack([done[i] for i in range(REQUESTS)])
+    if not np.array_equal(again, cont_tokens):
+        raise RuntimeError("the continuous engine gave other tokens when "
+                           "run again")
+    diffs = {}                                  # (request, step) -> arrays
+
+    def after_decode(n, caches, calls):
+        for i, d in targets.items():
+            if n + 1 > d:
+                continue
+            xc = ceng.residuals.pop((i, n + 1))
+            xg = torch.stack([x[i, 0] for x in calls]).cpu()
+            hc, hg = ceng.held.pop((i, n + 1)), held_kv_dense(caches, i)
+            if not torch.equal(hc["pos"], hg["pos"]):
+                raise RuntimeError(f"request {i} step {n + 1}: the two "
+                                   "paths hold other positions")
+            kv = {kind: np.concatenate([
+                (hc[(name, kind)].float() - hg[(name, kind)].float()).abs()
+                .flatten(1).max(dim=1).values.numpy()
+                for name in ceng.kv.attn_subs]) for kind in ("k", "v")}
+            diffs[(i, n + 1)] = dict(
+                resid=(xc - xg).abs().max(dim=1).values.numpy(), **kv)
+
+    gen, _ = generate_keeping_logits(eng, prompts, after_decode)
+    if not np.array_equal(gen, gen_tokens):
+        raise RuntimeError("generate gave other tokens when run again")
+    n_layers = cfg.num_layers
+    out = []
+    for i, d in sorted(targets.items()):
+        part = diffs[(i, d)]
+        agree = [diffs[(i, t)] for t in range(1, d)]
+        layers, first_past = [], None
+        for l in range(n_layers):
+            row = {"layer": l}
+            # residual before layer l's MLP, and after layer l (before the
+            # next layer's attention, or before the final norm)
+            for key, idx in (("after_attention", 2 * l + 1),
+                             ("after_layer", 2 * l + 2)):
+                row[key] = float(part["resid"][idx])
+                row[key + "_agreeing_max"] = (
+                    max(float(a["resid"][idx]) for a in agree)
+                    if agree else None)
+            for kind in ("k", "v"):
+                row[f"held_{kind}"] = float(part[kind][l])
+                row[f"held_{kind}_agreeing_max"] = (
+                    max(float(a[kind][l]) for a in agree) if agree else None)
+            past = [key for key in ("after_attention", "after_layer",
+                                    "held_k", "held_v")
+                    if agree and row[key] > 2 * row[key + "_agreeing_max"]]
+            row["past_twice_the_agreeing_max"] = past
+            if past and first_past is None:
+                first_past = l
+            layers.append(row)
+        out.append(dict(request=i, step=d, agreeing_steps=d - 1,
+                        first_layer_past_twice=first_past, layers=layers))
+    return out
 
 
 def top2_margin(v: torch.Tensor) -> float:
@@ -125,7 +313,7 @@ def measure(compute_dtype: str, dev, reduced: bool = False) -> dict:
         for c, i in enumerate(slots):
             if i is not None and live[c]:
                 cont_logits.setdefault((i, int(lstep[c])), logits[c])
-    agree, parts = [], []
+    agree, parts, targets = [], [], {}
     for i in range(REQUESTS):
         same = cont[i] == gen[i]
         last = NEW_TOKENS if same.all() else int(np.argmin(same))
@@ -139,6 +327,8 @@ def measure(compute_dtype: str, dev, reduced: bool = False) -> dict:
                        margin_generate=top2_margin(gl),
                        max_logit_diff=float((cl - gl).abs().max()))
             (agree if d < last else parts).append(row)
+        if last < NEW_TOKENS and last > 0:
+            targets[i] = last                   # parts at a decode step
     diffs = np.array([r["max_logit_diff"] for r in agree])
     worst = float(diffs.max())
     out = dict(
@@ -155,7 +345,11 @@ def measure(compute_dtype: str, dev, reduced: bool = False) -> dict:
         divergences_within_the_agreeing_max=sum(
             r["max_logit_diff"] <= worst for r in parts),
         at_divergence=parts)
-    del ceng, eng, gen_logits, cont_logits
+    del ceng, gen_logits, cont_logits
+    gc.collect()
+    out["layer_by_layer"] = compare_layers(eng, cfg, prompts, dev, targets,
+                                           cont, gen)
+    del eng
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -189,12 +383,27 @@ def main(argv=None) -> int:
                    round(p["margin_generate"], 7),
                    round(p["max_logit_diff"], 7))
                   for p in r["at_divergence"]]))
+        for t in r["layer_by_layer"]:
+            worst = max(t["layers"], key=lambda row: max(
+                (row[k] / row[k + "_agreeing_max"] for k in
+                 ("after_attention", "after_layer", "held_k", "held_v")
+                 if row[k + "_agreeing_max"]), default=0.0)
+            ) if t["agreeing_steps"] else None
+            print(f"[f1] {r['compute_dtype']} request {t['request']} parts at "
+                  f"step {t['step']} ({t['agreeing_steps']} agreeing decode "
+                  f"steps): first layer past twice the agreeing max: "
+                  f"{t['first_layer_past_twice']}; largest ratio at layer "
+                  + ("n/a" if worst is None else str(worst["layer"]) + ": " +
+                     str({k: (round(worst[k], 8),
+                              round(worst[k + "_agreeing_max"], 8))
+                          for k in ("after_attention", "after_layer",
+                                    "held_k", "held_v")})))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
     print(json.dumps({k: {kk: vv for kk, vv in v.items()
-                          if kk != "at_divergence"}
+                          if kk not in ("at_divergence", "layer_by_layer")}
                       for k, v in result.items()}))
     return 0
 

@@ -20,21 +20,29 @@ What bounds them on the card, and what the design does about it:
   and summing it the same way gives, from ~2 GB of reads where that pass
   makes ~34 GB.  ``f`` is scratch of each call, never cached.  A warp owns
   a trial; no atomics, one shuffle reduction per trial: deterministic.
-* **onehot** is bound by operations — ``T*K*rows*M`` multiply-adds.  A block
-  owns a few trials and loops over catalog tiles staged in shared memory; the
-  one-hot operand lives in registers (``local_id == r``) and the product is
-  plain float32 FMA, exact for a one-hot operand.  Contract inherited from
-  the replaced kernel: ``occ_ret >= 0``, so the zero loss vector of an event
-  outside the tile contributes zero.  Its cost rules it out at the published
-  size; it is kept as the gather-free alternative at small catalogs.
+* **onehot** is bound by bytes too: the ids, read once per catalog tile.
+  The replaced body multiplies every event's one-hot row with the ELT tile
+  (``T*K*rows*M`` multiply-adds).  Summed over a trial's events the one-hot
+  rows are the trial's event histogram, and since a one-hot row picks one
+  table row and ``occ_ret >= 0``, the clipping commutes with the product:
+  ``acc[t] = counts[t] . f``, ``f`` the gather's row losses.  So a call runs
+  the row pass (a table not laid out by :func:`pad_elt_columns` is padded
+  first, a copy of ``rows x 4*ceil(M/4)`` floats), then one kernel: a block
+  holds the 16-bit event counts of 8 trials over a catalog tile of up to
+  :data:`ONEHOT_MAX_ROWS_TILE` rows in shared memory, fills them with one
+  shared-memory atomic per in-tile id, and forms ``counts . f`` in float32
+  FMAs.  Catalogs wider than a tile take more tiles,
+  the ids read once per tile; at the published 2,000,001-row catalog that is
+  140 reads of the ids, which is what ``gather`` avoids.
 
 Both kernels mask ragged trial and event counts themselves (nothing is padded
 by a copy) and let an id outside ``[0, rows)`` contribute 0 without reading
 the table.
 
 Beside each kernel stands its plain PyTorch version
-(:func:`aggregate_loss_gather_plain`, :func:`aggregate_loss_onehot_plain`,
-and :func:`aggregate_row_losses_plain` for the row pass).
+(:func:`aggregate_loss_gather_plain`, :func:`aggregate_loss_onehot_plain` --
+the replaced body's one-hot product, kept as the oracle -- and
+:func:`aggregate_row_losses_plain` for the row pass that both variants run).
 A wrapper takes the plain version only for tensors that lie on the CPU; for
 CUDA tensors it launches the kernel or raises.  ``launch_counts`` and
 ``plain_counts`` record which way each call went.
@@ -57,10 +65,11 @@ plain_counts: Dict[str, int] = {"aggregate_loss_gather_plain": 0,
                                 "aggregate_row_losses_plain": 0,
                                 "aggregate_loss_onehot_plain": 0}
 
-# the onehot kernel's ELT tile lives in 48 KB of static-limit shared memory:
-# rows_tile * 16 columns * 4 B
-ONEHOT_MAX_ROWS_TILE = 768
-ONEHOT_DEFAULT_ROWS_TILE = 256
+# the onehot kernel's catalog tile: 8 trials' 16-bit counts of up to this
+# many rows fill 224 KB of an H100 block's 227 KB of shared memory
+ONEHOT_MAX_ROWS_TILE = 14336
+# a trial's count of one row lives in 16 bits
+ONEHOT_MAX_EVENTS = 65535
 
 
 def reset_counts() -> None:
@@ -148,11 +157,14 @@ def aggregate_loss_gather_plain(event_ids, elt_losses, occ_ret, occ_lim,
 def aggregate_loss_onehot_plain(event_ids, elt_losses, occ_ret, occ_lim,
                                 agg_ret, agg_lim, chunk: int = 128,
                                 rows_tile: Optional[int] = None,
-                                trial_block: int = 256) -> torch.Tensor:
-    """Plain PyTorch version of :func:`aggregate_loss_onehot`: the same loop
-    over catalog tiles and event chunks, the one-hot operand materialised and
-    multiplied with ``torch.matmul``.  An id outside the tile yields an
-    all-zero one-hot row; requires ``occ_ret >= 0``."""
+                                trial_block: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`aggregate_loss_onehot`, the replaced
+    Pallas body line for line: per catalog tile and event chunk the one-hot
+    operand is materialised and multiplied with the tile by
+    ``torch.matmul``.  An id outside the tile yields an all-zero one-hot
+    row; requires ``occ_ret >= 0``.  Trials go ``trial_block`` at a time (by
+    default as many as keep the one-hot operand at 2^24 elements)."""
     plain_counts["aggregate_loss_onehot_plain"] += 1
     T, K = event_ids.shape
     rows, M = elt_losses.shape
@@ -161,6 +173,8 @@ def aggregate_loss_onehot_plain(event_ids, elt_losses, occ_ret, occ_lim,
     dev = event_ids.device
     out = torch.empty(T, dtype=torch.float32, device=dev)
     chunk = max(1, min(chunk, K))
+    if trial_block is None:
+        trial_block = max(1, (1 << 24) // (chunk * rows_tile))
     cols = torch.arange(rows_tile, device=dev)
     for t0 in range(0, T, trial_block):
         ids_b = event_ids[t0:t0 + trial_block]
@@ -184,7 +198,9 @@ def aggregate_loss_onehot_plain(event_ids, elt_losses, occ_ret, occ_lim,
 # wrappers
 # ---------------------------------------------------------------------------
 def _rows_tile(rows: int, rows_tile: Optional[int]) -> int:
-    rt = ONEHOT_DEFAULT_ROWS_TILE if rows_tile is None else rows_tile
+    """The onehot catalog tile: ``rows_tile`` (by default the kernel's
+    widest) as an upper bound, no wider than the catalog."""
+    rt = ONEHOT_MAX_ROWS_TILE if rows_tile is None else rows_tile
     rt = min(rt, rows)
     if not 1 <= rt <= ONEHOT_MAX_ROWS_TILE:
         raise ValueError(f"rows_tile={rows_tile}: must be in "
@@ -228,20 +244,26 @@ def _cuda_operands(event_ids, elt_losses, occ_ret, occ_lim):
             occ_lim.float().contiguous())
 
 
-def _require_padded_rows(elt: torch.Tensor) -> None:
-    """The gather kernel reads rows as ``float4``: 16 B aligned rows of
-    ``4*ceil(M/4)`` readable floats inside the tensor's own storage, which is
-    what :func:`pad_elt_columns` returns."""
+def _padded_rows(elt: torch.Tensor) -> bool:
+    """Whether the row pass can read ``elt``'s rows as ``float4``: 16 B
+    aligned rows of ``4*ceil(M/4)`` readable floats inside the tensor's own
+    storage, which is what :func:`pad_elt_columns` returns."""
     rows, M = elt.shape
     m4 = 4 * (-(-M // 4))
     stride = elt.stride(0)
     covered = (elt.storage_offset() + (rows - 1) * stride + m4
                <= elt.untyped_storage().nbytes() // elt.element_size())
-    if not (stride % 4 == 0 and stride >= m4 and elt.data_ptr() % 16 == 0
-            and covered):
+    return (stride % 4 == 0 and stride >= m4 and elt.data_ptr() % 16 == 0
+            and covered)
+
+
+def _require_padded_rows(elt: torch.Tensor) -> None:
+    """The gather takes only a table in the layout of
+    :func:`pad_elt_columns` (its row pass reads ``float4`` rows)."""
+    if not _padded_rows(elt):
         raise ValueError(
             f"aggregate_loss_gather: ELT {tuple(elt.shape)} with row stride "
-            f"{stride} is not laid out for float4 row reads; pass "
+            f"{elt.stride(0)} is not laid out for float4 row reads; pass "
             "pad_elt_columns(elt_losses), made once per table")
 
 
@@ -252,8 +274,8 @@ _ARGTYPES = {
     "aggregate_row_losses_launch": [_PTR, _PTR, _PTR, _INT, _LL, _INT, _PTR],
     "aggregate_loss_gather_launch": [_PTR, _PTR, _F, _F, _PTR, _LL, _INT,
                                      _INT, _INT],
-    "aggregate_loss_onehot_launch": [_PTR, _PTR, _PTR, _PTR, _F, _F, _PTR,
-                                     _LL, _INT, _INT, _LL, _INT, _INT, _INT],
+    "aggregate_loss_onehot_launch": [_PTR, _PTR, _F, _F, _PTR, _LL, _INT,
+                                     _INT, _INT],
 }
 
 
@@ -325,15 +347,23 @@ def aggregate_loss_gather(event_ids, elt_losses, occ_ret, occ_lim, agg_ret,
 def aggregate_loss_onehot(event_ids, elt_losses, occ_ret, occ_lim, agg_ret,
                           agg_lim, chunk: int = 128,
                           rows_tile: Optional[int] = None) -> torch.Tensor:
-    """Year loss per trial, gather-free: per catalog tile of ``rows_tile``
-    rows the local ids form a one-hot operand that multiplies the tile.
+    """Year loss per trial, gather-free: per catalog tile of at most
+    ``rows_tile`` rows (default and largest :data:`ONEHOT_MAX_ROWS_TILE`)
+    each trial's event histogram times the row losses ``f``.
 
-    Same arguments and result as :func:`aggregate_loss_gather`.  Requires
-    ``occ_ret >= 0`` (a zero loss vector must contribute zero).  Work grows
-    with ``T*K*rows*M``: meant for small catalogs."""
+    Same arguments and result as :func:`aggregate_loss_gather`; a table in
+    any row layout (one not laid out by :func:`pad_elt_columns` is padded
+    for the row pass, a copy).  Requires ``occ_ret >= 0`` (a zero loss
+    vector must contribute zero) and ``K <= ONEHOT_MAX_EVENTS``.  CUDA
+    tensors go to the row pass
+    and the histogram kernel (one count each), CPU tensors to the plain
+    version."""
     T, K, rows, M, chunk = _check(event_ids, elt_losses, occ_ret, occ_lim,
                                   chunk)
     rt = _rows_tile(rows, rows_tile)
+    if K > ONEHOT_MAX_EVENTS:
+        raise ValueError(f"onehot with K={K}: a trial's count of one row "
+                         f"must stay within {ONEHOT_MAX_EVENTS}")
     if event_ids.device.type == "cpu":
         return aggregate_loss_onehot_plain(event_ids, elt_losses, occ_ret,
                                            occ_lim, float(agg_ret),
@@ -344,8 +374,10 @@ def aggregate_loss_onehot(event_ids, elt_losses, occ_ret, occ_lim, agg_ret,
     out = torch.empty(T, dtype=torch.float32, device=ids.device)
     if T == 0:
         return out                     # nothing to launch, nothing counted
+    if not _padded_rows(elt):
+        elt = pad_elt_columns(elt)
+    f = aggregate_row_losses(elt, ret, lim)
     _call("aggregate_loss_onehot_launch", "aggregate_loss_onehot",
-          ids.device, ids.data_ptr(), elt.data_ptr(), ret.data_ptr(),
-          lim.data_ptr(), float(agg_ret), float(agg_lim), out.data_ptr(), T,
-          K, M, elt.stride(0), rows, chunk, rt)
+          ids.device, ids.data_ptr(), f.data_ptr(), float(agg_ret),
+          float(agg_lim), out.data_ptr(), T, K, rows, rt)
     return out

@@ -40,17 +40,38 @@
 //   wrapper allocates it on the stream): nothing is kept between calls, so
 //   a changed table can never meet a stale f.
 //
-// onehot -- what bounds it: operations.  The lookup is a product of a one-hot
-//   matrix with the ELT tile, T*K*rows*M multiply-adds, which dwarfs its bytes.
-//   What the design does about it: the ELT tile sits in shared memory and is
-//   read by broadcast, the one-hot operand is never stored (each lane forms
-//   `local_id == r` in a register), and each lane carries four events so one
-//   tile row read feeds 64 FMAs.  The product is plain float32 FMA, which is
-//   exact for a one-hot operand; tensor cores would round the losses (10^4 to
-//   10^7) to 10 or 8 mantissa bits.  An id outside the tile matches no row and
-//   yields a zero loss vector, which contributes nothing because occ_ret >= 0
-//   (the contract of the replaced kernel).
-//
+// onehot -- what bounds it: bytes, the ids read once per catalog tile.  The
+//   Pallas body multiplies each event's one-hot row with the ELT tile,
+//   T*K*rows*M multiply-adds.  Summed over a trial's events the one-hot rows
+//   are the trial's event histogram, and because a one-hot row picks exactly
+//   one table row and occ_ret >= 0 (a zero loss vector clips to 0), the
+//   clipping commutes with the product:
+//       acc[t] = sum_r counts[t, r] * f[r],
+//   f the row losses of the gather's row pass.  What the design does about
+//   it, two kernels a call (the row pass, then this one):
+//   * a block owns 8 trials at a time and a catalog tile of up to 14,336
+//     rows: counts[8][tile] as 16-bit counts, two to a 32-bit word, in up to
+//     224 KB of dynamic shared memory (at the smoke run's 4,097-row catalog
+//     one tile of 66 KB, three blocks an SM), zeroed once per block.  Blocks
+//     are persistent (as many as the SMs hold) and walk the groups of 8
+//     trials.  The 256 threads stream the group's ids once per tile,
+//     coalesced, sixteen loads in flight each, evict-first on the last tile,
+//     and add 1 (or 1 << 16) to the word of each in-tile id with one
+//     shared-memory atomicAdd; the low count never carries into the high one
+//     while K < 65,536.  An id outside the tile counts nothing, so one
+//     outside [0, rows) contributes 0 and is never dereferenced.
+//   * then counts . f over the tile: thread w takes word w of every trial,
+//     one pair of f for 8 counts, and adds count * f in float32 FMAs (exact
+//     products of an integer below 2^16 with f, one rounding each) to a
+//     chain per trial, clearing the words for the next tile or group; per
+//     trial a shuffle sum per warp, then the warps' sums in order.  No
+//     atomics in any sum: two calls give the same bits.  (The tensor cores
+//     were tried for this product -- mma.sync TF32 with f split into three
+//     exact parts -- and were slower at every shape measured.)
+//   * catalogs wider than the tile take more tiles: an outer loop inside the
+//     block (no second pass), the ids read once per tile, counts . f added
+//     tile after tile before the aggregate terms.
+
 // Plain C interface: each entry launches on the stream it is given, allocates
 // nothing, does not synchronise, and returns cudaGetLastError().
 
@@ -62,11 +83,18 @@ namespace {
 constexpr int kWarp = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kEventsPerLane = 8;   // events a lane keeps in flight per step
-constexpr int kOnehotEvents = 4;    // events a lane carries, onehot
 constexpr int kGatherWarps = 8;     // trials (= warps) per block, gather
 constexpr int kRowThreads = 256;    // rows (= threads) per block, row pass
-constexpr int kOnehotWarps = 4;     // trials (= warps) per block, onehot
-constexpr int kTileCols = 16;       // ELT columns per shared-memory tile
+constexpr int kHistTrials = 8;      // trials (= warps) per group, onehot
+constexpr int kHistThreads = kHistTrials * kWarp;
+constexpr int kHistLoads = 16;      // ids a thread keeps in flight, onehot
+constexpr int kHistMaxRows = 14336; // catalog rows of one onehot tile
+
+// 32-bit words of one trial's counts in shared memory, two 16-bit counts a
+// word; 8 rows of the widest tile take 229,376 bytes
+__host__ __device__ constexpr int hist_words(int tile_rows) {
+  return (tile_rows + 1) / 2;
+}
 
 __device__ __forceinline__ float occurrence(float loss, float ret, float lim) {
   return fminf(fmaxf(loss - ret, 0.0f), lim);
@@ -168,90 +196,96 @@ gather_kernel(const int* __restrict__ ids, const float* __restrict__ f,
   if (lane == 0) out[trial] = aggregate(acc, agg_ret, agg_lim);
 }
 
+// a 16-bit count as float32, exactly: its bits under the exponent of 2^23
+__device__ __forceinline__ float count_f32(uint32_t c16) {
+  return __uint_as_float(c16 | 0x4b000000u) - 8388608.0f;
+}
+
 // ---------------------------------------------------------------------------
-// onehot: a block owns kOnehotWarps trials (a warp each) and loops over
-// column groups, catalog tiles and event chunks.  s_tile holds rows_tile rows
-// of kTileCols columns, zero beyond the table's edge.
+// onehot: persistent blocks of kHistThreads walk the groups of kHistTrials
+// trials; s_counts is [kHistTrials][hist_words(tile_rows)] words, zero
+// between uses (the dot pass clears what the histogram wrote).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kOnehotWarps * kWarp)
-onehot_kernel(const int* __restrict__ ids, const float* __restrict__ elt,
-              const float* __restrict__ occ_ret,
-              const float* __restrict__ occ_lim, float agg_ret, float agg_lim,
-              float* __restrict__ out, long long T, int K, int M,
-              long long stride, int rows, int chunk, int rows_tile) {
-  extern __shared__ float4 s_tile[];               // [rows_tile][kTileCols / 4]
-  float* s_flat = reinterpret_cast<float*>(s_tile);
+__global__ void __launch_bounds__(kHistThreads)
+onehot_hist_kernel(const int* __restrict__ ids, const float* __restrict__ f,
+                   float agg_ret, float agg_lim, float* __restrict__ out,
+                   long long T, int K, int rows, int tile_rows) {
+  extern __shared__ uint32_t s_counts[];
+  __shared__ float s_part[kHistTrials][kHistTrials];   // [warp][trial]
+  const int W = hist_words(tile_rows);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & (kWarp - 1);
+  const float inv_k = 1.0f / (float)max(K, 1);
+  for (int i = threadIdx.x; i < kHistTrials * W; i += kHistThreads)
+    s_counts[i] = 0u;
+  __syncthreads();
 
-  const int lane = threadIdx.x & (kWarp - 1);
-  const long long trial =
-      (long long)blockIdx.x * kOnehotWarps + (threadIdx.x >> 5);
-  const bool live = trial < T;       // dead warps still serve the tile loads
-  const int* __restrict__ trial_ids = ids + (live ? trial : 0) * (long long)K;
-
-  float acc = 0.0f;
-  for (int m0 = 0; m0 < M; m0 += kTileCols) {
-    float ret[kTileCols], lim[kTileCols];
+  const long long groups = (T + kHistTrials - 1) / kHistTrials;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const long long t0 = g * kHistTrials;
+    const int nt = (int)min((long long)kHistTrials, T - t0);
+    const int* __restrict__ gids = ids + t0 * K;    // nt * K ids, contiguous
+    const int n = nt * K;
+    float acc[kHistTrials];             // this thread's part per trial
 #pragma unroll
-    for (int c = 0; c < kTileCols; ++c) {
-      const int m = m0 + c;
-      ret[c] = m < M ? __ldg(occ_ret + m) : 0.0f;
-      lim[c] = m < M ? __ldg(occ_lim + m) : 0.0f;
-    }
-    for (int base = 0; base < rows; base += rows_tile) {
-      __syncthreads();               // the previous tile is fully consumed
-      for (int i = threadIdx.x; i < rows_tile * kTileCols; i += blockDim.x) {
-        const int r = base + i / kTileCols;
-        const int m = m0 + i % kTileCols;
-        s_flat[i] = (r < rows && m < M)
-                        ? __ldg(elt + (long long)r * stride + m) : 0.0f;
-      }
-      __syncthreads();
-      if (!live) continue;
-
-      for (int c0 = 0; c0 < K; c0 += chunk) {
-        const int cend = min(c0 + chunk, K);
-        for (int k0 = c0 + lane; k0 < cend; k0 += kWarp * kOnehotEvents) {
-          int local[kOnehotEvents];
-          float g[kOnehotEvents][kTileCols];
+    for (int t = 0; t < kHistTrials; ++t) acc[t] = 0.0f;
+    for (int base = 0; base < rows; base += tile_rows) {
+      const int rt = min(tile_rows, rows - base);
+      const bool last = base + tile_rows >= rows;   // the ids' last read
+      for (int i0 = threadIdx.x; i0 < n; i0 += kHistThreads * kHistLoads) {
+        int id[kHistLoads];
 #pragma unroll
-          for (int e = 0; e < kOnehotEvents; ++e) {
-            const int k = k0 + e * kWarp;
-            const int id = k < cend ? __ldg(trial_ids + k) : -1;
-            // out-of-tile ids match no row of the tile: an all-zero one-hot
-            local[e] = (id >= base && id - base < rows_tile) ? id - base : -1;
+        for (int u = 0; u < kHistLoads; ++u) {
+          const int i = i0 + u * kHistThreads;
+          id[u] = i < n ? (last ? __ldcs(gids + i) : __ldg(gids + i)) : -1;
+        }
 #pragma unroll
-            for (int c = 0; c < kTileCols; ++c) g[e][c] = 0.0f;
-          }
-          for (int r = 0; r < rows_tile; ++r) {
-            float t[kTileCols];
-#pragma unroll
-            for (int v = 0; v < kTileCols / 4; ++v) {
-              const float4 q = s_tile[r * (kTileCols / 4) + v];
-              t[4 * v + 0] = q.x; t[4 * v + 1] = q.y;
-              t[4 * v + 2] = q.z; t[4 * v + 3] = q.w;
-            }
-#pragma unroll
-            for (int e = 0; e < kOnehotEvents; ++e) {
-              const float onehot = local[e] == r ? 1.0f : 0.0f;
-#pragma unroll
-              for (int c = 0; c < kTileCols; ++c)
-                g[e][c] = fmaf(onehot, t[c], g[e][c]);
-            }
-          }
-#pragma unroll
-          for (int e = 0; e < kOnehotEvents; ++e) {
-            float s = 0.0f;
-#pragma unroll
-            for (int c = 0; c < kTileCols; ++c)
-              s += occurrence(g[e][c], ret[c], lim[c]);
-            acc += s;
+        for (int u = 0; u < kHistLoads; ++u) {
+          const int local = id[u] - base;
+          if ((unsigned)local < (unsigned)rt) {
+            // the event's trial, i / K: a float estimate (i < 2^24), off by
+            // at most one, corrected
+            const int i = i0 + u * kHistThreads;
+            int t = (int)((float)i * inv_k);
+            t -= t * K > i;
+            t += (t + 1) * K <= i;
+            atomicAdd(s_counts + t * W + (local >> 1),
+                      1u << ((local & 1) << 4));
           }
         }
       }
+      __syncthreads();                  // the tile's histogram is complete
+
+      const float* __restrict__ ft = f + base;
+      // thread w takes word w (rows 2w, 2w + 1) of every trial: one f pair
+      // for kHistTrials counts, a chain of FMAs per trial
+      for (int w = threadIdx.x; w < (rt + 1) / 2; w += kHistThreads) {
+        const float f_lo = __ldg(ft + 2 * w);
+        const float f_hi = 2 * w + 1 < rt ? __ldg(ft + 2 * w + 1) : 0.0f;
+#pragma unroll
+        for (int t = 0; t < kHistTrials; ++t) {
+          const uint32_t c = s_counts[t * W + w];
+          s_counts[t * W + w] = 0u;
+          acc[t] = fmaf(count_f32(c & 0xffffu), f_lo, acc[t]);
+          acc[t] = fmaf(count_f32(c >> 16), f_hi, acc[t]);
+        }
+      }
+      __syncthreads();                  // counts cleared for the next tile
     }
+
+    // per trial, the warps' parts through shared memory, added in warp order
+#pragma unroll
+    for (int t = 0; t < kHistTrials; ++t) {
+      const float v = warp_sum(acc[t]);
+      if (lane == 0) s_part[warp][t] = v;
+    }
+    __syncthreads();
+    if (warp < nt && lane == 0) {
+      float total = 0.0f;
+      for (int w = 0; w < kHistTrials; ++w) total += s_part[w][warp];
+      out[t0 + warp] = aggregate(total, agg_ret, agg_lim);
+    }
+    // s_part is next written after the next group's histogram barrier
   }
-  acc = warp_sum(acc);
-  if (live && lane == 0) out[trial] = aggregate(acc, agg_ret, agg_lim);
 }
 
 }  // namespace
@@ -301,25 +335,38 @@ int aggregate_loss_gather_launch(const void* ids, const void* f,
   return (int)cudaGetLastError();
 }
 
-int aggregate_loss_onehot_launch(const void* ids, const void* elt,
-                                 const void* occ_ret, const void* occ_lim,
+// ids: (T, K) int32 contiguous; f: (rows,) float32 from the row pass.
+// tile_rows in [1, kHistMaxRows]; K < 65,536 (a count fits 16 bits).
+// Launches as many persistent blocks as the SMs hold at the tile's shared
+// memory, at most one per group of trials.
+int aggregate_loss_onehot_launch(const void* ids, const void* f,
                                  float agg_ret, float agg_lim, void* out,
-                                 long long T, int K, int M,
-                                 long long elt_stride, int rows, int chunk,
-                                 int rows_tile, void* stream) {
+                                 long long T, int K, int rows, int tile_rows,
+                                 void* stream) {
   if (T <= 0) return (int)cudaSuccess;
-  if (K < 0 || M <= 0 || rows <= 0 || chunk <= 0 || rows_tile <= 0)
+  if (K < 0 || K >= 65536 || rows <= 0 || tile_rows <= 0 ||
+      tile_rows > kHistMaxRows)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)rows_tile * kTileCols * sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kHistTrials * hist_words(tile_rows) * 4;
+  const void* kernel = reinterpret_cast<const void*>(&onehot_hist_kernel);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kHistThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long groups = (T + kHistTrials - 1) / kHistTrials;
+  const long long resident = (long long)sms * per_sm;
+  const dim3 grid((unsigned)(groups < resident ? groups : resident));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kOnehotWarps * kWarp);
-  const dim3 grid((unsigned)((T + kOnehotWarps - 1) / kOnehotWarps));
-  onehot_kernel<<<grid, block, smem, s>>>(
-      static_cast<const int*>(ids), static_cast<const float*>(elt),
-      static_cast<const float*>(occ_ret), static_cast<const float*>(occ_lim),
-      agg_ret, agg_lim, static_cast<float*>(out), T, K, M, elt_stride, rows,
-      chunk, rows_tile);
+  onehot_hist_kernel<<<grid, kHistThreads, smem, s>>>(
+      static_cast<const int*>(ids), static_cast<const float*>(f), agg_ret,
+      agg_lim, static_cast<float*>(out), T, K, rows, tile_rows);
   return (int)cudaGetLastError();
 }
 

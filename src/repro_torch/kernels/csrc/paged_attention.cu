@@ -12,8 +12,13 @@
 //     kernel's m/l/acc scratch, page by page.  Output acc / l (l == 0 -> 1).
 //   * `_scatter_kernel` (entry paged_prefill_scatter_pallas): admission's
 //     write of freshly prefilled K or V, pool[:, pages[j]] = values[:, j]
-//     cast to bf16, in place; pages not named are never touched.
-//
+//     cast to bf16, in place; pages not named are never touched.  Here one
+//     kernel serves it and admission itself: a launch writes the K and the
+//     V pages of every stage of one attention sub-layer from the dense
+//     prefill cache (read through its stage stride, the ring's partial last
+//     page completed with zeros) and the position pool's rows of the same
+//     pages (POS_SENTINEL past the ring).
+
 // decode -- what bounds it: bytes.  Per row and kv head it must read the K
 //   and V tiles of every page whose keys the row can attend (2 * P * D bf16
 //   each) and the pages' positions; the arithmetic (2 * rep * P * D
@@ -49,13 +54,20 @@
 //     through a ring of up to 4 shared-memory stages (cp.async), so 3 pages
 //     are in flight while one is scored.
 //
-// scatter -- what bounds it: bytes (read values once, write the named pages
-//   once).  A grid of (page block, 8-element chunk) threads: each reads 8
-//   values (one or two 16-byte loads), converts with __floats2bfloat162_rn
-//   (round to nearest even, the rounding of Tensor.to(torch.bfloat16)) and
-//   stores 16 bytes.  No arithmetic beyond the cast: bit-exact with
-//   index_copy_ of the cast values.
-//
+// scatter / admission -- what bounds it: bytes (read the values once, write
+//   the named pages once).  A grid of (page, stage, K or V) blocks, each
+//   moving one page block of P * Hkv * D elements, contiguous at both ends.
+//   bf16 values and a page the ring fills: one thread moves the block with
+//   Hopper's one-dimensional bulk copies (cp.async.bulk global -> shared,
+//   completion on an mbarrier, then shared -> global in a bulk group), in
+//   pieces of up to 32 KB; no thread spends a register on the bytes.  float32
+//   values (they need the cast) and the ring's partial last page take the
+//   plain path: each thread keeps eight 8-element pieces in flight (16 B
+//   loads, sixteen for float32), converts with __floats2bfloat162_rn (round
+//   to nearest even, the rounding of Tensor.to(torch.bfloat16)) and stores
+//   16 bytes a piece, zeros past the ring.  No arithmetic beyond the cast:
+//   bit-exact with index_copy_ of the cast values.
+
 // Plain C interface: each entry launches on the stream it is given,
 // allocates nothing, does not synchronise, and returns cudaGetLastError().
 
@@ -68,7 +80,9 @@ namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kNegInf = -1e30f;      // the mask bias of the reference
-constexpr int kScatterThreads = 256;
+constexpr int kAdmitThreads = 256;     // a block moves one page block
+constexpr int kAdmitPieces = 8;        // 8-element pieces a thread holds
+constexpr int kBulkBytes = 32768;      // one bulk copy's shared-memory stage
 constexpr int kDecodeThreads = 128;    // 4 warps
 constexpr int kLanesPerKey = 8;        // lanes that score one (head, key)
 constexpr int kMaxStages = 4;          // pages in the shared-memory ring
@@ -410,8 +424,9 @@ int launch_decode(const void* q, const void* k_pool, const void* v_pool,
 }
 
 // ---------------------------------------------------------------------------
-// scatter: grid (8-element chunks of a page block, S * nb).  A thread owns
-// 8 elements of one page block.
+// scatter / admission: grid (page j, stage s, K or V).  Page j of the ring
+// holds positions j * P .. j * P + P - 1; the first `live` of them are the
+// ring's, the rest are written as zeros (positions as pos_fill).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint4 pack8(const float* v) {
   uint4 r;
@@ -427,28 +442,120 @@ __device__ __forceinline__ uint4 pack8(const float* v) {
 }
 
 template <typename VT>
-__global__ void paged_scatter_kernel(__nv_bfloat16* __restrict__ pool,
-                                     const int* __restrict__ pages,
-                                     const VT* __restrict__ values,
-                                     long long pool_stage_stride,
-                                     long long val_stage_stride,
-                                     long long E, int nb) {
-  const int sj = blockIdx.y;
-  const int s = sj / nb, j = sj % nb;
-  __nv_bfloat16* dst = pool + s * pool_stage_stride + (long long)pages[j] * E;
-  const VT* src = values + s * val_stage_stride + (long long)j * E;
-  const long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 8;
-  if (e >= E) return;
-  uint4 packed;
+__device__ __forceinline__ uint4 load8(const VT* p) {
   if constexpr (sizeof(VT) == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(src + e);
-    const float4 b = *reinterpret_cast<const float4*>(src + e + 4);
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
     const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-    packed = pack8(v);
+    return pack8(v);
   } else {
-    packed = *reinterpret_cast<const uint4*>(src + e);
+    return *reinterpret_cast<const uint4*>(p);
   }
-  *reinterpret_cast<uint4*>(dst + e) = packed;
+}
+
+// one thread: `bytes` from src to dst through the shared-memory stage, a
+// bulk load completing on the mbarrier, then a bulk store; the stage is
+// reused only once the store has read it
+__device__ __forceinline__ void bulk_move(void* dst, const void* src,
+                                          long long bytes, void* stage,
+                                          unsigned long long* bar) {
+  const uint32_t s_stage = (uint32_t)__cvta_generic_to_shared(stage);
+  const uint32_t s_bar = (uint32_t)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(s_bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  uint32_t phase = 0;
+  for (long long off = 0; off < bytes; off += kBulkBytes, phase ^= 1u) {
+    const uint32_t n = (uint32_t)min((long long)kBulkBytes, bytes - off);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(s_bar), "r"(n) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(s_stage), "l"(static_cast<const char*>(src) + off), "r"(n),
+           "r"(s_bar) : "memory");
+    asm volatile(
+        "{\n"
+        ".reg .pred ready;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 ready, [%0], %1;\n"
+        "@!ready bra WAIT;\n"
+        "}\n" :: "r"(s_bar), "r"(phase) : "memory");
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 :: "l"(static_cast<char*>(dst) + off), "r"(s_stage), "r"(n)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+template <typename VT>
+__global__ void __launch_bounds__(kAdmitThreads)
+paged_admit_kernel(__nv_bfloat16* __restrict__ pool_k,
+                   __nv_bfloat16* __restrict__ pool_v,
+                   long long pool_stage_stride, const VT* __restrict__ src_k,
+                   const VT* __restrict__ src_v, long long src_stage_stride,
+                   const int* __restrict__ pages, int P, long long row,
+                   int ring, int* __restrict__ pos_pool,
+                   const int* __restrict__ pos_src, int pos_fill) {
+  extern __shared__ __align__(128) unsigned char s_stage[];
+  __shared__ __align__(8) unsigned long long s_bar;
+  const int j = blockIdx.x, s = blockIdx.y;
+  const bool is_v = blockIdx.z != 0;
+  const long long E = (long long)P * row;
+  const int page = pages[j];
+  const int live = min(P, ring - j * P);         // ring positions on the page
+  __nv_bfloat16* dst = (is_v ? pool_v : pool_k) + s * pool_stage_stride +
+                       (long long)page * E;
+  const VT* src = (is_v ? src_v : src_k) + s * src_stage_stride +
+                  (long long)j * E;
+
+  if (pos_pool != nullptr && s == 0 && !is_v)
+    for (int p = threadIdx.x; p < P; p += kAdmitThreads)
+      pos_pool[(long long)page * P + p] = p < live ? pos_src[j * P + p]
+                                                   : pos_fill;
+  if constexpr (sizeof(VT) == 2) {
+    if (live == P) {
+      if (threadIdx.x == 0) bulk_move(dst, src, E * 2, s_stage, &s_bar);
+      return;
+    }
+  }
+  const long long n_live = (long long)live * row;    // the rest are zeros
+  for (long long e0 = (long long)threadIdx.x * 8; e0 < E;
+       e0 += (long long)kAdmitThreads * 8 * kAdmitPieces) {
+    uint4 v[kAdmitPieces];
+#pragma unroll
+    for (int u = 0; u < kAdmitPieces; ++u) {
+      const long long e = e0 + (long long)u * kAdmitThreads * 8;
+      v[u] = e < n_live ? load8(src + e) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kAdmitPieces; ++u) {
+      const long long e = e0 + (long long)u * kAdmitThreads * 8;
+      if (e < E) *reinterpret_cast<uint4*>(dst + e) = v[u];
+    }
+  }
+}
+
+template <typename VT>
+int launch_admit(void* pool_k, void* pool_v, int kinds,
+                 long long pool_stage_stride, const void* src_k,
+                 const void* src_v, long long src_stage_stride,
+                 const void* pages, int S, int nb, int P, long long row,
+                 int ring, void* pos_pool, const void* pos_src, int pos_fill,
+                 cudaStream_t s) {
+  const dim3 grid((unsigned)nb, (unsigned)S, (unsigned)kinds);
+  const long long block_bytes = (long long)P * row * 2;
+  const size_t smem = sizeof(VT) != 2 ? 0
+      : (size_t)(block_bytes < kBulkBytes ? block_bytes : kBulkBytes);
+  paged_admit_kernel<VT><<<grid, kAdmitThreads, smem, s>>>(
+      static_cast<__nv_bfloat16*>(pool_k), static_cast<__nv_bfloat16*>(pool_v),
+      pool_stage_stride, static_cast<const VT*>(src_k),
+      static_cast<const VT*>(src_v), src_stage_stride,
+      static_cast<const int*>(pages), P, row, ring,
+      static_cast<int*>(pos_pool), static_cast<const int*>(pos_src), pos_fill);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -487,34 +594,37 @@ int paged_attention_decode_launch(const void* q, int q_bf16,
 }
 
 
-// pool: S stages of (NP, P, Hkv, D) bfloat16 blocks, stage stride
-// pool_stage_stride elements, each stage contiguous; pages: (nb,) int32;
-// values: S stages of (nb, P, Hkv, D) float32 (values_bf16 == 0) or
-// bfloat16, stage stride val_stage_stride, each stage contiguous.
-// E = P * Hkv * D.  The caller guarantees E and both strides % 8 == 0 and
-// 16-byte aligned pointers.
-int paged_prefill_scatter_launch(void* pool, const void* pages,
-                                 const void* values, int values_bf16, int S,
-                                 int nb, long long E,
-                                 long long pool_stage_stride,
-                                 long long val_stage_stride, void* stream) {
-  if (S <= 0 || nb <= 0 || E <= 0) return (int)cudaSuccess;
-  if ((long long)S * nb > 65535 || E % 8) return (int)cudaErrorInvalidValue;
+// Admission of one attention sub-layer, and the scatter.  k_pool / v_pool:
+// S stages of (NP, P, Hkv, D) bfloat16 blocks, one stage stride for both,
+// each stage contiguous; v_pool null writes k_pool alone (the scatter,
+// v_src unused).  k_src / v_src: S stages of the dense (ring, Hkv, D)
+// prefill cache, float32 (src_bf16 == 0) or bfloat16, one stage stride,
+// each stage contiguous; pages: (nb,) int32 with (nb - 1) * P < ring <=
+// nb * P (the scatter: ring = nb * P).  pos_pool: (NP, P) int32 or null
+// (then no positions are written); pos_src: (ring,) int32.  row = Hkv * D.
+// The caller guarantees row and both strides % 8 == 0 and 16-byte aligned
+// pointers.
+int paged_admit_kv_launch(void* k_pool, void* v_pool,
+                          long long pool_stage_stride,
+                          const void* k_src, const void* v_src, int src_bf16,
+                          long long src_stage_stride, const void* pages,
+                          int S, int nb, int P, long long row, int ring,
+                          void* pos_pool, const void* pos_src, int pos_fill,
+                          void* stream) {
+  if (S <= 0 || nb <= 0) return (int)cudaSuccess;
+  if (S > 65535 || P <= 0 || row <= 0 || row % 8 || ring > nb * P ||
+      ring <= (nb - 1) * P)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long work = E / 8;
-  const dim3 grid((unsigned)((work + kScatterThreads - 1) / kScatterThreads),
-                  (unsigned)(S * nb));
-  if (values_bf16)
-    paged_scatter_kernel<__nv_bfloat16><<<grid, kScatterThreads, 0, s>>>(
-        static_cast<__nv_bfloat16*>(pool), static_cast<const int*>(pages),
-        static_cast<const __nv_bfloat16*>(values), pool_stage_stride,
-        val_stage_stride, E, nb);
-  else
-    paged_scatter_kernel<float><<<grid, kScatterThreads, 0, s>>>(
-        static_cast<__nv_bfloat16*>(pool), static_cast<const int*>(pages),
-        static_cast<const float*>(values), pool_stage_stride,
-        val_stage_stride, E, nb);
-  return (int)cudaGetLastError();
+  const int kinds = v_pool == nullptr ? 1 : 2;
+  if (src_bf16)
+    return launch_admit<__nv_bfloat16>(k_pool, v_pool, kinds,
+                                       pool_stage_stride, k_src, v_src,
+                                       src_stage_stride, pages, S, nb, P, row,
+                                       ring, pos_pool, pos_src, pos_fill, s);
+  return launch_admit<float>(k_pool, v_pool, kinds, pool_stage_stride, k_src,
+                             v_src, src_stage_stride, pages, S, nb, P, row,
+                             ring, pos_pool, pos_src, pos_fill, s);
 }
 
 }  // extern "C"

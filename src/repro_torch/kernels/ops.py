@@ -113,10 +113,11 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
                                          page_table, positions, window=window)
 
 
-def paged_scatter(pool, pages, values):
-    """In-place prefill KV scatter into named pages (see
-    :func:`repro_torch.kernels.paged_attention.paged_prefill_scatter`)."""
-    return _paged.paged_prefill_scatter(pool, pages, values)
+def paged_admit_kv(k_pool, v_pool, pos_pool, pages, k_src, v_src, pos_src):
+    """One attention sub-layer's admission, K, V and positions in one launch
+    (see :func:`repro_torch.kernels.paged_attention.paged_admit_kv`)."""
+    _paged.paged_admit_kv(k_pool, v_pool, pos_pool, pages, k_src, v_src,
+                          pos_src)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

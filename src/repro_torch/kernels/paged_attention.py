@@ -4,7 +4,8 @@ Replaces the two Pallas kernels of the JAX package's
 ``repro/kernels/paged_attention.py``: ``_decode_kernel`` (entry
 ``paged_attention_decode_pallas``) becomes :func:`paged_attention_decode`,
 ``_scatter_kernel`` (entry ``paged_prefill_scatter_pallas``) becomes
-:func:`paged_prefill_scatter`.  Both kernels are CUDA C++ in
+:func:`paged_prefill_scatter` and, with the same device code, admission's
+:func:`paged_admit_kv`.  Both kernels are CUDA C++ in
 ``csrc/paged_attention.cu``, built by :mod:`.build` at first use.
 
 What bounds them on the card, and what the design does about it:
@@ -30,14 +31,23 @@ What bounds them on the card, and what the design does about it:
   float32; the output depends on page content reached through the table,
   never on physical page ids.
 * **scatter** is bound by bytes: the values are read once and the named
-  pages written once, eight elements a thread, cast by round-to-nearest-even
-  -- bit-exact with ``index_copy_`` of ``values.to(torch.bfloat16)``.  It
-  writes in place; pages the list does not name are never touched.  A page
-  holds ``P * Hkv * D`` elements, a multiple of 8 in every config.
+  pages written once, cast by round-to-nearest-even -- bit-exact with
+  ``index_copy_`` of ``values.to(torch.bfloat16)``.  It writes in place;
+  pages the list does not name are never touched.  A block moves one page
+  block (``P * Hkv * D`` elements, a multiple of 8 in every config): bf16
+  values by Hopper's bulk copies (one thread, through shared memory),
+  float32 values eight 16-byte pieces a thread.  :func:`paged_admit_kv`
+  launches the same kernel once for one attention sub-layer's admission:
+  the K and the V pages of every stage straight from the dense prefill
+  cache (through its stage stride; the ring's partial last page is
+  completed with zeros) and the pages' rows of the position pool
+  (``POS_SENTINEL`` past the ring).
 
 Beside each kernel stands its plain PyTorch version
 (:func:`paged_attention_decode_plain`, the dense-gather oracle operation for
-operation; :func:`paged_prefill_scatter_plain`, ``index_copy_``).  A wrapper
+operation; :func:`paged_prefill_scatter_plain`, ``index_copy_``, and
+:func:`paged_admit_kv_plain`, the pad, reshape and index ops admission ran
+before, around two ``index_copy_``).  A wrapper
 takes the plain version only for tensors that lie on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``launch_counts`` and
 ``plain_counts`` record which way each call went.
@@ -65,6 +75,7 @@ MAX_GROUP = 32               # query heads per kv head sharing a block
 ROW_BLOCKS = 66              # decode blocks one row aims for: 8 rows put ~4
                              # on each of an H100's 132 SMs
 MAX_SPLIT_ENTRIES = 8        # table entries of one split at most
+POS_SENTINEL = 2 ** 30       # the position of an empty pool entry
 
 
 def reset_counts() -> None:
@@ -96,6 +107,27 @@ def paged_prefill_scatter_plain(pool, pages, values) -> torch.Tensor:
     return pool
 
 
+def paged_admit_kv_plain(k_pool, v_pool, pos_pool, pages, k_src, v_src,
+                         pos_src) -> None:
+    """Plain PyTorch version of :func:`paged_admit_kv`: the positions padded
+    with ``POS_SENTINEL`` into the pages' rows of ``pos_pool`` (unless it is
+    None), then K and V each zero-padded to whole pages and scattered by
+    :func:`paged_prefill_scatter_plain`."""
+    S, ring = k_src.shape[:2]
+    nb, P = pages.shape[0], k_pool.shape[2]
+    if pos_pool is not None:
+        pos_vals = torch.full((nb * P,), POS_SENTINEL, dtype=torch.int32,
+                              device=pos_pool.device)
+        pos_vals[:ring] = pos_src
+        pos_pool[pages.long()] = pos_vals.view(nb, P)
+    pad = nb * P - ring
+    for pool, leaf in ((k_pool, k_src), (v_pool, v_src)):
+        if pad:
+            leaf = torch.nn.functional.pad(leaf, (0, 0, 0, 0, 0, pad))
+        paged_prefill_scatter_plain(pool, pages,
+                                    leaf.reshape(S, nb, P, *leaf.shape[2:]))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -118,7 +150,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _DECODE_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                 _I, _I, _I, _F, _I, _P]
-_SCATTER_ARGS = [_P, _P, _P, _I, _I, _I, _L, _L, _L, _P]
+_ADMIT_ARGS = [_P, _P, _L, _P, _P, _I, _L, _P, _I, _I, _I, _L, _I, _P, _P,
+               _I, _P]
 
 
 def _check_decode(q, k_pool, v_pool, pos_pool, page_table, positions):
@@ -236,6 +269,20 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
     return out
 
 
+def _check_pool(pool: torch.Tensor) -> None:
+    """What the scatter kernel takes of a pool: bfloat16, each stage's block
+    of pages contiguous and 16-byte aligned, a page a multiple of 8
+    elements; the stage axis may be strided."""
+    S, NP, P, Hkv, D = pool.shape
+    E = P * Hkv * D
+    if pool.dtype != torch.bfloat16:
+        raise TypeError(f"pool dtype {pool.dtype}: need bfloat16")
+    if (pool.stride()[1:] != (E, Hkv * D, D, 1) or E % 8
+            or pool.stride(0) % 8 or pool.data_ptr() % 16):
+        raise ValueError("pool must be contiguous and 16-byte aligned within "
+                         "each stage, with P * Hkv * D a multiple of 8")
+
+
 def paged_prefill_scatter(pool, pages, values) -> torch.Tensor:
     """Write prefill KV blocks into their allocated pages, in place.
 
@@ -255,33 +302,113 @@ def paged_prefill_scatter(pool, pages, values) -> torch.Tensor:
     if pool.device.type == "cpu":
         return paged_prefill_scatter_plain(pool, pages, values)
     build.require_cuda(pool, pages, values)
-    if pool.dtype != torch.bfloat16:
-        raise TypeError(f"pool dtype {pool.dtype}: need bfloat16")
+    _check_pool(pool)
     if values.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"values dtype {values.dtype}: need float32 or "
                         "bfloat16")
     E = P * Hkv * D
-    # each stage's block of pages must be contiguous and 16-byte aligned
-    # (the kernel moves 8 elements a thread); the stage axis may be strided
-    # (a row sliced out of a batched prefill)
-    if (pool.stride()[1:] != (E, Hkv * D, D, 1) or E % 8
-            or pool.stride(0) % 8 or pool.data_ptr() % 16):
-        raise ValueError("pool must be contiguous and 16-byte aligned within "
-                         "each stage, with P * Hkv * D a multiple of 8")
+    # the values' stage axis may be strided (a row sliced out of a batched
+    # prefill); within a stage they must be contiguous and 16-byte aligned
     if (values.stride()[1:] != (E, Hkv * D, D, 1) or values.stride(0) % 8
             or values.data_ptr() % 16):
         values = values.contiguous()
     pages = pages.to(torch.int32).contiguous()
     if S == 0 or nb == 0:
         return pool
-    with torch.cuda.device(pool.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry("paged_prefill_scatter_launch", _SCATTER_ARGS)(
-            pool.data_ptr(), pages.data_ptr(), values.data_ptr(),
-            int(values.dtype == torch.bfloat16), S, nb, E, pool.stride(0),
-            values.stride(0), stream)
-    if err != 0:
-        raise RuntimeError(f"paged_prefill_scatter: CUDA error {err} at "
-                           f"launch (S={S}, nb={nb}, E={E})")
-    launch_counts["paged_prefill_scatter"] += 1
+    # the values as a dense cache whose ring fills its nb pages
+    _admit_launch("paged_prefill_scatter", pool, None, None, pages,
+                  values.view(S, nb * P, Hkv, D), None, None)
     return pool
+
+
+def _admit_launch(what, k_pool, v_pool, pos_pool, pages, k_src, v_src,
+                  pos_src) -> None:
+    """Launch the admission kernel on checked operands (``v_pool`` None: K
+    alone; ``pos_pool`` None: no positions) and count it as
+    ``paged_prefill_scatter``."""
+    S, _, P, Hkv, D = k_pool.shape
+    nb, ring = pages.shape[0], k_src.shape[1]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(k_pool.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry("paged_admit_kv_launch", _ADMIT_ARGS)(
+            k_pool.data_ptr(), ptr(v_pool), k_pool.stride(0),
+            k_src.data_ptr(), ptr(v_src),
+            int(k_src.dtype == torch.bfloat16), k_src.stride(0),
+            pages.data_ptr(), S, nb, P, Hkv * D, ring, ptr(pos_pool),
+            ptr(pos_src), POS_SENTINEL, stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch (S={S}, "
+                           f"nb={nb}, P={P}, ring={ring})")
+    launch_counts["paged_prefill_scatter"] += 1
+
+
+def paged_admit_kv(k_pool, v_pool, pos_pool, pages, k_src, v_src,
+                   pos_src) -> None:
+    """Admission of one attention sub-layer's prefill into its allocated
+    pages, in place, in one launch.
+
+    k_pool / v_pool ``(S, NP, P, Hkv, D)`` bfloat16 (one layout for both);
+    pages ``(nb,)`` int32 distinct non-reserved page ids; k_src / v_src the
+    dense prefill cache ``(S, ring, Hkv, D)`` float32 or bfloat16 (one dtype
+    and layout for both; the stage axis may be strided) with ``(nb - 1) * P
+    < ring <= nb * P``; pos_pool ``(NP, P)`` int32, or None to leave the
+    positions alone (a second attention sub-layer); pos_src ``(ring,)``
+    int32.  Afterwards page ``pages[j]`` of every stage holds ring positions
+    ``j * P ..`` cast to bfloat16, zeros past the ring, and its row of
+    ``pos_pool`` their positions, ``POS_SENTINEL`` past the ring; nothing
+    else is touched.  CUDA tensors go to the scatter kernel (one launch,
+    counted as ``paged_prefill_scatter``), CPU tensors to the plain
+    version."""
+    if k_pool.dim() != 5 or k_src.dim() != 4 or pages.dim() != 1:
+        raise ValueError("need pools (S, NP, P, Hkv, D), pages (nb,), "
+                         "sources (S, ring, Hkv, D)")
+    S, NP, P, Hkv, D = k_pool.shape
+    nb, ring = pages.shape[0], k_src.shape[1]
+    if (tuple(v_pool.shape) != tuple(k_pool.shape)
+            or tuple(k_src.shape) != (S, ring, Hkv, D)
+            or tuple(v_src.shape) != (S, ring, Hkv, D)
+            or tuple(pos_src.shape) != (ring,)
+            or (pos_pool is not None and tuple(pos_pool.shape) != (NP, P))):
+        raise ValueError(f"admission shapes do not fit pools "
+                         f"{tuple(k_pool.shape)}: sources "
+                         f"{tuple(k_src.shape)} / {tuple(v_src.shape)}, "
+                         f"positions {tuple(pos_src.shape)}")
+    if not (nb - 1) * P < ring <= nb * P:
+        raise ValueError(f"a ring of {ring} fills {-(-ring // P)} pages of "
+                         f"{P}, not {nb}")
+    if k_pool.device.type == "cpu":
+        paged_admit_kv_plain(k_pool, v_pool, pos_pool, pages, k_src, v_src,
+                             pos_src)
+        return
+    build.require_cuda(*(t for t in (k_pool, v_pool, pos_pool, pages, k_src,
+                                     v_src, pos_src) if t is not None))
+    for pool in (k_pool, v_pool):
+        _check_pool(pool)
+    if v_pool.stride() != k_pool.stride():
+        raise ValueError("k_pool and v_pool must share one layout")
+    if k_src.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"source dtype {k_src.dtype}: need float32 or "
+                        "bfloat16")
+    if (Hkv * D) % 8:
+        raise ValueError(f"Hkv * D = {Hkv * D}: the kernel moves 8 elements "
+                         "at a time")
+
+    def fit(src):
+        # the stage axis may be strided; within a stage contiguous, aligned
+        ok = (src.stride()[1:] == (Hkv * D, D, 1) and src.stride(0) % 8 == 0
+              and src.data_ptr() % 16 == 0)
+        return src if ok else src.contiguous()
+
+    k_src, v_src = fit(k_src), fit(v_src.to(k_src.dtype))
+    if k_src.stride(0) != v_src.stride(0):
+        k_src, v_src = k_src.contiguous(), v_src.contiguous()
+    pages = pages.to(torch.int32).contiguous()
+    pos_src = pos_src.to(torch.int32).contiguous()
+    if pos_pool is not None and not (pos_pool.dtype == torch.int32
+                                     and pos_pool.is_contiguous()):
+        raise ValueError("pos_pool must be contiguous int32")
+    if S == 0 or nb == 0:
+        return
+    _admit_launch("paged_admit_kv", k_pool, v_pool, pos_pool, pages, k_src,
+                  v_src, pos_src)

@@ -79,7 +79,7 @@ from repro_torch.serving.engine import (ServingEngine, resolve_extra_inputs,
                                         sample_rows, to_device)
 from repro_torch.serving.kvcache import (POS_SENTINEL, PagedKVCache,
                                          paged_attention_decode,
-                                         paged_scatter, ssm_subs,
+                                         paged_admit, ssm_subs,
                                          state_kinds)
 
 
@@ -380,26 +380,17 @@ class ContinuousBatchingEngine:
         st["lstep"][slot] = 0
         return row_dev[:len(pages)]
 
-    def _admit_kv(self, pages_dev: torch.Tensor, caches: Dict[str, Any],
-                  ring: int) -> None:
+    def _admit_kv(self, pages_dev: torch.Tensor,
+                  caches: Dict[str, Any]) -> None:
         """Fused compute-then-scatter: the bucket's freshly prefilled K/V
-        goes straight into its allocated pages (the scatter kernel), the
-        positions into the position pool."""
-        st, p_sz = self.state, self.page_size
-        nb = pages_dev.shape[0]
+        goes straight into its allocated pages and its positions into the
+        position pool, one scatter-kernel launch per attention sublayer."""
         pos_src = caches[self.kv.attn_subs[0]]["pos"][0, 0]       # (ring,)
-        pos_vals = torch.full((nb * p_sz,), POS_SENTINEL, dtype=torch.int32,
-                              device=self.device)
-        pos_vals[:ring] = pos_src
-        st["pos_pool"][pages_dev.long()] = pos_vals.view(nb, p_sz)
-        pad = nb * p_sz - ring
-        for name in self.kv.attn_subs:
-            for kind in ("k", "v"):
-                leaf = caches[name][kind][:, 0]          # (S, ring, Hkv, D)
-                if pad:
-                    leaf = torch.nn.functional.pad(leaf, (0, 0, 0, 0, 0, pad))
-                vals = leaf.reshape(self.n_stages, nb, p_sz, *leaf.shape[2:])
-                paged_scatter(st["caches"][name][kind], pages_dev, vals)
+        for i, name in enumerate(self.kv.attn_subs):
+            paged_admit(self.state["caches"][name],
+                        None if i else self.state["pos_pool"], pages_dev,
+                        {kind: caches[name][kind][:, 0] for kind in "kv"},
+                        pos_src)
 
     def _cow(self, src: int, dst: int, slot: int, blk: int) -> None:
         """Copy-on-write fork: copy page ``src`` -> ``dst`` in every
@@ -535,7 +526,7 @@ class ContinuousBatchingEngine:
             self.tel.count("admit.prefill_skips")
         else:
             if nb:
-                self._admit_kv(pages_dev, pl["caches"], ring)
+                self._admit_kv(pages_dev, pl["caches"])
             for name in self.ssm_subs:       # the prefilled state, one row
                 for k, rows in self.state["caches"][name].items():
                     rows[:, slot].copy_(pl["caches"][name][k][:, 0])

@@ -20,7 +20,7 @@ independently:
   device tensors: the engine applies the device half of every fork/remap it
   decides (:meth:`PagedKVCache.note_write`).
 * **device primitives** -- :func:`paged_write` (one entry per row, in
-  place), :func:`paged_attend` and :func:`paged_scatter`, which go through
+  place), :func:`paged_attend` and :func:`paged_admit`, which go through
   :mod:`repro_torch.kernels.ops`: a CUDA tensor to the hand-written kernels
   of :mod:`repro_torch.kernels.paged_attention`, a CPU tensor to their plain
   versions.  The reference's ``backend="jnp"`` dense gather is that plain
@@ -55,10 +55,11 @@ import torch
 
 from repro_torch.configs import ATTN, ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.paged_attention import POS_SENTINEL
 from repro_torch.models.layers import _project_qkv, apply_rope, dtype_of
 from repro_torch.obs.telemetry import get_telemetry
 
-POS_SENTINEL = 2 ** 30     # matches init_kv_cache's "empty slot" position
+# POS_SENTINEL (2 ** 30) matches init_kv_cache's "empty slot" position
 
 
 def attn_subs(cfg: ArchConfig) -> List[str]:
@@ -497,13 +498,18 @@ def paged_attend(q: torch.Tensor, pool: Dict[str, torch.Tensor],
                                       window=cfg.sliding_window)
 
 
-def paged_scatter(pool: torch.Tensor, pages: torch.Tensor,
-                  values: torch.Tensor) -> torch.Tensor:
-    """Admission-time KV scatter, in place: write ``values`` (S, nb, P, Hkv,
-    D) into ``pool`` (S, NP, P, Hkv, D) at ``pages`` (nb,), cast to the pool
-    dtype -- the scatter kernel on a CUDA device, ``index_copy_`` on the
-    CPU; bit-exact with each other."""
-    return ops.paged_scatter(pool, pages, values)
+def paged_admit(pool: Dict[str, torch.Tensor],
+                pos_pool: Optional[torch.Tensor], pages: torch.Tensor,
+                cache: Dict[str, torch.Tensor], pos_src: torch.Tensor) -> None:
+    """Admission-time write of one attention sublayer, in place: the dense
+    prefill cache ``cache`` {"k","v"} (S, ring, Hkv, D) into ``pool``'s
+    pages ``pages`` (nb,), cast to bfloat16 and zero past the ring, and
+    (unless ``pos_pool`` is None) the positions ``pos_src`` (ring,) into
+    ``pos_pool``'s rows of those pages, ``POS_SENTINEL`` past the ring --
+    one launch of the scatter kernel on a CUDA device, ``index_copy_`` and
+    index-puts on the CPU; bit-exact with each other."""
+    ops.paged_admit_kv(pool["k"], pool["v"], pos_pool, pages, cache["k"],
+                       cache["v"], pos_src)
 
 
 def paged_attention_decode(p, x, pool: Dict[str, torch.Tensor],

@@ -176,6 +176,11 @@ def test_kernel_wrapper_never_falls_back_for_non_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         pa.paged_prefill_scatter(meta((2, 6, 4, 2, 8)), meta((3,), i32),
                                  meta((2, 3, 4, 2, 8), torch.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pa.paged_admit_kv(meta((2, 6, 4, 2, 8)), meta((2, 6, 4, 2, 8)),
+                          meta((6, 4), i32), meta((3,), i32),
+                          meta((2, 10, 2, 8)), meta((2, 10, 2, 8)),
+                          meta((10,), i32))
     assert not any(pa.plain_counts.values())
     assert not any(pa.launch_counts.values())
 

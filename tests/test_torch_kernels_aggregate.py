@@ -313,3 +313,69 @@ def test_two_pass_form_matches_pallas_and_oracle(rng, T, K, M, cat, chunk,
     clean = np.where((bad < 0) | (bad > cat), 0, bad).astype(np.int32)
     oracle = jax_ref(*_j((clean, elt, occ_r, occ_l, ar, al)))
     np.testing.assert_allclose(got, np.asarray(oracle), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the onehot kernel's arithmetic: per catalog tile, each trial's event
+# histogram times the row losses f in float32
+# ---------------------------------------------------------------------------
+def _histogram_form(ids, elt, occ_r, occ_l, agg_ret, agg_lim, tile):
+    """What the onehot kernel computes, in plain torch: f from the row
+    pass's plain version, then per catalog tile of ``tile`` rows each
+    trial's in-tile event counts times f, the tiles added in order, then
+    the aggregate terms."""
+    f = tagg.aggregate_row_losses_plain(*(torch.from_numpy(v)
+                                          for v in (elt, occ_r, occ_l)))
+    ids = torch.from_numpy(ids).long()
+    rows = f.shape[0]
+    acc = torch.zeros(ids.shape[0])
+    for base in range(0, rows, tile):
+        rt = min(tile, rows - base)
+        local = ids - base
+        valid = (local >= 0) & (local < rt)
+        counts = torch.zeros(ids.shape[0], rt)
+        counts.scatter_add_(1, local.clamp(0, rt - 1), valid.float())
+        acc += counts @ f[base:base + rt]
+    return torch.clamp(torch.clamp(acc - agg_ret, min=0.0), max=agg_lim)
+
+
+# T, K, M, catalog, tile: several tiles with a ragged last one, a tile of
+# one row, and one tile wider than the catalog
+HIST_CASES = [(24, 64, 15, 300, 64), (16, 48, 20, 130, 50),
+              (9, 100, 15, 40, 41), (12, 32, 15, 20, 1),
+              (10, 80, 20, 200, 512)]
+
+
+@pytest.mark.parametrize("T,K,M,cat,tile", HIST_CASES)
+def test_histogram_form_matches_the_onehot_pallas_kernel(rng, T, K, M, cat,
+                                                         tile):
+    """The histogram form against the reference's onehot Pallas body
+    (interpret mode) at the kernel-vs-plain hold: ids past the table and
+    below 0 (they add 0), the pad id 0, and a trial whose events all hit one
+    row."""
+    ids, elt, occ_r, occ_l, ar, al = _case(rng, T, K, M, cat)
+    ids[:, 1::11] = cat + 5
+    ids[:, 2::13] = -2
+    ids[:, ::9] = 0
+    ids[3] = cat // 2 + 1
+    got = _histogram_form(ids, elt, occ_r, occ_l, ar, al, tile)
+    pallas = aggregate_loss_pallas(*_j((ids, elt, occ_r, occ_l, ar, al)),
+                                   chunk=K // 4, trial_block=T,
+                                   rows_tile=min(tile, cat + 1),
+                                   variant="onehot")
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-3)
+    plain = tagg.aggregate_loss_onehot(*_t((ids, elt, occ_r, occ_l, ar, al)),
+                                       chunk=K // 4, rows_tile=tile)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                               atol=1e-3)
+
+
+def test_onehot_raises_past_its_exact_count(rng):
+    """A trial's count of one row lives in 16 bits: the wrapper refuses K
+    past 65,535 and takes K at the limit."""
+    args = list(_t(_case(rng, 1, tagg.ONEHOT_MAX_EVENTS, 3, 20)))
+    tagg.aggregate_loss_onehot(*args)
+    args[0] = torch.zeros((1, tagg.ONEHOT_MAX_EVENTS + 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="65535"):
+        tagg.aggregate_loss_onehot(*args)

@@ -9,6 +9,9 @@ these tests hold, on seeded numpy inputs handed to both packages:
   (GQA, MHA, MQA, sliding window, an all-masked row, page permutations);
 * the scatter (K4) plain version bit for bit against ``paged_scatter_ref``
   and the interpret-mode Pallas scatter, with float32 and bfloat16 values;
+* admission's entry into the same kernel (K and V of every stage and the
+  positions in one call): its plain version bit for bit against the
+  sequence of ops the continuous engine ran before it;
 * the wrappers' dispatch: a CPU tensor goes to the plain version and is
   counted as such, a bad shape raises.
 
@@ -242,9 +245,112 @@ def test_scatter_takes_stage_strided_values():
     wide = torch.from_numpy(rng.standard_normal(
         (S, 4, 2, P, Hkv, D)).astype(np.float32))
     pages = torch.tensor([5, 8], dtype=torch.int32)
-    a = ops.paged_scatter(pool.clone(), pages, wide[:, 2])
-    b = ops.paged_scatter(pool.clone(), pages, wide[:, 2].contiguous())
+    a = pa.paged_prefill_scatter(pool.clone(), pages, wide[:, 2])
+    b = pa.paged_prefill_scatter(pool.clone(), pages, wide[:, 2].contiguous())
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def _admit_sequence(k_pool, v_pool, pos_pool, pages, k_src, v_src,
+                    pos_src):
+    """Admission as the continuous engine wrote it before the admission
+    entry: the positions padded with POS_SENTINEL by ``torch.full``, a slice
+    copy and an index-put; K and V each zero-padded to whole pages by
+    ``F.pad``, reshaped into page blocks and scattered."""
+    nb, P = pages.shape[0], k_pool.shape[2]
+    ring = k_src.shape[1]
+    pos_vals = torch.full((nb * P,), POS_SENTINEL, dtype=torch.int32)
+    pos_vals[:ring] = pos_src
+    pos_pool[pages.long()] = pos_vals.view(nb, P)
+    pad = nb * P - ring
+    for pool, leaf in ((k_pool, k_src), (v_pool, v_src)):
+        if pad:
+            leaf = torch.nn.functional.pad(leaf, (0, 0, 0, 0, 0, pad))
+        vals = leaf.reshape(k_src.shape[0], nb, P, *leaf.shape[2:])
+        pa.paged_prefill_scatter(pool, pages, vals)
+
+
+# (S, NP, P, Hkv, D, pages, ring): rings that fill their last page and
+# rings that do not
+ADMIT_CASES = [(2, 9, 4, 2, 8, [4, 2, 7], 12), (3, 10, 4, 1, 24, [2, 9], 5),
+               (2, 12, 8, 2, 16, [3, 5, 6, 11], 27),
+               (1, 6, 4, 2, 8, [3], 1)]
+
+
+@pytest.mark.parametrize("stride", ["contiguous", "stage-strided"])
+@pytest.mark.parametrize("values_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,NP_,P,Hkv,D,pages,ring", ADMIT_CASES)
+def test_admission_plain_equals_the_sequence_it_replaces(
+        S, NP_, P, Hkv, D, pages, ring, values_dtype, stride):
+    """One call writes K, V and the positions exactly as the pad, reshape,
+    full, slice copy and index-put sequence did: the same bits in every
+    pool, the sentinel tail past the ring, every other page untouched."""
+    rng = np.random.default_rng(11)
+    dt = getattr(torch, values_dtype)
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (S, NP_, P, Hkv, D)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(2))
+    pos_pool = torch.from_numpy(rng.integers(0, 99, (NP_, P)).astype(
+        np.int32))
+    wide = [torch.from_numpy(rng.standard_normal(
+        (S, 3, ring, Hkv, D)).astype(np.float32)).to(dt) for _ in range(2)]
+    k_src, v_src = ((w[:, 1] if stride == "stage-strided"
+                     else w[:, 1].contiguous()) for w in wide)
+    pos_src = torch.arange(40, 40 + ring, dtype=torch.int32)
+    pg = torch.tensor(pages, dtype=torch.int32)
+    want = [t.clone() for t in (kp, vp, pos_pool)]
+    _admit_sequence(*want[:3], pg, k_src, v_src, pos_src)
+    got = [t.clone() for t in (kp, vp, pos_pool)]
+    pa.reset_counts()
+    ops.paged_admit_kv(*got, pg, k_src, v_src, pos_src)
+    assert pa.plain_counts["paged_prefill_scatter_plain"] == 2
+    assert not any(pa.launch_counts.values())
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(got[2], want[2])
+    last = got[2][pages[-1]]
+    live = ring - (len(pages) - 1) * P
+    assert (last[live:] == POS_SENTINEL).all()
+    assert torch.equal(last[:live], pos_src[-live:])
+    untouched = [p for p in range(NP_) if p not in pages]
+    for a, b in zip(got[:2], (kp, vp)):
+        assert torch.equal(a[:, untouched].view(torch.int16),
+                           b[:, untouched].view(torch.int16))
+    assert torch.equal(got[2][untouched], pos_pool[untouched])
+    # the reference's scatter on the zero-padded K gives the same pool
+    padded = torch.nn.functional.pad(k_src.float(), (0, 0, 0, 0, 0,
+                                                     len(pages) * P - ring))
+    jk = jax_scatter_ref(jnp.asarray(kp.float().numpy(), jnp.bfloat16),
+                         jnp.asarray(pages, jnp.int32),
+                         jnp.asarray(padded.reshape(
+                             S, len(pages), P, Hkv, D).numpy()).astype(
+                                 getattr(jnp, values_dtype)))
+    np.testing.assert_array_equal(got[0].float().numpy(),
+                                  np.asarray(jk.astype(jnp.float32)))
+
+
+def test_admission_of_a_second_sublayer_leaves_positions_alone():
+    """``pos_pool=None``: K and V are written, the positions are not."""
+    S, NP_, P, Hkv, D = 2, 8, 4, 2, 8
+    kp = torch.zeros((S, NP_, P, Hkv, D), dtype=torch.bfloat16)
+    vp = torch.zeros_like(kp)
+    src = torch.ones((S, 6, Hkv, D))
+    pa.reset_counts()
+    ops.paged_admit_kv(kp, vp, None, torch.tensor([3, 5], dtype=torch.int32),
+                       src, 2 * src, torch.arange(6, dtype=torch.int32))
+    assert pa.plain_counts["paged_prefill_scatter_plain"] == 2
+    assert (kp[:, 3] == 1).all() and (vp[:, 5, :2] == 2).all()
+    assert (vp[:, 5, 2:] == 0).all()
+
+
+def test_admission_rejects_a_ring_that_does_not_fit_its_pages():
+    kp = torch.zeros((1, 8, 4, 2, 8), dtype=torch.bfloat16)
+    pos_pool = torch.zeros((8, 4), dtype=torch.int32)
+    for ring in (4, 9):                 # two pages of 4 hold 5 .. 8
+        src = torch.zeros((1, ring, 2, 8))
+        with pytest.raises(ValueError, match="ring"):
+            pa.paged_admit_kv(kp, kp.clone(), pos_pool,
+                              torch.tensor([2, 3], dtype=torch.int32), src,
+                              src, torch.arange(ring, dtype=torch.int32))
 
 
 def test_wrappers_reject_bad_shapes():
