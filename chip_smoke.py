@@ -21,8 +21,13 @@ Drives the port's three paths through the entry points a user calls:
   every prefill's attention through the FlashAttention kernel and every
   decode step's through the paged decode kernel at group size 1.
 
-Every attention prefill of every path (internlm2's, h2o-danube's and
-olmoe's) runs the FlashAttention kernel, and every admission writes its K,
+Every serving path decodes through rounds captured as CUDA graphs and
+replayed (``serving.continuous.RoundProgram``); the same admissions of
+each of the three full-width models also run through an engine that
+enqueues its rounds op by op, and the two engines' tokens, round times,
+capture times and memory are compared.  Every attention prefill of every
+path (internlm2's, h2o-danube's and olmoe's) runs the FlashAttention
+kernel, and every admission writes its K,
 V and positions with one launch of the scatter kernel per attention
 sub-layer.  Both variants of the risk path run two kernels a call (a row
 pass writing each catalog row's clipped loss, then the gather's trial pass
@@ -42,10 +47,12 @@ reference's cases), ssd kernel (the reference's sweep and the edges), flash
 kernel (the reference's sweep and the edges), tables, kernels (full width),
 main path (gather, full width), main path (onehot, 1,000,000 trials,
 catalog cut), cli, serving (reduced internlm2, h2o-danube and mamba2,
-token-exact with ``generate``, and reduced olmoe), serving (full width,
-internlm2), paged kernels (full width), serving (full width, mamba2), ssd
-kernel (full width), serving (full width, olmoe), paged decode (olmoe's
-shape), flash kernel (full width).
+token-exact with ``generate`` through graph rounds of several keys, and
+reduced olmoe), serving (full width, internlm2; then its rounds eager
+against graph), paged kernels (full width), serving (full width, mamba2;
+rounds eager against graph), ssd kernel (full width), serving (full
+width, olmoe; rounds eager against graph), paged decode (olmoe's shape),
+flash kernel (full width).
 """
 from __future__ import annotations
 
@@ -1637,10 +1644,18 @@ def phase_flash_full(errs: Errors, dev) -> dict:
 
 def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
     """``generate`` on the request's page-aligned left-padded prompt: the
-    continuous path's exactness contract."""
+    continuous path's exactness contract.  A temperature row draws what
+    ``generate`` at its temperature draws for its seed; top-k 1 is greedy;
+    a wider top-k has no oracle (None)."""
     b = ceng.bucket_len(req.prompt.size)
     padded = np.zeros((1, b), np.int32)
     padded[0, b - req.prompt.size:] = req.prompt
+    temp = req.temperature or 0.0
+    if temp > 0 and req.top_k > 1:
+        return None
+    if temp > 0 and req.top_k != 1:
+        eng = ServingEngine(eng.cfg, eng.params, temperature=temp,
+                            device=eng.device)
     return eng.generate(padded, max_new_tokens=req.max_new_tokens,
                         seed=req.seed).tokens[0]
 
@@ -1677,7 +1692,14 @@ def phase_serve_reduced(dev) -> dict:
                    [Request(f"r{i}", rng.integers(1, V, 5 + 7 * i).astype(
                        np.int32), max_new_tokens=3 + 4 * i)
                     for i in range(4)],
-                   [mk(t) for t in range(3)]]
+                   [mk(t) for t in range(3)],
+                   # sampling tiers: more than one round key is captured
+                   [Request(f"s{i}", rng.integers(1, V, 9 + 5 * i).astype(
+                       np.int32), max_new_tokens=4 + 3 * i, seed=i, **kw)
+                    for i, kw in enumerate(
+                        [{}, dict(temperature=0.8),
+                         dict(temperature=0.9, top_k=1),
+                         dict(temperature=1.1, top_k=5), {}])]]
         ceng = ContinuousBatchingEngine(eng, capacity=3, page_size=page,
                                         inner_steps=4, max_prompt_len=32,
                                         device=dev)
@@ -1703,6 +1725,13 @@ def phase_serve_reduced(dev) -> dict:
         check(launches[per_prefill] == ceng.prefill_calls * cfg.num_layers,
               f"{arch} reduced: {launches[per_prefill]} {per_prefill} "
               f"launches for {ceng.prefill_calls} prefills")
+        n_attn = ceng.n_stages * len(ceng.kv.attn_subs)
+        check(launches[K3] == ceng.rounds * ceng.inner_steps * n_attn,
+              f"{arch} reduced: {launches[K3]} K3 launches for "
+              f"{ceng.rounds} rounds")
+        graphs = graph_rounds(ceng, f"{arch} reduced")
+        check(graphs["keys_captured"] >= 2,
+              f"{arch} reduced: one round key captured, not several")
         check(variants == {"bf16_mma": 0, "f32_simt": launches[K5]},
               f"{arch} reduced (float32): flash variants {variants}")
         check(ssd.variant_counts == {"bf16_mma": 0,
@@ -1716,10 +1745,15 @@ def phase_serve_reduced(dev) -> dict:
                   f"{arch} reduced: the sharing lifecycle did not run")
         same = []
         for req, toks in done:
+            check(toks.shape == (req.max_new_tokens,) and 0 <= toks.min()
+                  and toks.max() < V, f"{arch} reduced: tokens {toks}")
             want = generate_oracle(eng, ceng, req)
+            if want is None:
+                continue
             check(moe or np.array_equal(toks, want),
                   f"{arch} reduced: continuous {toks.tolist()} != generate "
-                  f"{want.tolist()} (prompt of {req.prompt.size})")
+                  f"{want.tolist()} (prompt of {req.prompt.size}, "
+                  f"temperature {req.temperature}, top-k {req.top_k})")
             same.append(float(np.mean(toks == want)))
         out[arch] = dict(requests=n, launches=launches,
                          pages_shared=ceng.kv.pages_shared,
@@ -1727,7 +1761,7 @@ def phase_serve_reduced(dev) -> dict:
                          pristine_forks=ceng.kv.pristine_forks,
                          prefill_skips=ceng.prefill_skips,
                          pages_reused=ceng.kv.pages_reused,
-                         token_agreement=float(np.mean(same)))
+                         token_agreement=float(np.mean(same)), **graphs)
         say("serve", f"{arch} reduced, float32 on the card: {n} requests "
                      + ("(MoE: agreement with generate is a number)"
                         if moe else "token-exact with generate")
@@ -1735,6 +1769,24 @@ def phase_serve_reduced(dev) -> dict:
         del eng, ceng
     torch.cuda.empty_cache()
     return out
+
+
+def graph_rounds(ceng, what: str) -> dict:
+    """The round program of an engine that served on the card: one graph
+    per key, as many keys as ``decode_traces``, every other round a
+    replay."""
+    prog = ceng.round_program
+    check(prog is not None and len(prog.rounds) == ceng.decode_traces > 0,
+          f"{what}: rounds did not go through CUDA graphs (keys "
+          f"{list(prog.rounds) if prog else None}, decode traces "
+          f"{ceng.decode_traces})")
+    replays = sum(c.replays for c in prog.rounds.values())
+    check(replays + len(prog.rounds) == ceng.rounds,
+          f"{what}: {replays} replays and {len(prog.rounds)} captures for "
+          f"{ceng.rounds} rounds")
+    return dict(keys_captured=len(prog.rounds), replays=replays,
+                capture_ms={str(k): c.capture_ms
+                            for k, c in prog.rounds.items()})
 
 
 class ServeRecorder:
@@ -1865,7 +1917,7 @@ def phase_serve_full(errs: Errors, dev) -> dict:
             requests_identical=int(same.all(axis=1).sum()),
             mean_first_divergence=float(np.mean(first_diff)),
             overlap_pairs=sum(timeline_overlaps(sched.timeline)),
-            timeline_rounds=len(sched.timeline))
+            timeline_rounds=len(sched.timeline), **graph_rounds(eng, tag))
         say("serve", f"internlm2-1.8b full width, {tag}: " + ", ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in runs[spl].items() if k != "prefill_ms")
@@ -1881,12 +1933,13 @@ def phase_serve_full(errs: Errors, dev) -> dict:
                  f"{variants}); plain calls 0")
     max_blocks = max(r.sched.continuous_engine.kv.max_blocks
                      for r in recs.values())
-    profile = profile_round(recs[0].sched.engine, dev, prompt_len=128)
+    rounds = compare_rounds(recs[0].sched.engine, dev, prompt_len=128,
+                            scratch_check=True)
     del recs
     gc.collect()                         # the recorders' hooks form cycles
     torch.cuda.empty_cache()
     return {"launches": launches, "variants": variants, "runs": runs,
-            "max_blocks": max_blocks, "profile": profile}
+            "max_blocks": max_blocks, "rounds": rounds}
 
 
 # the pure-SSM serving path: launch.serve at the published width of mamba2;
@@ -1969,12 +2022,12 @@ def phase_serve_mamba2(dev) -> dict:
         mean_first_divergence=float(np.mean(first_diff)),
         overlap_pairs=sum(timeline_overlaps(sched.timeline)),
         timeline_rounds=len(sched.timeline), scan_launches=launches[K6],
-        scan_variants=variants)
+        scan_variants=variants, **graph_rounds(eng, "mamba2"))
     say("serve", "mamba2-2.7b full width: " + ", ".join(
         f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in run.items() if k != "prefill_ms")
         + f", prefill ms {[round(x, 3) for x in pre]}")
-    run["profile"] = profile_round(sched.engine, dev, prompt_len=384)
+    run["rounds"] = compare_rounds(sched.engine, dev, prompt_len=384)
     del rec, sched, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2067,12 +2120,13 @@ def phase_serve_olmoe(dev) -> dict:
         mean_first_divergence=float(np.mean(first_diff)),
         overlap_pairs=sum(timeline_overlaps(sched.timeline)),
         timeline_rounds=len(sched.timeline),
-        launches={k: launches[k] for k in want}, flash_variants=variants)
+        launches={k: launches[k] for k in want}, flash_variants=variants,
+        **graph_rounds(eng, "olmoe"))
     say("serve", "olmoe-1b-7b full width: " + ", ".join(
         f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in run.items() if k != "prefill_ms")
         + f", prefill ms {[round(x, 3) for x in pre]}")
-    run["profile"] = profile_round(sched.engine, dev, prompt_len=1024)
+    run["rounds"] = compare_rounds(sched.engine, dev, prompt_len=1024)
     run["profile_prefill"] = profile_prefill(sched.engine, dev, 8, 1024)
     run["max_blocks"] = eng.kv.max_blocks
     del rec, sched, eng
@@ -2158,36 +2212,20 @@ def profile_prefill(eng: ServingEngine, dev, width: int, prompt_len: int
     return out
 
 
-def profile_round(eng: ServingEngine, dev, prompt_len: int) -> dict:
-    """Where a full-width decode round's time goes (after the main path,
-    whose launch counts are already read): 8 live rows of ``prompt_len``
-    prompts; one round dispatched under ``set_sync_debug_mode("error")``
-    (a round must never make the host wait for the device), then one round
-    under ``torch.profiler``: device time by kernel against the round's
-    CUDA-event window and the host's enqueue time."""
-    ceng = ContinuousBatchingEngine(eng, capacity=8, page_size=16,
-                                    inner_steps=4,
-                                    max_prompt_len=2 * prompt_len,
-                                    device=dev)
-    rng = np.random.default_rng(5)
-    reqs = [Request("p", rng.integers(1, eng.cfg.vocab_size,
-                                      prompt_len).astype(np.int32),
-                    max_new_tokens=64) for _ in range(8)]
-    check(all(ceng.try_admit_batch(reqs)), "profile: admission failed")
-    ceng.collect(ceng.dispatch_round())              # warm
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        handle = ceng.dispatch_round()
-    except RuntimeError as e:
-        raise PhaseFailed(f"dispatching a decode round synchronised the "
-                          f"host: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    ceng.collect(handle)
-    torch.cuda.synchronize()
+MIB_LEFT_PER_ENGINE = 2
+ROUNDS_COMPARED = 12         # decode rounds each engine of compare_rounds
+ROUNDS_TIMED = slice(2, -1)  # runs; timed: after the capture round (0) and
+                             # the synchronisation check (1), before the
+                             # profiled last one
+
+
+def profile_one_round(ceng) -> tuple:
+    """One round dispatched and collected under ``torch.profiler``: device
+    time by kernel against the round's CUDA-event window and the host's
+    enqueue time.  Returns (numbers, the round's handle)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2200,20 +2238,200 @@ def profile_round(eng: ServingEngine, dev, prompt_len: int) -> dict:
                       if getattr(e, "device_type", None) == DeviceType.CUDA),
                      key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    out = dict(round_window_ms=window_ms, host_enqueue_ms=enqueue_ms,
-               launches=sum(k[2] for k in kernels),
-               device_busy_ms=busy_ms if kernels else None,
-               device_idle_share=(1 - busy_ms / window_ms) if kernels
-               else None,
-               top=[(n[:60], round(ms, 4), c) for n, ms, c in kernels[:8]])
-    say("serve", f"{eng.cfg.name} profiled round (8 live rows, 4 steps): " + (
-        f"CUDA-event window {window_ms:.2f} ms, host enqueue "
-        f"{enqueue_ms:.2f} ms, device busy {busy_ms:.2f} ms over "
-        f"{out['launches']} kernels (idle {out['device_idle_share']:.1%}); "
-        f"by kernel: {out['top']}" if kernels else
-        f"CUDA-event window {window_ms:.2f} ms, host enqueue "
-        f"{enqueue_ms:.2f} ms; the profiler recorded no device time"))
-    say("serve", "no host synchronisation while a round was dispatched")
+    return dict(round_window_ms=window_ms, host_enqueue_ms=enqueue_ms,
+                launches=sum(k[2] for k in kernels),
+                device_busy_ms=busy_ms if kernels else None,
+                device_idle_share=(1 - busy_ms / window_ms) if kernels
+                else None,
+                top=[(n[:60], round(ms, 4), c) for n, ms, c in kernels[:8]]
+                ), handle
+
+
+def scratch_probe(ceng, dev) -> int:
+    """After the first capture: one eager paged-decode call on the graph
+    engine's capture stream at a table wider than the round's.  The
+    captured round took its scratch out of the kernel's cache, so the call
+    allocates its own; the rounds replayed after it must still give the
+    eager engine's tokens.  Returns the launches it made (1)."""
+    prog = ceng.round_program
+    held = [sc for cap in prog.rounds.values() for sc in cap.held]
+    check(len(held) == len(prog.rounds),
+          f"captured rounds hold {len(held)} K3 scratch sets for "
+          f"{len(prog.rounds)} keys")
+    st, sub, cfg = ceng.state, ceng.kv.attn_subs[0], ceng.cfg
+    C, NB = st["page_table"].shape
+    table = torch.cat([st["page_table"], torch.full(
+        (C, NB + 1), PagedKVCache.SENTINEL, dtype=torch.int32, device=dev)],
+        dim=1)
+    q = torch.randn((C, cfg.num_heads, cfg.head_dim),
+                    device=dev).to(torch.bfloat16)
+    side, cur = prog.backend.stream, torch.cuda.current_stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        pa.paged_attention_decode(q, st["caches"][sub]["k"][0],
+                                  st["caches"][sub]["v"][0], st["pos_pool"],
+                                  table, st["pos"])
+    cur.wait_stream(side)
+    new = pa._SCRATCH[(dev.index, side.cuda_stream)]
+    check(all(new[k].data_ptr() != h[k].data_ptr() for h in held for k in h),
+          "an eager call on the capture stream reused a graph's K3 scratch")
+    say("serve", f"{cfg.name}: an eager K3 call at a table of {2 * NB + 1} "
+                 f"entries (the round's {NB}) on the capture stream took "
+                 "scratch of its own; the captured rounds keep theirs")
+    return 1
+
+
+def compare_rounds(eng: ServingEngine, dev, prompt_len: int,
+                   scratch_check: bool = False) -> dict:
+    """Rounds as CUDA graphs against rounds enqueued op by op (after the
+    main path, whose launch counts are already read): the same 8 admissions
+    of ``prompt_len`` random prompts through an eager engine
+    (``round_graphs=False``) and then a graph engine, ``ROUNDS_COMPARED``
+    rounds of 4 steps each, every row live throughout.  Per engine: round
+    ms by CUDA events, decode tokens/s, peak memory, K3 launches (equal
+    for the two), one profiled round; for the graph engine the keys
+    captured and the capture ms, and its second round -- a replay --
+    dispatched under ``set_sync_debug_mode("error")``.  The emitted tokens
+    of the two engines are compared round by round."""
+    V = eng.cfg.vocab_size
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, V, prompt_len).astype(np.int32)
+               for _ in range(8)]
+    out, tokens, logits = {}, {}, {}
+    for mode in ("eager", "graph"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reserved0 = torch.cuda.memory_reserved(dev)
+        ceng = ContinuousBatchingEngine(eng, capacity=8, page_size=16,
+                                        inner_steps=4,
+                                        max_prompt_len=2 * prompt_len,
+                                        device=dev,
+                                        round_graphs=mode == "graph")
+        n_attn = ceng.n_stages * len(ceng.kv.attn_subs)
+        reqs = [Request("p", p.copy(), max_new_tokens=4 * ROUNDS_COMPARED)
+                for p in prompts]
+        check(all(ceng.try_admit_batch(reqs)), "compare: admission failed")
+        pa.reset_counts()
+        probes = 0
+        em, lg, host_ms = [], [], []
+        for r in range(ROUNDS_COMPARED):
+            if mode == "graph" and r == 1:
+                if scratch_check and n_attn:
+                    probes += scratch_probe(ceng, dev)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    handle = ceng.dispatch_round()
+                except RuntimeError as e:
+                    raise PhaseFailed(f"dispatching a replayed round "
+                                      f"synchronised the host: {e}")
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                ceng.collect(handle)
+            elif r == ROUNDS_COMPARED - 1:
+                prof, handle = profile_one_round(ceng)
+                out.setdefault(mode, {})["profile"] = prof
+            else:
+                t0 = time.perf_counter()
+                handle = ceng.dispatch_round()
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                ceng.collect(handle)
+            em.append(handle.emitted.numpy().copy())
+            lg.append(ceng.state["logits"].cpu())
+        k3 = pa.launch_counts[K3] - probes
+        check(k3 == ROUNDS_COMPARED * ceng.inner_steps * n_attn,
+              f"{mode} rounds: {k3} K3 launches for {ROUNDS_COMPARED} rounds "
+              f"of {ceng.inner_steps} steps over {n_attn} attention layers")
+        ms = ceng.round_ms[ROUNDS_TIMED]
+        busy = out[mode]["profile"]["device_busy_ms"]
+        run = dict(round_ms_median=float(np.median(ms)),
+                   round_ms_min=float(np.min(ms)), rounds_timed=len(ms),
+                   host_dispatch_ms_median=float(np.median(host_ms[1:])),
+                   # the profiled round's busy time against an unprofiled
+                   # round: tracing stretches a round's window
+                   idle_share_of_median_round=None if busy is None
+                   else 1 - busy / float(np.median(ms)),
+                   decode_tokens_per_s=8 * ceng.inner_steps * len(ms)
+                   / (sum(ms) * 1e-3),
+                   first_round_ms=ceng.round_ms[0], k3_launches=k3,
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                   peak_reserved_gib=torch.cuda.max_memory_reserved(dev)
+                   / 2**30, decode_traces=ceng.decode_traces)
+        if mode == "graph":
+            check(ceng.decode_traces == 1, f"graph engine: "
+                  f"{ceng.decode_traces} keys for one sampling tier")
+            run.update(graph_rounds(ceng, "graph engine"))
+        else:
+            check(ceng.round_program is None, "eager engine holds graphs")
+        out.setdefault(mode, {}).update(run)
+        tokens[mode], logits[mode] = np.stack(em), lg
+        if probes:                       # the probe's own scratch
+            pa.detach_scratch(dev, ceng.round_program.backend.stream
+                              .cuda_stream)
+        held_mib = (torch.cuda.memory_reserved(dev) - reserved0) / 2**20
+        del ceng, handle
+        gc.collect()
+        torch.cuda.empty_cache()
+        left_mib = (torch.cuda.memory_reserved(dev) - reserved0) / 2**20
+        out[mode].update(reserved_mib_held=held_mib,
+                         reserved_mib_left_after_drop=left_mib)
+        # an engine's graphs and their pool go with it (a stray small
+        # tensor elsewhere may hold one 2 MiB segment)
+        check(mode == "eager" or left_mib <= MIB_LEFT_PER_ENGINE,
+              f"{mode} engine: {left_mib:.1f} MiB still reserved after it "
+              f"was dropped ({held_mib:.1f} MiB while it lived)")
+    same = np.array_equal(tokens["eager"], tokens["graph"])
+    diff = [float((a - b).abs().max())
+            for a, b in zip(logits["eager"], logits["graph"])]
+    out["tokens_identical"] = same
+    out["max_logit_diff"] = max(diff)
+    if not same:
+        r, step, row = (int(i[0]) for i in np.nonzero(
+            tokens["eager"] != tokens["graph"]))
+        out["first_difference"] = dict(round=r, step=step, row=row,
+                                       max_logit_diff_to_it=max(diff[:r + 1]))
+    e, g = out["eager"], out["graph"]
+    say("serve", f"{eng.cfg.name} rounds, eager against CUDA graph (8 rows, "
+                 f"4 steps, {ROUNDS_COMPARED} rounds): tokens "
+                 + ("identical" if same else
+                    f"DIFFER first at {out['first_difference']}")
+                 + f" (largest logit difference {out['max_logit_diff']:.3g});"
+                 f" round ms median {e['round_ms_median']:.3f} / "
+                 f"{g['round_ms_median']:.3f}, decode tokens/s "
+                 f"{e['decode_tokens_per_s']:.1f} / "
+                 f"{g['decode_tokens_per_s']:.1f}; host dispatch ms "
+                 f"{e['host_dispatch_ms_median']:.2f} / "
+                 f"{g['host_dispatch_ms_median']:.2f}; capture ms "
+                 f"{g['capture_ms']} ({g['keys_captured']} key, "
+                 f"{g['replays']} replays); first round "
+                 f"{e['first_round_ms']:.1f} / {g['first_round_ms']:.1f} ms; "
+                 f"peak {e['peak_gib']:.2f} / {g['peak_gib']:.2f} GiB "
+                 f"(reserved {e['peak_reserved_gib']:.2f} / "
+                 f"{g['peak_reserved_gib']:.2f}); K3 launches "
+                 f"{e['k3_launches']} / {g['k3_launches']}; reserved MiB "
+                 f"while it lived {e['reserved_mib_held']:.1f} / "
+                 f"{g['reserved_mib_held']:.1f}, left after it was dropped "
+                 f"{e['reserved_mib_left_after_drop']:.1f} / "
+                 f"{g['reserved_mib_left_after_drop']:.1f}")
+    for mode in ("eager", "graph"):
+        p = out[mode]["profile"]
+        say("serve", f"{eng.cfg.name} profiled {mode} round: " + (
+            f"CUDA-event window {p['round_window_ms']:.2f} ms, host enqueue "
+            f"{p['host_enqueue_ms']:.2f} ms, device busy "
+            f"{p['device_busy_ms']:.2f} ms over {p['launches']} kernels "
+            f"(idle {p['device_idle_share']:.1%} of this window, "
+            f"{out[mode]['idle_share_of_median_round']:.1%} of the median "
+            f"unprofiled round); by kernel: {p['top']}"
+            if p["device_busy_ms"] is not None else
+            f"CUDA-event window {p['round_window_ms']:.2f} ms, host enqueue "
+            f"{p['host_enqueue_ms']:.2f} ms; the profiler recorded no device "
+            "time"))
+    say("serve", "no host synchronisation while a replayed round was "
+                 "dispatched; every capture ran in the 'global' capture mode, "
+                 "so no launch touched the legacy default stream")
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2323,7 +2541,8 @@ def main() -> int:
                                   serving["runs"].items()},
                       "serving_mamba2": mamba["run"],
                       "serving_olmoe": olmoe["run"],
-                      "serving_reduced": reduced}))
+                      "serving_reduced": reduced,
+                      "serving_rounds": serving["rounds"]}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,7 @@ imported).
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -127,3 +127,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
     FlashAttention kernel for CUDA tensors, for CPU tensors its plain
     version -- the reference layers' ``blockwise_attention``."""
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def counters() -> List[Dict[str, int]]:
+    """Every kernel module's count dicts (launches, plain-version calls,
+    variants).  A wrapper counts when its Python runs, so launches captured
+    into a CUDA graph count once, at capture; the graph's owner takes the
+    capture's counts back out and adds them at every replay."""
+    return [getattr(m, name) for m in (_agg, _flash, _paged, _ssd)
+            for name in ("launch_counts", "plain_counts", "variant_counts")
+            if hasattr(m, name)]
+
+
+def detach_decode_scratch(device: torch.device, stream: int):
+    """The paged decode kernel's scratch for ``stream``, taken out of its
+    cache for a CUDA graph that captured launches on that stream (see
+    :func:`repro_torch.kernels.paged_attention.detach_scratch`)."""
+    return _paged.detach_scratch(device, stream)

@@ -27,7 +27,9 @@ What bounds them on the card, and what the design does about it:
   pair and each tile is staged once for all ``H / Hkv`` query heads; pages
   stream through a 4-deep ``cp.async`` ring.  The partials and the
   per-(row, kv head) tickets live in a per-(device, stream) scratch cache
-  (:func:`_scratch`), not a fresh allocation per call.  Online softmax in
+  (:func:`_scratch`), not a fresh allocation per call; a stream that is
+  being captured into a CUDA graph must find its scratch there, and the
+  graph's owner takes it out (:func:`detach_scratch`).  Online softmax in
   float32; the output depends on page content reached through the table,
   never on physical page ids.
 * **scatter** is bound by bytes: the values are read once and the named
@@ -199,6 +201,13 @@ def _scratch(dev: torch.device, stream: int, n_parts: int, D: int,
     need = dict(ml=2 * n_parts, acc=n_parts * D, tickets=n_tickets)
     sc = _SCRATCH.get((dev.index, stream))
     if sc is None or any(sc[k].numel() < n for k, n in need.items()):
+        if torch.cuda.is_current_stream_capturing():
+            # a graph may capture only scratch allocated outside it, which
+            # its owner then takes out of the cache (detach_scratch)
+            raise RuntimeError(
+                "paged_attention_decode: the capturing stream has no scratch "
+                f"for {n_parts} partials; run the same calls eagerly on it "
+                "before capturing them")
         size = {k: max(n, sc[k].numel() if sc else 0) for k, n in need.items()}
         sc = _SCRATCH[(dev.index, stream)] = dict(
             ml=torch.empty(size["ml"], dtype=torch.float32, device=dev),
@@ -206,6 +215,17 @@ def _scratch(dev: torch.device, stream: int, n_parts: int, D: int,
             tickets=torch.zeros(size["tickets"], dtype=torch.int32,
                                 device=dev))
     return sc
+
+
+def detach_scratch(dev: torch.device, stream: int
+                   ) -> Optional[Dict[str, torch.Tensor]]:
+    """Take the decode kernel's scratch for launches on ``stream`` out of
+    the cache and give it to the caller (None if there is none).  A CUDA
+    graph that captured launches on ``stream`` keeps what this returns for
+    as long as it may replay: no later call can then replace, free or share
+    the buffers it captured, and the next launch on ``stream`` allocates
+    scratch of its own."""
+    return _SCRATCH.pop((dev.index, stream), None)
 
 
 def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,

@@ -14,9 +14,15 @@ and three events interleave per outer step:
   blocks maps onto existing pages, and a request whose whole padded prompt
   is registered (and whose prefill logits are cached) skips its prefill;
 * **one decode micro-round** -- ``inner_steps`` masked decode steps over
-  *all* capacity rows, enqueued on the current stream back to back with no
-  host synchronisation inside (the reference's one ``lax.scan``), followed
-  by a CUDA event that :meth:`RoundHandle.ready` queries;
+  *all* capacity rows with no host synchronisation inside (the reference's
+  one ``lax.scan``), followed by a CUDA event that
+  :meth:`RoundHandle.ready` queries.  On a CUDA device a round is one
+  CUDA graph (:class:`RoundProgram`, the reference's jitted ``round_fn``):
+  captured at the first dispatch of its key ``(steps, all_greedy,
+  any_topk)`` -- counted by ``decode_traces`` and ``trace.decode``, as the
+  reference counts its traces -- and replayed on the current stream at
+  every later one; on the CPU, and on the card with
+  ``round_graphs=False``, its steps are enqueued op by op;
 * **retirement** -- rows whose token budget ran out are collected on the
   host, their pages' refcounts dropped, their slots freed.
 
@@ -70,6 +76,7 @@ import torch
 
 from repro_torch.configs import ATTN, MOE, NONE, ArchConfig
 from repro_torch.core.tenancy import resolve_devices
+from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (apply_embedding, apply_rmsnorm,
                                        apply_unembed, pad_vocab)
 from repro_torch.models.ssm import apply_ssm_decode, init_ssm_state
@@ -133,6 +140,157 @@ class CollectResult:
     retired: List[Any] = dataclasses.field(default_factory=list)
 
 
+RoundKey = Tuple[int, bool, bool]       # (steps, all_greedy, any_topk)
+
+
+def _addresses(tree: Any, path: str = "") -> List[Tuple[str, int]]:
+    """(path, data_ptr) of every tensor in a dict / list nest."""
+    if isinstance(tree, torch.Tensor):
+        return [(path, tree.data_ptr())]
+    if isinstance(tree, dict):
+        return [a for k, v in tree.items()
+                for a in _addresses(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [a for i, v in enumerate(tree)
+                for a in _addresses(v, f"{path}/{i}")]
+    return []
+
+
+class CudaGraphs:
+    """What a :class:`RoundProgram` needs of one CUDA device: a capture
+    stream and a graph memory pool that live as long as the engine, eager
+    work on that stream, capture, and the buffers a capture read besides
+    the engine's state."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.Stream(device)
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def run_beside(self, fn) -> None:
+        """``fn()`` eagerly on the capture stream, after everything enqueued
+        on the current stream and before anything enqueued on it later."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            fn()
+        cur.wait_stream(self.stream)
+
+    def capture(self, fn) -> "torch.cuda.CUDAGraph":
+        """``fn``'s launches captured, not run, into a new graph (entering
+        the capture synchronises the device).
+
+        PyTorch keeps a cuBLAS workspace per (handle, stream) until its
+        cache is cleared.  Cleared before the capture, the graph's GEMMs
+        get theirs from the graph's own pool, so no later clearing can free
+        memory a graph reads outside it; cleared after, no cache entry
+        holds a block of the pool, which then goes with the engine."""
+        graph = torch.cuda.CUDAGraph()
+        torch._C._cuda_clearCublasWorkspaces()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            fn()
+        torch._C._cuda_clearCublasWorkspaces()
+        return graph
+
+    def take_held(self) -> List[Any]:
+        """The paged decode kernel's scratch of the capture stream, taken
+        out of its cache for the graph that captured it."""
+        sc = kops.detach_decode_scratch(self.device, self.stream.cuda_stream)
+        return [] if sc is None else [sc]
+
+
+@dataclasses.dataclass
+class CapturedRound:
+    """One key's round as a graph: it writes its emissions into ``emitted``
+    and ``act`` and reads the state at the addresses it was captured at."""
+    graph: Any                     # replay() enqueues the round
+    emitted: torch.Tensor          # (steps, C) int32
+    act: torch.Tensor              # (steps, C) bool
+    counts: List[Dict[str, int]]   # kernel counts one replay adds
+    held: List[Any]                # buffers it reads besides the state
+    capture_ms: float              # host time of the capture
+    replays: int = 0
+
+
+class RoundProgram:
+    """One decode round per key ``(steps, all_greedy, any_topk)`` as a
+    captured graph, replayed at every later dispatch of the key.
+
+    At a key's first dispatch the round runs eagerly on the backend's
+    capture stream -- real work with real results, which also warms the
+    libraries and allocates the kernels' scratch for that stream outside
+    any graph -- and the same steps are then captured into the key's graph,
+    writing into static ``emitted`` / ``act`` buffers.  Capture runs the
+    wrappers' Python, not their kernels, so the kernel counts it added are
+    taken back out and added at every replay.  A graph reads the state
+    where it was captured: every state and parameter tensor must keep its
+    storage (all writes are in place), and a replay raises if one moved.
+    Nothing falls back to eager rounds: a failed capture or replay raises.
+    ``backend`` is :class:`CudaGraphs` on the card (a test gives a stub)."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.rounds: Dict[RoundKey, CapturedRound] = {}
+        self._addresses: Optional[List[Tuple[str, int]]] = None
+
+    def run(self, eng: "ContinuousBatchingEngine", key: RoundKey
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Enqueue ``eng``'s round for ``key``; returns the (static) buffers
+        its emissions land in."""
+        cap = self.rounds.get(key)
+        if cap is None:
+            return self._first(eng, key)
+        self._check_addresses(eng)
+        cap.graph.replay()
+        cap.replays += 1
+        for counts, add in zip(kops.counters(), cap.counts):
+            for k, n in add.items():
+                counts[k] += n
+        return cap.emitted, cap.act
+
+    def _first(self, eng: "ContinuousBatchingEngine", key: RoundKey
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        steps, all_greedy, any_topk = key
+        emitted = torch.empty((steps, eng.capacity), dtype=torch.int32,
+                              device=eng.device)
+        act = torch.empty((steps, eng.capacity), dtype=torch.bool,
+                          device=eng.device)
+
+        def enqueue():
+            eng._enqueue_round(emitted, act, all_greedy, any_topk)
+
+        self.backend.run_beside(enqueue)
+        before = [dict(c) for c in kops.counters()]
+        t0 = time.perf_counter()
+        graph = self.backend.capture(enqueue)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        added = []
+        for counts, old in zip(kops.counters(), before):
+            add = {k: n - old.get(k, 0) for k, n in counts.items()
+                   if n != old.get(k, 0)}
+            for k, n in add.items():
+                counts[k] -= n           # counted per replay instead
+            added.append(add)
+        self._check_addresses(eng)
+        self.rounds[key] = CapturedRound(graph, emitted, act, added,
+                                         self.backend.take_held(), capture_ms)
+        return emitted, act
+
+    def _check_addresses(self, eng: "ContinuousBatchingEngine") -> None:
+        """Record the state's and parameters' addresses at the first
+        capture; raise if any differs later."""
+        now = _addresses({"state": eng.state, "params": eng.params})
+        if self._addresses is None:
+            self._addresses = now
+        elif now != self._addresses:
+            moved = [p for (p, a), (q, b) in zip(now, self._addresses)
+                     if p != q or a != b] or ["the tree's layout"]
+            raise RuntimeError(
+                f"round program: {moved[0]} is not where the captured "
+                "rounds read it; state must be written in place")
+
+
 class ContinuousBatchingEngine:
     """Masked fixed-step decode over a persistent slot table.
 
@@ -141,6 +299,10 @@ class ContinuousBatchingEngine:
 
         eng = ContinuousBatchingEngine(engine, capacity=4)
         for req, tokens in eng.run_all(requests): ...
+
+    On a CUDA device its rounds go through a :class:`RoundProgram`;
+    ``round_graphs=False`` enqueues them op by op there too, for
+    comparison.
     """
 
     def __init__(self, engine: ServingEngine, capacity: int = 8,
@@ -153,7 +315,7 @@ class ContinuousBatchingEngine:
                  swap: bool = False,
                  admission_retry_limit: int = 8,
                  telemetry: Optional[Telemetry] = None,
-                 device=None):
+                 device=None, round_graphs: bool = True):
         if device is not None:
             dev = resolve_devices(1, device)[0]        # raises: no card
             if dev != engine.device:
@@ -191,6 +353,10 @@ class ContinuousBatchingEngine:
             collections.OrderedDict()
         self.admission_retry_limit = int(admission_retry_limit)
         self.rejected: List[Any] = []   # run_all's terminal REJECTED requests
+        # first uses of a round key: the reference counts its round_fn's
+        # traces, one per (steps, all_greedy, any_topk)
+        self.decode_traces = 0
+        self._round_keys: set = set()
         self.prefill_calls = 0     # host-side prefill invocations (batched)
         self.prefill_skips = 0     # admissions served from the logits cache
         self.rounds = 0
@@ -204,6 +370,9 @@ class ContinuousBatchingEngine:
         self._prefill_events: List[Tuple[Any, Any]] = []
         self.round_ms: List[float] = []
         self.state = self._init_state()
+        self.round_program: Optional[RoundProgram] = (
+            RoundProgram(CudaGraphs(self.device))
+            if round_graphs and self.device.type == "cuda" else None)
         self._slots: List[Optional[_Slot]] = [None] * capacity
         self._free_slots: List[int] = list(range(capacity - 1, -1, -1))
 
@@ -356,6 +525,13 @@ class ContinuousBatchingEngine:
         st["lstep"].add_(step)
         emitted_row.copy_(torch.where(active, tok, -1))
         act_row.copy_(active)
+
+    def _enqueue_round(self, emitted: torch.Tensor, act: torch.Tensor,
+                       all_greedy: bool, any_topk: bool) -> None:
+        """A round's steps, op by op, emissions into ``emitted`` / ``act``
+        (steps, C): what a round program captures."""
+        for i in range(emitted.shape[0]):
+            self._decode_step(emitted[i], act[i], all_greedy, any_topk)
 
     # ------------------------------------------------------------------
     # device halves of admission and copy-on-write
@@ -586,26 +762,35 @@ class ContinuousBatchingEngine:
             all_greedy = all(s.temp <= 0 for s in live)
             any_topk = any(s.top_k > 0 for s in live)
             steps, c = self.inner_steps, self.capacity
-            emitted = torch.empty((steps, c), dtype=torch.int32,
-                                  device=self.device)
-            act = torch.empty((steps, c), dtype=torch.bool,
-                              device=self.device)
+            key = (steps, all_greedy, any_topk)
+            if key not in self._round_keys:
+                self._round_keys.add(key)
+                self.decode_traces += 1
+                self.tel.count("trace.decode")
             with self.tel.span("round.enqueue", steps=steps,
                                all_greedy=all_greedy):
                 start = self._event()
-                for i in range(steps):
-                    self._decode_step(emitted[i], act[i], all_greedy,
-                                      any_topk)
+                if self.round_program is not None:
+                    emitted, act = self.round_program.run(self, key)
+                else:
+                    emitted = torch.empty((steps, c), dtype=torch.int32,
+                                          device=self.device)
+                    act = torch.empty((steps, c), dtype=torch.bool,
+                                      device=self.device)
+                    self._enqueue_round(emitted, act, all_greedy, any_topk)
                 nonfinite = self.state["nonfinite"].clone()
+                # the round's results leave its buffers behind the round
+                # itself, ahead of anything enqueued later (the next replay
+                # of a captured round rewrites them)
                 if self.device.type == "cuda":
-                    # the round's results leave the device behind the round
-                    # itself, ahead of anything enqueued later
                     host = [torch.empty(t.shape, dtype=t.dtype,
                                         pin_memory=True)
                             for t in (emitted, act, nonfinite)]
                     for h, t in zip(host, (emitted, act, nonfinite)):
                         h.copy_(t, non_blocking=True)
                     emitted, act, nonfinite = host
+                else:
+                    emitted, act = emitted.clone(), act.clone()
                 done = self._event()
             self.rounds += 1
         return RoundHandle(emitted, act, nonfinite, steps, t0, rnd=rnd,
