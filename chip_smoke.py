@@ -42,28 +42,42 @@ code; without a CUDA device nothing runs.  The last line of a good run is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
+The risk path also runs the paper's loop on the card, on warm engines at
+the published size: ``power`` (the card's ``PowerParams`` fitted from its
+own energy counter over idle, risk and K1 windows), ``fit`` (the perf model
+fitted from a sequential 1x1..1x8 sweep's device windows, then
+``plan_from_telemetry`` and the chosen deployment run beside the model's
+time) and ``pairs`` (1x2 and 1x4, sequential against concurrent staging in
+repeated ABBA pairs, time and energy, beside the simulator's prediction).
+``serve-obs`` serves internlm2-1.8b at full width with the telemetry plane
+lit (trace, metrics, ``obs:`` lines) and holds its tokens to the plane-off
+run's.
+
 Phases: device, build, kernels (aggregate sweep), paged kernels (the
 reference's cases), ssd kernel (the reference's sweep and the edges), flash
 kernel (the reference's sweep and the edges), tables, kernels (full width),
-main path (gather, full width), main path (onehot, 1,000,000 trials,
-catalog cut), cli, serving (reduced internlm2, h2o-danube and mamba2,
-token-exact with ``generate`` through graph rounds of several keys, and
-reduced olmoe), serving (full width, internlm2; then its rounds eager
-against graph), paged kernels (full width), serving (full width, mamba2;
-rounds eager against graph), ssd kernel (full width), serving (full
-width, olmoe; rounds eager against graph), paged decode (olmoe's shape),
-flash kernel (full width).
+main path (gather, full width), power, fit, pairs, main path (onehot,
+1,000,000 trials, catalog cut), cli, serving (reduced internlm2, h2o-danube
+and mamba2, token-exact with ``generate`` through graph rounds of several
+keys, and reduced olmoe), serving (full width, internlm2; then its rounds
+eager against graph), serve-obs, paged kernels (full width), serving (full
+width, mamba2; rounds eager against graph), ssd kernel (full width),
+serving (full width, olmoe; rounds eager against graph), paged decode
+(olmoe's shape), flash kernel (full width).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -74,7 +88,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.risk_app import RiskAppConfig
+from repro_torch.core import perfmodel as pm
+from repro_torch.core import planner
 from repro_torch.core.pipeline import timeline_overlaps
+from repro_torch.core.simulator import SimInputs, simulate
 from repro_torch.core.tenancy import TenancyConfig
 from repro_torch.kernels import aggregate_loss as agg
 from repro_torch.kernels import build
@@ -86,6 +103,11 @@ from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import risk as risk_cli
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.model import build_model, param_count
+from repro_torch.obs import TELEMETRY
+from repro_torch.obs import fit as obs_fit
+from repro_torch.obs.export import parse_prometheus_text
+from repro_torch.obs.gauge import PowerGauge
+from repro_torch.obs.telemetry import Telemetry
 from repro_torch.risk import metrics
 from repro_torch.risk.analysis import AggregateRiskAnalysis
 from repro_torch.risk.tables import (GENERATE_PEAK_BYTES_PER_EVENT, RiskTables,
@@ -814,6 +836,438 @@ def phase_cli() -> None:
     check(agg.launch_counts["aggregate_loss_gather"] == 2
           and not any(agg.plain_counts.values()),
           "the cli did not go through the gather kernel")
+
+
+# ---------------------------------------------------------------------------
+# the paper's loop on the card: measure, fit, plan, and the key result --
+# sequential against concurrent staging in repeated pairs, time and energy
+# ---------------------------------------------------------------------------
+FIT_TENANTS = (1, 2, 4, 8)   # sequential sweep the perf model is fitted on
+FIT_RUNS = 2                 # recorded runs a deployment, after one warm run
+PLAN_RUNS = 3                # runs of the deployment the plan chose
+PAIR_TENANTS = (2, 4)        # deployments of the pairs, 1 x tenants
+SMOKE_PAIRS = 8              # pairs a deployment here (diagnostics: more)
+WINDOW_RUNS = 8              # back-to-back runs a member of a pair: ~0.65 s,
+                             # 5+ ticks of the energy counter (~100 ms each)
+POWER_IDLE_TICKS = 8         # counter ticks the idle window waits for
+POWER_LOOP_S = 1.0           # length of the risk and the K1 windows
+T4GB_AGREE = 0.10            # fitted YET time against the 1x1 copy window
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def power_limit_w(card: str) -> float:
+    """The limit from the ``name, power.limit`` line of ``nvidia-smi``."""
+    return float(card.rsplit(",", 1)[1].strip().split()[0])
+
+
+class RiskEngines:
+    """One warm engine per (tenants, mode) on one card, for the loop's
+    phases: each is built, given its resident tables and run once before
+    any of its runs is recorded."""
+
+    def __init__(self, cfg: RiskAppConfig, tables: RiskTables, dev):
+        self.cfg, self.tables, self.dev = cfg, tables, dev
+        self.by_key = {}
+
+    def __call__(self, tenants: int, mode: str) -> AggregateRiskAnalysis:
+        key = (tenants, mode)
+        if key not in self.by_key:
+            ara = AggregateRiskAnalysis(
+                self.cfg, TenancyConfig(1, tenants, mode), device=self.dev)
+            ara.run_tenant_chunked(self.tables)          # warm
+            self.by_key[key] = ara
+        return self.by_key[key]
+
+    def warm_launches(self, tenants: int, mode: str) -> int:
+        """The gather launches that asking for this engine will make: its
+        warm run's, if it is not built yet."""
+        return 0 if (tenants, mode) in self.by_key else tenants
+
+    def close(self) -> None:
+        for ara in self.by_key.values():
+            ara.clear_table_cache()
+        self.by_key.clear()
+        gc.collect()
+        if self.dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def device_span_ms(rep) -> float:
+    d = [obs_fit.entry_windows_ms(tl) for tl in rep.timeline]
+    return (max(x["compute_end"] for x in d)
+            - min(x["copy_start"] for x in d))
+
+
+def copy_overlap_ms(rep) -> float:
+    """Copy time during which another of the run's copies also ran: 0 when
+    the card runs the copies one after the other, (n-1)/n of it when n
+    copies share the link evenly (the paper's BW/n)."""
+    w = sorted((d["copy_start"], d["copy_end"])
+               for d in map(obs_fit.entry_windows_ms, rep.timeline))
+    union, (lo, hi) = 0.0, w[0]
+    for a, b in w[1:]:
+        if a > hi:
+            union, lo, hi = union + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return sum(b - a for a, b in w) - (union + hi - lo)
+
+
+def first_kernel_ms(rep) -> float:
+    """From the run's first copy to its first kernel: when tenant 0's
+    compute could begin."""
+    d = [obs_fit.entry_windows_ms(tl) for tl in rep.timeline]
+    return (min(x["compute_start"] for x in d)
+            - min(x["copy_start"] for x in d))
+
+
+def smi_power_fields() -> dict:
+    """What ``nvidia-smi`` says of its power fields: whether ``power.draw``
+    is an average (its help text), and whether ``power.draw.instant``
+    exists."""
+    text = subprocess.run(["nvidia-smi", "--help-query-gpu"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout
+    lines = text.splitlines()
+    draw = next((lines[i + 1].strip() for i, l in enumerate(lines[:-1])
+                 if l.strip().startswith('"power.draw"')), "")
+    return {"power.draw": draw,
+            "power.draw.instant": '"power.draw.instant"' in text}
+
+
+def phase_power(engines: RiskEngines, gauge, tel, card: str) -> dict:
+    """The card's ``PowerParams`` from its own energy counter: windows of
+    different busy share (idle; back-to-back 1x2 risk runs, mostly copies;
+    back-to-back K1 calls on resident data), one ``power.sample`` per
+    interval between counter ticks, busy share from CUDA-event windows."""
+    dev, tables = engines.dev, engines.tables
+    ara = engines(2, "sequential")
+    elt, ret, lim = ara._resident_tables(tables)[0]
+    ids = torch.from_numpy(tables.yet[:tables.num_trials // 2]).to(dev)
+    chunk = min(engines.cfg.chunk_events, tables.yet.shape[1])
+    windows = {}
+    agg.reset_counts()                   # just before the path
+
+    sync(dev)
+    t_a = time.perf_counter()
+    gauge.wait_ticks(POWER_IDLE_TICKS)
+    windows["idle"] = (t_a, time.perf_counter(), [])
+
+    busy, risk_runs = [], 0
+    t_a = time.perf_counter()
+    while time.perf_counter() - t_a < POWER_LOOP_S:
+        busy += obs_fit.busy_windows(ara.run_tenant_chunked(tables))
+        risk_runs += 1
+    windows["risk 1x2"] = (t_a, time.perf_counter(), busy)
+
+    k1 = lambda: agg.aggregate_loss_gather(ids, elt, ret, lim, tables.agg_ret,
+                                           tables.agg_lim, chunk=chunk)
+    k1()
+    sync(dev)
+    t0 = time.perf_counter()
+    k1()
+    sync(dev)
+    calls = max(1, int(POWER_LOOP_S / max(time.perf_counter() - t0, 1e-4)))
+    t_a = time.perf_counter()
+    if dev.type == "cuda":
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            k1()
+        b.record()
+        b.synchronize()
+        busy = [(t_a, t_a + a.elapsed_time(b) * 1e-3)]
+    else:
+        for _ in range(calls):
+            k1()
+        busy = [(t_a, time.perf_counter())]
+    windows["K1 loop"] = (t_a, time.perf_counter(), busy)
+    launches = agg.launch_counts[G]      # just after
+    rows = agg.launch_counts[R]
+    check(rows == launches, f"{rows} row passes for {launches} gathers")
+    expected = 2 * risk_runs + calls + 2  # two tenants a run; K1 warm, probe
+    check(launches == expected and not any(agg.plain_counts.values()),
+          f"power path: {launches} gather launches, expected {expected}; "
+          f"plain calls {agg.plain_counts}")
+    del ids
+
+    ticks = gauge.ticks()
+    gaps = [(b[0] - a[0]) * 1e3 for a, b in zip(ticks, ticks[1:])]
+    out = {"source": gauge.source, "tick_ms_median": statistics.median(gaps),
+           "smi": smi_power_fields(), "windows": {}}
+    say("power", f"gauge: {gauge.source}, a tick every "
+                 f"{out['tick_ms_median']:.1f} ms (median of {len(gaps)}); "
+                 f"nvidia-smi: {out['smi']}")
+    for name, (lo, hi, busy) in windows.items():
+        samples = obs_fit.record_power_samples(tel, gauge.ticks(lo, hi), busy,
+                                           window=name)
+        check(len(samples) >= 2, f"power: {len(samples)} samples in the "
+                                 f"{name} window")
+        w = gauge.mean_watts(lo, hi)
+        frac = obs_fit.busy_seconds(busy, lo, hi) / (hi - lo)
+        out["windows"][name] = {"seconds": hi - lo, "busy_frac": frac,
+                                "watts": w, "samples": len(samples)}
+        say("power", f"{name}: {hi - lo:.2f} s, busy {frac * 100:.1f} %, "
+                     f"{w:.1f} W over {len(samples)} counter intervals")
+    samples = obs_fit.power_samples_from_telemetry(tel)
+    pw = obs_fit.fit_power_params(samples, name="card")
+    resid = float(np.sqrt(np.mean(
+        [(f * pw.p_busy + (1 - f) * pw.p_idle_assigned - w) ** 2
+         for f, w in samples])))
+    limit = power_limit_w(card)
+    say("power", f"fitted PowerParams over {len(samples)} samples "
+                 f"({gauge.source}): p_busy {pw.p_busy:.1f} W, "
+                 f"p_idle_assigned {pw.p_idle_assigned:.1f} W, residual "
+                 f"{resid:.2f} W rms | {card}")
+    check(np.isfinite(resid) and
+          pw.p_idle_assigned < pw.p_busy <= limit,
+          f"power: p_idle_assigned {pw.p_idle_assigned:.1f} W, p_busy "
+          f"{pw.p_busy:.1f} W against a limit of {limit} W")
+    out.update(launches=launches, row_launches=rows, k1_calls=calls, p_busy_w=pw.p_busy,
+               p_idle_assigned_w=pw.p_idle_assigned, residual_w=resid,
+               samples=len(samples))
+    return out, pw
+
+
+def phase_fit(engines: RiskEngines, tel, dev) -> dict:
+    """The perf model fitted from the card's own sequential sweep (1x1,
+    1x2, 1x4, 1x8), recorded as device windows with ``nv``; then
+    ``plan_from_telemetry`` for one card of this card's memory (the power
+    samples on the plane give its power), and the deployment it chose,
+    run and timed beside the model's time."""
+    tables = engines.tables
+    nb = tables.nbytes()
+    yet_mb, elt_mb = nb["yet"] / 1e6, nb["elt"] / 1e6
+    agg.reset_counts()                   # just before the path
+    expected = 0
+    sweep = {}
+    for nv in FIT_TENANTS:
+        expected += engines.warm_launches(nv, "sequential") + FIT_RUNS * nv
+        sweep[nv] = engines(nv, "sequential")
+    runs = obs_fit.record_sweep(tel, sweep, tables, FIT_RUNS)
+    copy_1x1 = [w["copy_end"] - w["copy_start"]
+                for w in (obs_fit.entry_windows_ms(rep.timeline[0])
+                          for nv, rep in runs if nv == 1)]
+    last = dict(runs)                    # each nv's last run
+    ylt_1x1 = last[1].ylt
+    per_nv = {}
+    for nv, rep in last.items():
+        d = [obs_fit.entry_windows_ms(tl) for tl in rep.timeline]
+        per_nv[nv] = {
+            "copy_ms": statistics.median(x["copy_end"] - x["copy_start"]
+                                         for x in d),
+            "kernel_ms": statistics.median(
+                x["compute_end"] - x["compute_start"] for x in d),
+            "wall_ms": rep.wall_s * 1e3}
+    mem_mb = torch.cuda.get_device_properties(dev).total_memory / 2**20 \
+        if dev.type == "cuda" else 80 * 1024.0
+    fit_kw = dict(yet_mb=yet_mb, elt_mb=elt_mb, device_memory_mb=mem_mb)
+    n_samples = len(obs_fit.samples_from_telemetry(tel))
+    tp = planner.plan_from_telemetry(tel, objective="time", budget_pdev=1,
+                                     **fit_kw)
+    d = tp.deployment
+    t4 = tp.m.net.t_4gb
+    check(np.isfinite(tp.transfer_rms_s) and np.isfinite(tp.compute_rms_s),
+          "fit: residuals not finite")
+    yet_s = t4 * yet_mb / pm.YET_MB      # the fitted time of this YET
+    c11 = statistics.median(copy_1x1) * 1e-3
+    check(abs(yet_s - c11) <= T4GB_AGREE * c11,
+          f"fit: the fitted YET time {yet_s * 1e3:.2f} ms and the 1x1 "
+          f"copy window {c11 * 1e3:.2f} ms differ by more than "
+          f"{T4GB_AGREE * 100:.0f} %")
+    for nv, r in per_nv.items():
+        say("fit", f"1x{nv} sequential: copy {r['copy_ms']:.2f} ms, kernel "
+                   f"{r['kernel_ms']:.3f} ms a tenant, wall "
+                   f"{r['wall_ms']:.1f} ms")
+    say("fit", f"{n_samples} samples: t_4gb {t4 * 1e3:.3f} ms "
+               f"({pm.YET_MB / 1e3 / t4:.1f} GB/s), per-vdev overhead "
+               f"{tp.m.net.per_vdev_overhead * 1e3:.4f} ms, "
+               f"compute_time_1pdev {tp.m.compute_time_1pdev * 1e3:.3f} ms; "
+               f"residuals transfer {tp.transfer_rms_s * 1e3:.4f} ms, "
+               f"compute {tp.compute_rms_s * 1e3:.4f} ms; 1x1 copy window "
+               f"{c11 * 1e3:.2f} ms")
+
+    expected += engines.warm_launches(d.tenants_per_pdev, tp.transfer_mode)
+    ara = engines(d.tenants_per_pdev, tp.transfer_mode)
+    walls = []
+    for _ in range(PLAN_RUNS):
+        rep = ara.run_tenant_chunked(tables)
+        walls.append(rep.wall_s * 1e3)
+    expected += d.tenants_per_pdev * PLAN_RUNS
+    check(np.allclose(rep.ylt, ylt_1x1, rtol=YLT_RTOL, atol=0.0),
+          "fit: the chosen deployment's YLT differs from 1x1")
+    launches = agg.launch_counts[G]      # just after
+    rows = agg.launch_counts[R]
+    check(rows == launches, f"{rows} row passes for {launches} gathers")
+    check(launches == expected and not any(agg.plain_counts.values()),
+          f"fit path: {launches} gather launches, expected {expected}; "
+          f"plain calls {agg.plain_counts}")
+    wall = statistics.median(walls)
+    say("fit", f"plan_from_telemetry (objective time, 1 card of "
+               f"{mem_mb:.0f} MiB, power {tp.pw.name}): "
+               f"{d.n_pdev}x{d.tenants_per_pdev} {tp.transfer_mode}; model "
+               f"exec_time_s {d.exec_time_s * 1e3:.2f} ms (a prediction), "
+               f"energy {d.energy_ws:.2f} J (a prediction); measured wall "
+               f"{wall:.2f} ms (median of {PLAN_RUNS})")
+    return {"launches": launches, "row_launches": rows, "per_nv": per_nv,
+            "fitted": {"t_4gb_ms": t4 * 1e3,
+                       "per_vdev_overhead_ms":
+                           tp.m.net.per_vdev_overhead * 1e3,
+                       "compute_time_1pdev_ms":
+                           tp.m.compute_time_1pdev * 1e3,
+                       "transfer_rms_ms": tp.transfer_rms_s * 1e3,
+                       "compute_rms_ms": tp.compute_rms_s * 1e3,
+                       "samples": n_samples},
+            "copy_1x1_ms": c11 * 1e3,
+            "chosen": {"tenants_per_pdev": d.tenants_per_pdev,
+                       "transfer_mode": tp.transfer_mode,
+                       "wall_ms": walls},
+            "plan": tp, "ylt_1x1": ylt_1x1}
+
+
+def risk_window(ara: AggregateRiskAnalysis, tables: RiskTables, gauge,
+                runs: int, dev) -> dict:
+    """One member of a pair: ``runs`` back-to-back runs; per run the host
+    wall and the CUDA-event device span, for the window its energy from
+    the card's counter (mean watts over the ticks inside it times its
+    length)."""
+    sync(dev)
+    t_a = time.perf_counter()
+    reps = [ara.run_tenant_chunked(tables) for _ in range(runs)]
+    t_b = time.perf_counter()
+    w = gauge.mean_watts(t_a, t_b)
+    return {"wall_ms": [r.wall_s * 1e3 for r in reps],
+            "span_ms": [device_span_ms(r) for r in reps],
+            "copy_overlap_ms": [copy_overlap_ms(r) for r in reps],
+            "first_kernel_ms": [first_kernel_ms(r) for r in reps],
+            "seconds": t_b - t_a, "watts": w, "joules": w * (t_b - t_a),
+            "ylt": reps[-1].ylt}
+
+
+def predicted_gap(tenants: int, tp, pw) -> tuple:
+    """The simulator's (sequential - concurrent) makespan in ms and energy
+    in J for 1 x ``tenants``, under the fitted inputs: a prediction."""
+    res = {}
+    for mode in ("sequential", "concurrent"):
+        si = SimInputs(TenancyConfig(1, tenants, mode), net=tp.m.net,
+                       compute_time_1pdev=tp.m.compute_time_1pdev,
+                       yet_mb=tp.m.yet_mb, elt_mb=tp.m.elt_mb,
+                       pf_mb=tp.m.pf_mb, power=pw)
+        res[mode] = simulate(si)
+    return ((res["sequential"].makespan - res["concurrent"].makespan) * 1e3,
+            res["sequential"].energy_ws - res["concurrent"].energy_ws)
+
+
+def phase_pairs(engines: RiskEngines, gauge, fitted: dict, pw,
+                n_pairs: int = SMOKE_PAIRS) -> dict:
+    """The paper's key result on this card: 1x2 and 1x4, sequential
+    against concurrent staging, in repeated pairs in ABBA order on warm
+    engines.  A pair's difference is sequential minus concurrent: of the
+    median run wall, of the median device span, and of the energy a run
+    (its window's joules over its runs).  No gate on the sign: the result
+    is a number."""
+    tables, dev = engines.tables, engines.dev
+    out = {}
+    agg.reset_counts()                   # just before the path
+    expected = 0
+    for tenants in PAIR_TENANTS:
+        for mode in ("sequential", "concurrent"):
+            expected += engines.warm_launches(tenants, mode)
+            engines(tenants, mode)
+        pairs = []
+        for i in range(n_pairs):
+            order = (("sequential", "concurrent") if i % 2 == 0
+                     else ("concurrent", "sequential"))
+            pair = {m: risk_window(engines(tenants, m), tables, gauge,
+                                   WINDOW_RUNS, dev) for m in order}
+            expected += 2 * WINDOW_RUNS * tenants
+            for m, w in pair.items():
+                check(np.allclose(w.pop("ylt"), fitted["ylt_1x1"],
+                                  rtol=YLT_RTOL, atol=0.0),
+                      f"pairs 1x{tenants} {m}: YLT differs from 1x1")
+            pairs.append(pair)
+        s, c = ([p[m] for p in pairs] for m in ("sequential", "concurrent"))
+        d_ms = [statistics.median(a["wall_ms"]) - statistics.median(b["wall_ms"])
+                for a, b in zip(s, c)]
+        d_span = [statistics.median(a["span_ms"])
+                  - statistics.median(b["span_ms"]) for a, b in zip(s, c)]
+        d_j = [a["joules"] / WINDOW_RUNS - b["joules"] / WINDOW_RUNS
+               for a, b in zip(s, c)]
+        pred_ms, pred_j = predicted_gap(tenants, fitted["plan"], pw)
+        tag = f"1x{tenants}"
+        row = {"pairs": n_pairs, "runs_per_window": WINDOW_RUNS,
+               "delta_wall_ms": d_ms, "delta_span_ms": d_span,
+               "delta_j_per_run": d_j,
+               "median_delta_wall_ms": statistics.median(d_ms),
+               "median_delta_span_ms": statistics.median(d_span),
+               "median_delta_j_per_run": statistics.median(d_j),
+               "sequential_wins_time": sum(x < 0 for x in d_ms),
+               "sequential_wins_energy": sum(x < 0 for x in d_j),
+               "median_wall_ms": {
+                   m: statistics.median(x for w in ws for x in w["wall_ms"])
+                   for m, ws in (("sequential", s), ("concurrent", c))},
+               **{f"median_{k}": {
+                   m: statistics.median(x for w in ws for x in w[k])
+                   for m, ws in (("sequential", s), ("concurrent", c))}
+                  for k in ("copy_overlap_ms", "first_kernel_ms")},
+               "median_watts": {
+                   m: statistics.median(w["watts"] for w in ws)
+                   for m, ws in (("sequential", s), ("concurrent", c))}}
+        out[tag] = row
+        say("pairs", f"{tag}, {n_pairs} pairs (ABBA) of {WINDOW_RUNS} runs "
+                     f"a window: sequential - concurrent wall median "
+                     f"{row['median_delta_wall_ms']:+.3f} ms (min "
+                     f"{min(d_ms):+.3f}, max {max(d_ms):+.3f}), device span "
+                     f"median {row['median_delta_span_ms']:+.3f} ms, energy "
+                     f"median {row['median_delta_j_per_run']:+.3f} J a run "
+                     f"(min {min(d_j):+.3f}, max {max(d_j):+.3f}); "
+                     f"sequential wins {row['sequential_wins_time']}/"
+                     f"{n_pairs} in time, {row['sequential_wins_energy']}/"
+                     f"{n_pairs} in energy; walls "
+                     f"{row['median_wall_ms']['sequential']:.2f} / "
+                     f"{row['median_wall_ms']['concurrent']:.2f} ms, "
+                     f"{row['median_watts']['sequential']:.1f} / "
+                     f"{row['median_watts']['concurrent']:.1f} W; copies "
+                     f"overlapping "
+                     f"{row['median_copy_overlap_ms']['sequential']:.2f} / "
+                     f"{row['median_copy_overlap_ms']['concurrent']:.2f} ms, "
+                     f"first kernel at "
+                     f"{row['median_first_kernel_ms']['sequential']:.2f} / "
+                     f"{row['median_first_kernel_ms']['concurrent']:.2f} ms "
+                     f"| "
+                     f"simulator from the fitted inputs (a prediction): "
+                     f"{pred_ms:+.3f} ms, {pred_j:+.3f} J")
+    launches = agg.launch_counts[G]      # just after
+    rows = agg.launch_counts[R]
+    check(rows == launches, f"{rows} row passes for {launches} gathers")
+    check(launches == expected and not any(agg.plain_counts.values()),
+          f"pairs path: {launches} gather launches, expected {expected}; "
+          f"plain calls {agg.plain_counts}")
+    out["launches"], out["row_launches"] = launches, rows
+    return out
+
+
+def risk_loop(cfg: RiskAppConfig, tables: RiskTables, dev, card: str,
+              n_pairs: int = SMOKE_PAIRS) -> dict:
+    """Phases power, fit and pairs on one set of warm engines and one
+    running gauge."""
+    engines = RiskEngines(cfg, tables, dev)
+    tel = Telemetry(enabled=True)
+    try:
+        with PowerGauge() as gauge:
+            power, pw = phase_power(engines, gauge, tel, card)
+            fitted = phase_fit(engines, tel, dev)
+            pairs = phase_pairs(engines, gauge, fitted, pw, n_pairs)
+    finally:
+        engines.close()
+    fitted.pop("plan")
+    fitted.pop("ylt_1x1")
+    return {"power": power, "fit": fitted, "pairs": pairs}
 
 
 # ---------------------------------------------------------------------------
@@ -1933,13 +2387,98 @@ def phase_serve_full(errs: Errors, dev) -> dict:
                  f"{variants}); plain calls 0")
     max_blocks = max(r.sched.continuous_engine.kv.max_blocks
                      for r in recs.values())
+    plane_off = served_run(recs[0])
     rounds = compare_rounds(recs[0].sched.engine, dev, prompt_len=128,
                             scratch_check=True)
     del recs
     gc.collect()                         # the recorders' hooks form cycles
     torch.cuda.empty_cache()
     return {"launches": launches, "variants": variants, "runs": runs,
-            "max_blocks": max_blocks, "rounds": rounds}
+            "max_blocks": max_blocks, "rounds": rounds,
+            "plane_off": plane_off}
+
+
+def served_run(rec: ServeRecorder) -> dict:
+    """What a serve run gave: tokens by prompt, the captured round keys,
+    the rounds and their CUDA-event times."""
+    eng = rec.sched.continuous_engine
+    return {"tokens": {r.prompt.tobytes(): t for r, t in rec.finished},
+            "keys": set(eng.round_program.rounds)
+            if eng.round_program is not None else set(),
+            "decode_traces": eng.decode_traces, "rounds": eng.rounds,
+            "round_ms": list(eng.round_ms)}
+
+
+OBS_LAYERS = {"sched", "round", "admit", "kv"}
+STATS_EVERY = 4
+
+
+def phase_serve_obs(dev, plane_off: dict) -> dict:
+    """``launch.serve`` at internlm2-1.8b's full width, shared prefix 0,
+    with ``--trace-out``, ``--metrics-out`` and ``--stats-every``: the
+    trace loads and covers the scheduler, round, admission and page-pool
+    layers with one ``round.device`` span a round; the metrics parse; the
+    ``obs:`` lines print; tokens, captured keys and decode traces equal
+    the same run's with the plane off (``phase_serve_full``)."""
+    with tempfile.TemporaryDirectory(prefix="serve-obs-") as tmp:
+        trace_path = os.path.join(tmp, "trace.json")
+        prom_path = os.path.join(tmp, "metrics.prom")
+        rec = ServeRecorder()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = serve_cli.main(SERVE_ARGV + [
+                "--shared-prefix-len", "0", "--trace-out", trace_path,
+                "--metrics-out", prom_path,
+                "--stats-every", str(STATS_EVERY)], observe=rec)
+        printed = out.getvalue()
+        check(rc == 0, f"serve with the plane returned {rc}")
+        check(not TELEMETRY.enabled, "the plane was left on")
+        with open(trace_path) as fh:
+            trace = json.load(fh)
+        with open(prom_path) as fh:
+            metrics_text = fh.read()
+    on = served_run(rec)
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    layers = {e["cat"] for e in spans}
+    n_device = sum(e["name"] == "round.device" for e in spans)
+    prom = parse_prometheus_text(metrics_text)
+    obs_lines = [l for l in printed.splitlines() if l.startswith("obs: ")]
+    check(OBS_LAYERS <= layers, f"serve-obs: trace layers {sorted(layers)}")
+    check(n_device == on["rounds"] > 0,
+          f"serve-obs: {n_device} round.device spans for {on['rounds']} "
+          f"rounds")
+    check(prom.get("repro_kv_pages_allocated", 0) > 0
+          and prom.get("repro_heartbeat_beats", 0) > 0,
+          f"serve-obs: metrics {sorted(prom)[:8]}")
+    check(len(obs_lines) >= 1, "serve-obs: no obs: line was printed")
+    check(on["tokens"].keys() == plane_off["tokens"].keys() and all(
+        np.array_equal(t, plane_off["tokens"][k])
+        for k, t in on["tokens"].items()),
+        "serve-obs: tokens differ from the same run with the plane off")
+    check(on["keys"] == plane_off["keys"]
+          and on["decode_traces"] == plane_off["decode_traces"],
+          f"serve-obs: captured keys {on['keys']} / decode traces "
+          f"{on['decode_traces']} against {plane_off['keys']} / "
+          f"{plane_off['decode_traces']} with the plane off")
+    graph_rounds(rec.sched.continuous_engine, "serve-obs")
+    res = {"spans": len(spans), "layers": sorted(layers),
+           "round_device_spans": n_device, "metrics": len(prom),
+           "obs_lines": len(obs_lines),
+           "round_ms_median_on": float(np.median(on["round_ms"])),
+           "round_ms_median_off": float(np.median(plane_off["round_ms"])),
+           "rounds": on["rounds"]}
+    say("serve-obs", f"internlm2-1.8b full width with the plane: {len(spans)} "
+                     f"spans over layers {sorted(layers)}, {n_device} "
+                     f"round.device spans for {on['rounds']} rounds, "
+                     f"{len(prom)} metrics, {len(obs_lines)} obs: lines "
+                     f"({obs_lines[-1][5:80]}...); tokens, keys and decode "
+                     f"traces as with the plane off; replayed round median "
+                     f"{res['round_ms_median_on']:.2f} ms on, "
+                     f"{res['round_ms_median_off']:.2f} ms off")
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 # the pure-SSM serving path: launch.serve at the published width of mamba2;
@@ -2457,11 +2996,13 @@ def main() -> int:
         cfg = dataclasses.replace(cfg, num_trials=trials)
         kern = phase_kernels_full(errs, tables, dev)
         main_path = phase_main_gather(cfg, tables, dev)
+        loop = risk_loop(cfg, tables, dev, card)
         del tables                       # 4 GB of pinned host memory
         onehot = phase_main_onehot(errs, cfg, dev)
         phase_cli()
         reduced = phase_serve_reduced(dev)
         serving = phase_serve_full(errs, dev)
+        serve_obs = phase_serve_obs(dev, serving.pop("plane_off"))
         kern.update(phase_paged_full(errs, dev, serving["max_blocks"]))
         mamba = phase_serve_mamba2(dev)
         kern.update(phase_ssd_full(errs, dev))
@@ -2498,12 +3039,20 @@ def main() -> int:
              "olmoe-1b-7b": olmoe["launches"]}
     on_paths = {k: sum(p[k] for p in paths.values()) for k in (K3, K4, K5)}
     by_path = {k: {a: p[k] for a, p in paths.items()} for k in (K3, K4, K5)}
+    # the gather on the risk paths, each read just after its own run
+    risk_paths = {"main": main_path["launches"],
+                  **{p: loop[p]["launches"] for p in ("power", "fit", "pairs")}}
+    row_paths = {"main": main_path["row_launches"],
+                 **{p: loop[p]["row_launches"]
+                    for p in ("power", "fit", "pairs")}}
     rows = []
     for name, src, replaces, numbers in (
             (G, agg_src, "src/repro/kernels/aggregate_loss.py:69",
-             {"launches": main_path["launches"], **kern[G]}),
+             {"launches": sum(risk_paths.values()),
+              "launches_by_path": risk_paths, **kern[G]}),
             (R, agg_src, "src/repro/kernels/aggregate_loss.py:69",
-             {"launches": main_path["row_launches"], **kern[R]}),
+             {"launches": sum(row_paths.values()),
+              "launches_by_path": row_paths, **kern[R]}),
             (O, agg_src, "src/repro/kernels/aggregate_loss.py:92",
              {**onehot["chunk"], **{k: v for k, v in onehot.items()
                                     if k != "chunk"},
@@ -2537,6 +3086,7 @@ def main() -> int:
                      **{k: v for k, v in numbers.items() if k not in keys}})
     say("done", f"{time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"main_path": main_path["runs"], "trials": trials}))
+    print(json.dumps({"risk_loop": loop, "serve_obs": serve_obs}))
     print(json.dumps({"serving": {str(k): v for k, v in
                                   serving["runs"].items()},
                       "serving_mamba2": mamba["run"],

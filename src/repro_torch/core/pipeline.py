@@ -102,6 +102,7 @@ class PipelineReport:
     timeline: List[TenantTimeline]     # in staging order
     wall_s: float
     mode: str
+    t0_s: float = 0.0                  # perf_counter() origin of the timeline
 
     def per_tenant_s(self) -> Dict[int, float]:
         return {tl.vdev: tl.compute_s for tl in self.timeline}
@@ -321,4 +322,4 @@ class PipelineExecutor:
             timeline[vdev].device_ms = device_times_ms(
                 origins[chunk.task.pdev], chunk, start, done)
         return PipelineReport(results, [timeline[t.vdev] for t in order],
-                              now(), self.mode)
+                              now(), self.mode, t0)

@@ -65,6 +65,61 @@ def plan(m: pm.PerfModelInputs, objective: str = "time",
     return best
 
 
+@dataclasses.dataclass(frozen=True)
+class TelemetryPlan:
+    """`plan_from_telemetry` result: the deployment plus its provenance."""
+    deployment: Deployment
+    transfer_mode: str           # "sequential" | "concurrent", sim-compared
+    m: pm.PerfModelInputs        # fitted perf-model inputs
+    pw: em.PowerParams           # fitted (or fallback) power params
+    transfer_rms_s: float        # fit residuals, for falsifiability
+    compute_rms_s: float
+
+
+def plan_from_telemetry(tel, objective: str = "time",
+                        max_pdev: int = pm.MAX_PDEV_PLATFORM,
+                        max_tenants: int = 12,
+                        pw: Optional[em.PowerParams] = None,
+                        budget_pdev: Optional[int] = None,
+                        **fit_kw) -> TelemetryPlan:
+    """Plan from recorded telemetry instead of static Table II constants.
+
+    Fits `PerfModelInputs` by least squares over the per-round
+    transfer/compute spans on the plane (``replay.*`` and
+    ``timeline.*`` — see `repro_torch.obs.fit`), fits `PowerParams` from any
+    recorded ``power.sample`` events (falling back to ``pw`` or the
+    paper's K20 set when none were recorded), runs the same search as
+    `plan`, then picks the transfer mode by simulating both under the
+    fitted inputs at the chosen deployment (ties go to sequential, the
+    paper's winner).
+    """
+    from repro_torch.core.simulator import SimInputs, simulate
+    from repro_torch.core.tenancy import TenancyConfig
+    from repro_torch.obs import fit as obs_fit
+
+    pf = obs_fit.fit_perf_inputs(obs_fit.samples_from_telemetry(tel),
+                                 **fit_kw)
+    if pw is None:
+        psamples = obs_fit.power_samples_from_telemetry(tel)
+        pw = (obs_fit.fit_power_params(psamples) if len(psamples) >= 2
+              else em.K20)
+    d = plan(pf.m, objective=objective, max_pdev=max_pdev,
+             max_tenants=max_tenants, pw=pw, budget_pdev=budget_pdev)
+    makespans = {}
+    for mode in ("sequential", "concurrent"):
+        si = SimInputs(TenancyConfig(d.n_pdev, d.tenants_per_pdev, mode),
+                       net=pf.m.net,
+                       compute_time_1pdev=pf.m.compute_time_1pdev,
+                       yet_mb=pf.m.yet_mb, elt_mb=pf.m.elt_mb,
+                       pf_mb=pf.m.pf_mb, power=pw)
+        makespans[mode] = simulate(si).makespan
+    mode = ("sequential"
+            if makespans["sequential"] <= makespans["concurrent"] + 1e-12
+            else "concurrent")
+    return TelemetryPlan(d, mode, pf.m, pw, pf.transfer_rms_s,
+                         pf.compute_rms_s)
+
+
 def full_surface(m: pm.PerfModelInputs, pw: em.PowerParams = em.K20,
                  max_pdev: int = 16, max_tenants: int = 12,
                  ) -> Dict[Tuple[int, int], Deployment]:

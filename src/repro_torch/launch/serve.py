@@ -18,6 +18,9 @@ and drains a synthetic request mix, printing per-tenant utilisation, the
 round-to-round overlap pairs, slot occupancy, page-sharing stats and -- on a
 CUDA device -- the prefill and decode-round times by CUDA events.  Runs on
 the CUDA device unless ``--device cpu`` is given (and fails without one).
+``--trace-out`` / ``--metrics-out`` / ``--stats-every N`` light the
+telemetry plane before the stack is built and write a Chrome trace, write
+Prometheus text, and print an ``obs:`` line every N scheduling steps.
 A pure-SSM arch (mamba2) pages nothing: its rows carry their SSM state in
 the slot table, and ``--shared-prefix-len`` only lengthens the prompts.  A
 MoE arch (olmoe) routes every token top-k over its experts with capacity
@@ -31,10 +34,12 @@ far only runs) ``continuous``; ``--reduced`` is a boolean pair
 with ``default=True`` never can); ``--swap`` defaults off; there is no
 ``--kernel-backend`` -- the device decides (the hand-written kernels for a
 CUDA device, their plain versions on the CPU).  Flags of later slices
-(``--swap``, ``--max-backlog``, ``--mesh``, the journal and crash flags, the
-telemetry exporters, ``--list-archs``) raise ``NotImplementedError`` naming
-the slice, and so does ``--mode overlapped|blocking`` (``--blocking``);
-``--max-batch`` and ``--stage-depth`` arrive with those two schedules.
+(``--swap``, ``--max-backlog``, ``--mesh``, the journal and crash flags,
+``--list-archs``) raise ``NotImplementedError`` naming the slice, and so
+does ``--mode overlapped|blocking`` (``--blocking``); ``--max-batch`` and
+``--stage-depth`` arrive with those two schedules.  Since ``main`` also
+runs inside other programs, the plane it lights starts empty and is turned
+off again when it returns (the reference's process simply exits).
 """
 from __future__ import annotations
 
@@ -49,6 +54,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.pipeline import timeline_overlaps
 from repro_torch.core.tenancy import TenancyConfig, resolve_devices
 from repro_torch.models.model import build_model, param_count
+from repro_torch.obs import TELEMETRY
+from repro_torch.obs.export import stats_line, write_chrome_trace, write_metrics
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.multitenant import (MODES, MultiTenantScheduler,
                                              Request)
@@ -57,9 +64,8 @@ from repro_torch.serving.multitenant import (MODES, MultiTenantScheduler,
 LATER = {"swap": "slice 3", "max_backlog": "slice 3",
          "journal_dir": "slice 3", "checkpoint_every": "slice 3",
          "crash_at_round": "slice 3", "recover": "slice 3",
-         "mesh": "slice 6", "trace_out": "slice 1b",
-         "metrics_out": "slice 1b", "stats_every": "slice 1b",
-         "list_archs": "slice 4", "blocking": "a later slice"}
+         "mesh": "slice 6", "list_archs": "slice 4",
+         "blocking": "a later slice"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -108,10 +114,19 @@ def build_parser() -> argparse.ArgumentParser:
     for flag, kw in (("--max-backlog", dict(type=int)),
                      ("--mesh", dict()), ("--journal-dir", dict()),
                      ("--checkpoint-every", dict(type=int)),
-                     ("--crash-at-round", dict(type=int)),
-                     ("--trace-out", dict()), ("--metrics-out", dict()),
-                     ("--stats-every", dict(type=int))):
+                     ("--crash-at-round", dict(type=int))):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kw)
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome-trace/Perfetto JSON of the run's "
+                         "telemetry spans to PATH (enables the telemetry "
+                         "plane)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write Prometheus text-format metrics to PATH "
+                         "(enables the telemetry plane)")
+    ap.add_argument("--stats-every", type=int, default=0, metavar="N",
+                    help="print a one-line telemetry summary every N "
+                         "scheduling steps (enables the telemetry plane; "
+                         "0 = never)")
     for flag in ("--recover", "--list-archs", "--blocking"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return ap
@@ -127,6 +142,20 @@ def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
                 f"--{name.replace('_', '-')} comes with {slice_} of the port "
                 "(ROADMAP.md)")
     dev = resolve_devices(1, args.device)[0]           # raises: no card
+    obs_on = bool(args.trace_out or args.metrics_out or args.stats_every)
+    if not obs_on:
+        return _serve(args, dev, observe)
+    # light the global plane before the stack is built so every layer
+    # (engine, scheduler, pool, staging) records
+    TELEMETRY.reset().enable()
+    try:
+        return _serve(args, dev, observe)
+    finally:
+        TELEMETRY.disable()
+
+
+def _serve(args, dev: torch.device,
+           observe: Optional[Callable[[Any], None]]) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -166,13 +195,22 @@ def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
                              priority=0 if tier0 else 1))
 
     responses = []
+    steps = 0
     with torch.no_grad():
         while sched.pending():
             r = sched.step()
             if r:
                 responses.extend(r)
+            steps += 1
             if observe is not None:
                 observe(sched)
+            if args.stats_every and steps % args.stats_every == 0:
+                print(stats_line(
+                    TELEMETRY,
+                    keys=("heartbeat.beats", "kv.pages_allocated",
+                          "kv.free_pages", "swap.preemptions",
+                          "swap.restores", "heartbeat.suspects"),
+                    step=steps, pending=sched.pending()))
     sched.drain()                    # nothing left: audits the pool
     n_done = sum(r.outcome == "completed" for r in responses)
     print(f"arch={cfg.name} params={n_params / 1e9:.3f}B device={dev} "
@@ -211,6 +249,14 @@ def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
               f"{live / max(sum(rnd) * 1e-3, 1e-9):.1f} tokens/s over "
               f"round time; peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    if args.trace_out:
+        write_chrome_trace(TELEMETRY, args.trace_out)
+        print(f"trace: {len(TELEMETRY.spans())} spans "
+              f"({TELEMETRY.spans_opened} opened, "
+              f"{TELEMETRY.spans_dropped} dropped) -> {args.trace_out}")
+    if args.metrics_out:
+        write_metrics(TELEMETRY, args.metrics_out)
+        print(f"metrics -> {args.metrics_out}")
     return 0
 
 

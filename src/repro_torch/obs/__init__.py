@@ -10,9 +10,25 @@ Every span and metric name is lowercase, dot-separated:
 ========== ==========================================================
 prefix      layer
 ========== ==========================================================
+``sched``   `serving.multitenant` — scheduler steps, admission passes
+``round``   `serving.continuous` — decode micro-round dispatch/collect
+``admit``   `serving.continuous` — batched admission (plan/prefill)
+``engine``  `serving.engine` — prefill and ``generate``
+``kv``      `serving.kvcache` — paged-pool page accounting
+``heartbeat`` `distributed.fault` — liveness verdicts
+``trace``   first use of a decode round key (`serving.continuous`)
+``admission`` `serving.multitenant` — admissions as timeline entries
 ``transfer`` `core.transfer` — staging-engine chunk windows
-``timeline`` ``TenantTimeline`` entries re-expressed as spans
+``timeline`` ``TenantTimeline`` entries re-expressed as spans (the
+            scheduler's, and risk runs' device windows, `obs.fit`)
+``replay``  `obs.fit` — replayed simulator runs
+``power``   `obs.fit` — (busy_frac, watts) samples for the energy fit
 ========== ==========================================================
+
+`obs.export` writes the plane as a Chrome trace and as Prometheus text;
+`obs.fit` fits ``PerfModelInputs``/``PowerParams`` from it for
+``core.planner.plan_from_telemetry``; `obs.gauge` reads the card's energy
+counter.
 
 Kinds: **spans** (closed ``[t_start, t_end)`` intervals on one monotonic
 clock, `time.perf_counter`; retrospective spans carry ``parent_id=None``),

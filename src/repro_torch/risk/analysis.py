@@ -67,6 +67,7 @@ class RunReport:
     per_tenant_s: Dict[int, float]
     staging_log: List[Dict[str, Any]]
     timeline: Optional[List[TenantTimeline]] = None
+    t0_s: float = 0.0          # perf_counter() origin of the timeline
 
 
 class AggregateRiskAnalysis:
@@ -239,7 +240,8 @@ class AggregateRiskAnalysis:
             for t in tasks:
                 ylt[t.start:t.stop] = rep.results[t.vdev][:t.size].cpu().numpy()
             return RunReport(ylt, time.perf_counter() - t_start,
-                             rep.per_tenant_s(), ex.engine.log, rep.timeline)
+                             rep.per_tenant_s(), ex.engine.log, rep.timeline,
+                             rep.t0_s)
 
         # blocking schedule: stage everything, then compute
         order = reorder_for_stragglers(tasks, straggler_hist)
@@ -267,7 +269,7 @@ class AggregateRiskAnalysis:
             ylt[task.start:task.stop] = out[:task.size].cpu().numpy()
         return RunReport(ylt, time.perf_counter() - t_start,
                          {tl.vdev: tl.compute_s for tl in timeline},
-                         engine.log, timeline)
+                         engine.log, timeline, base)
 
     # ------------------------------------------------------------------
     def input_specs(self, num_trials: Optional[int] = None

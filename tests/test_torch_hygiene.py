@@ -18,7 +18,11 @@ from repro_torch.risk.analysis import AggregateRiskAnalysis
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DIAGNOSTICS = [os.path.join(ROOT, "diagnostics", f)
-               for f in ("f1_internlm2.py", "ssd_head_tiles.py")]
+               for f in ("f1_internlm2.py", "ssd_head_tiles.py",
+                         "risk_pairs.py")]
+EXAMPLES = [os.path.join(ROOT, "examples", f)
+            for f in ("torch_quickstart.py", "torch_risk_realtime.py",
+                      "torch_deployment_planner.py")]
 
 IMPORT_ALL = textwrap.dedent("""
     import importlib, pkgutil, sys
@@ -55,7 +59,9 @@ IMPORT_ALL = textwrap.dedent("""
             "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
             "repro_torch.configs.mamba2_2_7b",
             "repro_torch.kernels.flash_attention", "repro_torch.models.moe",
-            "repro_torch.configs.olmoe_1b_7b"}
+            "repro_torch.configs.olmoe_1b_7b",
+            "repro_torch.core.simulator", "repro_torch.obs.fit",
+            "repro_torch.obs.export", "repro_torch.obs.gauge"}
     assert want <= set(names), want - set(names)
     print("IMPORTED", len(names))
 """)
@@ -76,7 +82,7 @@ def test_sources_name_neither_jax_nor_the_jax_package():
     import re
     pat = re.compile(r"^\s*(import jax|from jax|from repro\b|import repro\b)",
                      re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")] + DIAGNOSTICS
+    files = [os.path.join(ROOT, "chip_smoke.py")] + DIAGNOSTICS + EXAMPLES
     for d, _, fs in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) > 15
@@ -86,7 +92,11 @@ def test_sources_name_neither_jax_nor_the_jax_package():
             "src/repro_torch/configs/mamba2_2_7b.py",
             "src/repro_torch/kernels/flash_attention.py",
             "src/repro_torch/models/moe.py",
-            "src/repro_torch/configs/olmoe_1b_7b.py"} <= names
+            "src/repro_torch/configs/olmoe_1b_7b.py",
+            "src/repro_torch/core/simulator.py",
+            "src/repro_torch/obs/fit.py", "src/repro_torch/obs/export.py",
+            "src/repro_torch/obs/gauge.py", "diagnostics/risk_pairs.py",
+            "examples/torch_deployment_planner.py"} <= names
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
@@ -237,6 +247,28 @@ def test_diagnostics_fail_without_a_card(script):
                           text=True, timeout=600, cwd=ROOT)
     assert proc.returncode == 1
     assert "no CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize("script", EXAMPLES,
+                         ids=[os.path.basename(f) for f in EXAMPLES])
+def test_examples_fail_without_a_card(script):
+    """The port's examples default to the card, like its entry points."""
+    _skip_if_card()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, script], capture_output=True,
+                          text=True, timeout=600, cwd=ROOT, env=env)
+    assert proc.returncode != 0
+    assert "CUDA" in proc.stderr
+
+
+def test_power_gauge_raises_without_a_card():
+    """The gauge reads the driver's energy counter or raises: it never
+    reports made-up watts on a machine without one."""
+    _skip_if_card()
+    from repro_torch.obs.gauge import PowerGauge
+    with pytest.raises(RuntimeError, match="power gauge"):
+        PowerGauge()
 
 
 def test_f1_diagnostic_runs_reduced_on_the_cpu():
