@@ -51,7 +51,14 @@ time) and ``pairs`` (1x2 and 1x4, sequential against concurrent staging in
 repeated ABBA pairs, time and energy, beside the simulator's prediction).
 ``serve-obs`` serves internlm2-1.8b at full width with the telemetry plane
 lit (trace, metrics, ``obs:`` lines) and holds its tokens to the plane-off
-run's.
+run's.  ``serve-slots`` serves the three models at full width through the
+tenant-slot schedules, ``overlapped`` (the reference's default: the decode
+loop of each tenant batch one captured CUDA graph, the next batches
+dispatched under it) against ``blocking`` (``generate`` per batch):
+token-identical, equal to ``generate`` on each padded batch, overlap pairs
+>= 1 and 0; then, on one warm internlm2 engine, blocking, overlapped at
+stage depths 1-3 and continuous on the same requests, and one dispatch
+under ``set_sync_debug_mode("error")``.
 
 Phases: device, build, kernels (aggregate sweep), paged kernels (the
 reference's cases), ssd kernel (the reference's sweep and the edges), flash
@@ -63,7 +70,9 @@ keys, and reduced olmoe), serving (full width, internlm2; then its rounds
 eager against graph), serve-obs, paged kernels (full width), serving (full
 width, mamba2; rounds eager against graph), ssd kernel (full width),
 serving (full width, olmoe; rounds eager against graph), paged decode
-(olmoe's shape), flash kernel (full width).
+(olmoe's shape), flash kernel (full width), serve-slots (full width,
+internlm2, mamba2 and olmoe, overlapped against blocking; the stage-depth
+sweep).
 """
 from __future__ import annotations
 
@@ -115,7 +124,7 @@ from repro_torch.risk.tables import (GENERATE_PEAK_BYTES_PER_EVENT, RiskTables,
 from repro_torch.serving.continuous import ContinuousBatchingEngine
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kvcache import POS_SENTINEL, PagedKVCache
-from repro_torch.serving.multitenant import Request
+from repro_torch.serving.multitenant import MultiTenantScheduler, Request
 
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
 # tensor cores (every kernel here does its arithmetic in plain float32)
@@ -849,8 +858,14 @@ PAIR_TENANTS = (2, 4)        # deployments of the pairs, 1 x tenants
 SMOKE_PAIRS = 8              # pairs a deployment here (diagnostics: more)
 WINDOW_RUNS = 8              # back-to-back runs a member of a pair: ~0.65 s,
                              # 5+ ticks of the energy counter (~100 ms each)
+WINDOW_MIN_TICKS = 3         # a pair's window runs on until it holds these
+WINDOW_MAX_RUNS = 8 * WINDOW_RUNS   # ... and fails past this many runs
 POWER_IDLE_TICKS = 8         # counter ticks the idle window waits for
-POWER_LOOP_S = 1.0           # length of the risk and the K1 windows
+POWER_LOOP_S = 1.0           # least length of the risk and the K1 windows
+POWER_MIN_TICKS = 5          # ... which also run on until they hold these
+POWER_MAX_S = 20.0           # ... and fail past this length
+TICK_WITHIN_S = 0.010        # a tick seen later than this after the read
+                             # before it is left out (its time is unsure)
 T4GB_AGREE = 0.10            # fitted YET time against the 1x1 copy window
 
 
@@ -939,6 +954,19 @@ def smi_power_fields() -> dict:
             "power.draw.instant": '"power.draw.instant"' in text}
 
 
+def window_done(gauge, t_a: float, name: str) -> bool:
+    """Whether a power window begun at ``t_a`` may close: ``POWER_LOOP_S``
+    long and holding ``POWER_MIN_TICKS`` counter ticks seen within
+    ``TICK_WITHIN_S``.  A counter that steps more slowly, or a gauge thread
+    held back while the host was busy, lengthens the window instead of
+    leaving it with too few samples; past ``POWER_MAX_S`` it fails."""
+    s = time.perf_counter() - t_a
+    n = len(gauge.ticks(t_a, within=TICK_WITHIN_S))
+    check(s < POWER_MAX_S or n >= POWER_MIN_TICKS,
+          f"power: {n} counter ticks in the {name} window after {s:.1f} s")
+    return s >= POWER_LOOP_S and n >= POWER_MIN_TICKS
+
+
 def phase_power(engines: RiskEngines, gauge, tel, card: str) -> dict:
     """The card's ``PowerParams`` from its own energy counter: windows of
     different busy share (idle; back-to-back 1x2 risk runs, mostly copies;
@@ -959,7 +987,7 @@ def phase_power(engines: RiskEngines, gauge, tel, card: str) -> dict:
 
     busy, risk_runs = [], 0
     t_a = time.perf_counter()
-    while time.perf_counter() - t_a < POWER_LOOP_S:
+    while not window_done(gauge, t_a, "risk 1x2"):
         busy += obs_fit.busy_windows(ara.run_tenant_chunked(tables))
         risk_runs += 1
     windows["risk 1x2"] = (t_a, time.perf_counter(), busy)
@@ -971,21 +999,27 @@ def phase_power(engines: RiskEngines, gauge, tel, card: str) -> dict:
     t0 = time.perf_counter()
     k1()
     sync(dev)
-    calls = max(1, int(POWER_LOOP_S / max(time.perf_counter() - t0, 1e-4)))
+    # batches of a quarter of POWER_LOOP_S, each timed by its own events
+    batch = max(1, int(POWER_LOOP_S / 4 / max(time.perf_counter() - t0,
+                                              1e-4)))
+    busy, calls = [], 0
     t_a = time.perf_counter()
-    if dev.type == "cuda":
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(calls):
-            k1()
-        b.record()
-        b.synchronize()
-        busy = [(t_a, t_a + a.elapsed_time(b) * 1e-3)]
-    else:
-        for _ in range(calls):
-            k1()
-        busy = [(t_a, time.perf_counter())]
+    while not window_done(gauge, t_a, "K1 loop"):
+        t_b = time.perf_counter()
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(batch):
+                k1()
+            b.record()
+            b.synchronize()
+            busy.append((t_b, t_b + a.elapsed_time(b) * 1e-3))
+        else:
+            for _ in range(batch):
+                k1()
+            busy.append((t_b, time.perf_counter()))
+        calls += batch
     windows["K1 loop"] = (t_a, time.perf_counter(), busy)
     launches = agg.launch_counts[G]      # just after
     rows = agg.launch_counts[R]
@@ -999,16 +1033,19 @@ def phase_power(engines: RiskEngines, gauge, tel, card: str) -> dict:
     ticks = gauge.ticks()
     gaps = [(b[0] - a[0]) * 1e3 for a, b in zip(ticks, ticks[1:])]
     out = {"source": gauge.source, "tick_ms_median": statistics.median(gaps),
+           "tick_ms_max": max(gaps), "late_ticks": gauge.late(TICK_WITHIN_S),
            "smi": smi_power_fields(), "windows": {}}
     say("power", f"gauge: {gauge.source}, a tick every "
-                 f"{out['tick_ms_median']:.1f} ms (median of {len(gaps)}); "
-                 f"nvidia-smi: {out['smi']}")
+                 f"{out['tick_ms_median']:.1f} ms (median of {len(gaps)}, "
+                 f"longest {out['tick_ms_max']:.1f} ms; {out['late_ticks']} "
+                 f"seen more than {TICK_WITHIN_S * 1e3:.0f} ms after the "
+                 f"read before, left out); nvidia-smi: {out['smi']}")
     for name, (lo, hi, busy) in windows.items():
-        samples = obs_fit.record_power_samples(tel, gauge.ticks(lo, hi), busy,
-                                           window=name)
+        samples = obs_fit.record_power_samples(
+            tel, gauge.ticks(lo, hi, within=TICK_WITHIN_S), busy, window=name)
         check(len(samples) >= 2, f"power: {len(samples)} samples in the "
                                  f"{name} window")
-        w = gauge.mean_watts(lo, hi)
+        w = gauge.mean_watts(lo, hi, within=TICK_WITHIN_S)
         frac = obs_fit.busy_seconds(busy, lo, hi) / (hi - lo)
         out["windows"][name] = {"seconds": hi - lo, "busy_frac": frac,
                                 "watts": w, "samples": len(samples)}
@@ -1135,13 +1172,20 @@ def risk_window(ara: AggregateRiskAnalysis, tables: RiskTables, gauge,
     """One member of a pair: ``runs`` back-to-back runs; per run the host
     wall and the CUDA-event device span, for the window its energy from
     the card's counter (mean watts over the ticks inside it times its
-    length)."""
+    length).  The window runs on past ``runs`` until it holds
+    ``WINDOW_MIN_TICKS`` counter ticks, as the power phase's do."""
     sync(dev)
     t_a = time.perf_counter()
     reps = [ara.run_tenant_chunked(tables) for _ in range(runs)]
+    ticks = lambda: len(gauge.ticks(t_a, within=TICK_WITHIN_S))
+    while ticks() < WINDOW_MIN_TICKS:
+        check(len(reps) < WINDOW_MAX_RUNS,
+              f"pairs: {ticks()} counter ticks in a window of {len(reps)} "
+              f"runs")
+        reps.append(ara.run_tenant_chunked(tables))
     t_b = time.perf_counter()
-    w = gauge.mean_watts(t_a, t_b)
-    return {"wall_ms": [r.wall_s * 1e3 for r in reps],
+    w = gauge.mean_watts(t_a, t_b, within=TICK_WITHIN_S)
+    return {"runs": len(reps), "wall_ms": [r.wall_s * 1e3 for r in reps],
             "span_ms": [device_span_ms(r) for r in reps],
             "copy_overlap_ms": [copy_overlap_ms(r) for r in reps],
             "first_kernel_ms": [first_kernel_ms(r) for r in reps],
@@ -1185,8 +1229,8 @@ def phase_pairs(engines: RiskEngines, gauge, fitted: dict, pw,
                      else ("concurrent", "sequential"))
             pair = {m: risk_window(engines(tenants, m), tables, gauge,
                                    WINDOW_RUNS, dev) for m in order}
-            expected += 2 * WINDOW_RUNS * tenants
             for m, w in pair.items():
+                expected += w["runs"] * tenants
                 check(np.allclose(w.pop("ylt"), fitted["ylt_1x1"],
                                   rtol=YLT_RTOL, atol=0.0),
                       f"pairs 1x{tenants} {m}: YLT differs from 1x1")
@@ -1196,11 +1240,12 @@ def phase_pairs(engines: RiskEngines, gauge, fitted: dict, pw,
                 for a, b in zip(s, c)]
         d_span = [statistics.median(a["span_ms"])
                   - statistics.median(b["span_ms"]) for a, b in zip(s, c)]
-        d_j = [a["joules"] / WINDOW_RUNS - b["joules"] / WINDOW_RUNS
+        d_j = [a["joules"] / a["runs"] - b["joules"] / b["runs"]
                for a, b in zip(s, c)]
         pred_ms, pred_j = predicted_gap(tenants, fitted["plan"], pw)
         tag = f"1x{tenants}"
         row = {"pairs": n_pairs, "runs_per_window": WINDOW_RUNS,
+               "longer_windows": sum(w["runs"] > WINDOW_RUNS for w in s + c),
                "delta_wall_ms": d_ms, "delta_span_ms": d_span,
                "delta_j_per_run": d_j,
                "median_delta_wall_ms": statistics.median(d_ms),
@@ -1220,7 +1265,8 @@ def phase_pairs(engines: RiskEngines, gauge, fitted: dict, pw,
                    for m, ws in (("sequential", s), ("concurrent", c))}}
         out[tag] = row
         say("pairs", f"{tag}, {n_pairs} pairs (ABBA) of {WINDOW_RUNS} runs "
-                     f"a window: sequential - concurrent wall median "
+                     f"a window ({row['longer_windows']} run on for counter "
+                     f"ticks): sequential - concurrent wall median "
                      f"{row['median_delta_wall_ms']:+.3f} ms (min "
                      f"{min(d_ms):+.3f}, max {max(d_ms):+.3f}), device span "
                      f"median {row['median_delta_span_ms']:+.3f} ms, energy "
@@ -1870,18 +1916,24 @@ def phase_ssd_small(errs: Errors, dev) -> None:
                f"state {SSD_BF16_STATE}); P 80 and N 256 refused")
 
 
+SSD_FULL_WIDTHS = (SSD_FULL["b"], 4, 1)   # continuous prefill, a tenant
+                                         # slot's, a single admission's
+
+
 def phase_ssd_full(errs: Errors, dev) -> dict:
-    """The SSD kernel at the serving path's full-width prefill shape, held
-    against its plain version, then timed beside its bound; and at a single
-    admission's width.  At width 8 (two heads a block) each row scanned
-    alone (one head a block) gives its bits in the batch."""
+    """The SSD kernel at the serving paths' full-width prefill shapes --
+    the continuous path's width 8, a tenant slot's 4 and a single
+    admission's 1 -- held against its plain version in bf16 (the paths'
+    type) and on the same numbers in float32, then timed beside its bound.
+    At widths 8 and 4 each row scanned alone gives its bits in the
+    batch."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
     f = SSD_FULL
     Q, L = f["chunk"], f["L"]
     pad = (-L) % Q
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for b in (f["b"], 1):
+    for b in SSD_FULL_WIDTHS:
         g = torch.Generator(device=dev).manual_seed(7)
         rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
         x = rnd(b, L, f["H"], f["P"]).to(torch.bfloat16)
@@ -1900,6 +1952,11 @@ def phase_ssd_full(errs: Errors, dev) -> dict:
         hold_ssd(errs, ssd_pair(args, Q), "full width " + shape)
         check(ssd.variant_counts["bf16_mma"] == before + 1,
               f"{shape}: the tensor-core kernel did not run")
+        before = ssd.variant_counts["f32_simt"]
+        hold_ssd(errs, ssd_pair([t.float() for t in args], Q),
+                 f"full width {shape} as float32")
+        check(ssd.variant_counts["f32_simt"] == before + 1,
+              f"{shape} as float32: the float32 kernel did not run")
         ms = cuda_ms(lambda: ssd.ssd_chunked(*args, chunk=Q), 10, flush)
         plain = cuda_ms(lambda: ssd.ssd_chunked_plain(*args, chunk=Q), 3,
                         flush)
@@ -1910,14 +1967,14 @@ def phase_ssd_full(errs: Errors, dev) -> dict:
                    f"({bound / ms:.1%} of it)")
         out[b] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                       shape=shape, head_tile=ht, blocks=blocks)
-        if b == f["b"]:
-            check_two_tilings(b, f["H"], f["P"], sms, "full width")
+        if b > 1:
+            check_two_tilings(b, f["H"], f["P"], sms, f"full width {b}")
             check(ssd_rows_alone_match(args, Q),
                   f"full width {shape}: a row alone (one head a block) "
                   "differs from its bits in the batch (two heads a block)")
         del args, x, dt, a, B, C
     full = out[f["b"]]
-    return {K6: {**full, "library_ms": None,
+    return {K6: {**full, "library_ms": None, "slot_width": out[4],
                  "single_admission": out[1]}}
 
 
@@ -1949,10 +2006,13 @@ FLASH_SWEEP = [
     (1, 50, 50, 32, 1, 16, True, 12),
 ]
 # the full-width shapes of the serving paths: olmoe's prefill at widths 8
-# and 1 (1024-token prompts, MHA), internlm2's at width 8 (GQA 2:1)
+# and 1 (1024-token prompts, MHA), internlm2's at width 8 (GQA 2:1), and
+# both at a tenant slot's width of 4
 FLASH_FULL = [("olmoe-1b-7b width 8", 8, 1024, 16, 16, 128),
               ("olmoe-1b-7b width 1", 1, 1024, 16, 16, 128),
-              ("internlm2-1.8b width 8", 8, 128, 16, 8, 128)]
+              ("internlm2-1.8b width 8", 8, 128, 16, 8, 128),
+              ("olmoe-1b-7b width 4", 4, 1024, 16, 16, 128),
+              ("internlm2-1.8b width 4", 4, 128, 16, 8, 128)]
 
 
 def flash_case(rng, B, Sq, Skv, Hq, Hkv, D, dev, dtype=torch.float32):
@@ -2485,9 +2545,10 @@ def phase_serve_obs(dev, plane_off: dict) -> dict:
 # 384-token prompts bucket to 384, so each prefill's scan runs chunk 256
 # padded to 512 -- two chunks per launch, the state carried between them,
 # and ops.ssd's pad
-MAMBA_ARGV = ["--arch", "mamba2-2.7b", "--no-reduced", "--tenants", "3",
-              "--requests", "12", "--prompt-len", "384", "--new-tokens", "32",
-              "--capacity", "8", "--inner-steps", "4"]
+MAMBA_ARGV = ["--arch", "mamba2-2.7b", "--no-reduced", "--mode",
+              "continuous", "--tenants", "3", "--requests", "12",
+              "--prompt-len", "384", "--new-tokens", "32", "--capacity", "8",
+              "--inner-steps", "4"]
 
 
 def phase_serve_mamba2(dev) -> dict:
@@ -2577,9 +2638,10 @@ def phase_serve_mamba2(dev) -> dict:
 # admission's prefill attention (1024-token prompts, MHA) through the
 # FlashAttention kernel, every decode step's through the paged decode kernel
 # at group size 1
-OLMOE_ARGV = ["--arch", "olmoe-1b-7b", "--no-reduced", "--tenants", "3",
-              "--requests", "12", "--prompt-len", "1024", "--new-tokens", "32",
-              "--capacity", "8", "--page-size", "16", "--inner-steps", "4",
+OLMOE_ARGV = ["--arch", "olmoe-1b-7b", "--no-reduced", "--mode",
+              "continuous", "--tenants", "3", "--requests", "12",
+              "--prompt-len", "1024", "--new-tokens", "32", "--capacity", "8",
+              "--page-size", "16", "--inner-steps", "4",
               "--shared-prefix-len", "0"]
 
 
@@ -2975,6 +3037,454 @@ def compare_rounds(eng: ServingEngine, dev, prompt_len: int,
 
 
 # ---------------------------------------------------------------------------
+# the tenant-slot schedules: launch.serve at full width, overlapped (the
+# default) against blocking -- 12 requests of 3 tenants, 4 a slot, so 3
+# slots of 4 rows a run; then a stage-depth sweep on one warm engine
+SLOT_ARGV = ["--no-reduced", "--tenants", "3", "--requests", "12",
+             "--new-tokens", "32", "--max-batch", "4", "--stage-depth", "1"]
+SLOT_ARCHS = (("internlm2-1.8b", 128), ("mamba2-2.7b", 384),
+              ("olmoe-1b-7b", 1024))
+STAGE_DEPTHS = (1, 2, 3)
+# a warm dispatch's host ms, at most this share of a replayed slot's decode
+# ms: a dispatch stalled behind the slot's loop takes about the whole slot
+# (0.9-1.05 of it on an H100), the host-free path's median a third to a
+# half (host times vary by half between machines)
+DISPATCH_SHARE = 0.75
+SWEEP_REQUESTS = 24          # 6 slots of 4: deeper than the deepest stage
+SWEEP_PASSES = 2             # timed passes, the second in reverse order
+MIB_LEFT_SLOTS = 4           # reserved after the sweep's engines are dropped
+
+
+def serve_requests(cfg, n: int, tenants: int, prompt_len: int,
+                   new_tokens: int) -> list:
+    """The requests ``launch.serve`` submits with no shared prefix and no
+    priority tiers (the same generator, the same draws)."""
+    rng = np.random.default_rng(0)
+    rng.integers(1, cfg.vocab_size, 0)          # the empty shared prefix
+    return [Request(f"tenant-{i % tenants}",
+                    rng.integers(1, cfg.vocab_size,
+                                 prompt_len).astype(np.int32), new_tokens)
+            for i in range(n)]
+
+
+class SlotRecorder:
+    """Records a slot schedule's work on an engine: every batch handed to
+    ``dispatch`` or ``generate`` (prompts, steps), the host ms of each
+    dispatch, and every ``GenerationResult`` in completion order (which is
+    dispatch order).  ``install`` wraps the engine's methods, ``remove``
+    restores them."""
+
+    def __init__(self):
+        self.batches, self.results, self.dispatch_ms = [], [], []
+
+    def install(self, eng: ServingEngine) -> None:
+        dispatch, await_result, generate = (eng.dispatch, eng.await_result,
+                                            eng.generate)
+
+        def rec_dispatch(prompts, steps, **kw):
+            t0 = time.perf_counter()
+            handle = dispatch(prompts, steps, **kw)
+            self.dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+            self.batches.append((np.array(prompts), steps))
+            return handle
+
+        def rec_await(handle):
+            res = await_result(handle)
+            self.results.append(res)
+            return res
+
+        def rec_generate(prompts, steps, **kw):
+            res = generate(prompts, steps, **kw)
+            self.batches.append((np.array(prompts), steps))
+            self.results.append(res)
+            return res
+
+        eng.dispatch, eng.await_result, eng.generate = (
+            rec_dispatch, rec_await, rec_generate)
+
+    @staticmethod
+    def remove(eng: ServingEngine) -> None:
+        for name in ("dispatch", "await_result", "generate"):
+            eng.__dict__.pop(name, None)
+
+    def by_prompt(self, responses) -> dict:
+        """prompt bytes -> tokens: the responses come back slot by slot in
+        dispatch order, each slot's in its batch's row order."""
+        rows = [row for prompts, _ in self.batches for row in prompts]
+        check(len(rows) == len(responses),
+              f"{len(rows)} batch rows for {len(responses)} responses")
+        return {row.tobytes(): r.tokens for row, r in zip(rows, responses)}
+
+    def device_numbers(self) -> dict:
+        """CUDA-event numbers of the recorded slots: prefill and decode ms a
+        slot, decode tokens/s over the decode windows, the device gap from
+        each slot's end to the next one's start, the device span.
+
+        A slot's decode window opens when its prefill has ended and the
+        previous slot's loop is done, whichever is later: a dispatched
+        slot's loop queues behind the previous one on the program's
+        stream, while its prefill runs beside it on another (a negative
+        gap: the next prefill started before this slot's loop ended)."""
+        ev = [r.events for r in self.results]
+        check(all(e is not None for e in ev), "a slot has no CUDA events")
+        ev[-1][2].synchronize()
+        pre = [a.elapsed_time(b) for a, b, _ in ev]
+        dec = [b.elapsed_time(c) - (max(0.0, b.elapsed_time(p[2])) if p
+                                    else 0.0)
+               for p, (_, b, c) in zip([None] + ev[:-1], ev)]
+        gaps = [x[2].elapsed_time(y[0]) for x, y in zip(ev, ev[1:])]
+        toks = [r.tokens.size for r in self.results]
+        return dict(slots=len(ev), prefill_ms=pre, decode_ms=dec,
+                    decode_tokens_per_s=sum(toks) / (sum(dec) * 1e-3),
+                    # without the first slot (a fresh engine's capture)
+                    decode_tokens_per_s_after_first=sum(toks[1:])
+                    / (sum(dec[1:]) * 1e-3) if len(dec) > 1 else None,
+                    gap_ms=gaps, gap_ms_max=max(gaps) if gaps else None,
+                    device_span_ms=ev[0][0].elapsed_time(ev[-1][2]))
+
+
+class SlotServeRecorder(SlotRecorder):
+    """The ``observe`` hook of ``launch.serve.main`` in a slot mode: keeps
+    the scheduler, its responses (in order), the serving wall from the
+    first call (scheduler built, nothing submitted) to the last (the last
+    step), the peak memory of the weights alone, and the engine's work."""
+
+    def __init__(self):
+        super().__init__()
+        self.sched, self.responses = None, []
+        self.t_first = self.t_last = 0.0
+        self.init_peak_gib = None
+
+    def __call__(self, sched) -> None:
+        self.t_last = time.perf_counter()
+        if self.sched is not None:
+            return
+        self.t_first = self.t_last
+        self.init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        self.sched = sched
+        self.install(sched.engine)
+        step = sched.step
+
+        def recording_step():
+            r = step()
+            self.responses.extend(r or [])
+            return r
+
+        sched.step = recording_step
+
+
+def hold_staged_under_decode(tag: str, gaps_ms) -> None:
+    """On the device clock: each slot after the capture slot began its
+    prefill before the previous slot's loop ended, so the host staged it
+    while the device decoded (a host stalled behind the loop starts it
+    after)."""
+    check(all(g < 0 for g in gaps_ms),
+          f"{tag}: a slot's prefill began after the previous slot's loop "
+          f"ended (gaps ms {gaps_ms})")
+
+
+def hold_dispatch_share(tag: str, dispatch_ms: float,
+                        decode_ms: float) -> None:
+    """The host is free under a slot: a warm dispatch (prefill enqueue,
+    copies, replay) returns in at most ``DISPATCH_SHARE`` of a replayed
+    slot's decode, so the overlapped schedule stages the next batch while
+    the device decodes."""
+    check(dispatch_ms <= DISPATCH_SHARE * decode_ms,
+          f"{tag}: a warm dispatch holds the host {dispatch_ms:.1f} ms, over "
+          f"{DISPATCH_SHARE} of a slot's decode ({decode_ms:.1f} ms)")
+
+
+def slot_launches() -> tuple:
+    """The kernel counts of the serving path, and their plain calls."""
+    return ({**fa.launch_counts, **ssd.launch_counts, **pa.launch_counts,
+             **agg.launch_counts},
+            {**fa.plain_counts, **ssd.plain_counts, **pa.plain_counts,
+             **agg.plain_counts})
+
+
+def serve_slots_once(arch: str, prompt_len: int, mode: str, dev) -> dict:
+    """One ``launch.serve.main`` run of ``arch`` at full width in a slot
+    mode: checks and numbers; the overlapped run's tokens are held against
+    ``generate`` on each of its padded batches."""
+    cfg = get_config(arch)
+    rec = SlotServeRecorder()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for m in (agg, pa, fa, ssd):
+        m.reset_counts()                 # just before the serving path
+    rc = serve_cli.main(["--arch", arch, "--prompt-len", str(prompt_len),
+                         "--mode", mode] + SLOT_ARGV, observe=rec)
+    launches, plains = slot_launches()   # just after
+    variants = {K5: dict(fa.variant_counts), K6: dict(ssd.variant_counts)}
+    check(rc == 0, f"serve {arch} {mode} returned {rc}")
+    tag = f"{arch} {mode}"
+    sched, eng = rec.sched, rec.sched.engine
+    SlotRecorder.remove(eng)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    resp = rec.responses
+    check(len(resp) == 12 and all(r.tokens.shape == (32,) for r in resp),
+          f"{tag}: {len(resp)} responses, token counts "
+          f"{sorted({r.tokens.size for r in resp})}")
+    check(all(0 <= int(r.tokens.min()) and int(r.tokens.max())
+              < cfg.vocab_size for r in resp), f"{tag}: token out of vocab")
+    check(sched.pending() == 0 and len(rec.results) == 3
+          and all(b[0].shape == (4, prompt_len) for b in rec.batches),
+          f"{tag}: {len(rec.results)} slots, batches "
+          f"{[b[0].shape for b in rec.batches]}")
+    n_attn = sum(mixer == "attn" for mixer, _ in cfg.block_schedule())
+    want = ({K5: n_attn * 3} if n_attn else {K6: cfg.num_layers * 3})
+    check(all(launches[k] == n for k, n in want.items())
+          and all(v == 0 for k, v in launches.items() if k not in want)
+          and not any(plains.values()),
+          f"{tag}: launches {launches} (expected {want}), plain calls "
+          f"{plains}")
+    (kname, n), = want.items()
+    check(variants[kname] == {"bf16_mma": n, "f32_simt": 0},
+          f"{tag}: {kname} variants {variants[kname]}")
+    ov = timeline_overlaps(sched.timeline)
+    prog = eng.decode_program
+    out = dict(wall_ms=(rec.t_last - rec.t_first) * 1e3,
+               overlap_pairs=sum(ov), pairs=len(ov), peak_gib=peak,
+               init_peak_gib=rec.init_peak_gib, launches={kname: n},
+               **rec.device_numbers())
+    if mode == "overlapped":
+        check(sum(ov) >= 1, f"{tag}: no overlap pair ({ov})")
+        check(prog is not None and len(prog.loops) == 1
+              and sum(c.replays for c in prog.loops.values()) == 2,
+              f"{tag}: decode loops {list(prog.loops) if prog else None}")
+        cap = next(iter(prog.loops.values()))
+        out.update(keys=len(prog.loops), capture_ms=cap.capture_ms,
+                   dispatch_ms=rec.dispatch_ms,
+                   dispatch_ms_warm=float(np.median(rec.dispatch_ms[1:])))
+        hold_staged_under_decode(tag, out["gap_ms"][1:])
+        # the overlapped tokens against generate on the same padded batch
+        got = rec.by_prompt(resp)
+        for prompts, steps in rec.batches:
+            gen = ServingEngine.generate(eng, prompts, steps).tokens
+            for p, row in zip(prompts, gen):
+                check(np.array_equal(got[p.tobytes()], row),
+                      f"{tag}: a request's tokens differ from generate on "
+                      f"its padded batch ({got[p.tobytes()][:8]} / "
+                      f"{row[:8]})")
+    else:
+        check(sum(ov) == 0, f"{tag}: {sum(ov)} overlap pairs, expected 0")
+        check(prog is None, f"{tag}: the blocking run made graphs")
+    out["tokens"] = rec.by_prompt(resp)
+    say("serve-slots", f"{tag} full width through launch.serve: "
+        + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                    for k, v in out.items()
+                    if k not in ("tokens", "prefill_ms", "decode_ms",
+                                 "gap_ms", "dispatch_ms"))
+        + f"; prefill ms {[round(x, 2) for x in out['prefill_ms']]}, decode "
+          f"ms {[round(x, 2) for x in out['decode_ms']]}, gaps ms "
+          f"{[round(x, 4) for x in out['gap_ms']]}")
+    del rec, sched, eng, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_schedule(eng: ServingEngine, ceng, reqs, mode: str, depth: int,
+                 dev) -> dict:
+    """The requests through a scheduler built directly on a warm engine:
+    serving wall (submit to drain), peak memory, and for the slot modes
+    the slots' CUDA-event numbers, for continuous the rounds'."""
+    rec, finished = SlotRecorder(), {}
+    if mode != "continuous":
+        rec.install(eng)
+    else:
+        collect = ceng.collect
+
+        def recording_collect(handle):
+            res = collect(handle)
+            finished.update((r.prompt.tobytes(), t)
+                            for r, t, _ in res.finished)
+            return res
+
+        ceng.collect = recording_collect
+    rounds0, steps0 = (len(ceng.round_ms), ceng.row_steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    sched = MultiTenantScheduler(eng, max_batch=4,
+                                 tenancy=TenancyConfig(1, 3), mode=mode,
+                                 stage_depth=depth, continuous_engine=ceng)
+    for r in reqs:
+        sched.submit(Request(r.tenant, r.prompt.copy(), r.max_new_tokens))
+    resp = sched.drain()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    SlotRecorder.remove(eng)
+    ceng.__dict__.pop("collect", None)
+    check(len(resp) == len(reqs)
+          and all(r.tokens.shape == (32,) for r in resp),
+          f"sweep {mode}: {len(resp)} responses")
+    ov = timeline_overlaps(sched.timeline)
+    out = dict(wall_ms=wall, overlap_pairs=sum(ov), pairs=len(ov),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    if mode == "continuous":
+        rnd = ceng.round_ms[rounds0:]
+        out.update(rounds=len(rnd), round_ms_median=float(np.median(rnd)),
+                   decode_tokens_per_s=(ceng.row_steps - steps0)
+                   / (sum(rnd) * 1e-3))
+    else:
+        out.update(rec.device_numbers())
+        if rec.dispatch_ms:
+            out["dispatch_ms_median"] = float(np.median(rec.dispatch_ms))
+    out["tokens"] = finished if mode == "continuous" else rec.by_prompt(resp)
+    return out
+
+
+def phase_slot_sweep(dev) -> dict:
+    """On one internlm2-1.8b engine at full width, 24 of ``launch.serve``'s
+    requests: blocking, overlapped at stage depths 1, 2 and 3, and
+    continuous (capacity 8, the serving main path's engine).  Every mode
+    runs once to warm (the decode loop's key and the round's key are
+    captured there, and timed apart), then ``SWEEP_PASSES`` timed passes,
+    the second in reverse order; each overlapped pass holds its median
+    dispatch to ``DISPATCH_SHARE`` of a slot's decode and every slot's
+    prefill begun under the previous slot's decode.  Then one warm
+    dispatch under ``set_sync_debug_mode("error")``, the keys held, and the
+    reserved memory left once both engines are dropped."""
+    cfg = get_config("internlm2-1.8b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
+    ceng = ContinuousBatchingEngine(eng, capacity=8, page_size=16,
+                                    inner_steps=4, max_prompt_len=256,
+                                    device=dev)
+    reqs = serve_requests(cfg, SWEEP_REQUESTS, 3, 128, 32)
+    modes = ([("blocking", 1)] + [("overlapped", d) for d in STAGE_DEPTHS]
+             + [("continuous", 1)])
+    name = lambda m, d: m if m != "overlapped" else f"overlapped depth {d}"
+    warm = {name(m, d): run_schedule(eng, ceng, reqs, m, d, dev)
+            for m, d in modes}
+    prog = eng.decode_program
+    check(prog is not None and len(prog.loops) == 1,
+          f"sweep: decode loop keys {list(prog.loops) if prog else None}")
+    capture_ms = next(iter(prog.loops.values())).capture_ms
+    round_capture_ms = [c.capture_ms
+                        for c in ceng.round_program.rounds.values()]
+    timed = {name(m, d): [] for m, d in modes}
+    for p in range(SWEEP_PASSES):
+        for m, d in (modes if p % 2 == 0 else modes[::-1]):
+            timed[name(m, d)].append(run_schedule(eng, ceng, reqs, m, d,
+                                                  dev))
+    same = lambda a, b: a.keys() == b.keys() and all(
+        np.array_equal(a[k], b[k]) for k in a)
+    base = warm["blocking"]["tokens"]
+    check(len(base) == SWEEP_REQUESTS
+          and all(same(v["tokens"], base) for k, v in warm.items()
+                  if k != "continuous")
+          and all(same(r["tokens"], warm[k]["tokens"])
+                  for k, runs in timed.items() for r in runs),
+          "sweep: the slot schedules' tokens differ between modes or runs")
+    # agreement of continuous with the slot batches is a number (bf16
+    # GEMMs of 8 slot rows against batches of 4)
+    cont = warm["continuous"]["tokens"]
+    check(cont.keys() == base.keys(), "sweep: continuous served other "
+                                      "requests")
+    cont_same = sum(np.array_equal(cont[k], base[k]) for k in base)
+    for k, runs in timed.items():
+        if k.startswith("overlapped"):
+            check(all(r["overlap_pairs"] >= 1 for r in runs),
+                  f"sweep {k}: no overlap pair")
+            for r in runs:
+                hold_dispatch_share(f"sweep {k}", r["dispatch_ms_median"],
+                                    float(np.median(r["decode_ms"])))
+                hold_staged_under_decode(f"sweep {k}", r["gap_ms"])
+        if k == "blocking":
+            check(all(r["overlap_pairs"] == 0 for r in runs),
+                  "sweep blocking: overlap pairs")
+    # one warm dispatch with any host synchronisation an error
+    prompts = np.stack([r.prompt for r in reqs[:4]])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        handle = eng.dispatch(prompts, 32)
+        sync_free_ms = (time.perf_counter() - t0) * 1e3
+    except RuntimeError as e:
+        raise PhaseFailed(f"a warm dispatch synchronised the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng.await_result(handle)
+    check(len(prog.loops) == 1, "the sync-checked dispatch made a new key")
+    keys = len(prog.loops)
+    held_mib = (torch.cuda.memory_reserved(dev) - reserved0) / 2**20
+    del eng, ceng, prog, handle
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_mib = (torch.cuda.memory_reserved(dev) - reserved0) / 2**20
+    check(left_mib <= MIB_LEFT_SLOTS,
+          f"sweep: {left_mib:.1f} MiB still reserved after the engines "
+          f"were dropped ({held_mib:.1f} MiB while they lived)")
+    summary = {}
+    for k, runs in timed.items():
+        med = lambda f: float(np.median([r[f] for r in runs if f in r])) \
+            if any(f in r for r in runs) else None
+        summary[k] = dict(wall_ms=[r["wall_ms"] for r in runs],
+                          wall_ms_median=med("wall_ms"),
+                          decode_tokens_per_s=med("decode_tokens_per_s"),
+                          gap_ms_max=med("gap_ms_max"),
+                          dispatch_ms_median=med("dispatch_ms_median"),
+                          device_span_ms=med("device_span_ms"),
+                          round_ms_median=med("round_ms_median"),
+                          overlap_pairs=[r["overlap_pairs"] for r in runs],
+                          pairs=runs[0]["pairs"],
+                          peak_gib=max(r["peak_gib"] for r in runs))
+        say("serve-slots", f"sweep {k} (internlm2-1.8b, {SWEEP_REQUESTS} "
+            f"requests, warm): " + ", ".join(
+                f"{a}={v:.4g}" if isinstance(v, float) else f"{a}={v}"
+                for a, v in summary[k].items()))
+    out = dict(modes=summary, capture_ms=capture_ms,
+               round_capture_ms=round_capture_ms, keys_held=keys,
+               sync_checked_dispatch_ms=sync_free_ms,
+               continuous_requests_equal_to_slots=cont_same,
+               reserved_mib_held=held_mib,
+               reserved_mib_left_after_drop=left_mib)
+    say("serve-slots", f"sweep: decode loop capture {capture_ms:.1f} ms "
+        f"(round capture {round_capture_ms} ms), {keys} key held; a warm "
+        f"dispatch under set_sync_debug_mode('error') in {sync_free_ms:.2f} "
+        f"ms; continuous gives the slot schedules' tokens for "
+        f"{cont_same} "
+        f"of {SWEEP_REQUESTS} requests; reserved {held_mib:.1f} MiB while "
+        f"the engines lived, {left_mib:.1f} MiB after they were dropped")
+    return out
+
+
+def phase_serve_slots(dev) -> dict:
+    """The tenant-slot path: ``launch.serve.main`` at full width for
+    internlm2-1.8b, mamba2-2.7b and olmoe-1b-7b, overlapped then blocking
+    (token-identical, overlap pairs >= 1 and 0, K5 or K6 on every prefill,
+    each replayed slot's prefill begun under the previous slot's decode);
+    then the internlm2 sweep on one warm engine."""
+    out, launches = {}, {}
+    for arch, prompt_len in SLOT_ARCHS:
+        runs = {m: serve_slots_once(arch, prompt_len, m, dev)
+                for m in ("overlapped", "blocking")}
+        a, b = (runs[m].pop("tokens") for m in ("overlapped", "blocking"))
+        check(len(a) == 12 and a.keys() == b.keys()
+              and all(np.array_equal(a[k], b[k]) for k in a),
+              f"{arch}: overlapped and blocking tokens differ")
+        launches[arch] = {k: runs["overlapped"]["launches"].get(k, 0)
+                          + runs["blocking"]["launches"].get(k, 0)
+                          for k in (K5, K6)}
+        out[arch] = runs
+        o, b = runs["overlapped"], runs["blocking"]
+        say("serve-slots", f"{arch}: overlapped and blocking token-identical"
+            f" and equal to generate; wall ms {o['wall_ms']:.1f} / "
+            f"{b['wall_ms']:.1f}, decode tokens/s after the first slot "
+            f"{o['decode_tokens_per_s_after_first']:.1f} / "
+            f"{b['decode_tokens_per_s_after_first']:.1f}, device gap between "
+            f"slots ms {o['gap_ms']} / {b['gap_ms']}")
+    out["sweep"] = phase_slot_sweep(dev)
+    return {"runs": out, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3010,6 +3520,7 @@ def main() -> int:
         kern[K3]["olmoe_group1"] = phase_paged_olmoe(
             errs, dev, olmoe["run"]["max_blocks"])
         kern.update(phase_flash_full(errs, dev))
+        slots = phase_serve_slots(dev)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3036,7 +3547,9 @@ def main() -> int:
     flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     # launches on the serving paths, each read just after its own run
     paths = {"internlm2-1.8b": serving["launches"],
-             "olmoe-1b-7b": olmoe["launches"]}
+             "olmoe-1b-7b": olmoe["launches"],
+             **{f"{a} slots": {K3: 0, K4: 0, **n}
+                for a, n in slots["launches"].items() if n[K5]}}
     on_paths = {k: sum(p[k] for p in paths.values()) for k in (K3, K4, K5)}
     by_path = {k: {a: p[k] for a, p in paths.items()} for k in (K3, K4, K5)}
     # the gather on the risk paths, each read just after its own run
@@ -3066,7 +3579,12 @@ def main() -> int:
              {"launches": on_paths[K4], "launches_by_path": by_path[K4],
               **kern[K4]}),
             (K6, ssd_src, "src/repro/kernels/ssd_scan.py:29",
-             {"launches": mamba["launches"], **kern[K6]}),
+             {"launches": mamba["launches"]
+              + slots["launches"]["mamba2-2.7b"][K6],
+              "launches_by_path": {
+                  "mamba2-2.7b": mamba["launches"],
+                  "mamba2-2.7b slots": slots["launches"]["mamba2-2.7b"][K6]},
+              **kern[K6]}),
             (K5, flash_src, "src/repro/kernels/flash_attention.py:32",
              {"launches": on_paths[K5], "launches_by_path": by_path[K5],
               "variant_launches_by_path": {
@@ -3093,6 +3611,7 @@ def main() -> int:
                       "serving_olmoe": olmoe["run"],
                       "serving_reduced": reduced,
                       "serving_rounds": serving["rounds"]}))
+    print(json.dumps({"serve_slots": slots["runs"]}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,45 +1,59 @@
-"""Multi-tenant serving driver (continuous batching over a paged KV cache).
+"""Multi-tenant serving driver.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
         --no-reduced --tenants 3 --requests 12 --prompt-len 128 \\
-        --new-tokens 32 --capacity 8 --shared-prefix-len 64
+        --new-tokens 32 --max-batch 4 --stage-depth 1
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+        --no-reduced --mode continuous --tenants 3 --requests 12 \\
+        --prompt-len 128 --new-tokens 32 --capacity 8 --shared-prefix-len 64
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \\
-        --no-reduced --tenants 3 --requests 12 --prompt-len 384 \\
-        --new-tokens 32 --capacity 8
+        --no-reduced --mode continuous --prompt-len 384 --new-tokens 32 \\
+        --capacity 8
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
-        --no-reduced --tenants 3 --requests 12 --prompt-len 1024 \\
-        --new-tokens 32 --capacity 8
+        --no-reduced --mode continuous --prompt-len 1024 --new-tokens 32 \\
+        --capacity 8
 
 Builds the model (weights drawn from ``--seed``, at full width with
-``--no-reduced``), spins up the multi-tenant scheduler in continuous mode
-and drains a synthetic request mix, printing per-tenant utilisation, the
-round-to-round overlap pairs, slot occupancy, page-sharing stats and -- on a
-CUDA device -- the prefill and decode-round times by CUDA events.  Runs on
-the CUDA device unless ``--device cpu`` is given (and fails without one).
-``--trace-out`` / ``--metrics-out`` / ``--stats-every N`` light the
-telemetry plane before the stack is built and write a Chrome trace, write
-Prometheus text, and print an ``obs:`` line every N scheduling steps.
-A pure-SSM arch (mamba2) pages nothing: its rows carry their SSM state in
-the slot table, and ``--shared-prefix-len`` only lengthens the prompts.  A
-MoE arch (olmoe) routes every token top-k over its experts with capacity
-per routing group, so its rows are coupled (see
+``--no-reduced``), spins up the multi-tenant scheduler and drains a
+synthetic request mix, printing per-tenant utilisation and the realised
+overlap pairs.  ``--mode`` selects the schedule:
+
+* ``overlapped`` (the default) -- tenant-slot batching (``--max-batch``
+  requests of one tenant a slot) with up to ``--stage-depth`` batches
+  dispatched under the running decode loop (on a CUDA device one captured
+  graph per loop key);
+* ``blocking`` (also ``--blocking``) -- ``generate`` per slot, the A/B
+  baseline;
+* ``continuous`` -- continuous batching over a paged KV cache (also prints
+  slot occupancy and page-sharing stats).
+
+On a CUDA device it also prints the prefill and decode times by CUDA
+events.  Runs on the CUDA device unless ``--device cpu`` is given (and
+fails without one).  ``--trace-out`` / ``--metrics-out`` / ``--stats-every
+N`` light the telemetry plane before the stack is built and write a Chrome
+trace, write Prometheus text, and print an ``obs:`` line every N scheduling
+steps.  A pure-SSM arch (mamba2) pages nothing: its rows carry their SSM
+state in the slot table, and ``--shared-prefix-len`` only lengthens the
+prompts.  A MoE arch (olmoe) routes every token top-k over its experts with
+capacity per routing group, so its rows are coupled (see
 ``serving/continuous.py``).
 
 The flags are the JAX package's ``repro.launch.serve`` as far as this slice
-of the port reaches.  Deliberate differences: ``--mode`` defaults to (and so
-far only runs) ``continuous``; ``--reduced`` is a boolean pair
-(``--no-reduced`` runs the published width; the reference's ``store_true``
-with ``default=True`` never can); ``--swap`` defaults off; there is no
-``--kernel-backend`` -- the device decides (the hand-written kernels for a
-CUDA device, their plain versions on the CPU).  Flags of later slices
-(``--swap``, ``--max-backlog``, ``--mesh``, the journal and crash flags,
-``--list-archs``) raise ``NotImplementedError`` naming the slice, and so
-does ``--mode overlapped|blocking`` (``--blocking``); ``--max-batch`` and
-``--stage-depth`` arrive with those two schedules.  Since ``main`` also
-runs inside other programs, the plane it lights starts empty and is turned
-off again when it returns (the reference's process simply exits).
+of the port reaches.  Deliberate differences: ``--reduced`` is a boolean
+pair (``--no-reduced`` runs the published width; the reference's
+``store_true`` with ``default=True`` never can); ``--swap`` defaults off;
+there is no ``--kernel-backend`` -- the device decides (the hand-written
+kernels for a CUDA device, their plain versions on the CPU); tier-0
+requests are submitted with the rest, not held back to land mid-flight
+(the reference does so to show preemption, which is slice 3).  Flags of
+later slices (``--swap``, ``--max-backlog``, ``--mesh``, the journal and
+crash flags, ``--list-archs``) raise ``NotImplementedError`` naming the
+slice.  Since ``main`` also runs inside other programs, the plane it lights
+starts empty and is turned off again when it returns (the reference's
+process simply exits).
 """
 from __future__ import annotations
 
@@ -64,8 +78,7 @@ from repro_torch.serving.multitenant import (MODES, MultiTenantScheduler,
 LATER = {"swap": "slice 3", "max_backlog": "slice 3",
          "journal_dir": "slice 3", "checkpoint_every": "slice 3",
          "crash_at_round": "slice 3", "recover": "slice 3",
-         "mesh": "slice 6", "list_archs": "slice 4",
-         "blocking": "a later slice"}
+         "mesh": "slice 6", "list_archs": "slice 4"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,15 +95,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=8)
-    ap.add_argument("--mode", choices=MODES, default="continuous",
-                    help="serving schedule; the port runs 'continuous' so "
-                         "far")
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="slot modes: requests of one tenant a batch")
+    ap.add_argument("--mode", choices=MODES, default=None,
+                    help="serving schedule (default: overlapped)")
+    ap.add_argument("--blocking", action="store_true",
+                    help="legacy alias for --mode blocking")
+    ap.add_argument("--stage-depth", type=int, default=1,
+                    help="overlapped mode: batches staged ahead of the "
+                         "one being awaited")
     ap.add_argument("--capacity", type=int, default=4,
-                    help="slot-table rows")
+                    help="continuous mode: slot-table rows")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="KV-cache page size (tokens)")
+                    help="continuous mode: KV-cache page size (tokens)")
     ap.add_argument("--inner-steps", type=int, default=4,
-                    help="decode steps per micro-round")
+                    help="continuous mode: decode steps per micro-round")
     ap.add_argument("--prefix-sharing", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="refcounted prefix sharing + copy-on-write over "
@@ -127,7 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print a one-line telemetry summary every N "
                          "scheduling steps (enables the telemetry plane; "
                          "0 = never)")
-    for flag in ("--recover", "--list-archs", "--blocking"):
+    for flag in ("--recover", "--list-archs"):
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     return ap
 
@@ -165,8 +184,11 @@ def _serve(args, dev: torch.device,
     del params                       # the engine keeps its compute copy
     preserve = {"never": False, "reuse": True,
                 "always": "always"}[args.preserve_pristine]
+    mode = args.mode or ("blocking" if args.blocking else "overlapped")
     sched = MultiTenantScheduler(
-        engine, tenancy=TenancyConfig(1, args.tenants), mode=args.mode,
+        engine, max_batch=args.max_batch,
+        tenancy=TenancyConfig(1, args.tenants), mode=mode,
+        stage_depth=args.stage_depth,
         continuous=dict(capacity=args.capacity, page_size=args.page_size,
                         inner_steps=args.inner_steps,
                         prefix_sharing=args.prefix_sharing,
@@ -226,7 +248,32 @@ def _serve(args, dev: torch.device,
         print(f"latency p50={np.percentile(lat, 50)*1e3:.1f}ms "
               f"p99={np.percentile(lat, 99)*1e3:.1f}ms")
     ov = timeline_overlaps(sched.timeline)
-    print(f"schedule={args.mode} overlap_pairs={sum(ov)}/{len(ov)} "
+    if mode != "continuous":
+        print(f"schedule={mode} overlap_pairs={sum(ov)}/{len(ov)} "
+              f"(staging of slot k+1 inside slot k's decode window)")
+        prog = engine.decode_program
+        if prog is not None:
+            print(f"decode loops: {len(prog.loops)} keys captured as CUDA "
+                  f"graphs (capture ms "
+                  f"{[round(c.capture_ms, 1) for c in prog.loops.values()]}"
+                  f"), {sum(c.replays for c in prog.loops.values())} "
+                  f"replays; peak memory "
+                  f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    else:
+        _report_continuous(sched, dev, ov)
+    if args.trace_out:
+        write_chrome_trace(TELEMETRY, args.trace_out)
+        print(f"trace: {len(TELEMETRY.spans())} spans "
+              f"({TELEMETRY.spans_opened} opened, "
+              f"{TELEMETRY.spans_dropped} dropped) -> {args.trace_out}")
+    if args.metrics_out:
+        write_metrics(TELEMETRY, args.metrics_out)
+        print(f"metrics -> {args.metrics_out}")
+    return 0
+
+
+def _report_continuous(sched, dev: torch.device, ov) -> None:
+    print(f"schedule=continuous overlap_pairs={sum(ov)}/{len(ov)} "
           f"(admission + dispatch of round k+1 inside round k's window)")
     eng = sched.continuous_engine
     print(f"micro-rounds={eng.rounds} x {eng.inner_steps} steps, "
@@ -249,15 +296,6 @@ def _serve(args, dev: torch.device,
               f"{live / max(sum(rnd) * 1e-3, 1e-9):.1f} tokens/s over "
               f"round time; peak memory "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    if args.trace_out:
-        write_chrome_trace(TELEMETRY, args.trace_out)
-        print(f"trace: {len(TELEMETRY.spans())} spans "
-              f"({TELEMETRY.spans_opened} opened, "
-              f"{TELEMETRY.spans_dropped} dropped) -> {args.trace_out}")
-    if args.metrics_out:
-        write_metrics(TELEMETRY, args.metrics_out)
-        print(f"metrics -> {args.metrics_out}")
-    return 0
 
 
 if __name__ == "__main__":

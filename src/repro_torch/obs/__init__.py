@@ -13,10 +13,12 @@ prefix      layer
 ``sched``   `serving.multitenant` — scheduler steps, admission passes
 ``round``   `serving.continuous` — decode micro-round dispatch/collect
 ``admit``   `serving.continuous` — batched admission (plan/prefill)
-``engine``  `serving.engine` — prefill and ``generate``
+``engine``  `serving.engine` — prefill, ``generate``, ``dispatch``,
+            ``await``
 ``kv``      `serving.kvcache` — paged-pool page accounting
 ``heartbeat`` `distributed.fault` — liveness verdicts
-``trace``   first use of a decode round key (`serving.continuous`)
+``trace``   first use of a decode round key (`serving.continuous`) or
+            of a decode loop key (`serving.engine`)
 ``admission`` `serving.multitenant` — admissions as timeline entries
 ``transfer`` `core.transfer` — staging-engine chunk windows
 ``timeline`` ``TenantTimeline`` entries re-expressed as spans (the

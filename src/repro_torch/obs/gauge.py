@@ -7,9 +7,13 @@ a thread and keeps each ``(perf_counter time, joules)`` at which the value
 changed: a *tick*.  The energy between two ticks over the time between them
 is the board's mean power over that interval, exact to the polling period
 (``POLL_S``) at each end.  The thread sleeps between reads, so it takes
-neither a core nor the GIL from the run it measures.  ``nvidia-smi``'s ``power.draw`` is a one-second average on
-Ampere and later cards, which would smear windows shorter than that; the
-counter does not.
+neither a core nor the GIL from the run it measures.  A busy host can hold
+the thread back; each tick keeps the time since the read before it, so a
+tick seen late can be left out (``within=``): the two intervals around it
+then merge into one whose energy and length are both exact.
+``nvidia-smi``'s ``power.draw`` is a one-second average on Ampere and
+later cards, which would smear windows shorter than that; the counter does
+not.
 
 The library ships with the NVIDIA driver (``libnvidia-ml.so.1``), so
 nothing is installed for it.  The gauge never makes up a reading: it raises
@@ -49,7 +53,8 @@ class PowerGauge:
             f"nvmlDeviceGetHandleByIndex_v2({index})")
         self._mj = ctypes.c_ulonglong()
         self.read_j()                  # raises where there is no counter
-        self._ticks: List[Tuple[float, float]] = []
+        # (time, joules, seconds since the read before it) per tick
+        self._ticks: List[Tuple[float, float, float]] = []
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -80,13 +85,15 @@ class PowerGauge:
     def _run(self) -> None:
         try:
             last = self.read_j()         # the value before the first tick
+            t_last = -math.inf           # untimed: a first-poll tick is late
             while not self._stop.wait(POLL_S):
                 t = time.perf_counter()
                 e = self.read_j()        # the ctypes call drops the GIL
                 if e != last:
                     with self._lock:
-                        self._ticks.append((t, e))
+                        self._ticks.append((t, e, t - t_last))
                     last = e
+                t_last = t
         except RuntimeError as e:        # surfaced by ticks() and close()
             self.errors.append(e)
 
@@ -108,14 +115,22 @@ class PowerGauge:
         return False
 
     # -- readings ---------------------------------------------------------
-    def ticks(self, lo: float = -math.inf, hi: float = math.inf
-              ) -> List[Tuple[float, float]]:
+    def ticks(self, lo: float = -math.inf, hi: float = math.inf,
+              within: float = math.inf) -> List[Tuple[float, float]]:
         """The ticks seen within ``[lo, hi]`` (perf_counter seconds), in
-        time order: ``(time, joules)``."""
+        time order: ``(time, joules)``; with ``within``, only those seen at
+        most ``within`` seconds after the read before them."""
         if self.errors:
             raise self.errors[0]
         with self._lock:
-            return [(t, e) for t, e in self._ticks if lo <= t <= hi]
+            return [(t, e) for t, e, d in self._ticks
+                    if lo <= t <= hi and d <= within]
+
+    def late(self, within: float) -> int:
+        """How many ticks were seen more than ``within`` seconds after the
+        read before them."""
+        with self._lock:
+            return sum(d > within for _, _, d in self._ticks)
 
     def wait_ticks(self, n: int) -> None:
         """Block until ``n`` more ticks than now have been seen."""
@@ -135,11 +150,13 @@ class PowerGauge:
                                    f"{WAIT_TIMEOUT_S} s")
             time.sleep(0.005)
 
-    def mean_watts(self, lo: float, hi: float) -> float:
-        """Mean board power over the ticks within ``[lo, hi]``: the energy
-        between the first and the last over the time between them.  Raises
-        when the window holds fewer than two ticks."""
-        tk = self.ticks(lo, hi)
+    def mean_watts(self, lo: float, hi: float,
+                   within: float = math.inf) -> float:
+        """Mean board power over the ticks within ``[lo, hi]`` (and
+        ``within``, as in :meth:`ticks`): the energy between the first and
+        the last over the time between them.  Raises when the window holds
+        fewer than two ticks."""
+        tk = self.ticks(lo, hi, within)
         if len(tk) < 2:
             raise RuntimeError(
                 f"power gauge: {len(tk)} counter ticks in a window of "

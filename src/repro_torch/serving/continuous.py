@@ -76,14 +76,15 @@ import torch
 
 from repro_torch.configs import ATTN, MOE, NONE, ArchConfig
 from repro_torch.core.tenancy import resolve_devices
-from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import (apply_embedding, apply_rmsnorm,
                                        apply_unembed, pad_vocab)
 from repro_torch.models.ssm import apply_ssm_decode, init_ssm_state
 from repro_torch.models.transformer import apply_ffn, stage_view
 from repro_torch.obs.telemetry import Telemetry, get_telemetry
-from repro_torch.serving.engine import (ServingEngine, resolve_extra_inputs,
-                                        sample_rows, to_device)
+from repro_torch.serving.engine import (CudaGraphs, ServingEngine,
+                                        capture_counted, count_replay,
+                                        resolve_extra_inputs, sample_rows,
+                                        to_device)
 from repro_torch.serving.kvcache import (POS_SENTINEL, PagedKVCache,
                                          paged_attention_decode,
                                          paged_admit, ssm_subs,
@@ -156,50 +157,6 @@ def _addresses(tree: Any, path: str = "") -> List[Tuple[str, int]]:
     return []
 
 
-class CudaGraphs:
-    """What a :class:`RoundProgram` needs of one CUDA device: a capture
-    stream and a graph memory pool that live as long as the engine, eager
-    work on that stream, capture, and the buffers a capture read besides
-    the engine's state."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        with torch.cuda.device(device):
-            self.stream = torch.cuda.Stream(device)
-            self.pool = torch.cuda.graph_pool_handle()
-
-    def run_beside(self, fn) -> None:
-        """``fn()`` eagerly on the capture stream, after everything enqueued
-        on the current stream and before anything enqueued on it later."""
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            fn()
-        cur.wait_stream(self.stream)
-
-    def capture(self, fn) -> "torch.cuda.CUDAGraph":
-        """``fn``'s launches captured, not run, into a new graph (entering
-        the capture synchronises the device).
-
-        PyTorch keeps a cuBLAS workspace per (handle, stream) until its
-        cache is cleared.  Cleared before the capture, the graph's GEMMs
-        get theirs from the graph's own pool, so no later clearing can free
-        memory a graph reads outside it; cleared after, no cache entry
-        holds a block of the pool, which then goes with the engine."""
-        graph = torch.cuda.CUDAGraph()
-        torch._C._cuda_clearCublasWorkspaces()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            fn()
-        torch._C._cuda_clearCublasWorkspaces()
-        return graph
-
-    def take_held(self) -> List[Any]:
-        """The paged decode kernel's scratch of the capture stream, taken
-        out of its cache for the graph that captured it."""
-        sc = kops.detach_decode_scratch(self.device, self.stream.cuda_stream)
-        return [] if sc is None else [sc]
-
-
 @dataclasses.dataclass
 class CapturedRound:
     """One key's round as a graph: it writes its emissions into ``emitted``
@@ -244,9 +201,7 @@ class RoundProgram:
         self._check_addresses(eng)
         cap.graph.replay()
         cap.replays += 1
-        for counts, add in zip(kops.counters(), cap.counts):
-            for k, n in add.items():
-                counts[k] += n
+        count_replay(cap.counts)
         return cap.emitted, cap.act
 
     def _first(self, eng: "ContinuousBatchingEngine", key: RoundKey
@@ -261,17 +216,7 @@ class RoundProgram:
             eng._enqueue_round(emitted, act, all_greedy, any_topk)
 
         self.backend.run_beside(enqueue)
-        before = [dict(c) for c in kops.counters()]
-        t0 = time.perf_counter()
-        graph = self.backend.capture(enqueue)
-        capture_ms = (time.perf_counter() - t0) * 1e3
-        added = []
-        for counts, old in zip(kops.counters(), before):
-            add = {k: n - old.get(k, 0) for k, n in counts.items()
-                   if n != old.get(k, 0)}
-            for k, n in add.items():
-                counts[k] -= n           # counted per replay instead
-            added.append(add)
+        graph, added, capture_ms = capture_counted(self.backend, enqueue)
         self._check_addresses(eng)
         self.rounds[key] = CapturedRound(graph, emitted, act, added,
                                          self.backend.take_held(), capture_ms)
@@ -409,8 +354,8 @@ class ContinuousBatchingEngine:
     @classmethod
     def supported_modes(cls, cfg: ArchConfig) -> Dict[str, Dict[str, Any]]:
         """Capability probe: what each serving mode offers for ``cfg`` in
-        the port so far (the reference's table, with the modes and
-        qualifiers later slices bring marked as such; SSM rows keep their
+        the port so far (the reference's table, with the qualifiers later
+        slices bring marked as such; SSM rows keep their
         state in the slot table, so they share no prefix; MoE capacity
         routing couples rows, so a MoE arch's continuous decode is only
         statistically exchangeable with ``generate``)."""
@@ -425,9 +370,9 @@ class ContinuousBatchingEngine:
                                   and cfg.sliding_window is not None),
             "exactness": "statistical" if moe else "bitwise",
         }
-        later = {"supported": False, "slice": "overlapped and blocking "
-                 "schedules come with a later slice of the port"}
-        return {"blocking": dict(later), "overlapped": dict(later),
+        return {"blocking": {"supported": True, "exactness": "reference"},
+                "overlapped": {"supported": True,
+                               "exactness": cont["exactness"]},
                 "continuous": cont}
 
     # ------------------------------------------------------------------
@@ -458,11 +403,7 @@ class ContinuousBatchingEngine:
         }
 
     def _event(self):
-        if self.device.type != "cuda":
-            return None
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
+        return self.engine._event()
 
     # ------------------------------------------------------------------
     # the decode step (enqueue only: no host synchronisation)

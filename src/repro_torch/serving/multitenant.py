@@ -1,54 +1,76 @@
-"""Multi-tenant serving scheduler, continuous schedule (the paper's second
-multi-tenancy reading: several applications share one physical accelerator).
+"""Multi-tenant serving scheduler (the paper's second multi-tenancy reading:
+several applications share one physical accelerator).
 
-The JAX package's ``repro/serving/multitenant.py`` in ``mode="continuous"``:
-each tenant owns a request queue, and every scheduling step
+The JAX package's ``repro/serving/multitenant.py``.  Each tenant owns a
+request queue; the scheduler serves them on one shared engine under one of
+three schedules (``mode=``):
 
-1. admits queued requests into free slots of a
-   :class:`repro_torch.serving.continuous.ContinuousBatchingEngine` --
-   picked round-robin or straggler-first across tenants, or, when queue
-   heads span priority tiers, a tenant is over its fair share of the paged
-   pool, or a head is in admission backoff, by ``(priority, over-share,
-   deadline, row-steps consumed)`` -- all picks admitted as one batch;
-2. dispatches one masked decode micro-round over all slots while the
-   previous round may still occupy the device (when that round has already
-   landed it is collected first, so its finished rows free their slots and
-   pages for this step's admissions);
-3. collects the previous round, retires finished rows and splits the
-   round's device window across tenants by live row-steps.
+* ``"overlapped"`` (the default) -- tenant-slot batching on the engine's
+  split ``dispatch``/``await_result`` halves: while tenant k's decode loop
+  occupies the device, the host assembles, stages and dispatches up to
+  ``stage_depth`` further tenant batches (a batch is up to ``max_batch`` of
+  one tenant's requests, prompts right-aligned to the longest).  Tenants
+  are time-sharing virtual GPUs of one device.
+* ``"blocking"`` -- ``engine.generate`` per slot, stage-ahead limited to
+  the host-side assembly of the next batch: the A/B baseline.
+* ``"continuous"`` -- continuous batching over the persistent slot table of
+  a :class:`repro_torch.serving.continuous.ContinuousBatchingEngine`.
+  Every scheduling step
 
-Per-round :class:`repro_torch.core.pipeline.TenantTimeline` entries
-(transfer window = admission + dispatch on the host, compute window =
-dispatch -> device-ready, stamped by a
-:class:`repro_torch.core.pipeline.CompletionWaiter` on the round's CUDA
-event) keep :func:`repro_torch.core.pipeline.timeline_overlaps` falsifiable
-round to round.  An admission the pool refuses re-queues; when nothing is in
-flight it counts against a bounded retry budget with exponential backoff and
-ends in a terminal ``REJECTED`` response past it, and a queued request past
-its deadline is shed the same way -- ``drain()`` returns one response per
-request.  A :class:`repro_torch.distributed.fault.HeartbeatMonitor` is
-beaten per collected round.
+  1. admits queued requests into free slots -- picked round-robin or
+     straggler-first across tenants, or, when queue heads span priority
+     tiers, a tenant is over its fair share of the paged pool, or a head is
+     in admission backoff, by ``(priority, over-share, deadline, row-steps
+     consumed)`` -- all picks admitted as one batch;
+  2. dispatches one masked decode micro-round over all slots while the
+     previous round may still occupy the device (when that round has
+     already landed it is collected first, so its finished rows free their
+     slots and pages for this step's admissions);
+  3. collects the previous round, retires finished rows and splits the
+     round's device window across tenants by live row-steps.
 
-Priorities order admission but never preempt: swap preemption, load
-shedding by backlog (``max_backlog``), fault injection, the request journal
-and engine checkpoints come with slice 3 of the port; the ``overlapped`` and
-``blocking`` schedules with a later slice.  Asking for any of them raises
-``NotImplementedError``.
+  An admission the pool refuses re-queues; when nothing is in flight it
+  counts against a bounded retry budget with exponential backoff and ends
+  in a terminal ``REJECTED`` response past it, and a queued request past
+  its deadline is shed the same way -- ``drain()`` returns one response per
+  request.  A :class:`repro_torch.distributed.fault.HeartbeatMonitor` is
+  beaten per collected round.
+
+Slot selection is straggler-aware: with ``straggler_priority=True`` the
+tenant with the slowest recent per-request time is served first, every
+backlogged tenant once per round.  In the overlapped schedule the EWMA is
+stamped as soon as a completion has landed, before the next pick
+(:meth:`MultiTenantScheduler._harvest_ready`).
+
+Per-slot (or per-round) :class:`repro_torch.core.pipeline.TenantTimeline`
+entries -- transfer window = batch assembly or admission through dispatch
+on the host, compute window = dispatch -> device-ready, stamped by a
+:class:`repro_torch.core.pipeline.CompletionWaiter` on the CUDA event --
+keep :func:`repro_torch.core.pipeline.timeline_overlaps` falsifiable.  A
+slot's compute window opens no earlier than the previous slot's end: a
+slot enqueued behind another's decode on the one stream is not billed for
+that wait.
+
+Priorities order continuous admission but never preempt: swap preemption,
+load shedding by backlog (``max_backlog``), fault injection, the request
+journal and engine checkpoints come with slice 3 of the port and raise
+``NotImplementedError``, as do non-token prefill inputs (slice 4).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core.pipeline import CompletionWaiter, TenantTimeline
-from repro_torch.core.tenancy import TenancyConfig
+from repro_torch.core.tenancy import TenancyConfig, resolve_devices
 from repro_torch.distributed.fault import HeartbeatMonitor, StragglerDetector
 from repro_torch.obs.telemetry import Telemetry, get_telemetry, record_timeline
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import (GenerationResult, PendingGeneration,
+                                        ServingEngine)
 
 MODES = ("continuous", "overlapped", "blocking")
 
@@ -85,6 +107,18 @@ class Response:
 
 
 @dataclasses.dataclass
+class _Inflight:
+    """One dispatched tenant slot: requests + handle + its timeline entry
+    (compute_end stamped by the CompletionWaiter at device readiness)."""
+    tenant: str
+    reqs: List[Request]
+    handle: PendingGeneration
+    entry: TenantTimeline
+    stamped: Any                     # threading.Event from the waiter
+    accounted: bool = False          # EWMA/busy already stamped (harvest)
+
+
+@dataclasses.dataclass
 class _InflightRound:
     """One dispatched continuous-batching micro-round."""
     handle: Any                      # continuous.RoundHandle
@@ -98,13 +132,17 @@ def _later_slice(what: str, slice_: str) -> NotImplementedError:
 
 
 class MultiTenantScheduler:
-    """Tenant admission over one shared continuous-batching engine
-    (round-robin or straggler-priority; see the module docstring)."""
+    """Tenant batching over one shared engine (round-robin or
+    straggler-priority) under an overlapped, blocking or continuous
+    schedule (see the module docstring).  ``mode=None`` is
+    ``"overlapped"`` unless ``overlapped=False``."""
 
-    def __init__(self, engine: ServingEngine,
+    def __init__(self, engine: ServingEngine, max_batch: int = 8,
                  tenancy: Optional[TenancyConfig] = None,
                  straggler_priority: bool = False,
-                 mode: str = "continuous",
+                 overlapped: bool = True,
+                 mode: Optional[str] = None,
+                 stage_depth: int = 1,
                  continuous: Optional[Dict[str, Any]] = None,
                  continuous_engine: Optional[Any] = None,
                  preemption: bool = False,
@@ -113,19 +151,25 @@ class MultiTenantScheduler:
                  heartbeat_timeout_s: float = 300.0,
                  telemetry: Optional[Telemetry] = None,
                  device=None):
-        if mode not in MODES:
+        self.mode = mode or ("overlapped" if overlapped else "blocking")
+        if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}")
-        if mode != "continuous":
-            raise _later_slice(f"the {mode!r} schedule", "a later slice")
         if preemption:
             raise _later_slice("swap preemption", "slice 3")
         if max_backlog is not None:
             raise _later_slice("backlog shedding (max_backlog)", "slice 3")
+        if device is not None:
+            dev = resolve_devices(1, device)[0]        # raises: no card
+            if dev != engine.device:
+                raise ValueError(f"device {dev}: the engine's parameters "
+                                 f"live on {engine.device}")
         self.engine = engine
         self.tel = get_telemetry(telemetry)
+        self.max_batch = max_batch
         self.tenancy = tenancy or TenancyConfig(1, 2)
         self.straggler_priority = straggler_priority
-        self.mode = mode
+        self.overlapped = self.mode == "overlapped"
+        self.stage_depth = max(int(stage_depth), 1)
         self.queues: Dict[str, Deque[Request]] = collections.defaultdict(
             collections.deque)
         self.detector = StragglerDetector()
@@ -135,21 +179,31 @@ class MultiTenantScheduler:
         self.timeline: List[TenantTimeline] = []
         self._order: List[str] = []
         self._slot_of: Dict[str, int] = {}
+        # blocking: the next slot's batch (tenant, reqs, prompts, steps),
+        # assembled while the previous slot's responses were finalised
+        self._prepared: Optional[Tuple[str, List[Request], np.ndarray,
+                                       int]] = None
+        self._asm_window = (0.0, 0.0)
+        # overlapped: dispatched, not yet awaited slots, oldest first; at
+        # most 1 + stage_depth (the one awaited and the staged-ahead ones)
+        self._inflight: Deque[_Inflight] = collections.deque()
         self._waiter: Optional[CompletionWaiter] = None
-        self._last_ready = 0.0           # previous round's compute_end
+        self._last_ready = 0.0           # previous slot's or round's end
         self._round_served: set = set()
         self._recent: Dict[str, float] = {}   # EWMA per-request seconds
         self._t0 = time.perf_counter()
-        if continuous_engine is not None:
-            self._ceng = continuous_engine
-        else:
-            from repro_torch.serving.continuous import \
-                ContinuousBatchingEngine
-            ckw = dict(continuous or {})
-            ckw.setdefault("telemetry", telemetry)
-            if device is not None:
-                ckw.setdefault("device", device)
-            self._ceng = ContinuousBatchingEngine(engine, **ckw)
+        self._ceng = None
+        if self.mode == "continuous":
+            if continuous_engine is not None:
+                self._ceng = continuous_engine
+            else:
+                from repro_torch.serving.continuous import \
+                    ContinuousBatchingEngine
+                ckw = dict(continuous or {})
+                ckw.setdefault("telemetry", telemetry)
+                if device is not None:
+                    ckw.setdefault("device", device)
+                self._ceng = ContinuousBatchingEngine(engine, **ckw)
         self._cont_inflight: Optional[_InflightRound] = None
         self._cont_rounds = 0
         self._row_busy: Dict[int, float] = collections.defaultdict(float)
@@ -162,8 +216,8 @@ class MultiTenantScheduler:
         self._attempts: Dict[int, int] = {}       # id(req) -> failed admits
         self._backoff: Dict[int, int] = {}        # id(req) -> eligible clock
         self._tenant_steps: Dict[str, int] = collections.defaultdict(int)
-        # one entry per admitted request (transfer window = its admission
-        # batch's host window), kept apart from the round timeline
+        # continuous: one entry per admitted request (transfer window = its
+        # admission batch's host window), kept apart from the round timeline
         self.admission_timeline: List[TenantTimeline] = []
 
     # ------------------------------------------------------------------
@@ -178,7 +232,11 @@ class MultiTenantScheduler:
 
     def pending(self) -> int:
         n = sum(len(q) for q in self.queues.values())
-        n += self._ceng.active_count()   # admitted, not yet retired rows
+        if self._prepared is not None:   # staged-ahead batch not yet served
+            n += len(self._prepared[1])
+        n += sum(len(fl.reqs) for fl in self._inflight)   # dispatched slots
+        if self._ceng is not None:       # admitted, not yet retired rows
+            n += self._ceng.active_count()
         n += len(self._terminal)         # terminal responses to emit
         return n
 
@@ -229,6 +287,186 @@ class MultiTenantScheduler:
             if self.queues[t]:
                 return t
         return None
+
+    # ------------------------------------------------------------------
+    # batches of one tenant (the slot schedules)
+    # ------------------------------------------------------------------
+    def _assemble(self, tenant: str) -> List[Request]:
+        q = self.queues[tenant]
+        batch = []
+        while q and len(batch) < self.max_batch:
+            batch.append(q.popleft())
+        return batch
+
+    def _build_batch(self, tenant: str
+                     ) -> Optional[Tuple[str, List[Request], np.ndarray, int]]:
+        reqs = self._assemble(tenant)
+        if not reqs:
+            return None
+        # pad prompts to a common length (right-aligned batch)
+        s_max = max(r.prompt.size for r in reqs)
+        prompts = np.zeros((len(reqs), s_max), np.int32)
+        for i, r in enumerate(reqs):
+            prompts[i, s_max - r.prompt.size:] = r.prompt
+        return tenant, reqs, prompts, max(r.max_new_tokens for r in reqs)
+
+    @staticmethod
+    def _batch_extras(reqs: List[Request]) -> None:
+        """The batch's stacked non-token prefill inputs: none in the archs
+        the port serves so far."""
+        if any(getattr(r, "extra_inputs", None) for r in reqs):
+            raise _later_slice("non-token prefill inputs (encoder frames, "
+                               "patch embeds)", "slice 4")
+        return None
+
+    def _sampling_kwargs(self, reqs: List[Request]) -> Dict[str, Any]:
+        """Per-request sampling arrays for dispatch(); empty when every row
+        uses engine defaults so the scalar (token-exact) path keeps
+        running."""
+        if not any(r.temperature is not None or r.top_k or r.seed
+                   for r in reqs):
+            return {}
+        return {
+            "temperatures": [self.engine.temperature if r.temperature is None
+                             else r.temperature for r in reqs],
+            "top_ks": [r.top_k for r in reqs],
+            "seeds": [r.seed for r in reqs],
+        }
+
+    # ------------------------------------------------------------------
+    # accounting of the slot schedules
+    # ------------------------------------------------------------------
+    def _account_busy(self, tenant: str, n_reqs: int, busy_s: float) -> None:
+        st = self.stats[tenant]
+        st["requests"] += n_reqs
+        st["busy_s"] += busy_s
+        per_req = busy_s / max(n_reqs, 1)
+        self._note_batch_time(tenant, per_req)
+        # keyed by the stable tenant slot, not a (salted) string hash
+        self.detector.update({self._slot_of[tenant]: per_req})
+
+    def _finalise_windows(self, fl: _Inflight) -> None:
+        """Open the slot's compute window at device occupancy and stamp the
+        tenant's EWMA/busy accounting; idempotent via ``fl.accounted``,
+        callable once the waiter has stamped ``compute_end``.
+
+        The slot was enqueued behind the previous slot's decode on the one
+        stream, and that wait must not be billed to this tenant.  Slots
+        complete in dispatch order, so the previous ``compute_end`` is
+        known here, and the clamp can only move ``compute_start`` earlier
+        than the next slot's ``transfer_start``, never past it (the overlap
+        predicate stays falsifiable)."""
+        fl.entry.compute_start = max(fl.entry.compute_start,
+                                     min(self._last_ready,
+                                         fl.entry.compute_end))
+        self._last_ready = fl.entry.compute_end
+        self._account_busy(fl.tenant, len(fl.reqs),
+                           fl.entry.compute_end - fl.entry.compute_start)
+        fl.accounted = True
+
+    def _harvest_ready(self) -> None:
+        """Stamp the accounting of in-flight slots whose decode has landed
+        (in dispatch order, up to the first unstamped one) before a pick,
+        so a straggler-priority pick sees the freshest latency."""
+        for fl in self._inflight:
+            if not fl.stamped.is_set():
+                break
+            if not fl.accounted:
+                self._finalise_windows(fl)
+
+    # ------------------------------------------------------------------
+    # overlapped schedule: depth-N staging under the head slot's decode
+    # ------------------------------------------------------------------
+    def _launch_next(self) -> Optional[_Inflight]:
+        """Assemble, stage and dispatch the next tenant slot (no waiting).
+        Transfer window: batch assembly through dispatch return; compute
+        window: dispatch return until the waiter sees the slot's event."""
+        self._harvest_ready()
+        tenant = self._next_tenant()
+        if tenant is None:
+            return None
+        asm_start = time.perf_counter() - self._t0
+        # _next_tenant only returns tenants with backlog
+        tenant, reqs, prompts, steps = self._build_batch(tenant)
+        handle = self.engine.dispatch(prompts, steps,
+                                      extra_inputs=self._batch_extras(reqs),
+                                      **self._sampling_kwargs(reqs))
+        te = time.perf_counter() - self._t0
+        slot = self._slot_of[tenant]
+        entry = TenantTimeline(vdev=slot, pdev=0, slot=slot,
+                               transfer_start=asm_start, transfer_end=te,
+                               compute_start=te, compute_end=0.0)
+        stamped = self._get_waiter().submit(handle.done, entry)
+        return _Inflight(tenant, reqs, handle, entry, stamped)
+
+    def _fill_inflight(self) -> None:
+        """Top the dispatch queue up to 1 + stage_depth slots: the head (next
+        to be awaited) and stage_depth batches staged under its decode."""
+        while len(self._inflight) < 1 + self.stage_depth:
+            nxt = self._launch_next()
+            if nxt is None:
+                return
+            self._inflight.append(nxt)
+
+    def _step_overlapped(self) -> Optional[List[Response]]:
+        # overlap point: everything beyond the head is assembled and
+        # dispatched here, while the head's decode loop runs on the device
+        self._fill_inflight()
+        if not self._inflight:
+            return None
+        cur = self._inflight.popleft()
+        result = self.engine.await_result(cur.handle)
+        cur.stamped.wait()           # compute_end stamped at device-ready
+        if not cur.accounted:        # else already stamped by a harvest
+            self._finalise_windows(cur)
+        self.stats[cur.tenant]["tokens"] += result.tokens.size
+        self.timeline.append(cur.entry)
+        record_timeline(self.tel, cur.entry, base=self._t0,
+                        tenant=cur.tenant, nv=self.tenancy.n_vdev)
+        done_abs = self._t0 + cur.entry.compute_end
+        return [Response(cur.tenant, result.tokens[i],
+                         done_abs - r.arrival_s, len(cur.reqs))
+                for i, r in enumerate(cur.reqs)]
+
+    # ------------------------------------------------------------------
+    # blocking schedule (the A/B baseline): generate() per slot
+    # ------------------------------------------------------------------
+    def _stage_next(self) -> None:
+        if self._prepared is None:
+            tenant = self._next_tenant()
+            if tenant is not None:
+                asm_start = time.perf_counter() - self._t0
+                self._prepared = self._build_batch(tenant)
+                self._asm_window = (asm_start,
+                                    time.perf_counter() - self._t0)
+
+    def _step_blocking(self) -> Optional[List[Response]]:
+        self._stage_next()
+        if self._prepared is None:
+            return None
+        tenant, reqs, prompts, steps = self._prepared
+        self._prepared = None
+        asm_start, asm_end = self._asm_window
+        t0 = time.perf_counter()
+        result: GenerationResult = self.engine.generate(
+            prompts, steps, extra_inputs=self._batch_extras(reqs))
+        # service completion: before the stage-ahead below, so the compute
+        # window and latencies do not absorb the next slot's assembly (and
+        # the stage-ahead pick sees this batch's latency)
+        done = time.perf_counter()
+        self._account_busy(tenant, len(reqs), done - t0)
+        self.stats[tenant]["tokens"] += result.tokens.size
+        # stage-ahead: the next slot's batch, before this slot's responses
+        self._stage_next()
+        entry = TenantTimeline(
+            vdev=self._slot_of[tenant], pdev=0, slot=self._slot_of[tenant],
+            transfer_start=asm_start, transfer_end=asm_end,
+            compute_start=t0 - self._t0, compute_end=done - self._t0)
+        self.timeline.append(entry)
+        record_timeline(self.tel, entry, base=self._t0, tenant=tenant,
+                        nv=self.tenancy.n_vdev)
+        return [Response(tenant, result.tokens[i], done - r.arrival_s,
+                         len(reqs)) for i, r in enumerate(reqs)]
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -461,12 +699,20 @@ class MultiTenantScheduler:
 
     # ------------------------------------------------------------------
     def step(self) -> Optional[List[Response]]:
-        """Serve one scheduling step: one decode micro-round; returns the
-        rows that retired in it (None if idle)."""
+        """Serve one scheduling step; returns responses (None if idle).
+        Overlapped/blocking: one tenant slot.  Continuous: one decode
+        micro-round (responses are the rows that retired in it)."""
         with self.tel.span("sched.step", mode=self.mode) as sp:
-            r = self._step_continuous()
+            r = self._step_inner()
             sp.note(responses=0 if r is None else len(r))
             return r
+
+    def _step_inner(self) -> Optional[List[Response]]:
+        if self.mode == "continuous":
+            return self._step_continuous()
+        if self.mode == "overlapped":
+            return self._step_overlapped()
+        return self._step_blocking()
 
     def drain(self) -> List[Response]:
         out: List[Response] = []
@@ -474,13 +720,15 @@ class MultiTenantScheduler:
             r = self.step()
             if r:
                 out.extend(r)
-        self._ceng.kv.assert_conserved()
+        if self._ceng is not None:
+            self._ceng.kv.assert_conserved()
         self.close()
         return out
 
     @property
     def continuous_engine(self):
-        """The scheduler's ContinuousBatchingEngine."""
+        """The scheduler's ContinuousBatchingEngine (None outside
+        ``mode="continuous"``)."""
         return self._ceng
 
     def utilization_report(self) -> Dict[str, Dict[str, float]]:

@@ -19,10 +19,11 @@ from repro_torch.risk.analysis import AggregateRiskAnalysis
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 DIAGNOSTICS = [os.path.join(ROOT, "diagnostics", f)
                for f in ("f1_internlm2.py", "ssd_head_tiles.py",
-                         "risk_pairs.py")]
+                         "risk_pairs.py", "slot_dispatch.py")]
 EXAMPLES = [os.path.join(ROOT, "examples", f)
             for f in ("torch_quickstart.py", "torch_risk_realtime.py",
-                      "torch_deployment_planner.py")]
+                      "torch_deployment_planner.py",
+                      "torch_serve_multitenant.py")]
 
 IMPORT_ALL = textwrap.dedent("""
     import importlib, pkgutil, sys

@@ -259,6 +259,7 @@ def test_launch_serve_cpu_end_to_end():
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                         "--mode", "continuous",
                          "--requests", "5", "--tenants", "2",
                          "--prompt-len", "12", "--new-tokens", "6",
                          "--capacity", "3", "--shared-prefix-len", "16"],

@@ -51,11 +51,14 @@ from repro_torch.obs.telemetry import Telemetry
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 EXAMPLES = ["torch_quickstart.py", "torch_risk_realtime.py",
-            "torch_deployment_planner.py"]
+            "torch_deployment_planner.py", "torch_serve_multitenant.py"]
 
 
 def _sweep(tel, jtel, net, nvs=(1, 2, 4, 8, 16), n_pdev=1, pw=True):
-    """The same sequential sweep replayed on both planes."""
+    """The same sequential sweep replayed on both planes, from one origin:
+    a span keeps ``t - t0``, so planes made at different instants would
+    round the same replayed times differently."""
+    jtel.t0 = tel.t0
     n, jn = {"FDR": (pm.FDR, jpm.FDR), "QDR": (pm.QDR, jpm.QDR)}[net]
     m = pm.PerfModelInputs(net=n)
     res = []
@@ -390,6 +393,34 @@ def test_power_gauge_windows_on_a_fake_counter():
         g.mean_watts(1.0, 1.3)
 
 
+def test_power_gauge_leaves_out_ticks_seen_late():
+    """A tick seen long after the read before it (the thread held back)
+    has an unsure time: ``within`` leaves it out, which merges the two
+    intervals around it into one with exact energy and length.  A change
+    on the first poll has no read before it and counts as late."""
+    g = PowerGauge.__new__(PowerGauge)
+    g._ticks, g.errors = [], []
+    g._lock, g._stop, g._thread = threading.Lock(), threading.Event(), None
+    values = iter([4.0, 5.0, 6.0, 6.0, 7.0, 8.0])
+    stamps = iter([1.000, 1.001, 1.101, 1.151, 1.152])
+    g.read_j = lambda: next(values)
+    import repro_torch.obs.gauge as gauge_mod
+    real = gauge_mod.time.perf_counter
+    gauge_mod.time.perf_counter = lambda: next(stamps)
+    try:
+        g._stop.wait = lambda timeout, it=iter([False] * 5 + [True]): next(it)
+        g._run()
+    finally:
+        gauge_mod.time.perf_counter = real
+    assert g.ticks() == [(1.000, 5.0), (1.001, 6.0), (1.151, 7.0),
+                         (1.152, 8.0)]
+    assert g.ticks(within=0.010) == [(1.001, 6.0), (1.152, 8.0)]
+    assert g.late(0.010) == 2
+    assert g.mean_watts(0.0, 2.0, within=0.010) == pytest.approx(2.0 / 0.151)
+    with pytest.raises(RuntimeError, match="lengthen"):
+        g.mean_watts(1.1, 1.2, within=0.010)
+
+
 # ---------------------------------------------------------------------
 # exporters: the same text as the reference's on equal planes
 # ---------------------------------------------------------------------
@@ -464,7 +495,8 @@ class _Tokens:
             eng.collect = recording
 
 
-ARGV = ["--device", "cpu", "--reduced", "--requests", "6",
+ARGV = ["--device", "cpu", "--reduced", "--mode", "continuous",
+        "--requests", "6",
         "--new-tokens", "6", "--capacity", "2"]
 
 
@@ -582,5 +614,7 @@ def test_example_runs_on_the_cpu(script):
     assert proc.returncode == 0, proc.stderr[-3000:]
     want = {"torch_quickstart.py": "time-optimal deployment",
             "torch_risk_realtime.py": "p50 latency",
-            "torch_deployment_planner.py": "optima agree"}[script]
+            "torch_deployment_planner.py": "optima agree",
+            "torch_serve_multitenant.py": "continuous (paged KV cache): "
+                                          "served 36 requests"}[script]
     assert want in proc.stdout

@@ -271,12 +271,11 @@ def test_what_later_slices_bring_raises(engines):
     modes = ContinuousBatchingEngine.supported_modes(eng.cfg)
     assert modes["continuous"]["supported"]
     assert modes["continuous"]["state_kinds"] == ["attn"]
-    assert not modes["overlapped"]["supported"]
+    assert modes["overlapped"]["supported"] and modes["blocking"]["supported"]
     with pytest.raises(NotImplementedError, match="slice 3"):
         ContinuousBatchingEngine(eng, capacity=2, max_prompt_len=16,
                                  swap=True)
-    for kw in (dict(mode="overlapped"), dict(preemption=True),
-               dict(max_backlog=4)):
+    for kw in (dict(preemption=True), dict(max_backlog=4)):
         with pytest.raises(NotImplementedError):
             MultiTenantScheduler(eng, **kw)
     for argv in (["--swap"], ["--mesh", "1x2"], ["--max-backlog", "3"],
@@ -289,7 +288,8 @@ def test_launch_serve_cpu_end_to_end():
     seen = []
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = serve.main(["--device", "cpu", "--reduced", "--requests", "6",
+        rc = serve.main(["--device", "cpu", "--reduced", "--mode",
+                         "continuous", "--requests", "6",
                          "--tenants", "2", "--prompt-len", "12",
                          "--new-tokens", "6", "--shared-prefix-len", "16",
                          "--priority", "3"],
@@ -305,6 +305,31 @@ def test_launch_serve_cpu_end_to_end():
     # every third request is tier 0, in its tenant's own lane
     assert sched.stats["tenant-0-hi"]["requests"] == 1
     assert sched.stats["tenant-1-hi"]["requests"] == 1
+
+
+@pytest.mark.parametrize("argv,mode", [
+    ([], "overlapped"), (["--mode", "overlapped", "--stage-depth", "2"],
+                         "overlapped"),
+    (["--mode", "blocking"], "blocking"), (["--blocking"], "blocking")])
+def test_launch_serve_slot_modes_cpu_end_to_end(argv, mode):
+    """With no --mode the driver serves what the reference's does, the
+    overlapped slot schedule; --mode blocking and --blocking the A/B
+    baseline.  Both give the same tokens per request."""
+    seen = []
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--device", "cpu", "--reduced", "--requests", "6",
+                         "--tenants", "2", "--prompt-len", "12",
+                         "--new-tokens", "5", "--max-batch", "2"] + argv,
+                        observe=seen.append)
+    assert rc == 0
+    text = buf.getvalue()
+    assert "served 6 requests (completed=6 rejected=0)" in text
+    assert f"schedule={mode} overlap_pairs=" in text
+    sched = seen[0]
+    assert sched.mode == mode and sched.continuous_engine is None
+    assert len(sched.timeline) == 4          # 3 requests a tenant, 2 a slot
+    assert all(st["tokens"] == 15 for st in sched.stats.values())
 
 
 def test_fault_pieces_match_reference():

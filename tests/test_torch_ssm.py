@@ -210,7 +210,7 @@ def test_page_space_and_fair_share_without_attention(engines):
     assert kv.num_pages == PagedKVCache.RESERVED and kv.available() == 0
     assert kv.make_pools(2) == {}
     kv.assert_conserved()
-    sched = MultiTenantScheduler(eng, continuous=dict(
+    sched = MultiTenantScheduler(eng, mode="continuous", continuous=dict(
         capacity=2, page_size=8, inner_steps=2, max_prompt_len=32))
     rng = np.random.default_rng(4)
     for i in range(3):
@@ -229,6 +229,7 @@ def test_launch_serve_cpu_end_to_end():
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                         "--mode", "continuous",
                          "--requests", "5", "--tenants", "2",
                          "--prompt-len", "20", "--new-tokens", "6",
                          "--capacity", "2", "--shared-prefix-len", "8"],
