@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths through the entry points a user calls:
+Drives the port's paths through the entry points a user calls:
 
 * Aggregate Risk Analysis under a multi-tenancy plan at the published width
   (K = 1000 events per trial, M = 15 ELTs, a 2,000,000-event catalog,
@@ -19,7 +19,15 @@ Drives the port's three paths through the entry points a user calls:
   width and depth (16 layers, d_model 2048, 16 heads x 128 with qk-norm, 64
   experts top-8, random weights from a seed) through the same entry point,
   every prefill's attention through the FlashAttention kernel and every
-  decode step's through the paged decode kernel at group size 1.
+  decode step's through the paged decode kernel at group size 1;
+* ``serve-archs``: multi-tenant serving of the four remaining
+  decoder-only archs at their published widths through the same entry
+  point, cut in depth to fit the card -- mistral-large-123b (16 of 88
+  layers, GQA 96:8), jamba-1.5-large-398b (layers 0-4: Mamba-2 and
+  attention layers, MoE top-2 of 16; both state kinds in one slot table),
+  llama4-maverick-400b-a17b (2 of 48 layers, 128 experts top-1 beside a
+  shared one) and llava-next-mistral-7b (whole; patch embeddings merged
+  into the prompt) -- continuous, and jamba and llava also overlapped.
 
 Every serving path decodes through rounds captured as CUDA graphs and
 replayed (``serving.continuous.RoundProgram``); the same admissions of
@@ -72,7 +80,13 @@ width, mamba2; rounds eager against graph), ssd kernel (full width),
 serving (full width, olmoe; rounds eager against graph), paged decode
 (olmoe's shape), flash kernel (full width), serve-slots (full width,
 internlm2, mamba2 and olmoe, overlapped against blocking; the stage-depth
-sweep).
+sweep), serve-archs (the four archs above; each kernel's launches by the
+arch's sub-layers, every state kind conserved, mistral's and llava's
+logits at each step against ``generate``'s, jamba's repeated prompt
+prefilled again, rounds eager against graph; then K3, K5 and K6 held and
+timed at the archs' head layouts and shapes).  The serving reduced phase
+runs every decoder-only arch, and a hybrid without MoE.  Each phase's
+seconds are printed at the end.
 """
 from __future__ import annotations
 
@@ -112,6 +126,8 @@ from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import risk as risk_cli
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.model import build_model, param_count
+from repro_torch.models.layers import unembed_operand
+from repro_torch.models.transformer import init_footprint, tree_map
 from repro_torch.obs import TELEMETRY
 from repro_torch.obs import fit as obs_fit
 from repro_torch.obs.export import parse_prometheus_text
@@ -1734,6 +1750,9 @@ SSD_SWEEP = [(2, 64, 4, 8, 16, 16), (1, 128, 2, 16, 32, 32),
 # padded by ops.ssd to two chunks of 256; x, B and C in bfloat16, B and C
 # one group viewed over the 80 heads
 SSD_FULL = dict(b=8, L=384, H=80, P=64, N=128, chunk=256)
+# jamba's Mamba-2 layers: d_inner 16,384 in 256 heads of 64, state 128, at
+# its 1024-token prefill, widths 8 (continuous) and 4 (a slot)
+SSD_JAMBA = dict(b=8, L=1024, H=256, P=64, N=128, chunk=256)
 # (b, L, H, P, N, chunk) in bfloat16 through the tensor-core kernel
 SSD_MMA_EDGES = [(2, 200, 3, 32, 64, 100), (1, 128, 5, 24, 40, 64),
                  (8, 512, 6, 64, 128, 256), (1, 512, 80, 64, 128, 256)]
@@ -1921,19 +1940,28 @@ SSD_FULL_WIDTHS = (SSD_FULL["b"], 4, 1)   # continuous prefill, a tenant
 
 
 def phase_ssd_full(errs: Errors, dev) -> dict:
-    """The SSD kernel at the serving paths' full-width prefill shapes --
-    the continuous path's width 8, a tenant slot's 4 and a single
-    admission's 1 -- held against its plain version in bf16 (the paths'
-    type) and on the same numbers in float32, then timed beside its bound.
-    At widths 8 and 4 each row scanned alone gives its bits in the
-    batch."""
+    """The SSD kernel at mamba2's full-width prefill shapes -- the
+    continuous path's width 8, a tenant slot's 4 and a single admission's
+    1 -- held, timed and each row scanned alone (``ssd_shapes``); the batch
+    takes two heads a block and a row alone one."""
+    out = ssd_shapes(errs, dev, SSD_FULL, SSD_FULL_WIDTHS, two_tilings=True)
+    full = out[SSD_FULL["b"]]
+    return {K6: {**full, "library_ms": None, "slot_width": out[4],
+                 "single_admission": out[1]}}
+
+
+def ssd_shapes(errs: Errors, dev, f: dict, widths, two_tilings: bool
+               ) -> dict:
+    """The SSD kernel at one arch's full-width prefill shape ``f`` at each
+    of ``widths``, held against its plain version in bf16 (the paths' type)
+    and on the same numbers in float32, then timed beside its bound.  At
+    widths over 1 each row scanned alone gives its bits in the batch."""
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
-    f = SSD_FULL
     Q, L = f["chunk"], f["L"]
     pad = (-L) % Q
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {}
-    for b in SSD_FULL_WIDTHS:
+    for b in widths:
         g = torch.Generator(device=dev).manual_seed(7)
         rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
         x = rnd(b, L, f["H"], f["P"]).to(torch.bfloat16)
@@ -1968,14 +1996,15 @@ def phase_ssd_full(errs: Errors, dev) -> dict:
         out[b] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                       shape=shape, head_tile=ht, blocks=blocks)
         if b > 1:
-            check_two_tilings(b, f["H"], f["P"], sms, f"full width {b}")
+            if two_tilings:
+                check_two_tilings(b, f["H"], f["P"], sms,
+                                  f"full width {b}")
             check(ssd_rows_alone_match(args, Q),
-                  f"full width {shape}: a row alone (one head a block) "
-                  "differs from its bits in the batch (two heads a block)")
+                  f"full width {shape}: a row alone (head tile "
+                  f"{ssd.head_tile(1, f['H'], f['P'], True, sms)}) differs "
+                  f"from its bits in the batch (head tile {ht})")
         del args, x, dt, a, B, C
-    full = out[f["b"]]
-    return {K6: {**full, "library_ms": None, "slot_width": out[4],
-                 "single_admission": out[1]}}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2006,13 +2035,22 @@ FLASH_SWEEP = [
     (1, 50, 50, 32, 1, 16, True, 12),
 ]
 # the full-width shapes of the serving paths: olmoe's prefill at widths 8
-# and 1 (1024-token prompts, MHA), internlm2's at width 8 (GQA 2:1), and
-# both at a tenant slot's width of 4
+# and 1 (1024-token prompts, MHA), internlm2's at width 8 (GQA 2:1), both
+# at a tenant slot's width of 4, and serve-archs' prefills
 FLASH_FULL = [("olmoe-1b-7b width 8", 8, 1024, 16, 16, 128),
               ("olmoe-1b-7b width 1", 1, 1024, 16, 16, 128),
               ("internlm2-1.8b width 8", 8, 128, 16, 8, 128),
               ("olmoe-1b-7b width 4", 4, 1024, 16, 16, 128),
-              ("internlm2-1.8b width 4", 4, 128, 16, 8, 128)]
+              ("internlm2-1.8b width 4", 4, 128, 16, 8, 128),
+              # the four archs of serve-archs: GQA 12:1, 8:1, 5:1 and 4:1 at
+              # the continuous path's width 8, jamba and llava also at a
+              # slot's width 4
+              ("mistral-large-123b width 8", 8, 512, 96, 8, 128),
+              ("jamba-1.5-large-398b width 8", 8, 1024, 64, 8, 128),
+              ("llama4-maverick-400b-a17b width 8", 8, 512, 40, 8, 128),
+              ("llava-next-mistral-7b width 8", 8, 640, 32, 8, 128),
+              ("jamba-1.5-large-398b width 4", 4, 1024, 64, 8, 128),
+              ("llava-next-mistral-7b width 4", 4, 640, 32, 8, 128)]
 
 
 def flash_case(rng, B, Sq, Skv, Hq, Hkv, D, dev, dtype=torch.float32):
@@ -2157,10 +2195,10 @@ def phase_flash_full(errs: Errors, dev) -> dict:
 
 
 def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
-    """``generate`` on the request's page-aligned left-padded prompt: the
-    continuous path's exactness contract.  A temperature row draws what
-    ``generate`` at its temperature draws for its seed; top-k 1 is greedy;
-    a wider top-k has no oracle (None)."""
+    """``generate`` on the request's page-aligned left-padded prompt, with
+    its extra inputs: the continuous path's exactness contract.  A
+    temperature row draws what ``generate`` at its temperature draws for
+    its seed; top-k 1 is greedy; a wider top-k has no oracle (None)."""
     b = ceng.bucket_len(req.prompt.size)
     padded = np.zeros((1, b), np.int32)
     padded[0, b - req.prompt.size:] = req.prompt
@@ -2170,46 +2208,75 @@ def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
     if temp > 0 and req.top_k != 1:
         eng = ServingEngine(eng.cfg, eng.params, temperature=temp,
                             device=eng.device)
+    extras = {k: np.asarray(v)[None]
+              for k, v in (req.extra_inputs or {}).items()}
     return eng.generate(padded, max_new_tokens=req.max_new_tokens,
+                        extra_inputs=extras or None,
                         seed=req.seed).tokens[0]
 
 
+def dense_hybrid_config():
+    """Reduced jamba without its MoE: Mamba-2 and attention layers with
+    dense MLPs, whose rows are independent, so its continuous tokens are
+    held to ``generate``'s."""
+    return dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                               name="jamba-dense-hybrid-reduced", moe=None,
+                               moe_period=0)
+
+
+# the reduced archs of the continuous path on the card, with the page size
+# of each run: every decoder-only arch the port serves, and the dense hybrid
+REDUCED_ARCHS = (("internlm2-1.8b", 8), ("h2o-danube-1.8b", 4),
+                 ("mamba2-2.7b", 8), ("olmoe-1b-7b", 8),
+                 ("mistral-large-123b", 8), ("jamba-1.5-large-398b", 8),
+                 ("dense hybrid", 8), ("llama4-maverick-400b-a17b", 8),
+                 ("llava-next-mistral-7b", 8))
+
+
 def phase_serve_reduced(dev) -> dict:
-    """The continuous engine of reduced internlm2 (and of reduced
-    h2o-danube, whose sliding window the decode and prefill kernels mask,
-    and of reduced mamba2, whose prefills go through the SSD scan kernel)
-    in float32 on the card: shared prefixes, copy-on-write forks, a
-    prefill-skipping repeat, eviction and reuse under churn, ragged prompts
-    and budgets -- every request's greedy tokens equal to ``generate``'s,
-    every attention prefill through the FlashAttention kernel.  Reduced
-    olmoe runs the same schedule with its own gates (completion, finite
-    rows, page conservation): its capacity routing couples rows, so its
-    agreement with ``generate`` is a number."""
+    """The continuous engine of every reduced decoder-only arch in float32
+    on the card (h2o-danube's sliding window masked by the decode and
+    prefill kernels; mamba2's prefills through the SSD scan kernel;
+    jamba's and the dense hybrid's through both, beside attention pages;
+    llava's requests with one image's patch embeddings): shared prefixes,
+    copy-on-write forks, a repeated prompt (a prefill skip on a
+    pure-attention arch, a prefill on a hybrid), eviction and reuse under
+    churn, ragged prompts and budgets -- every request's greedy tokens
+    equal to ``generate``'s, every attention prefill through the
+    FlashAttention kernel.  The MoE archs (olmoe, llama4, jamba) run the
+    same schedule with their own gates (completion, finite rows,
+    conservation): capacity routing couples rows, so their agreement with
+    ``generate`` is a number."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
-    for arch, page in (("internlm2-1.8b", 8), ("h2o-danube-1.8b", 4),
-                       ("mamba2-2.7b", 8), ("olmoe-1b-7b", 8)):
-        cfg = get_config(arch).reduced()
+    for arch, page in REDUCED_ARCHS:
+        cfg = (dense_hybrid_config() if arch == "dense hybrid"
+               else get_config(arch).reduced())
         eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
         rng = np.random.default_rng(37)
         V = cfg.vocab_size
+        # one image for every request (a vision arch's prompts share pages
+        # only under identical patch embeddings)
+        image = serve_cli.synth_extra_inputs(cfg, rng) or None
         sys_prompt = rng.integers(1, V, 16).astype(np.int32)
         mk = lambda t: Request(f"t{t}", np.concatenate(
             [sys_prompt, rng.integers(1, V, 8).astype(np.int32)]),
-            max_new_tokens=6)
+            max_new_tokens=6, extra_inputs=image)
         wave = [mk(t) for t in range(3)]
         batches = [wave, [Request("t0", wave[0].prompt.copy(),
-                                  max_new_tokens=6)],
+                                  max_new_tokens=6, extra_inputs=image)],
                    [Request("x", rng.integers(1, V, 32).astype(np.int32),
-                            max_new_tokens=2) for _ in range(6)],
+                            max_new_tokens=2, extra_inputs=image)
+                    for _ in range(6)],
                    [Request(f"r{i}", rng.integers(1, V, 5 + 7 * i).astype(
-                       np.int32), max_new_tokens=3 + 4 * i)
-                    for i in range(4)],
+                       np.int32), max_new_tokens=3 + 4 * i,
+                       extra_inputs=image) for i in range(4)],
                    [mk(t) for t in range(3)],
                    # sampling tiers: more than one round key is captured
                    [Request(f"s{i}", rng.integers(1, V, 9 + 5 * i).astype(
-                       np.int32), max_new_tokens=4 + 3 * i, seed=i, **kw)
+                       np.int32), max_new_tokens=4 + 3 * i, seed=i,
+                       extra_inputs=image, **kw)
                     for i, kw in enumerate(
                         [{}, dict(temperature=0.8),
                          dict(temperature=0.9, top_k=1),
@@ -2231,15 +2298,20 @@ def phase_serve_reduced(dev) -> dict:
         plains = {**pa.plain_counts, **ssd.plain_counts, **fa.plain_counts}
         n = sum(len(b) for b in batches)
         check(len(done) == n, f"{arch} reduced: {len(done)} of {n} done")
-        ran = (K3, K4, K5) if ceng.kv.attn_subs else (K6,)
+        n_attn = ceng.n_stages * len(ceng.kv.attn_subs)
+        n_ssm = ceng.n_stages * len(ceng.ssm_subs)
+        # each state kind's kernels, and only those: attention prefills
+        # through K5 and admissions through K4, decode through K3; Mamba-2
+        # prefills through K6 (a hybrid arch all four)
+        ran = ((K3, K4, K5) if n_attn else ()) + ((K6,) if n_ssm else ())
         check(all((launches[k] > 0) == (k in ran) for k in launches)
               and not any(plains.values()),
               f"{arch} reduced: launches {launches}, plain calls {plains}")
-        per_prefill = K5 if ceng.kv.attn_subs else K6
-        check(launches[per_prefill] == ceng.prefill_calls * cfg.num_layers,
-              f"{arch} reduced: {launches[per_prefill]} {per_prefill} "
-              f"launches for {ceng.prefill_calls} prefills")
-        n_attn = ceng.n_stages * len(ceng.kv.attn_subs)
+        check(launches[K5] == ceng.prefill_calls * n_attn
+              and launches[K6] == ceng.prefill_calls * n_ssm,
+              f"{arch} reduced: {launches[K5]} K5 and {launches[K6]} K6 "
+              f"launches for {ceng.prefill_calls} prefills over {n_attn} "
+              f"attention and {n_ssm} Mamba-2 layers")
         check(launches[K3] == ceng.rounds * ceng.inner_steps * n_attn,
               f"{arch} reduced: {launches[K3]} K3 launches for "
               f"{ceng.rounds} rounds")
@@ -2251,12 +2323,17 @@ def phase_serve_reduced(dev) -> dict:
         check(ssd.variant_counts == {"bf16_mma": 0,
                                      "f32_simt": launches[K6]},
               f"{arch} reduced (float32): SSD variants {ssd.variant_counts}")
-        ceng.kv.assert_conserved()
+        ceng.assert_conserved()
         check(ceng.nonfinite_rows == 0, f"{arch} reduced: non-finite logits")
-        if cfg.sliding_window is None and ceng.kv.attn_subs:
-            check(ceng.kv.pages_shared > 0 and ceng.prefill_skips >= 1
+        if cfg.sliding_window is None and n_attn:
+            check(ceng.kv.pages_shared > 0
                   and ceng.kv.cow_forks + ceng.kv.pristine_forks > 0,
                   f"{arch} reduced: the sharing lifecycle did not run")
+            # a hybrid row's SSM state is neither paged nor cached: its
+            # repeated prompt is prefilled again
+            check(ceng.prefill_skips >= 1 if not n_ssm
+                  else ceng.prefill_skips == 0,
+                  f"{arch} reduced: {ceng.prefill_skips} prefill skips")
         same = []
         for req, toks in done:
             check(toks.shape == (req.max_new_tokens,) and 0 <= toks.min()
@@ -2313,6 +2390,7 @@ class ServeRecorder:
         self.finished = []
         self.snap = None
         self.init_peak_gib = None
+        self.t_first = None
 
     def __call__(self, sched) -> None:
         eng = sched.continuous_engine
@@ -2320,6 +2398,7 @@ class ServeRecorder:
             # first call: the weights are drawn, cast and the float32 draw
             # dropped; nothing has run yet
             self.init_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            self.t_first = time.perf_counter()
             self.sched = sched
             collect = eng.collect
 
@@ -3069,7 +3148,8 @@ def serve_requests(cfg, n: int, tenants: int, prompt_len: int,
 
 class SlotRecorder:
     """Records a slot schedule's work on an engine: every batch handed to
-    ``dispatch`` or ``generate`` (prompts, steps), the host ms of each
+    ``dispatch`` or ``generate`` (prompts, steps, extra inputs), the host
+    ms of each
     dispatch, and every ``GenerationResult`` in completion order (which is
     dispatch order).  ``install`` wraps the engine's methods, ``remove``
     restores them."""
@@ -3085,7 +3165,8 @@ class SlotRecorder:
             t0 = time.perf_counter()
             handle = dispatch(prompts, steps, **kw)
             self.dispatch_ms.append((time.perf_counter() - t0) * 1e3)
-            self.batches.append((np.array(prompts), steps))
+            self.batches.append((np.array(prompts), steps,
+                                 kw.get("extra_inputs")))
             return handle
 
         def rec_await(handle):
@@ -3095,7 +3176,8 @@ class SlotRecorder:
 
         def rec_generate(prompts, steps, **kw):
             res = generate(prompts, steps, **kw)
-            self.batches.append((np.array(prompts), steps))
+            self.batches.append((np.array(prompts), steps,
+                                 kw.get("extra_inputs")))
             self.results.append(res)
             return res
 
@@ -3110,7 +3192,7 @@ class SlotRecorder:
     def by_prompt(self, responses) -> dict:
         """prompt bytes -> tokens: the responses come back slot by slot in
         dispatch order, each slot's in its batch's row order."""
-        rows = [row for prompts, _ in self.batches for row in prompts]
+        rows = [row for prompts, *_ in self.batches for row in prompts]
         check(len(rows) == len(responses),
               f"{len(rows)} batch rows for {len(responses)} responses")
         return {row.tobytes(): r.tokens for row, r in zip(rows, responses)}
@@ -3202,11 +3284,13 @@ def slot_launches() -> tuple:
              **agg.plain_counts})
 
 
-def serve_slots_once(arch: str, prompt_len: int, mode: str, dev) -> dict:
-    """One ``launch.serve.main`` run of ``arch`` at full width in a slot
-    mode: checks and numbers; the overlapped run's tokens are held against
-    ``generate`` on each of its padded batches."""
-    cfg = get_config(arch)
+def serve_slots_once(arch: str, prompt_len: int, mode: str, dev,
+                     num_layers=None) -> dict:
+    """One ``launch.serve.main`` run of ``arch`` at full width (its first
+    ``num_layers`` layers, if given) in a slot mode: checks and numbers;
+    the overlapped run's tokens are held against ``generate`` on each of
+    its padded batches, with the batch's patch embeddings."""
+    cfg = arch_config(arch, num_layers)
     rec = SlotServeRecorder()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3214,7 +3298,8 @@ def serve_slots_once(arch: str, prompt_len: int, mode: str, dev) -> dict:
     for m in (agg, pa, fa, ssd):
         m.reset_counts()                 # just before the serving path
     rc = serve_cli.main(["--arch", arch, "--prompt-len", str(prompt_len),
-                         "--mode", mode] + SLOT_ARGV, observe=rec)
+                         "--mode", mode] + SLOT_ARGV
+                        + depth_argv(num_layers), observe=rec)
     launches, plains = slot_launches()   # just after
     variants = {K5: dict(fa.variant_counts), K6: dict(ssd.variant_counts)}
     check(rc == 0, f"serve {arch} {mode} returned {rc}")
@@ -3232,21 +3317,24 @@ def serve_slots_once(arch: str, prompt_len: int, mode: str, dev) -> dict:
           and all(b[0].shape == (4, prompt_len) for b in rec.batches),
           f"{tag}: {len(rec.results)} slots, batches "
           f"{[b[0].shape for b in rec.batches]}")
+    # one prefill a slot: K5 once per attention layer, K6 once per Mamba-2
+    # layer (a hybrid arch both), every one on the tensor cores
     n_attn = sum(mixer == "attn" for mixer, _ in cfg.block_schedule())
-    want = ({K5: n_attn * 3} if n_attn else {K6: cfg.num_layers * 3})
+    n_ssm = cfg.num_layers - n_attn
+    want = {k: n * 3 for k, n in ((K5, n_attn), (K6, n_ssm)) if n}
     check(all(launches[k] == n for k, n in want.items())
           and all(v == 0 for k, v in launches.items() if k not in want)
           and not any(plains.values()),
           f"{tag}: launches {launches} (expected {want}), plain calls "
           f"{plains}")
-    (kname, n), = want.items()
-    check(variants[kname] == {"bf16_mma": n, "f32_simt": 0},
-          f"{tag}: {kname} variants {variants[kname]}")
+    for kname, n in want.items():
+        check(variants[kname] == {"bf16_mma": n, "f32_simt": 0},
+              f"{tag}: {kname} variants {variants[kname]}")
     ov = timeline_overlaps(sched.timeline)
     prog = eng.decode_program
     out = dict(wall_ms=(rec.t_last - rec.t_first) * 1e3,
                overlap_pairs=sum(ov), pairs=len(ov), peak_gib=peak,
-               init_peak_gib=rec.init_peak_gib, launches={kname: n},
+               init_peak_gib=rec.init_peak_gib, launches=want,
                **rec.device_numbers())
     if mode == "overlapped":
         check(sum(ov) >= 1, f"{tag}: no overlap pair ({ov})")
@@ -3260,8 +3348,9 @@ def serve_slots_once(arch: str, prompt_len: int, mode: str, dev) -> dict:
         hold_staged_under_decode(tag, out["gap_ms"][1:])
         # the overlapped tokens against generate on the same padded batch
         got = rec.by_prompt(resp)
-        for prompts, steps in rec.batches:
-            gen = ServingEngine.generate(eng, prompts, steps).tokens
+        for prompts, steps, extras in rec.batches:
+            gen = ServingEngine.generate(eng, prompts, steps,
+                                         extra_inputs=extras).tokens
             for p, row in zip(prompts, gen):
                 check(np.array_equal(got[p.tobytes()], row),
                       f"{tag}: a request's tokens differ from generate on "
@@ -3485,6 +3574,339 @@ def phase_serve_slots(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serve-archs: the four remaining decoder-only archs at their published
+# widths through launch.serve.  (arch, --num-layers or None for every
+# layer, prompt length, modes); the depth cuts take a prefix of the
+# published block schedule so that the weights fit one card: mistral-large
+# 16 of 88 layers (45.9 GB of bf16 weights); jamba layers 0-4 (Mamba-2 at
+# 0-3, attention at 4, MoE at 1 and 3: 48.0 GB -- one whole 8-layer period
+# is 90.3 GB, so the 1:7 ratio is not kept); llama4 2 of 48 (69.3 GB, 128
+# experts a layer); llava whole (29.0 GB float32, 14.5 GB cast to bf16)
+ARCH_RUNS = (("mistral-large-123b", 16, 512, ("continuous",)),
+             ("jamba-1.5-large-398b", 5, 1024, ("continuous", "overlapped")),
+             ("llama4-maverick-400b-a17b", 2, 512, ("continuous",)),
+             ("llava-next-mistral-7b", None, 640,
+              ("continuous", "overlapped")))
+ARCHS_ARGV = ["--no-reduced", "--tenants", "3", "--requests", "12",
+              "--new-tokens", "32", "--capacity", "8", "--page-size", "16",
+              "--inner-steps", "4", "--shared-prefix-len", "0"]
+# per-step logits of the continuous engine against generate's arithmetic
+# (the same padded prompts, fed the continuous engine's tokens): steps
+# compared, and the bound on max |difference| / max |logit| of a row.  The
+# two decode the same bf16 weights and K/V through different attention
+# reads (the paged kernel's split online softmax against the dense
+# einsum), whose float32 sums differ in their last bits; every bf16 cast
+# downstream (the attention output, each projection and the residual
+# stream, several a layer) can then round one ulp apart, 2^-8 = 0.39 % of
+# a value, and the differences add up over 16 / 32 layers and 8 steps.  A
+# fault in a row's cache, position or page (the wrong token's K/V) moves
+# the logits by their own size, not by a few percent
+LOGIT_STEPS = 8
+LOGIT_BF16_TOL = 5e-2
+# K3 at the four archs' decode shapes: (arch, query heads, kv heads, pages
+# named a row = prompt / 16); the table is the path's, twice as wide
+PAGED_LAYOUTS = (("mistral-large-123b", 96, 8, 32),
+                 ("jamba-1.5-large-398b", 64, 8, 64),
+                 ("llama4-maverick-400b-a17b", 40, 8, 32),
+                 ("llava-next-mistral-7b", 32, 8, 40))
+
+
+def arch_config(arch: str, num_layers=None):
+    """The published config, cut to its first ``num_layers`` layers as
+    ``launch.serve --num-layers`` cuts it."""
+    cfg = get_config(arch)
+    return (dataclasses.replace(cfg, num_layers=num_layers) if num_layers
+            else cfg)
+
+
+def depth_argv(num_layers) -> list:
+    return ["--num-layers", str(num_layers)] if num_layers else []
+
+
+def decode_bytes(eng: ServingEngine) -> int:
+    """Bytes a decode step reads at least: every leaf of the blocks once
+    (every expert's too: the MoE product runs over all of them) and the
+    unembedding; the embedding table's few rows and the patch projection
+    (prefill only) left out."""
+    leaves = []
+    tree_map(leaves.append, {k: v for k, v in eng.params.items()
+                             if k not in ("embed", "mm_proj")})
+    leaves.append(unembed_operand(eng.params["embed"], eng.cfg))
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def logits_against_generate(eng: ServingEngine, prompt_len: int, dev
+                            ) -> dict:
+    """Each step's logits of the continuous engine (8 rows, one decode step
+    a round, rounds as graphs) against ``generate``'s arithmetic on the
+    same padded prompts -- its prefill and ``decode_fn`` at width 8 -- fed
+    the tokens the continuous engine emitted, so a token that parts does
+    not end the comparison.  Held at ``LOGIT_BF16_TOL``."""
+    cfg = eng.cfg
+    rng = np.random.default_rng(12)
+    reqs = [Request("l", rng.integers(1, cfg.vocab_size, prompt_len).astype(
+        np.int32), LOGIT_STEPS + 1,
+        extra_inputs=serve_cli.synth_extra_inputs(cfg, rng) or None)
+        for _ in range(8)]
+    ceng = ContinuousBatchingEngine(eng, capacity=8, page_size=16,
+                                    inner_steps=1,
+                                    max_prompt_len=2 * prompt_len,
+                                    device=dev)
+    check(all(ceng.try_admit_batch(reqs)) and ceng.prefill_calls == 1,
+          "logits: the 8 requests were not admitted in one prefill")
+    rows = torch.tensor([next(c for c, s in enumerate(ceng._slots)
+                              if s is not None and s.req is r)
+                         for r in reqs], device=dev)
+    got, emitted = [ceng.state["logits"][rows].clone()], []
+    for _ in range(LOGIT_STEPS):
+        h = ceng.dispatch_round()
+        ceng.collect(h)
+        emitted.append(h.emitted[0].to(dev)[rows])
+        got.append(ceng.state["logits"][rows].clone())
+    extras = None
+    if reqs[0].extra_inputs:
+        extras = {k: np.stack([r.extra_inputs[k] for r in reqs])
+                  for k in reqs[0].extra_inputs}
+    V = cfg.vocab_size
+
+    def dense(rows):
+        """generate's arithmetic on requests ``rows`` as one batch, fed
+        the emitted tokens: the logits of each step."""
+        sub = [reqs[i] for i in rows]
+        ex = None if extras is None else {k: v[rows]
+                                          for k, v in extras.items()}
+        with torch.no_grad():
+            logits, caches, idx = eng.prefill(eng._make_batch(
+                np.stack([r.prompt for r in sub]), ex))
+            out = [logits]
+            for t, tok in enumerate(emitted):
+                logits, caches = eng.bundle.decode_fn(
+                    eng.params, tok[rows, None].to(torch.int32), caches,
+                    idx + t)
+                out.append(logits)
+        return out
+
+    def rel_err(a, b):
+        return [float(((x[:, :V] - y[:, :V]).abs().amax(dim=1)
+                       / y[:, :V].abs().amax(dim=1)).max())
+                for x, y in zip(a, b)]
+
+    want = dense(list(range(8)))
+    rel = rel_err(got, want)
+    # the scale of rounding alone: the same dense arithmetic on the first
+    # two requests at width 2 against their rows at width 8 (other GEMM
+    # shapes, nothing else)
+    scale = rel_err(dense([0, 1]), [w[:2] for w in want])
+    agree = float(np.mean([bool(torch.equal(g[:, :V].argmax(1),
+                                            w[:, :V].argmax(1)))
+                           for g, w in zip(got, want)]))
+    check(rel[0] == 0.0, f"{cfg.name}: the continuous engine's prefill "
+                         f"logits differ from generate's ({rel[0]:.3g})")
+    check(max(rel) <= LOGIT_BF16_TOL,
+          f"{cfg.name}: a step's logits differ from generate's by "
+          f"{max(rel):.3g} of the row's largest (bound {LOGIT_BF16_TOL}); "
+          f"by step {[round(x, 4) for x in rel]}")
+    del ceng
+    return dict(steps=LOGIT_STEPS, rel_err_by_step=rel,
+                rel_err_max=max(rel), argmax_same_share=agree,
+                bound=LOGIT_BF16_TOL, rounding_scale_by_step=scale,
+                rounding_scale_max=max(scale))
+
+
+def hybrid_repeat(eng: ServingEngine, prompt_len: int, dev) -> dict:
+    """A prompt repeated after its slot retired, on a hybrid arch: its
+    chain is still registered (pristine pages kept), yet it is prefilled
+    again -- its SSM state is neither paged nor cached -- and decodes the
+    first admission's tokens; its attention pages are shared."""
+    rng = np.random.default_rng(13)
+    prompt = rng.integers(1, eng.cfg.vocab_size, prompt_len).astype(np.int32)
+    ceng = ContinuousBatchingEngine(eng, capacity=1, page_size=16,
+                                    inner_steps=4,
+                                    max_prompt_len=2 * prompt_len,
+                                    preserve_pristine="always", device=dev)
+    first = ceng.run_all([Request("a", prompt, 8)])[0][1]
+    again = ceng.run_all([Request("a", prompt.copy(), 8)])[0][1]
+    out = dict(prefill_calls=ceng.prefill_calls,
+               prefill_skips=ceng.prefill_skips,
+               pages_shared=ceng.kv.pages_shared,
+               same_tokens=bool(np.array_equal(first, again)))
+    check(out["prefill_skips"] == 0 and out["prefill_calls"] == 2
+          and out["pages_shared"] > 0 and out["same_tokens"],
+          f"{eng.cfg.name}: the repeated prompt {out}")
+    ceng.assert_conserved()
+    del ceng
+    return out
+
+
+def serve_arch_continuous(errs: Errors, arch: str, num_layers, prompt_len,
+                          dev) -> dict:
+    """One arch through ``launch.serve.main --mode continuous`` at full
+    width: 12 requests of 3 tenants, capacity 8.  Held: each kernel's
+    launches by the arch's sub-layers (K5 and K6 per prefill, K3 per decode
+    step, K4 per admission, one launch a sub-layer each), none plain, K5
+    and K6 on the tensor cores; tokens in the vocabulary, logits finite,
+    every state kind conserved; K3 on a live round's pool and table.  Then
+    per-step logits against ``generate`` (no MoE), or the repeated prompt
+    (the hybrid), and rounds eager against graph."""
+    cfg = arch_config(arch, num_layers)
+    weights, init_reckoned = init_footprint(cfg)
+    rec = ServeRecorder()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for m in (agg, pa, fa, ssd):
+        m.reset_counts()                 # just before the serving path
+    t0 = time.perf_counter()
+    rc = serve_cli.main(["--arch", arch, "--mode", "continuous",
+                         "--prompt-len", str(prompt_len)] + ARCHS_ARGV
+                        + depth_argv(num_layers), observe=rec)
+    wall = time.perf_counter() - t0
+    launches, plains = slot_launches()   # just after
+    variants = {K5: dict(fa.variant_counts), K6: dict(ssd.variant_counts)}
+    check(rc == 0, f"serve {arch} returned {rc}")
+    sched, eng = rec.sched, rec.sched.continuous_engine
+    tag = f"{arch} continuous"
+    check(len(rec.finished) == 12 and all(t.shape == (32,)
+                                          for _, t in rec.finished),
+          f"{tag}: {len(rec.finished)} requests finished, token counts "
+          f"{sorted({t.size for _, t in rec.finished})}")
+    check(all(int(t.min()) >= 0 and int(t.max()) < cfg.vocab_size
+              for _, t in rec.finished), f"{tag}: token out of vocab")
+    check(eng.nonfinite_rows == 0, f"{tag}: non-finite logits")
+    check(eng.active_count() == 0 and sched.pending() == 0,
+          f"{tag}: rows left after the drain")
+    eng.assert_conserved()
+    n_attn = eng.n_stages * len(eng.kv.attn_subs)
+    n_ssm = eng.n_stages * len(eng.ssm_subs)
+    want = {K5: n_attn * eng.prefill_calls,
+            K3: n_attn * eng.rounds * eng.inner_steps,
+            K4: len(eng.kv.attn_subs) * (len(rec.finished)
+                                         - eng.prefill_skips),
+            K6: n_ssm * eng.prefill_calls}
+    want = {k: n for k, n in want.items() if n}
+    check(n_attn + n_ssm == cfg.num_layers
+          and all(launches[k] == n for k, n in want.items())
+          and all(v == 0 for k, v in launches.items() if k not in want)
+          and not any(plains.values()),
+          f"{tag}: launches {launches}, expected {want} "
+          f"({eng.prefill_calls} prefill calls, {eng.rounds} rounds of "
+          f"{eng.inner_steps} steps), plain calls {plains}")
+    for k in (K5, K6):
+        check(variants[k] == {"bf16_mma": want.get(k, 0), "f32_simt": 0},
+              f"{tag}: {k} variants {variants[k]}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    s = rec.snap
+    check(s is not None, f"{tag}: no live round was observed")
+    q = torch.randn((eng.capacity, cfg.num_heads, cfg.head_dim),
+                    device=dev).to(torch.bfloat16)
+    errs.hold(K3, *decode_pair((q, s["k_pool"], s["v_pool"], s["pos_pool"],
+                                s["page_table"], s["positions"])),
+              f"{tag}: a live round's pool and table (GQA "
+              f"{cfg.num_heads}:{cfg.num_kv_heads})")
+    pre, rnd = eng.prefill_ms(), eng.round_ms
+    floor = decode_bytes(eng.engine) / PEAK_BYTES_PER_S * 1e3
+    run = dict(
+        layers=cfg.num_layers, weights_gb=weights / 1e9,
+        init_peak_reckoned_gb=init_reckoned / 1e9,
+        init_peak_gib=rec.init_peak_gib, init_s=rec.t_first - t0,
+        wall_s=wall, prefill_calls=len(pre), prefill_ms=pre,
+        rounds=len(rnd), round_ms_median=float(np.median(rnd)),
+        decode_tokens=eng.row_steps,
+        decode_tokens_per_s=eng.row_steps / (sum(rnd) * 1e-3),
+        decode_step_floor_ms=floor, occupancy=eng.occupancy(),
+        peak_gib=peak, pages_allocated=eng.kv.pages_allocated,
+        prefill_skips=eng.prefill_skips, launches=want,
+        **graph_rounds(eng, tag))
+    moe = ContinuousBatchingEngine.supported_modes(cfg)[
+        "continuous"]["exactness"] == "statistical"
+    if not moe:
+        run["logits"] = logits_against_generate(eng.engine, prompt_len, dev)
+    else:
+        # capacity routing couples rows: agreement with generate on the
+        # same prompts (widths differ) is a number
+        prompts = np.stack([r.prompt for r, _ in rec.finished])
+        gen = eng.engine.generate(prompts, max_new_tokens=32).tokens
+        got = np.stack([t for _, t in rec.finished])
+        run["token_agreement"] = float((got == gen).mean())
+    if n_ssm and n_attn:
+        run["repeat"] = hybrid_repeat(eng.engine, prompt_len, dev)
+    say("serve-archs", f"{tag} ({cfg.num_layers} layers) through "
+        "launch.serve: " + ", ".join(
+            f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in run.items() if k != "prefill_ms")
+        + f", prefill ms {[round(x, 2) for x in pre]}")
+    run["rounds_compared"] = compare_rounds(eng.engine, dev,
+                                            prompt_len=prompt_len)
+    del rec, sched, eng, s, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_paged_layouts(errs: Errors, dev) -> dict:
+    """The paged decode kernel at the four archs' decode shapes (GQA 12:1,
+    8:1, 5:1, 4:1 at D 128; capacity 8, the path's table of twice the
+    prompt's pages, SENTINEL past them), held against its plain version,
+    each row alone bit-identical with its batch, timed beside its bound."""
+    rng = np.random.default_rng(14)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    C, D, P = 8, 128, 16
+    out = {}
+    for arch, H, Hkv, named in PAGED_LAYOUTS:
+        st = rand_paged_state(rng, C=C, NB=named, P=P, H=H, Hkv=Hkv, D=D,
+                              dev=dev, q_dtype=torch.bfloat16, full=True)
+        pad = torch.full((C, named), PagedKVCache.SENTINEL,
+                         dtype=torch.int32, device=dev)
+        state = st[:4] + (torch.cat([st[4], pad], dim=1),) + st[5:]
+        what = f"{arch} shape: GQA {H}:{Hkv}, {named} pages a row"
+        errs.hold(K3, *decode_pair(state), what)
+        check(rows_alone_match(state), f"{what}: a row decoded alone "
+                                       "differs from its batch")
+        ms = cuda_ms(lambda: pa.paged_attention_decode(*state), 50, flush)
+        plain = cuda_ms(lambda: pa.paged_attention_decode_plain(*state), 10,
+                        flush)
+        bound, by = decode_bound_ms(C, named, P, H, Hkv, D, 2)
+        shape = (f"q ({C}, {H}, {D}) bf16, pools ({st[1].shape[0]}, {P}, "
+                 f"{Hkv}, {D}) bf16, table ({C}, {2 * named}), {named} pages "
+                 "named a row")
+        say("paged", f"decode at {arch}'s shape {shape}: {ms:.4f} ms, plain "
+                     f"{plain:.4f} ms, bound {bound:.4f} ms by {by}")
+        out[arch] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                         shape=shape)
+        del st, state
+    return out
+
+
+def phase_serve_archs(errs: Errors, dev) -> dict:
+    """serve-archs: mistral-large-123b, jamba-1.5-large-398b,
+    llama4-maverick-400b-a17b and llava-next-mistral-7b at their published
+    widths (``ARCH_RUNS``' depth cuts) through ``launch.serve.main``, bf16,
+    random weights from seed 0: each continuous (``serve_arch_continuous``),
+    jamba and llava also overlapped (the serve driver's default: the
+    decode loop one graph, over both state kinds for jamba; llava's tenant
+    batches carrying patch embeddings).  Then K3, K5 and K6 held at the
+    archs' shapes."""
+    out, launches = {}, {}
+    for arch, layers, prompt_len, modes in ARCH_RUNS:
+        t0 = time.perf_counter()
+        runs = {"continuous": serve_arch_continuous(errs, arch, layers,
+                                                    prompt_len, dev)}
+        launches[arch] = runs["continuous"]["launches"]
+        if "overlapped" in modes:
+            o = serve_slots_once(arch, prompt_len, "overlapped", dev,
+                                 num_layers=layers)
+            o.pop("tokens")
+            runs["overlapped"] = o
+            launches[f"{arch} slots"] = o["launches"]
+        out[arch] = runs
+        say("serve-archs", f"{arch}: {time.perf_counter() - t0:.1f} s")
+    out["paged_layouts"] = phase_paged_layouts(errs, dev)
+    out["ssd_jamba"] = ssd_shapes(errs, dev, SSD_JAMBA, (8, 4),
+                                  two_tilings=False)
+    return {"runs": out, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3492,35 +3914,57 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    laps, t_lap = {}, [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     try:
         card = phase_device()
         phase_build()
+        lap("device, build")
         errs = Errors()
         phase_kernels_small(errs, dev)
         phase_paged_small(errs, dev)
         phase_ssd_small(errs, dev)
         phase_flash_small(errs, dev)
+        lap("kernel sweeps")
         cfg = RiskAppConfig()
         tables = phase_tables(cfg)
         trials = tables.num_trials
         cfg = dataclasses.replace(cfg, num_trials=trials)
+        lap("tables")
         kern = phase_kernels_full(errs, tables, dev)
         main_path = phase_main_gather(cfg, tables, dev)
+        lap("risk kernels, main path")
         loop = risk_loop(cfg, tables, dev, card)
+        lap("power, fit, pairs")
         del tables                       # 4 GB of pinned host memory
         onehot = phase_main_onehot(errs, cfg, dev)
         phase_cli()
+        lap("onehot, cli")
         reduced = phase_serve_reduced(dev)
+        lap("serve reduced")
         serving = phase_serve_full(errs, dev)
         serve_obs = phase_serve_obs(dev, serving.pop("plane_off"))
         kern.update(phase_paged_full(errs, dev, serving["max_blocks"]))
+        lap("serve internlm2, serve-obs, paged full")
         mamba = phase_serve_mamba2(dev)
         kern.update(phase_ssd_full(errs, dev))
+        lap("serve mamba2, ssd full")
         olmoe = phase_serve_olmoe(dev)
         kern[K3]["olmoe_group1"] = phase_paged_olmoe(
             errs, dev, olmoe["run"]["max_blocks"])
         kern.update(phase_flash_full(errs, dev))
+        lap("serve olmoe, paged olmoe, flash full")
         slots = phase_serve_slots(dev)
+        lap("serve-slots")
+        archs = phase_serve_archs(errs, dev)
+        kern[K3]["layouts"] = archs["runs"].pop("paged_layouts")
+        kern[K6]["jamba"] = archs["runs"].pop("ssd_jamba")
+        lap("serve-archs")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3546,10 +3990,16 @@ def main() -> int:
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     # launches on the serving paths, each read just after its own run
+    arch_paths = archs["launches"]
     paths = {"internlm2-1.8b": serving["launches"],
              "olmoe-1b-7b": olmoe["launches"],
              **{f"{a} slots": {K3: 0, K4: 0, **n}
-                for a, n in slots["launches"].items() if n[K5]}}
+                for a, n in slots["launches"].items() if n[K5]},
+             **{a: {K3: n.get(K3, 0), K4: n.get(K4, 0), K5: n[K5]}
+                for a, n in arch_paths.items() if n.get(K5)}}
+    k6_paths = {"mamba2-2.7b": mamba["launches"],
+                "mamba2-2.7b slots": slots["launches"]["mamba2-2.7b"][K6],
+                **{a: n[K6] for a, n in arch_paths.items() if n.get(K6)}}
     on_paths = {k: sum(p[k] for p in paths.values()) for k in (K3, K4, K5)}
     by_path = {k: {a: p[k] for a, p in paths.items()} for k in (K3, K4, K5)}
     # the gather on the risk paths, each read just after its own run
@@ -3579,17 +4029,16 @@ def main() -> int:
              {"launches": on_paths[K4], "launches_by_path": by_path[K4],
               **kern[K4]}),
             (K6, ssd_src, "src/repro/kernels/ssd_scan.py:29",
-             {"launches": mamba["launches"]
-              + slots["launches"]["mamba2-2.7b"][K6],
-              "launches_by_path": {
-                  "mamba2-2.7b": mamba["launches"],
-                  "mamba2-2.7b slots": slots["launches"]["mamba2-2.7b"][K6]},
-              **kern[K6]}),
+             {"launches": sum(k6_paths.values()),
+              "launches_by_path": k6_paths, **kern[K6]}),
             (K5, flash_src, "src/repro/kernels/flash_attention.py:32",
              {"launches": on_paths[K5], "launches_by_path": by_path[K5],
+              # every other path's held to bf16_mma alone by its phase
               "variant_launches_by_path": {
                   "internlm2-1.8b": serving["variants"],
-                  "olmoe-1b-7b": olmoe["variants"]},
+                  "olmoe-1b-7b": olmoe["variants"],
+                  **{a: {"bf16_mma": n[K5], "f32_simt": 0}
+                     for a, n in arch_paths.items() if n.get(K5)}},
               **kern[K5]})):
         keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
@@ -3602,7 +4051,8 @@ def main() -> int:
                      "library_ms": numbers["library_ms"],
                      "max_rel_err": errs.rel[name], "cases": errs.cases[name],
                      **{k: v for k, v in numbers.items() if k not in keys}})
-    say("done", f"{time.perf_counter() - t_start:.1f} s in all")
+    say("done", f"{time.perf_counter() - t_start:.1f} s in all; seconds by "
+                f"phase {laps}")
     print(json.dumps({"main_path": main_path["runs"], "trials": trials}))
     print(json.dumps({"risk_loop": loop, "serve_obs": serve_obs}))
     print(json.dumps({"serving": {str(k): v for k, v in
@@ -3612,6 +4062,7 @@ def main() -> int:
                       "serving_reduced": reduced,
                       "serving_rounds": serving["rounds"]}))
     print(json.dumps({"serve_slots": slots["runs"]}))
+    print(json.dumps({"serve_archs": archs["runs"], "phase_seconds": laps}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 full width on one CUDA device (open item F1 in ROADMAP.md).
 
     python3 diagnostics/f1_internlm2.py [--dtypes bfloat16 float32]
-                                        [--out f1.json]
+                                        [--replay 1 10] [--out f1.json]
 
 (``--reduced --device cpu`` runs the reduced config on the host, as a
 rehearsal.)
@@ -34,6 +34,15 @@ difference of the residual after attention and after the layer, and of
 the held K and V, at the parting step and the largest over the agreeing
 steps, and names the first layer whose parting difference exceeds twice
 its agreeing largest (``PERF.md`` states the rule that reads it).
+
+``--replay I ...`` (bfloat16): requests that part too early to be judged
+-- with fewer than ``MIN_AGREEING`` agreeing decode steps -- are served
+again in other company until they have enough: as the first of a batch
+of 12 whose other 11 prompts are new (``generate``'s batch and the
+engine's admissions then hold other rows), then behind a shared prompt of
+``REPLAY_PREFIXES`` tokens (every row of the batch carries it, the
+request's own prompt after it).  The first replay in which the request
+parts after enough agreeing steps is compared layer by layer, as above.
 """
 from __future__ import annotations
 
@@ -62,14 +71,19 @@ from repro_torch.serving.kvcache import POS_SENTINEL
 from repro_torch.serving.multitenant import Request
 
 ARCH, REQUESTS, PROMPT_LEN, NEW_TOKENS = "internlm2-1.8b", 12, 128, 32
+MIN_AGREEING = 3           # agreeing decode steps a judged request needs
+REPLAY_PREFIXES = (0, 64, 128, 256, 512)   # shared prompt before a replay
 
 
 class RecordingEngine(ContinuousBatchingEngine):
     """A continuous engine that keeps, before each decode step, every
-    slot's request, step, liveness and the logits the step samples from."""
+    slot's request, step, liveness and the logits the step samples from.
+    Its rounds run op by op (``round_graphs=False``): the records are host
+    reads between steps, which a captured round cannot make (its tokens
+    are the graph rounds', ``chip_smoke.compare_rounds``)."""
 
     def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
+        super().__init__(*args, round_graphs=False, **kwargs)
         self.kept = []
         self.request_of = {}
 
@@ -220,14 +234,15 @@ def compare_layers(eng: ServingEngine, cfg, prompts: np.ndarray, dev,
     step and at the agreeing decode steps before it."""
     recorder = ResidualRecorder()
     ceng = LayerRecordingEngine(eng, capacity=8, page_size=16, inner_steps=4,
-                                max_prompt_len=2 * PROMPT_LEN, device=dev,
-                                recorder=recorder, targets=targets)
+                                max_prompt_len=2 * prompts.shape[1],
+                                device=dev, recorder=recorder,
+                                targets=targets)
     reqs = [Request(f"f1-{i}", p, max_new_tokens=NEW_TOKENS)
             for i, p in enumerate(prompts)]
     ceng.request_of = {id(r): i for i, r in enumerate(reqs)}
     with recorder.patches()[0]:
         done = {ceng.request_of[id(r)]: t for r, t in ceng.run_all(reqs)}
-    again = np.stack([done[i] for i in range(REQUESTS)])
+    again = np.stack([done[i] for i in range(len(prompts))])
     if not np.array_equal(again, cont_tokens):
         raise RuntimeError("the continuous engine gave other tokens when "
                            "run again")
@@ -290,35 +305,52 @@ def top2_margin(v: torch.Tensor) -> float:
     return float(top[0] - top[1])
 
 
-@torch.no_grad()
-def measure(compute_dtype: str, dev, reduced: bool = False) -> dict:
-    cfg = get_config(ARCH)
-    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
-                              compute_dtype=compute_dtype)
-    V = cfg.vocab_size
-    eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
-    prompts = prompts_of_serve(V)
+def serve_both(eng: ServingEngine, prompts: np.ndarray, dev):
+    """The prompts through a continuous engine (capacity 8, page 16, 4
+    steps a round) and through ``generate`` (one batch), 32 greedy tokens
+    each: (continuous tokens, generate tokens, the continuous logits by
+    (request, step), generate's logits (n, B, V))."""
+    V = eng.cfg.vocab_size
     ceng = RecordingEngine(eng, capacity=8, page_size=16, inner_steps=4,
-                           max_prompt_len=2 * PROMPT_LEN, device=dev)
+                           max_prompt_len=2 * prompts.shape[1], device=dev)
     reqs = [Request(f"f1-{i}", p, max_new_tokens=NEW_TOKENS)
             for i, p in enumerate(prompts)]
     ceng.request_of = {id(r): i for i, r in enumerate(reqs)}
     done = {ceng.request_of[id(r)]: t for r, t in ceng.run_all(reqs)}
-    if len(done) != REQUESTS:
-        raise RuntimeError(f"{len(done)} of {REQUESTS} requests served")
-    cont = np.stack([done[i] for i in range(REQUESTS)])
+    if len(done) != len(prompts):
+        raise RuntimeError(f"{len(done)} of {len(prompts)} requests served")
+    cont = np.stack([done[i] for i in range(len(prompts))])
     gen, gen_logits = generate_keeping_logits(eng, prompts)
     cont_logits = {}                           # (request, step) -> logits
     for slots, lstep, live, logits in ceng.kept:
         for c, i in enumerate(slots):
             if i is not None and live[c]:
                 cont_logits.setdefault((i, int(lstep[c])), logits[c])
+    del ceng
+    return cont, gen, cont_logits, gen_logits[:, :, :V]
+
+
+def parting_step(cont: np.ndarray, gen: np.ndarray, i: int) -> int:
+    """The first step where request ``i``'s two token rows differ
+    (``NEW_TOKENS`` if none)."""
+    same = cont[i] == gen[i]
+    return NEW_TOKENS if same.all() else int(np.argmin(same))
+
+
+@torch.no_grad()
+def measure(compute_dtype: str, dev, reduced: bool = False,
+            replay=()) -> dict:
+    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(cfg.reduced() if reduced else cfg,
+                              compute_dtype=compute_dtype)
+    eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
+    prompts = prompts_of_serve(cfg.vocab_size)
+    cont, gen, cont_logits, gen_logits = serve_both(eng, prompts, dev)
     agree, parts, targets = [], [], {}
     for i in range(REQUESTS):
-        same = cont[i] == gen[i]
-        last = NEW_TOKENS if same.all() else int(np.argmin(same))
+        last = parting_step(cont, gen, i)
         for d in range(min(last + 1, NEW_TOKENS)):
-            cl, gl = cont_logits[(i, d)], gen_logits[d, i, :V]
+            cl, gl = cont_logits[(i, d)], gen_logits[d, i]
             if int(torch.argmax(cl)) != int(cont[i, d]) or \
                     int(torch.argmax(gl)) != int(gen[i, d]):
                 raise RuntimeError(f"request {i}: the kept logits do not "
@@ -345,15 +377,42 @@ def measure(compute_dtype: str, dev, reduced: bool = False) -> dict:
         divergences_within_the_agreeing_max=sum(
             r["max_logit_diff"] <= worst for r in parts),
         at_divergence=parts)
-    del ceng, gen_logits, cont_logits
+    del cont_logits, gen_logits
     gc.collect()
     out["layer_by_layer"] = compare_layers(eng, cfg, prompts, dev, targets,
                                            cont, gen)
+    out["replays"] = [replay_request(eng, cfg, prompts, i, dev)
+                      for i in replay]
     del eng
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def replay_request(eng: ServingEngine, cfg, prompts: np.ndarray, i: int,
+                   dev) -> dict:
+    """Request ``i`` served again as the first of a batch of 12 with new
+    neighbours, behind each shared prompt of ``REPLAY_PREFIXES`` in turn,
+    until it parts after at least ``MIN_AGREEING`` agreeing decode steps;
+    that replay is compared layer by layer.  Returns every replay's parting
+    step (``NEW_TOKENS``: none) and the comparison (None if no replay
+    parted late enough)."""
+    tried = []
+    for prefix_len in REPLAY_PREFIXES:
+        rng = np.random.default_rng(1000 + prefix_len)
+        prefix = rng.integers(1, cfg.vocab_size, prefix_len)
+        rows = [prompts[i]] + [rng.integers(1, cfg.vocab_size, PROMPT_LEN)
+                               for _ in range(REQUESTS - 1)]
+        batch = np.stack([np.concatenate([prefix, r]) for r in rows]
+                         ).astype(np.int32)
+        cont, gen, _, _ = serve_both(eng, batch, dev)
+        d = parting_step(cont, gen, 0)
+        tried.append(dict(prefix=prefix_len, parts_at=d))
+        if MIN_AGREEING < d < NEW_TOKENS:
+            layers = compare_layers(eng, cfg, batch, dev, {0: d}, cont, gen)
+            return dict(request=i, tried=tried, judged=layers[0])
+    return dict(request=i, tried=tried, judged=None)
 
 
 def main(argv=None) -> int:
@@ -362,12 +421,18 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the JSON here")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--replay", nargs="*", type=int, default=[],
+                    help="bfloat16: serve these requests again in other "
+                         "company until they part after enough agreeing "
+                         "steps")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device(args.device)
-    result = {dt: measure(dt, dev, args.reduced) for dt in args.dtypes}
+    result = {dt: measure(dt, dev, args.reduced,
+                          args.replay if dt == "bfloat16" else ())
+              for dt in args.dtypes}
     for r in result.values():
         print(f"[f1] {ARCH} {r['compute_dtype']}: agreement "
               f"{r['token_agreement']:.4f}, {r['requests_identical']} of "
@@ -398,12 +463,23 @@ def main(argv=None) -> int:
                               round(worst[k + "_agreeing_max"], 8))
                           for k in ("after_attention", "after_layer",
                                     "held_k", "held_v")})))
+        for rp in r["replays"]:
+            j = rp["judged"]
+            print(f"[f1] {r['compute_dtype']} request {rp['request']} "
+                  "replayed, (shared prompt, parting step): "
+                  f"{[(t['prefix'], t['parts_at']) for t in rp['tried']]}; "
+                  + ("not judged (no replay parted after enough agreeing "
+                     "steps)" if j is None else
+                     f"judged at step {j['step']} ({j['agreeing_steps']} "
+                     f"agreeing): first layer past twice the agreeing max: "
+                     f"{j['first_layer_past_twice']}"))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
     print(json.dumps({k: {kk: vv for kk, vv in v.items()
-                          if kk not in ("at_divergence", "layer_by_layer")}
+                          if kk not in ("at_divergence", "layer_by_layer",
+                                        "replays")}
                       for k, v in result.items()}))
     return 0
 

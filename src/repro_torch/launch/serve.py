@@ -16,6 +16,12 @@
         --no-reduced --mode continuous --prompt-len 1024 --new-tokens 32 \\
         --capacity 8
 
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-1.5-large-398b --no-reduced --num-layers 5 \\
+        --mode continuous --prompt-len 1024 --new-tokens 32 --capacity 8
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --list-archs
+
 Builds the model (weights drawn from ``--seed``, at full width with
 ``--no-reduced``), spins up the multi-tenant scheduler and drains a
 synthetic request mix, printing per-tenant utilisation and the realised
@@ -37,9 +43,17 @@ N`` light the telemetry plane before the stack is built and write a Chrome
 trace, write Prometheus text, and print an ``obs:`` line every N scheduling
 steps.  A pure-SSM arch (mamba2) pages nothing: its rows carry their SSM
 state in the slot table, and ``--shared-prefix-len`` only lengthens the
-prompts.  A MoE arch (olmoe) routes every token top-k over its experts with
-capacity per routing group, so its rows are coupled (see
-``serving/continuous.py``).
+prompts.  A MoE arch (olmoe, llama4, jamba) routes every token top-k over
+its experts with capacity per routing group, so its rows are coupled (see
+``serving/continuous.py``).  A hybrid arch (jamba) carries attention pages
+and SSM rows at once.  A vision arch's requests (llava) carry synthetic
+patch embeddings (``synth_extra_inputs``), merged into the leading
+positions of the prompt.  ``--list-archs`` prints what each arch's serving
+offers (``ContinuousBatchingEngine.supported_modes``) without building a
+model, and exits.  ``--num-layers N`` serves a prefix of the published block
+schedule, ``N`` layers at the published widths: the depth cut the
+reference applies in its dry-run (``launch/dryrun.py``), so that a model
+too large for one card still runs at full width.
 
 The flags are the JAX package's ``repro.launch.serve`` as far as this slice
 of the port reaches.  Deliberate differences: ``--reduced`` is a boolean
@@ -48,28 +62,32 @@ pair (``--no-reduced`` runs the published width; the reference's
 there is no ``--kernel-backend`` -- the device decides (the hand-written
 kernels for a CUDA device, their plain versions on the CPU); tier-0
 requests are submitted with the rest, not held back to land mid-flight
-(the reference does so to show preemption, which is slice 3).  Flags of
-later slices (``--swap``, ``--max-backlog``, ``--mesh``, the journal and
-crash flags, ``--list-archs``) raise ``NotImplementedError`` naming the
-slice.  Since ``main`` also runs inside other programs, the plane it lights
-starts empty and is turned off again when it returns (the reference's
-process simply exits).
+(the reference does so to show preemption, which is slice 3);
+``--num-layers`` is the port's (the reference's serve driver has none).
+Flags of later slices (``--swap``, ``--max-backlog``, ``--mesh``, the
+journal and crash flags) raise ``NotImplementedError`` naming the slice.
+Since ``main`` also runs inside other programs, the plane it lights starts
+empty and is turned off again when it returns (the reference's process
+simply exits).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.pipeline import timeline_overlaps
 from repro_torch.core.tenancy import TenancyConfig, resolve_devices
 from repro_torch.models.model import build_model, param_count
+from repro_torch.models.transformer import VIS_WIDTH, init_footprint
 from repro_torch.obs import TELEMETRY
 from repro_torch.obs.export import stats_line, write_chrome_trace, write_metrics
+from repro_torch.serving.continuous import ContinuousBatchingEngine
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.multitenant import (MODES, MultiTenantScheduler,
                                              Request)
@@ -78,7 +96,48 @@ from repro_torch.serving.multitenant import (MODES, MultiTenantScheduler,
 LATER = {"swap": "slice 3", "max_backlog": "slice 3",
          "journal_dir": "slice 3", "checkpoint_every": "slice 3",
          "crash_at_round": "slice 3", "recover": "slice 3",
-         "mesh": "slice 6", "list_archs": "slice 4"}
+         "mesh": "slice 6"}
+
+
+def list_archs() -> int:
+    """Print the per-arch serving capability table (no model is built: the
+    probe reads the arch config alone).  An arch the port does not serve
+    yet gets a row naming its slice."""
+    hdr = (f"{'arch':<28} {'modes':<32} {'state kinds':<16} "
+           f"{'preempt':<8} {'share':<14} {'exactness'}")
+    print(hdr)
+    print("-" * len(hdr))
+    for arch in ARCH_IDS:
+        try:
+            cfg = get_config(arch)
+        except NotImplementedError:
+            print(f"{arch:<28} comes with slice 4c of the port "
+                  "(encoder-decoder)")
+            continue
+        modes = ContinuousBatchingEngine.supported_modes(cfg)
+        cont = modes["continuous"]
+        share = ("window-phase" if cont["window_phase_keys"]
+                 else ("yes" if cont["prefix_sharing"] else "no"))
+        print(f"{arch:<28} "
+              f"{'/'.join(m for m in MODES if modes[m]['supported']):<32} "
+              f"{'+'.join(cont['state_kinds']):<16} "
+              f"{'yes' if cont['preemptable'] else 'no':<8} "
+              f"{share:<14} {cont['exactness']}")
+    return 0
+
+
+def synth_extra_inputs(cfg, rng: np.random.Generator) -> dict:
+    """Deterministic synthetic non-token prefill inputs for one request:
+    encoder frames for enc-dec archs, patch embeddings for vision archs
+    (distinct per call -- distinct extras never share pages)."""
+    extra = {}
+    if cfg.enc_dec:
+        extra["frames"] = rng.normal(
+            size=(cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.num_patches:
+        extra["patch_embeds"] = rng.normal(
+            size=(cfg.num_patches, VIS_WIDTH)).astype(np.float32)
+    return extra
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,6 +148,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="tiny same-family config (default); --no-reduced "
                          "serves the published width")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--num-layers", type=int, default=None, metavar="N",
+                    help="serve the first N layers of the block schedule "
+                         "at the published widths (the dry-run's depth "
+                         "cut; default: every layer)")
+    ap.add_argument("--list-archs", action="store_true",
+                    help="print the per-arch serving capability table "
+                         "(modes, state kinds, preemptable, prefix "
+                         "sharing, exactness class) and exit")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
     ap.add_argument("--tenants", type=int, default=3)
@@ -146,8 +213,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print a one-line telemetry summary every N "
                          "scheduling steps (enables the telemetry plane; "
                          "0 = never)")
-    for flag in ("--recover", "--list-archs"):
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--recover", action="store_true", help=argparse.SUPPRESS)
     return ap
 
 
@@ -155,6 +221,8 @@ def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
     """Run the driver; ``observe(scheduler)`` (optional) is called once
     after the scheduler is built and then after every scheduling step."""
     args = build_parser().parse_args(argv)
+    if args.list_archs:
+        return list_archs()
     for name, slice_ in LATER.items():
         if getattr(args, name):
             raise NotImplementedError(
@@ -178,8 +246,15 @@ def _serve(args, dev: torch.device,
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.num_layers)
+    weight_bytes, init_peak = init_footprint(cfg)
     params = build_model(cfg).init(args.seed, dev)
     n_params = param_count(params)
+    if dev.type == "cuda":
+        print(f"init: weights {weight_bytes / 1e9:.2f} GB, peak reckoned "
+              f"{init_peak / 1e9:.2f} GB, measured "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     engine = ServingEngine(cfg, params, device=dev)
     del params                       # the engine keeps its compute copy
     preserve = {"never": False, "reuse": True,
@@ -214,7 +289,9 @@ def _serve(args, dev: torch.device,
         sched.submit(Request(tenant, prompt,
                              max(4, args.new_tokens // 4) if tier0
                              else args.new_tokens,
-                             priority=0 if tier0 else 1))
+                             priority=0 if tier0 else 1,
+                             extra_inputs=synth_extra_inputs(cfg, rng)
+                             or None))
 
     responses = []
     steps = 0

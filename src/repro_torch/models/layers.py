@@ -32,21 +32,55 @@ def pad_vocab(vocab: int, multiple: int = 256) -> int:
     return ((vocab + multiple - 1) // multiple) * multiple
 
 
+# a leaf of more elements than this is drawn in float32 pieces of at most
+# this many, each cast into its part of the leaf: a whole float32 draw of a
+# large leaf (one stage's experts of llama4, 5.4 G elements) would not fit
+# beside the weights.  A leaf of this many or fewer is one draw.
+DRAW_PIECE = 1 << 28
+
+
 def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
-           device) -> torch.Tensor:
+           device, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``scale * N(0, 1)`` drawn in float32 from ``gen``, cast to ``dtype``
-    (the reference's ``params.normal``; the draws differ from jax.random)."""
-    if torch.device(device or "cpu").type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+    (the reference's ``params.normal``; the draws differ from jax.random),
+    written into ``out`` (a contiguous slice of a stacked leaf) when given.
+    A leaf over :data:`DRAW_PIECE` elements is drawn piece by piece into
+    its flat view; given the generator's state, the numbers do not depend
+    on whether ``out`` is given."""
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    if out.device.type == "meta":
+        return out
+    n = out.numel()
+    if n <= DRAW_PIECE:
+        x = torch.randn(tuple(out.shape), generator=gen, dtype=torch.float32,
+                        device=out.device)
+        out.copy_(x.mul_(scale))
+        return out
+    flat = out.view(-1)
+    for a in range(0, n, DRAW_PIECE):
+        b = min(a + DRAW_PIECE, n)
+        flat[a:b].copy_(torch.randn((b - a,), generator=gen,
+                                    dtype=torch.float32,
+                                    device=out.device).mul_(scale))
+    return out
+
+
+def filled(value: float, shape, dtype: torch.dtype, device,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A constant leaf (norm scales, biases), or ``out`` set to it."""
+    if out is None:
+        return torch.full(shape, value, dtype=dtype, device=device)
+    return out.fill_(value)
 
 
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
-def init_rmsnorm(dim: int, dtype, device) -> Dict[str, torch.Tensor]:
-    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+def init_rmsnorm(dim: int, dtype, device, out: Optional[Dict[str, Any]] = None
+                 ) -> Dict[str, torch.Tensor]:
+    return {"scale": filled(1.0, (dim,), dtype, device,
+                            (out or {}).get("scale"))}
 
 
 def apply_rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -133,18 +167,21 @@ def apply_unembed(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # GQA attention block
 # ---------------------------------------------------------------------------
-def init_attention(gen, cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
+def init_attention(gen, cfg: ArchConfig, device,
+                   out: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, torch.Tensor]:
     dt = dtype_of(cfg.param_dtype)
     d, H, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s_in = 0.02
     s_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
-    p = {"wq": normal(gen, (d, H * D), s_in, dt, device),
-         "wk": normal(gen, (d, Hkv * D), s_in, dt, device),
-         "wv": normal(gen, (d, Hkv * D), s_in, dt, device),
-         "wo": normal(gen, (H * D, d), s_out, dt, device)}
+    o = out or {}
+    p = {"wq": normal(gen, (d, H * D), s_in, dt, device, o.get("wq")),
+         "wk": normal(gen, (d, Hkv * D), s_in, dt, device, o.get("wk")),
+         "wv": normal(gen, (d, Hkv * D), s_in, dt, device, o.get("wv")),
+         "wo": normal(gen, (H * D, d), s_out, dt, device, o.get("wo"))}
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((D,), dtype=dt, device=device)
-        p["k_norm"] = torch.ones((D,), dtype=dt, device=device)
+        p["q_norm"] = filled(1.0, (D,), dt, device, o.get("q_norm"))
+        p["k_norm"] = filled(1.0, (D,), dt, device, o.get("k_norm"))
     return p
 
 
@@ -235,16 +272,18 @@ def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int,
 # ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
-def init_mlp(gen, cfg: ArchConfig, device, d_ff: Optional[int] = None
-             ) -> Dict[str, Any]:
+def init_mlp(gen, cfg: ArchConfig, device, d_ff: Optional[int] = None,
+             out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     dt = dtype_of(cfg.param_dtype)
     d = cfg.d_model
     ff = d_ff or cfg.d_ff
     s_in = 0.02
     s_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
-    return {"w_gate": normal(gen, (d, ff), s_in, dt, device),
-            "w_up": normal(gen, (d, ff), s_in, dt, device),
-            "w_down": normal(gen, (ff, d), s_out, dt, device)}
+    o = out or {}
+    return {"w_gate": normal(gen, (d, ff), s_in, dt, device, o.get("w_gate")),
+            "w_up": normal(gen, (d, ff), s_in, dt, device, o.get("w_up")),
+            "w_down": normal(gen, (ff, d), s_out, dt, device,
+                             o.get("w_down"))}
 
 
 def apply_mlp(p, x, cfg: ArchConfig) -> torch.Tensor:

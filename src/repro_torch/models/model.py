@@ -1,15 +1,16 @@
 """Model factory: ArchConfig -> init / prefill / decode callables.
 
 The decoder-only half of the JAX package's ``repro/models/model.py``
-(attention and Mamba-2 mixers, dense and routed MLPs)::
+(attention and Mamba-2 mixers, dense and routed MLPs, and a vision arch's
+patch embeddings merged into the leading positions)::
 
     bundle = build_model(cfg)
     params = bundle.init(seed, device)             # tree of tensors
     logits, caches, idx = bundle.prefill_fn(params, batch)
     logits, caches = bundle.decode_fn(params, tokens, caches, idx)
 
-There is no ``loss_fn`` yet (training is slice 5 of the port), and
-encoder-decoder / vision bundles come with slice 4.
+There is no ``loss_fn`` yet (training is slice 5 of the port), and the
+encoder-decoder bundle comes with slice 4c.
 """
 from __future__ import annotations
 
@@ -17,21 +18,25 @@ import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models.layers import (apply_embedding, apply_unembed,
                                        dtype_of, unembed_operand)
-from repro_torch.models.transformer import (check_supported, init_lm,
-                                            init_lm_caches, lm_backbone,
-                                            lm_decode_backbone, tree_map)
+from repro_torch.models.transformer import (VIS_WIDTH, check_supported,
+                                            init_lm, init_lm_caches,
+                                            lm_backbone, lm_decode_backbone,
+                                            tree_map)
 
 # leaves the reference casts to the compute dtype at every use
-# (``p[...].astype(cdt)``; a MoE sublayer's experts w_gate/w_up/w_down too);
+# (``p[...].astype(cdt)``; a MoE sublayer's experts w_gate/w_up/w_down too,
+# and a vision arch's patch projection w1/w2);
 # norm scales, the SSM's a_log, dt_bias, d_skip and norm_scale and the MoE
 # router (float32, read as float32) stay as they are, as the reference
 # reads them
 COMPUTE_LEAVES = ("embedding", "wq", "wk", "wv", "wo", "w_gate", "w_up",
-                  "w_down", "in_proj", "conv_w", "conv_b", "out_proj")
+                  "w_down", "in_proj", "conv_w", "conv_b", "out_proj", "w1",
+                  "w2")
 
 
 @dataclasses.dataclass
@@ -74,12 +79,39 @@ def prepare_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _merge_patches(params, x: torch.Tensor, patch_embeds: torch.Tensor,
+                   cfg: ArchConfig) -> torch.Tensor:
+    """The reference's ``_merge_patches``: patch embeddings ``(B, P,
+    VIS_WIDTH)`` through the two-layer projection (tanh GELU, as
+    ``jax.nn.gelu``'s default), written over the first ``P`` positions of
+    the embedded tokens ``x`` ``(B, S, d)``."""
+    cdt = dtype_of(cfg.compute_dtype)
+    n = patch_embeds.shape[1]
+    if patch_embeds.shape[-1] != VIS_WIDTH or n > x.shape[1]:
+        raise ValueError(f"patch embeds {tuple(patch_embeds.shape)}: width "
+                         f"{VIS_WIDTH} and at most {x.shape[1]} patches")
+    pe = torch.matmul(patch_embeds.to(cdt), params["mm_proj"]["w1"].to(cdt))
+    pe = F.gelu(pe, approximate="tanh")
+    pe = torch.matmul(pe, params["mm_proj"]["w2"].to(cdt))
+    return torch.cat([pe.to(x.dtype), x[:, n:]], dim=1)
+
+
+def _embed(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
+           ) -> torch.Tensor:
+    """The prefill's input embeddings: the tokens', with a vision arch's
+    patch embeddings merged in when the batch carries them."""
+    x = apply_embedding(params["embed"], batch["tokens"], cfg)
+    if cfg.num_patches and "patch_embeds" in batch:
+        x = _merge_patches(params, x, batch["patch_embeds"], cfg)
+    return x
+
+
 def _build_decoder_only(cfg: ArchConfig) -> ModelBundle:
     def init(seed: int = 0, device=None):
         return init_lm(cfg, seed, device)
 
     def prefill_fn(params, batch: Dict[str, torch.Tensor]):
-        x = apply_embedding(params["embed"], batch["tokens"], cfg)
+        x = _embed(params, batch, cfg)
         h, caches = lm_backbone(params, x, cfg, collect_cache=True)
         logits = apply_unembed(params["embed"], h[:, -1:], cfg)
         return logits[:, 0], caches, int(x.shape[1])

@@ -31,7 +31,7 @@ port; ``dispatch="ep"`` raises.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,21 +40,27 @@ from repro_torch.configs import ArchConfig, MoEConfig
 from repro_torch.models.layers import apply_mlp, dtype_of, init_mlp, normal
 
 
-def init_moe(gen, cfg: ArchConfig, device) -> Dict[str, Any]:
+def init_moe(gen, cfg: ArchConfig, device,
+             out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The reference's parameters, scales and layout (the port's own draws;
-    the router is float32 whatever the parameter type)."""
+    the router is float32 whatever the parameter type), written into
+    ``out``'s leaves when given."""
     mc = cfg.moe
     dt = dtype_of(cfg.param_dtype)
     d, ff, E = cfg.d_model, mc.d_ff_expert, mc.num_experts
     s_in = 0.02
     s_out = 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
-    p = {"router": normal(gen, (d, E), 0.02, torch.float32, device),
-         "w_gate": normal(gen, (E, d, ff), s_in, dt, device),
-         "w_up": normal(gen, (E, d, ff), s_in, dt, device),
-         "w_down": normal(gen, (E, ff, d), s_out, dt, device)}
+    o = out or {}
+    p = {"router": normal(gen, (d, E), 0.02, torch.float32, device,
+                          o.get("router")),
+         "w_gate": normal(gen, (E, d, ff), s_in, dt, device, o.get("w_gate")),
+         "w_up": normal(gen, (E, d, ff), s_in, dt, device, o.get("w_up")),
+         "w_down": normal(gen, (E, ff, d), s_out, dt, device,
+                          o.get("w_down"))}
     if mc.num_shared_experts:
         p["shared"] = init_mlp(gen, cfg, device,
-                               d_ff=mc.d_ff_expert * mc.num_shared_experts)
+                               d_ff=mc.d_ff_expert * mc.num_shared_experts,
+                               out=o.get("shared"))
     return p
 
 

@@ -14,7 +14,7 @@ of the SSM state serve swap preemption and come with slice 3 of the port.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import dtype_of, normal
+from repro_torch.models.layers import dtype_of, filled, normal
 
 
 def ssm_dims(cfg: ArchConfig):
@@ -41,8 +41,10 @@ def _uniform(gen: torch.Generator, n: int, device) -> torch.Tensor:
     return torch.rand((n,), generator=gen, dtype=torch.float32, device=device)
 
 
-def init_ssm(gen: torch.Generator, cfg: ArchConfig, device) -> Dict[str, Any]:
-    """The reference's parameters, scales and layout (the port's own draws)."""
+def init_ssm(gen: torch.Generator, cfg: ArchConfig, device,
+             out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The reference's parameters, scales and layout (the port's own
+    draws), written into ``out``'s leaves when given."""
     sc = cfg.ssm
     dt = dtype_of(cfg.param_dtype)
     d_inner, H, conv_dim, d_in_proj = ssm_dims(cfg)
@@ -54,16 +56,24 @@ def init_ssm(gen: torch.Generator, cfg: ArchConfig, device) -> Dict[str, Any]:
     dts = torch.exp(_uniform(gen, H, device) *
                     (np.log(sc.dt_max) - np.log(sc.dt_min)) + np.log(sc.dt_min))
     dt_bias = dts + torch.log(-torch.expm1(-dts))
-    f32 = dict(dtype=torch.float32, device=device)
+    o = out or {}
+    if out is not None:
+        a_init = out["a_log"].copy_(a_init)
+        dt_bias = out["dt_bias"].copy_(dt_bias)
+    f32 = torch.float32
     return {
-        "in_proj": normal(gen, (cfg.d_model, d_in_proj), s_in, dt, device),
-        "conv_w": normal(gen, (sc.d_conv, conv_dim), 0.2, dt, device),
-        "conv_b": torch.zeros((conv_dim,), dtype=dt, device=device),
+        "in_proj": normal(gen, (cfg.d_model, d_in_proj), s_in, dt, device,
+                          o.get("in_proj")),
+        "conv_w": normal(gen, (sc.d_conv, conv_dim), 0.2, dt, device,
+                         o.get("conv_w")),
+        "conv_b": filled(0.0, (conv_dim,), dt, device, o.get("conv_b")),
         "a_log": a_init,
         "dt_bias": dt_bias,
-        "d_skip": torch.ones((H,), **f32),
-        "norm_scale": torch.ones((d_inner,), dtype=dt, device=device),
-        "out_proj": normal(gen, (d_inner, cfg.d_model), s_out, dt, device),
+        "d_skip": filled(1.0, (H,), f32, device, o.get("d_skip")),
+        "norm_scale": filled(1.0, (d_inner,), dt, device,
+                             o.get("norm_scale")),
+        "out_proj": normal(gen, (d_inner, cfg.d_model), s_out, dt, device,
+                           o.get("out_proj")),
     }
 
 

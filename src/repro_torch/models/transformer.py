@@ -12,32 +12,37 @@ them (they matter to a loss, which is slice 5's).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import ATTN, DENSE, MAMBA, MOE, NONE, ArchConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_attention, apply_attention_decode,
-                                       apply_mlp, apply_rmsnorm, dtype_of,
+from repro_torch.models.layers import (DRAW_PIECE, apply_attention,
+                                       apply_attention_decode, apply_mlp,
+                                       apply_rmsnorm, dtype_of,
                                        init_attention, init_embedding,
-                                       init_kv_cache, init_mlp, init_rmsnorm)
+                                       init_kv_cache, init_mlp, init_rmsnorm,
+                                       normal)
+
+VIS_WIDTH = 1024  # CLIP ViT-L/14 stub feature width (the reference's)
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a block schedule the port does not
-    run yet (anything but attention or Mamba-2 mixers with a dense, routed
-    or no MLP)."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    a block schedule of anything but attention or Mamba-2 mixers with a
+    dense, routed or no MLP, and the encoder-decoder arch (sinusoidal
+    positions, cross-attention; slice 4c)."""
     for mixer, mlp in cfg.block_schedule():
         if mixer not in (ATTN, MAMBA) or mlp not in (DENSE, MOE, NONE):
             raise NotImplementedError(
-                f"{cfg.name}: {mixer}/{mlp} sublayers come with slice 4 of "
-                "the port (ROADMAP.md)")
-    if cfg.enc_dec or cfg.num_patches or not cfg.use_rope:
+                f"{cfg.name}: {mixer}/{mlp} sublayers are not in the "
+                "reference's block schedules")
+    if cfg.enc_dec or not cfg.use_rope:
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder, vision and sinusoidal-position "
-            "archs come with slice 4 of the port (ROADMAP.md)")
+            f"{cfg.name}: encoder-decoder and sinusoidal-position archs "
+            "come with slice 4c of the port (ROADMAP.md)")
 
 
 def tree_map(fn, tree):
@@ -61,24 +66,31 @@ def stage_view(stages: Dict[str, Any], i: int) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def init_stage(gen, cfg: ArchConfig, device) -> Dict[str, Any]:
+def init_stage(gen, cfg: ArchConfig, device,
+               out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """One stage's parameters, drawn from ``gen`` (None on the meta
+    device); with ``out`` (a stage's views of the stacked leaves) every
+    leaf is written in place there, with the same numbers."""
     sched = cfg.block_schedule()[:cfg.stage_period]
     dt = dtype_of(cfg.param_dtype)
-    out: Dict[str, Any] = {}
+    res: Dict[str, Any] = {}
     for i, (mixer, mlp) in enumerate(sched):
-        sub: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dt, device)}
+        o = (out or {}).get(f"sub{i}", {})
+        sub: Dict[str, Any] = {"norm1": init_rmsnorm(cfg.d_model, dt, device,
+                                                     o.get("norm1"))}
         if mixer == ATTN:
-            sub["attn"] = init_attention(gen, cfg, device)
+            sub["attn"] = init_attention(gen, cfg, device, o.get("attn"))
         else:
-            sub["mamba"] = ssm_mod.init_ssm(gen, cfg, device)
+            sub["mamba"] = ssm_mod.init_ssm(gen, cfg, device, o.get("mamba"))
         if mlp != NONE:
-            sub["norm2"] = init_rmsnorm(cfg.d_model, dt, device)
+            sub["norm2"] = init_rmsnorm(cfg.d_model, dt, device,
+                                        o.get("norm2"))
             if mlp == MOE:
-                sub["moe"] = moe_mod.init_moe(gen, cfg, device)
+                sub["moe"] = moe_mod.init_moe(gen, cfg, device, o.get("moe"))
             else:
-                sub["mlp"] = init_mlp(gen, cfg, device)
-        out[f"sub{i}"] = sub
-    return out
+                sub["mlp"] = init_mlp(gen, cfg, device, out=o.get("mlp"))
+        res[f"sub{i}"] = sub
+    return res
 
 
 def _stack(trees):
@@ -91,27 +103,49 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Full decoder-only LM parameter tree, drawn from ``seed`` on
     ``device`` (the port's own initialiser: the reference's scales and
     layout, not its ``jax.random`` draws).  Each stacked leaf is allocated
-    once, ``(n_stages, ...)``, and each stage is drawn and copied into its
-    slice: the numbers of stacking the stages, with one stage, not a second
-    copy of all of them, alive beside the tree."""
+    once, ``(n_stages, ...)``, and each stage's leaves are drawn straight
+    into their slices, a leaf over ``layers.DRAW_PIECE`` elements in
+    float32 pieces: beside the tree, at most one piece's float32 draw is
+    alive (:func:`init_footprint`).  The numbers are those of drawing the
+    stages one by one and stacking them.  A vision arch also gets the
+    patch projection ``mm_proj`` (the reference's ``transformer.py:65-72``;
+    drawn last)."""
     check_supported(cfg)
     dev = torch.device(device or "cpu")
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(int(seed))
     n_stages = cfg.num_layers // cfg.stage_period
+    dt = dtype_of(cfg.param_dtype)
     embed = init_embedding(gen, cfg, device)
     stages = tree_map(lambda t: torch.empty((n_stages,) + tuple(t.shape),
                                             dtype=t.dtype, device=device),
                       init_stage(None, cfg, "meta"))
     if dev.type != "meta":
         for i in range(n_stages):
-            drawn = init_stage(gen, cfg, device)
-            tree_map2(lambda dst, src: dst.copy_(src),
-                      stage_view(stages, i), drawn)
-            del drawn
-    return {"embed": embed, "stages": stages,
-            "final_norm": init_rmsnorm(cfg.d_model, dtype_of(cfg.param_dtype),
-                                       device)}
+            init_stage(gen, cfg, device, out=stage_view(stages, i))
+    p = {"embed": embed, "stages": stages,
+         "final_norm": init_rmsnorm(cfg.d_model, dt, device)}
+    if cfg.num_patches:
+        p["mm_proj"] = {
+            "w1": normal(gen, (VIS_WIDTH, cfg.d_model), 0.02, dt, device),
+            "w2": normal(gen, (cfg.d_model, cfg.d_model), 0.02, dt, device)}
+    return p
+
+
+def init_footprint(cfg: ArchConfig) -> Tuple[int, int]:
+    """(bytes of the parameter tree, bytes :func:`init_lm` holds at its
+    peak): the tree plus the float32 draw of its largest leaf or piece."""
+    def leaves(tree) -> List[torch.Tensor]:
+        out: List[torch.Tensor] = []
+        tree_map(out.append, tree)
+        return out
+
+    tree = init_lm(cfg, 0, "meta")
+    weights = sum(t.numel() * t.element_size() for t in leaves(tree))
+    drawn = leaves({"embed": tree["embed"], "mm_proj": tree.get("mm_proj", {}),
+                    "stage": init_stage(None, cfg, "meta")})
+    return weights, weights + 4 * min(max(t.numel() for t in drawn),
+                                      DRAW_PIECE)
 
 
 # ---------------------------------------------------------------------------

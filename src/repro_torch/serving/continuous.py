@@ -2,7 +2,7 @@
 
 The JAX package's ``repro/serving/continuous.py`` without preemption,
 restore and swap (slice 3 of the port) and without the cross-attention
-state kind (slice 4).  A fixed-capacity *slot table* lives on the device
+state kind (slice 4c).  A fixed-capacity *slot table* lives on the device
 and three events interleave per outer step:
 
 * **admission** -- queued requests are prefilled at their page-aligned
@@ -11,8 +11,12 @@ and three events interleave per outer step:
   :class:`repro_torch.serving.kvcache.PagedKVCache` pages by the scatter
   kernel, and their sampling state scattered into free slot rows.  With
   ``prefix_sharing`` each request's longest chain of registered full-prefix
-  blocks maps onto existing pages, and a request whose whole padded prompt
-  is registered (and whose prefill logits are cached) skips its prefill;
+  blocks maps onto existing pages, and on a pure-attention arch a request
+  whose whole padded prompt is registered (and whose prefill logits are
+  cached) skips its prefill.  Non-token prefill inputs (a vision arch's
+  patch embeddings) salt the chain keys, so only requests with identical
+  extras share pages, and same-bucket prefills are batched per set of
+  extra names, the extras stacked with zero rows for the padding;
 * **one decode micro-round** -- ``inner_steps`` masked decode steps over
   *all* capacity rows with no host synchronisation inside (the reference's
   one ``lax.scan``), followed by a CUDA event that
@@ -26,13 +30,16 @@ and three events interleave per outer step:
 * **retirement** -- rows whose token budget ran out are collected on the
   host, their pages' refcounts dropped, their slots freed.
 
-SSM sublayers (mamba2) keep their decode state dense in the slot table, a
-``(n_stages, capacity, H, P, N)`` SSD state and a ``(n_stages, capacity,
-W-1, conv_dim)`` convolution window per sublayer: admission writes the
+SSM sublayers (mamba2, and jamba's Mamba-2 layers beside its attention
+pages) keep their decode state dense in the slot table, a ``(n_stages,
+capacity, H, P, N)`` SSD state and a ``(n_stages, capacity, W-1,
+conv_dim)`` convolution window per sublayer: admission writes the
 prefilled state into the slot's row, a decode step writes every row's new
 state in place through ``torch.where(active, new, old)`` (masked rows stay
 frozen, with no host synchronisation), and an arch without attention pages
-nothing.
+nothing.  That state is neither paged nor cached, so only a pure-attention
+arch skips a prefill or caches its logits (the reference's ``_pure_attn``);
+a hybrid arch shares its attention pages all the same.
 
 Rows are masked, not compacted: an inactive row samples into the void (its
 emission is dropped) and writes its K/V and position to the reserved TRASH
@@ -68,6 +75,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import time
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
@@ -83,6 +91,7 @@ from repro_torch.models.transformer import apply_ffn, stage_view
 from repro_torch.obs.telemetry import Telemetry, get_telemetry
 from repro_torch.serving.engine import (CudaGraphs, ServingEngine,
                                         capture_counted, count_replay,
+                                        extras_to_device,
                                         resolve_extra_inputs, sample_rows,
                                         to_device)
 from repro_torch.serving.kvcache import (POS_SENTINEL, PagedKVCache,
@@ -293,6 +302,10 @@ class ContinuousBatchingEngine:
         # chain has recorded a sharing hit); "always" = preserve every time
         self.preserve_pristine = preserve_pristine
         self.batch_admission = batch_admission
+        # a prefill skip rebuilds a row from shared pages and cached logits
+        # alone: SSM state is neither paged nor cached, so only
+        # pure-attention archs skip a prefill (or cache its logits)
+        self._pure_attn = tuple(self.state_kinds) == ("attn",)
         self.logits_cache_size = int(logits_cache_size)
         self._logits_cache: "collections.OrderedDict[bytes, torch.Tensor]" = \
             collections.OrderedDict()
@@ -551,41 +564,61 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"prompt of {prompt.size} tokens exceeds max_prompt_len="
                     f"{self.max_prompt_len}")
-            if resolve_extra_inputs(self.cfg, req):
-                raise NotImplementedError(
-                    "non-token prefill inputs come with slice 4 of the port")
             bucket = self.bucket_len(prompt.size)
             ring = self._ring_len(bucket)
             padded = np.zeros((bucket,), np.int32)
             padded[bucket - prompt.size:] = prompt
-            keys = (self.kv.chain_keys(padded, ring=ring)
+            extra = resolve_extra_inputs(self.cfg, req)
+            salt = b""
+            if extra:
+                # non-token prefill inputs feed the prefilled state, so they
+                # are part of block identity: requests share pages only
+                # under identical extras
+                dg = hashlib.sha256()
+                for name in sorted(extra):
+                    dg.update(name.encode())
+                    dg.update(np.ascontiguousarray(
+                        np.asarray(extra[name])).tobytes())
+                salt = dg.digest()
+            keys = (self.kv.chain_keys(padded, ring=ring, salt=salt)
                     if self.prefix_sharing else [])
             # provisional only -- the authoritative share decision re-probes
             # at admit time; this just decides whether to prefill
-            skip = bool(keys and len(self.kv.lookup_chain(keys)) == len(keys)
+            skip = bool(keys and self._pure_attn
+                        and len(self.kv.lookup_chain(keys)) == len(keys)
                         and keys[-1] in self._logits_cache)
             plans.append(dict(i=i, req=req, bucket=bucket, ring=ring,
-                              padded=padded, keys=keys, skip=skip,
-                              logits=None, caches=None))
+                              padded=padded, extra=extra, keys=keys,
+                              skip=skip, logits=None, caches=None))
         if not plans:
             return flags
-        groups: Dict[int, List[Dict[str, Any]]] = {}
+        groups: Dict[Tuple[int, Tuple[str, ...]],
+                     List[Dict[str, Any]]] = {}
         for pl in plans:
             if not pl["skip"]:
-                groups.setdefault(pl["bucket"], []).append(pl)
-        for bucket, grp in groups.items():
+                gk = (pl["bucket"], tuple(sorted(pl["extra"])))
+                groups.setdefault(gk, []).append(pl)
+        for (bucket, extra_names), grp in groups.items():
             chunks = [grp] if self.batch_admission else [[pl] for pl in grp]
             for chunk in chunks:
                 width = 1 << (len(chunk) - 1).bit_length()
                 tokens = np.zeros((width, bucket), np.int32)
                 for j, pl in enumerate(chunk):
                     tokens[j] = pl["padded"]
+                # the chunk's extras stacked; padding rows are zeros (rows
+                # are independent: the pad rows are sliced away)
+                extras = {}
+                for name in extra_names:
+                    rows = [np.asarray(pl["extra"][name]) for pl in chunk]
+                    extras[name] = np.stack(
+                        rows + [np.zeros_like(rows[0])] * (width - len(chunk)))
+                batch = {"tokens": to_device(tokens, self.device),
+                         **extras_to_device(extras, self.device)}
                 with self.tel.span("admit.prefill", bucket=bucket,
                                    width=width, n=len(chunk)):
                     t0 = self._event()
-                    logits, caches, _ = self.bundle.prefill_fn(
-                        self.params, {"tokens": to_device(tokens,
-                                                          self.device)})
+                    logits, caches, _ = self.bundle.prefill_fn(self.params,
+                                                               batch)
                     t1 = self._event()
                 if t0 is not None:
                     self._prefill_events.append((t0, t1))
@@ -647,7 +680,7 @@ class ContinuousBatchingEngine:
             for name in self.ssm_subs:       # the prefilled state, one row
                 for k, rows in self.state["caches"][name].items():
                     rows[:, slot].copy_(pl["caches"][name][k][:, 0])
-            if self.prefix_sharing and pl["keys"]:
+            if self.prefix_sharing and self._pure_attn and pl["keys"]:
                 self._logits_cache_put(pl["keys"][-1], pl["logits"][0])
         if self.prefix_sharing and pl["keys"]:
             kv.register(slot, pl["keys"][:nb])
@@ -782,6 +815,22 @@ class ContinuousBatchingEngine:
             b.synchronize()
             out.append(a.elapsed_time(b))
         return out
+
+    def assert_conserved(self) -> None:
+        """Audit every state kind the slot rows carry: the attention page
+        space (:meth:`PagedKVCache.assert_conserved`, and every page row
+        held by an occupied slot), and the slot rows that hold the SSM
+        state (the free and the occupied rows partition the table)."""
+        occupied = {c for c, s in enumerate(self._slots) if s is not None}
+        free = set(self._free_slots)
+        assert len(free) == len(self._free_slots), "a slot freed twice"
+        assert not (free & occupied) and \
+            len(free) + len(occupied) == self.capacity, (free, occupied)
+        if self.kv.attn_subs:
+            self.kv.assert_conserved()
+            holding = {c for c in range(self.capacity)
+                       if self.kv.owned_pages(c)}
+            assert holding == occupied, (sorted(holding), sorted(occupied))
 
     # ------------------------------------------------------------------
     def run_all(self, requests) -> List[Tuple[Any, np.ndarray]]:

@@ -105,9 +105,30 @@ def sample_rows(logits: torch.Tensor, temps: torch.Tensor,
 
 def resolve_extra_inputs(cfg: ArchConfig, req: Any) -> Dict[str, np.ndarray]:
     """Per-request non-token prefill inputs (encoder frames, vision patch
-    embeds) from ``req.extra_inputs``.  The archs the port serves so far
-    take none; encoder-decoder defaults come with slice 4."""
-    return dict(getattr(req, "extra_inputs", None) or {})
+    embeds), resolved from ``req.extra_inputs`` with per-arch defaults.
+
+    Encoder-decoder archs cannot prefill without ``frames``, so a request
+    that carries none gets deterministic zero frames -- the *same* default
+    on every path (blocking batch build, continuous admission).  Arrays are
+    per-request (no batch axis); batching paths stack them."""
+    extra = dict(getattr(req, "extra_inputs", None) or {})
+    if cfg.enc_dec and "frames" not in extra:
+        extra["frames"] = np.zeros((cfg.encoder_seq_len, cfg.d_model),
+                                   np.float32)
+    return extra
+
+
+def extras_to_device(extra: Dict[str, Any], device: torch.device
+                     ) -> Dict[str, torch.Tensor]:
+    """A batch's stacked non-token prefill inputs on the device.  Patch
+    embeddings are merged by a vision arch's prefill (and ignored by the
+    others, as the reference's are); encoder frames raise: the
+    encoder-decoder arch comes with slice 4c of the port."""
+    if "frames" in extra:
+        raise NotImplementedError(
+            "encoder frames (the encoder-decoder arch) come with slice 4c "
+            "of the port (ROADMAP.md)")
+    return {k: to_device(np.asarray(v), device) for k, v in extra.items()}
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -384,12 +405,9 @@ class ServingEngine:
     def _make_batch(self, prompts: np.ndarray,
                     extra_inputs: Optional[Dict[str, Any]]
                     ) -> Dict[str, torch.Tensor]:
-        if extra_inputs:
-            raise NotImplementedError(
-                "non-token prefill inputs (encoder frames, patch embeds) "
-                "come with slice 4 of the port")
         return {"tokens": to_device(np.asarray(prompts, np.int32),
-                                    self.device)}
+                                    self.device),
+                **extras_to_device(extra_inputs or {}, self.device)}
 
     def prefill(self, batch: Dict[str, torch.Tensor]):
         """(last-token logits (B, V) float32, caches, cache index).  Rows

@@ -29,15 +29,15 @@ independently:
 Masked (inactive) rows redirect their writes to the reserved ``TRASH`` page,
 which no active row's page table ever references.
 
-State kinds: ``attn`` (the page space above) and ``ssm``.  SSM slot state is
-not paged: it lives dense in the engine's slot table, one row per slot.  An
-arch without attention sublayers (mamba2) therefore has no page space at
-all -- ``blocks_for`` gives 0, nothing is allocated, shared or registered,
+State kinds: ``attn`` (the page space above) and ``ssm``; a hybrid arch
+(jamba) carries both.  SSM slot state is not paged: it lives dense in the
+engine's slot table, one row per slot.  An arch without attention
+sublayers (mamba2) therefore has no page space at all -- ``blocks_for`` gives 0, nothing is allocated, shared or registered,
 and the conservation audit holds trivially.
 
 Left for later slices of the port: the swap ledgers and host tier of
 preemption (slice 3), the cross-attention page space of encoder-decoder
-archs (slice 4).
+archs (slice 4c).
 
 Exactness contract (as the reference's): the paged read/write replicates the
 dense ring cache of :func:`repro_torch.models.layers.apply_attention_decode`
@@ -76,7 +76,7 @@ def ssm_subs(cfg: ArchConfig) -> List[str]:
 
 def state_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
     """Names of the state kinds an arch's slot rows carry, in the
-    reference's order (the cross-attention kind comes with slice 4)."""
+    reference's order (the cross-attention kind comes with slice 4c)."""
     return (("attn",) if attn_subs(cfg) else ()) + \
         (("ssm",) if ssm_subs(cfg) else ())
 

@@ -54,7 +54,8 @@ that wait.
 Priorities order continuous admission but never preempt: swap preemption,
 load shedding by backlog (``max_backlog``), fault injection, the request
 journal and engine checkpoints come with slice 3 of the port and raise
-``NotImplementedError``, as do non-token prefill inputs (slice 4).
+``NotImplementedError``.  A batch's patch embeddings are stacked per row
+(``_batch_extras``); encoder frames raise (slice 4c).
 """
 from __future__ import annotations
 
@@ -70,7 +71,7 @@ from repro_torch.core.tenancy import TenancyConfig, resolve_devices
 from repro_torch.distributed.fault import HeartbeatMonitor, StragglerDetector
 from repro_torch.obs.telemetry import Telemetry, get_telemetry, record_timeline
 from repro_torch.serving.engine import (GenerationResult, PendingGeneration,
-                                        ServingEngine)
+                                        ServingEngine, resolve_extra_inputs)
 
 MODES = ("continuous", "overlapped", "blocking")
 
@@ -310,14 +311,30 @@ class MultiTenantScheduler:
             prompts[i, s_max - r.prompt.size:] = r.prompt
         return tenant, reqs, prompts, max(r.max_new_tokens for r in reqs)
 
-    @staticmethod
-    def _batch_extras(reqs: List[Request]) -> None:
-        """The batch's stacked non-token prefill inputs: none in the archs
-        the port serves so far."""
-        if any(getattr(r, "extra_inputs", None) for r in reqs):
-            raise _later_slice("non-token prefill inputs (encoder frames, "
-                               "patch embeds)", "slice 4")
-        return None
+    def _batch_extras(self, reqs: List[Request]
+                      ) -> Optional[Dict[str, np.ndarray]]:
+        """Stack the batch's per-request non-token prefill inputs (None when
+        no request carries any).  A key missing from some rows is zero-
+        filled, so a tenant's extras should be uniform: a text-only row in
+        a vision batch gets zero patches merged in (the continuous schedule
+        groups by extra names instead and has no such caveat)."""
+        cfg = getattr(self.engine, "cfg", None)
+        if cfg is None:      # engine test-doubles: no per-arch defaults
+            per_req = [dict(getattr(r, "extra_inputs", None) or {})
+                       for r in reqs]
+        else:
+            per_req = [resolve_extra_inputs(cfg, r) for r in reqs]
+        names = sorted({k for ex in per_req for k in ex})
+        if not names:
+            return None
+        out = {}
+        for name in names:
+            proto = next(np.asarray(ex[name]) for ex in per_req
+                         if name in ex)
+            out[name] = np.stack([np.asarray(ex[name]) if name in ex
+                                  else np.zeros_like(proto)
+                                  for ex in per_req])
+        return out
 
     def _sampling_kwargs(self, reqs: List[Request]) -> Dict[str, Any]:
         """Per-request sampling arrays for dispatch(); empty when every row

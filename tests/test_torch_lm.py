@@ -5,8 +5,11 @@ the port as numpy through ``models.convert.params_from_jax``, and both
 models run the same seeded tokens.  Held at rtol/atol 1e-5 in float32
 (reduced configs): prefill and decode logits of internlm2 (plain GQA),
 h2o-danube (sliding window: window-clipped caches, a ring that wraps),
-qwen3 (per-head qk-norm) and olmoe (qk-norm, every MLP a top-k routed MoE
-with capacity), the layer library and the attention primitives.
+qwen3 (per-head qk-norm), olmoe (qk-norm, every MLP a top-k routed MoE
+with capacity), mistral-large (dense), jamba (Mamba-2 and attention layers,
+MoE every other layer), llama4 (routed experts beside a shared one) and
+llava (patch embeddings merged into the prompt), the layer library and the
+attention primitives.
 The configs and the parameter tree's layout are compared at full width
 (shapes only: JAX's ``eval_shape``, the port's meta device).
 """
@@ -33,7 +36,9 @@ from repro_torch.models.model import build_model, param_count, prepare_params
 from repro_torch.models.transformer import (_stack, init_lm, init_stage,
                                             tree_map)
 
-ARCHS = ("internlm2-1.8b", "h2o-danube-1.8b", "qwen3-32b", "olmoe-1b-7b")
+ARCHS = ("internlm2-1.8b", "h2o-danube-1.8b", "qwen3-32b", "olmoe-1b-7b",
+         "mistral-large-123b", "jamba-1.5-large-398b",
+         "llama4-maverick-400b-a17b", "llava-next-mistral-7b")
 SH = null_sharder()
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -112,8 +117,15 @@ def test_prefill_and_decode_logits_match_jax(arch):
         cfg, jax.tree.map(np.asarray, vals)))
     rng = np.random.default_rng(0)
     toks = rng.integers(1, jcfg.vocab_size, (2, 24)).astype(np.int32)
-    jl_, jcache, jidx = jb.prefill_fn(vals, {"tokens": jnp.asarray(toks)}, SH)
-    tl_, tcache, tidx = tb.prefill_fn(tp, {"tokens": torch.from_numpy(toks)})
+    extra = {}
+    if cfg.num_patches:                      # llava: merged patch embeddings
+        extra["patch_embeds"] = rng.normal(
+            size=(2, cfg.num_patches, 1024)).astype(np.float32)
+    jl_, jcache, jidx = jb.prefill_fn(vals, {"tokens": jnp.asarray(toks), **{
+        k: jnp.asarray(v) for k, v in extra.items()}}, SH)
+    tl_, tcache, tidx = tb.prefill_fn(tp, {"tokens": torch.from_numpy(toks),
+                                           **{k: torch.from_numpy(v)
+                                              for k, v in extra.items()}})
     assert tidx == int(jidx) == 24
     assert tl_.dtype == torch.float32 and tuple(tl_.shape) == jl_.shape
     _close(tl_.numpy(), jl_)
@@ -125,6 +137,11 @@ def test_prefill_and_decode_logits_match_jax(arch):
                                    tidx + step)
         _close(tl_.numpy(), jl_)
     for name, sub in tcache.items():
+        if "pos" not in sub:                 # a Mamba-2 sublayer's state
+            for k, a in sub.items():
+                _close(a.float().numpy(), np.asarray(jcache[name][k],
+                                                     np.float32))
+            continue
         np.testing.assert_array_equal(sub["pos"].numpy(),
                                       np.asarray(jcache[name]["pos"]))
         for kind in ("k", "v"):
@@ -205,13 +222,18 @@ def test_attention_primitives_match_jax(causal, window):
                                window=window).numpy())
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b",
-                                  "olmoe-1b-7b"])
-def test_init_lm_in_place_draws_are_bit_identical(arch):
-    """``init_lm`` allocates each stacked leaf once and copies each stage,
-    as it is drawn, into its slice: the same bits, from the same generator
-    in the same order, as drawing the stages one by one and stacking
-    them."""
+@pytest.mark.parametrize("arch,piece", [
+    ("internlm2-1.8b", None), ("mamba2-2.7b", None), ("olmoe-1b-7b", None),
+    ("jamba-1.5-large-398b", None),
+    # every leaf over 1,000 elements drawn in pieces, as a 400 B arch's are
+    ("jamba-1.5-large-398b", 1000)])
+def test_init_lm_in_place_draws_are_bit_identical(arch, piece, monkeypatch):
+    """``init_lm`` allocates each stacked leaf once and draws each stage's
+    leaves straight into their slices: the same bits, from the same
+    generator in the same order, as drawing the stages one by one and
+    stacking them -- with leaves drawn in pieces too."""
+    if piece is not None:
+        monkeypatch.setattr(tl, "DRAW_PIECE", piece)
     cfg = get_config(arch).reduced()
     n_stages = cfg.num_layers // cfg.stage_period
     gen = torch.Generator().manual_seed(5)

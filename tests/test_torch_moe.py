@@ -84,6 +84,7 @@ def engines(models):
 # (E, k, capacity factor, group size, B, S, shared experts): tests/test_moe.py's
 # ample-capacity cases, its drop case, a token count that is no multiple of
 # the group size (the group halves until it divides), and a shared expert
+# (also under llama4's top-1 routing)
 @pytest.mark.parametrize("E,k,cf,gs,B,S,shared", [
     (4, 1, 4.0, 64, 2, 16, 0),
     (4, 2, 4.0, 64, 2, 16, 0),
@@ -91,6 +92,9 @@ def engines(models):
     (4, 2, 0.25, 64, 2, 32, 0),       # capacity 8 of 32 choices: drops
     (4, 2, 1.25, 16, 2, 12, 0),       # T 24: groups of 8
     (4, 2, 1.0, 64, 1, 8, 1),
+    # llama4's routing: top-1 of many experts at its capacity factor, with
+    # drops, beside one shared expert
+    (16, 1, 1.25, 64, 2, 32, 1),
 ])
 def test_apply_moe_matches_jax(E, k, cf, gs, B, S, shared):
     cfg, jcfg = _moe_cfgs(E=E, k=k, cf=cf, gs=gs, shared=shared)

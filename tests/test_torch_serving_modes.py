@@ -135,13 +135,13 @@ def test_pending_generation_handle(rng):
 
 def test_extra_inputs_raise_naming_their_slice(rng):
     eng, _ = _engines("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 4c"):
         eng.dispatch(_prompts(eng, rng), 2,
                      extra_inputs={"frames": np.zeros((2, 4, 8))})
     sched = MultiTenantScheduler(eng, max_batch=2)
     sched.submit(Request("a", _prompts(eng, rng, B=1)[0], 2,
-                         extra_inputs={"patch_embeds": np.zeros((4, 8))}))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+                         extra_inputs={"frames": np.zeros((4, 8))}))
+    with pytest.raises(NotImplementedError, match="slice 4c"):
         sched.step()
     sched.close()
 
