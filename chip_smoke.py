@@ -27,7 +27,16 @@ Drives the port's paths through the entry points a user calls:
   attention layers, MoE top-2 of 16; both state kinds in one slot table),
   llama4-maverick-400b-a17b (2 of 48 layers, 128 experts top-1 beside a
   shared one) and llava-next-mistral-7b (whole; patch embeddings merged
-  into the prompt) -- continuous, and jamba and llava also overlapped.
+  into the prompt) -- continuous, and jamba and llava also overlapped;
+* ``serve-whisper``: the encoder-decoder whisper-base at its published
+  width and depth (6 encoder and 6 decoder layers, d_model 512, 8 heads of
+  64, 1,500 encoder frames a request from ``synth_extra_inputs``) through
+  the same entry point, continuous and overlapped: every prefill encodes
+  the frames (the FlashAttention kernel non-causal over 1,500 frames, and
+  at Sq 64 against 1,500 keys for the cross attention), admission writes
+  each request's cross K/V into its private cross pages with the scatter
+  kernel, and every decode step reads the self pages through the paged
+  decode kernel and attends to the gathered cross pages.
 
 Every serving path decodes through rounds captured as CUDA graphs and
 replayed (``serving.continuous.RoundProgram``); the same admissions of
@@ -84,7 +93,13 @@ sweep), serve-archs (the four archs above; each kernel's launches by the
 arch's sub-layers, every state kind conserved, mistral's and llava's
 logits at each step against ``generate``'s, jamba's repeated prompt
 prefilled again, rounds eager against graph; then K3, K5 and K6 held and
-timed at the archs' head layouts and shapes).  The serving reduced phase
+timed at the archs' head layouts and shapes), serve-whisper (continuous:
+launches by sub-layer, the pool and the cross space conserved, every
+request's cross row taken and given back, logits at each step against
+``generate``'s, the repeated prompt with its frames prefilled again,
+rounds eager against graph; overlapped: tokens equal to ``generate`` per
+batch; then K3, K4 and K5 held and timed at whisper's shapes).  The
+serving reduced phase
 runs every decoder-only arch, and a hybrid without MoE.  Each phase's
 seconds are printed at the end.
 """
@@ -126,7 +141,7 @@ from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import risk as risk_cli
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.model import build_model, param_count
-from repro_torch.models.layers import unembed_operand
+from repro_torch.models.layers import dtype_of, unembed_operand
 from repro_torch.models.transformer import init_footprint, tree_map
 from repro_torch.obs import TELEMETRY
 from repro_torch.obs import fit as obs_fit
@@ -2137,6 +2152,57 @@ def phase_flash_small(errs: Errors, dev) -> None:
                  "float32); D 12 and 136 refused")
 
 
+def flash_timed(errs: Errors, dev, name: str, B, Sq, Skv, Hq, Hkv, D,
+                causal: bool, flush: torch.Tensor) -> dict:
+    """The FlashAttention kernel at one prefill shape: held against its
+    plain version on the same inputs in float32 and in bf16 and against
+    ``scaled_dot_product_attention``, then timed (bf16) in turns with
+    that library call, beside its bound and its plain version."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn((B, s, h, D), generator=g, device=dev).to(
+        torch.bfloat16) for s, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    errs.hold(K5, *flash_pair(q.float(), k.float(), v.float(), causal,
+                              None), f"full width {name} float32")
+    got, want = flash_pair(q, k, v, causal, None)
+    errs.hold(K5, got, want, f"full width {name} bf16",
+              tol=(FLASH_BF16_RTOL, FLASH_BF16_ATOL))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = sdpa(qt, kt, vt, is_causal=causal,
+               enable_gqa=Hq != Hkv).transpose(1, 2).float()
+    lib_err = float((got.float() - lib).abs().max())
+    check(bool(torch.allclose(got.float(), lib, rtol=FLASH_SDPA,
+                              atol=FLASH_SDPA)),
+          f"{K5} full width {name} vs scaled_dot_product_attention: "
+          f"max abs err {lib_err:.3g} outside rtol=atol={FLASH_SDPA}")
+    turns = []
+    for _ in range(2):             # kernel, library, library, kernel
+        turns.append(cuda_ms(lambda: fa.flash_attention(q, k, v,
+                                                        causal=causal),
+                             10, flush))
+        turns.append(cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                          enable_gqa=Hq != Hkv),
+                             10, flush))
+    ms = statistics.median(turns[0::2])
+    lib_ms = statistics.median(turns[1::2])
+    plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                     causal=causal),
+                    3, flush)
+    bound, by = flash_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, None, 2)
+    shape = (f"q ({B}, {Sq}, {Hq}, {D}), k/v ({B}, {Skv}, {Hkv}, {D}) bf16, "
+             + ("causal" if causal else "non-causal"))
+    say("flash", f"{name}: held against the plain version in float32 "
+                 f"and bf16 (running max abs err {errs.abs[K5]:.3g}) and "
+                 f"against scaled_dot_product_attention (max abs err "
+                 f"{lib_err:.3g})")
+    say("flash", f"{name}: {shape}: {ms:.4f} ms, plain {plain:.4f} ms, "
+                 f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+                 f"{bound:.4f} ms by {by} (bf16 tensor-core rate) (turns "
+                 f"{[round(t, 4) for t in turns]})")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by, shape=shape)
+
+
 def phase_flash_full(errs: Errors, dev) -> dict:
     """The FlashAttention kernel at the serving paths' full-width prefill
     shapes (causal): held against its plain version on the same inputs in
@@ -2146,49 +2212,9 @@ def phase_flash_full(errs: Errors, dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = {}
-    for name, B, S, Hq, Hkv, D in FLASH_FULL:
-        g = torch.Generator(device=dev).manual_seed(9)
-        q, k, v = (torch.randn((B, S, h, D), generator=g, device=dev).to(
-            torch.bfloat16) for h in (Hq, Hkv, Hkv))
-        errs.hold(K5, *flash_pair(q.float(), k.float(), v.float(), True,
-                                  None), f"full width {name} float32")
-        got, want = flash_pair(q, k, v, True, None)
-        errs.hold(K5, got, want, f"full width {name} bf16",
-                  tol=(FLASH_BF16_RTOL, FLASH_BF16_ATOL))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib = sdpa(qt, kt, vt, is_causal=True,
-                   enable_gqa=Hq != Hkv).transpose(1, 2).float()
-        lib_err = float((got.float() - lib).abs().max())
-        check(bool(torch.allclose(got.float(), lib, rtol=FLASH_SDPA,
-                                  atol=FLASH_SDPA)),
-              f"{K5} full width {name} vs scaled_dot_product_attention: "
-              f"max abs err {lib_err:.3g} outside rtol=atol={FLASH_SDPA}")
-        turns = []
-        for _ in range(2):             # kernel, library, library, kernel
-            turns.append(cuda_ms(lambda: fa.flash_attention(q, k, v), 10,
-                                 flush))
-            turns.append(cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                              enable_gqa=Hq != Hkv),
-                                 10, flush))
-        ms = statistics.median(turns[0::2])
-        lib_ms = statistics.median(turns[1::2])
-        plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), 3, flush)
-        bound, by = flash_bound_ms(B, S, S, Hq, Hkv, D, True, None, 2)
-        shape = (f"q ({B}, {S}, {Hq}, {D}), k/v ({B}, {S}, {Hkv}, {D}) bf16, "
-                 "causal")
-        say("flash", f"{name}: held against the plain version in float32 "
-                     f"and bf16 (running max abs err {errs.abs[K5]:.3g}) and "
-                     f"against scaled_dot_product_attention (max abs err "
-                     f"{lib_err:.3g})")
-        say("flash", f"{name}: {shape}: {ms:.4f} ms, plain {plain:.4f} ms, "
-                     f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-                     f"{bound:.4f} ms by {by} (bf16 tensor-core rate) (turns "
-                     f"{[round(t, 4) for t in turns]})")
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib_ms,
-                         bound_ms=bound, bound_by=by, shape=shape)
-        del q, k, v, qt, kt, vt, got, want, lib
+    out = {name: flash_timed(errs, dev, name, B, S, S, Hq, Hkv, D, True,
+                             flush)
+           for name, B, S, Hq, Hkv, D in FLASH_FULL}
     main = out[FLASH_FULL[0][0]]
     return {K5: {**main, "other_shapes": {
         n: r for n, r in out.items() if r is not main}}}
@@ -2858,13 +2884,17 @@ def phase_paged_olmoe(errs: Errors, dev, NB: int) -> dict:
 def profile_prefill(eng: ServingEngine, dev, width: int, prompt_len: int
                     ) -> dict:
     """Where one full-width prefill call's time goes: ``width`` random
-    prompts of ``prompt_len`` through ``ServingEngine.prefill`` under
+    prompts of ``prompt_len`` (with the arch's synthetic extra inputs, an
+    encoder-decoder's frames) through ``ServingEngine.prefill`` under
     ``torch.profiler``, device time by kernel against the call's CUDA-event
     window."""
     rng = np.random.default_rng(11)
-    tokens = torch.from_numpy(rng.integers(
-        1, eng.cfg.vocab_size, (width, prompt_len)).astype(np.int32)).to(dev)
-    eng.prefill({"tokens": tokens})                  # warm
+    prompts = rng.integers(1, eng.cfg.vocab_size,
+                           (width, prompt_len)).astype(np.int32)
+    rows = [serve_cli.synth_extra_inputs(eng.cfg, rng) for _ in range(width)]
+    batch = eng._make_batch(prompts, {k: np.stack([r[k] for r in rows])
+                                      for k in rows[0]})
+    eng.prefill(batch)                               # warm
     torch.cuda.synchronize()
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2873,7 +2903,7 @@ def profile_prefill(eng: ServingEngine, dev, width: int, prompt_len: int
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        eng.prefill({"tokens": tokens})
+        eng.prefill(batch)
         b.record()
         b.synchronize()
     window_ms = a.elapsed_time(b)
@@ -2884,6 +2914,8 @@ def profile_prefill(eng: ServingEngine, dev, width: int, prompt_len: int
     busy_ms = sum(k[1] for k in kernels)
     out = dict(window_ms=window_ms, launches=sum(k[2] for k in kernels),
                device_busy_ms=busy_ms if kernels else None,
+               device_idle_share=(1 - busy_ms / window_ms) if kernels
+               else None,
                top=[(n[:60], round(ms, 4), c) for n, ms, c in kernels[:8]])
     say("serve", f"{eng.cfg.name} profiled prefill (width {width} x "
                  f"{prompt_len}): CUDA-event window {window_ms:.2f} ms, "
@@ -3317,11 +3349,14 @@ def serve_slots_once(arch: str, prompt_len: int, mode: str, dev,
           and all(b[0].shape == (4, prompt_len) for b in rec.batches),
           f"{tag}: {len(rec.results)} slots, batches "
           f"{[b[0].shape for b in rec.batches]}")
-    # one prefill a slot: K5 once per attention layer, K6 once per Mamba-2
-    # layer (a hybrid arch both), every one on the tensor cores
+    # one prefill a slot: K5 once per attention layer (an encoder-
+    # decoder's once per encoder layer and twice per decoder layer), K6
+    # once per Mamba-2 layer (a hybrid arch both), every one on the tensor
+    # cores
     n_attn = sum(mixer == "attn" for mixer, _ in cfg.block_schedule())
     n_ssm = cfg.num_layers - n_attn
-    want = {k: n * 3 for k, n in ((K5, n_attn), (K6, n_ssm)) if n}
+    want = {k: n * 3 for k, n in ((K5, k5_per_prefill(cfg)), (K6, n_ssm))
+            if n}
     check(all(launches[k] == n for k, n in want.items())
           and all(v == 0 for k, v in launches.items() if k not in want)
           and not any(plains.values()),
@@ -3611,6 +3646,15 @@ PAGED_LAYOUTS = (("mistral-large-123b", 96, 8, 32),
                  ("llava-next-mistral-7b", 32, 8, 40))
 
 
+def k5_per_prefill(cfg) -> int:
+    """FlashAttention launches of one prefill: one per attention layer; an
+    encoder-decoder's per encoder layer and twice per decoder layer (its
+    self-attention and its cross-attention)."""
+    if cfg.enc_dec:
+        return cfg.num_encoder_layers + 2 * cfg.num_layers
+    return sum(mixer == "attn" for mixer, _ in cfg.block_schedule())
+
+
 def arch_config(arch: str, num_layers=None):
     """The published config, cut to its first ``num_layers`` layers as
     ``launch.serve --num-layers`` cuts it."""
@@ -3623,16 +3667,35 @@ def depth_argv(num_layers) -> list:
     return ["--num-layers", str(num_layers)] if num_layers else []
 
 
-def decode_bytes(eng: ServingEngine) -> int:
+def decode_bytes(eng: ServingEngine, rows: int) -> int:
     """Bytes a decode step reads at least: every leaf of the blocks once
     (every expert's too: the MoE product runs over all of them) and the
     unembedding; the embedding table's few rows and the patch projection
-    (prefill only) left out."""
+    (prefill only) left out.  An encoder-decoder's step reads its decoder
+    (not the encoder, nor the cross K/V projections, which run at
+    admission) and each of ``rows`` rows' cross K/V of every decoder
+    layer."""
+    cfg, params = eng.cfg, eng.params
+    skip = ("embed", "mm_proj", "enc_stages", "enc_norm")
     leaves = []
-    tree_map(leaves.append, {k: v for k, v in eng.params.items()
-                             if k not in ("embed", "mm_proj")})
-    leaves.append(unembed_operand(eng.params["embed"], eng.cfg))
-    return sum(t.numel() * t.element_size() for t in leaves)
+    tree_map(leaves.append, {k: v for k, v in params.items()
+                             if k not in skip})
+    if cfg.enc_dec:
+        leaves = [t for t in leaves if not any(
+            t is params["dec_stages"]["cross"][w] for w in ("wk", "wv"))]
+    leaves.append(unembed_operand(params["embed"], cfg))
+    n = sum(t.numel() * t.element_size() for t in leaves)
+    if cfg.enc_dec:
+        n += cross_read_bytes(cfg, rows)
+    return n
+
+
+def cross_read_bytes(cfg, rows: int) -> int:
+    """A decode step's cross K/V reads: every row's ``encoder_seq_len``
+    keys and values of every decoder layer, in the compute dtype."""
+    elt = torch.finfo(dtype_of(cfg.compute_dtype)).bits // 8
+    return (rows * cfg.num_layers * 2 * cfg.encoder_seq_len
+            * cfg.num_kv_heads * cfg.head_dim * elt)
 
 
 def logits_against_generate(eng: ServingEngine, prompt_len: int, dev
@@ -3714,18 +3777,22 @@ def logits_against_generate(eng: ServingEngine, prompt_len: int, dev
 
 
 def hybrid_repeat(eng: ServingEngine, prompt_len: int, dev) -> dict:
-    """A prompt repeated after its slot retired, on a hybrid arch: its
-    chain is still registered (pristine pages kept), yet it is prefilled
-    again -- its SSM state is neither paged nor cached -- and decodes the
-    first admission's tokens; its attention pages are shared."""
+    """A prompt repeated after its slot retired, on a hybrid arch (or with
+    the same frames, on the encoder-decoder): its chain is still registered
+    (pristine pages kept), yet it is prefilled again -- its SSM state is
+    neither paged nor cached, its cross pages went with its slot -- and
+    decodes the first admission's tokens; its attention pages are
+    shared."""
     rng = np.random.default_rng(13)
     prompt = rng.integers(1, eng.cfg.vocab_size, prompt_len).astype(np.int32)
+    extra = serve_cli.synth_extra_inputs(eng.cfg, rng) or None
     ceng = ContinuousBatchingEngine(eng, capacity=1, page_size=16,
                                     inner_steps=4,
                                     max_prompt_len=2 * prompt_len,
                                     preserve_pristine="always", device=dev)
-    first = ceng.run_all([Request("a", prompt, 8)])[0][1]
-    again = ceng.run_all([Request("a", prompt.copy(), 8)])[0][1]
+    first = ceng.run_all([Request("a", prompt, 8, extra_inputs=extra)])[0][1]
+    again = ceng.run_all([Request("a", prompt.copy(), 8,
+                                  extra_inputs=extra)])[0][1]
     out = dict(prefill_calls=ceng.prefill_calls,
                prefill_skips=ceng.prefill_skips,
                pages_shared=ceng.kv.pages_shared,
@@ -3739,7 +3806,7 @@ def hybrid_repeat(eng: ServingEngine, prompt_len: int, dev) -> dict:
 
 
 def serve_arch_continuous(errs: Errors, arch: str, num_layers, prompt_len,
-                          dev) -> dict:
+                          dev, phase: str = "serve-archs") -> dict:
     """One arch through ``launch.serve.main --mode continuous`` at full
     width: 12 requests of 3 tenants, capacity 8.  Held: each kernel's
     launches by the arch's sub-layers (K5 and K6 per prefill, K3 per decode
@@ -3776,12 +3843,21 @@ def serve_arch_continuous(errs: Errors, arch: str, num_layers, prompt_len,
     check(eng.active_count() == 0 and sched.pending() == 0,
           f"{tag}: rows left after the drain")
     eng.assert_conserved()
+    if eng.cross_blocks:
+        # every request's row of cross pages taken once and given back
+        n_cross = len(rec.finished) * eng.cross_blocks
+        check(eng.kv.cross_pages_allocated == eng.kv.cross_pages_freed
+              == n_cross, f"{tag}: cross pages allocated "
+              f"{eng.kv.cross_pages_allocated}, freed "
+              f"{eng.kv.cross_pages_freed}, expected {n_cross}")
     n_attn = eng.n_stages * len(eng.kv.attn_subs)
     n_ssm = eng.n_stages * len(eng.ssm_subs)
-    want = {K5: n_attn * eng.prefill_calls,
+    # an admission writes each attention sub-layer's pages in one launch,
+    # and an encoder-decoder's cross K and V pages in one launch each
+    want = {K5: k5_per_prefill(cfg) * eng.prefill_calls,
             K3: n_attn * eng.rounds * eng.inner_steps,
-            K4: len(eng.kv.attn_subs) * (len(rec.finished)
-                                         - eng.prefill_skips),
+            K4: (len(eng.kv.attn_subs) + 2 * bool(eng.cross_blocks))
+            * (len(rec.finished) - eng.prefill_skips),
             K6: n_ssm * eng.prefill_calls}
     want = {k: n for k, n in want.items() if n}
     check(n_attn + n_ssm == cfg.num_layers
@@ -3804,7 +3880,7 @@ def serve_arch_continuous(errs: Errors, arch: str, num_layers, prompt_len,
               f"{tag}: a live round's pool and table (GQA "
               f"{cfg.num_heads}:{cfg.num_kv_heads})")
     pre, rnd = eng.prefill_ms(), eng.round_ms
-    floor = decode_bytes(eng.engine) / PEAK_BYTES_PER_S * 1e3
+    floor = decode_bytes(eng.engine, eng.capacity) / PEAK_BYTES_PER_S * 1e3
     run = dict(
         layers=cfg.num_layers, weights_gb=weights / 1e9,
         init_peak_reckoned_gb=init_reckoned / 1e9,
@@ -3828,9 +3904,15 @@ def serve_arch_continuous(errs: Errors, arch: str, num_layers, prompt_len,
         gen = eng.engine.generate(prompts, max_new_tokens=32).tokens
         got = np.stack([t for _, t in rec.finished])
         run["token_agreement"] = float((got == gen).mean())
-    if n_ssm and n_attn:
+    if eng.cross_blocks:
+        run.update(cross_blocks=eng.cross_blocks,
+                   cross_pages_allocated=eng.kv.cross_pages_allocated,
+                   cross_pages_freed=eng.kv.cross_pages_freed,
+                   cross_read_mb_per_step=cross_read_bytes(
+                       cfg, eng.capacity) / 1e6)
+    if (n_ssm and n_attn) or eng.cross_blocks:
         run["repeat"] = hybrid_repeat(eng.engine, prompt_len, dev)
-    say("serve-archs", f"{tag} ({cfg.num_layers} layers) through "
+    say(phase, f"{tag} ({cfg.num_layers} layers) through "
         "launch.serve: " + ", ".join(
             f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in run.items() if k != "prefill_ms")
@@ -3907,6 +3989,154 @@ def phase_serve_archs(errs: Errors, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serve-whisper: the encoder-decoder arch at its published width and depth
+# (6 + 6 layers, d_model 512, 8 heads of 64, 1,500 encoder frames); prompts
+# of 64 tokens, so that prompt and output stay inside whisper's 448-token
+# text context
+WHISPER = "whisper-base"
+WHISPER_PROMPT = 64
+# K5 at whisper's prefill shapes, the continuous path's width 8 and a
+# slot's width 4: (name, B, Sq, Skv, Hq, Hkv, D, causal)
+WHISPER_FLASH = [(f"{WHISPER} {part} width {b}", b, sq, skv, 8, 8, 64, causal)
+                 for part, sq, skv, causal in (
+                     ("encoder", 1500, 1500, False),
+                     ("cross", WHISPER_PROMPT, 1500, False),
+                     ("decoder self", WHISPER_PROMPT, WHISPER_PROMPT, True))
+                 for b in (8, 4)]
+
+
+def whisper_paged(errs: Errors, dev) -> dict:
+    """K3 and K4 at whisper's serving shapes, held against their plain
+    versions and timed beside their bounds: the decode read at group size
+    1, D 64 (8 rows, the prompt's 4 pages named of the path's 8-entry
+    table); the admission of one request's self pages (a 64-token ring, 4
+    pages of 16 KB blocks in 6 stages) and of its cross pages (the
+    1,500-frame K or V zero-padded to 94 pages, in 6 stages)."""
+    rng = np.random.default_rng(15)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    cfg = get_config(WHISPER)
+    C, H, Hkv, D, P = 8, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16
+    S, named, NB = cfg.num_layers, WHISPER_PROMPT // P, 2 * WHISPER_PROMPT // P
+    out = {}
+    st = rand_paged_state(rng, C=C, NB=named, P=P, H=H, Hkv=Hkv, D=D,
+                          dev=dev, q_dtype=torch.bfloat16, full=True)
+    pad = torch.full((C, NB - named), PagedKVCache.SENTINEL,
+                     dtype=torch.int32, device=dev)
+    state = st[:4] + (torch.cat([st[4], pad], dim=1),) + st[5:]
+    what = f"{WHISPER} shape: group 1, D {D}, {named} pages named a row"
+    errs.hold(K3, *decode_pair(state), what)
+    check(rows_alone_match(state), f"{what}: a row decoded alone differs "
+                                   "from its batch")
+    ms = cuda_ms(lambda: pa.paged_attention_decode(*state), 50, flush)
+    plain = cuda_ms(lambda: pa.paged_attention_decode_plain(*state), 10,
+                    flush)
+    bound, by = decode_bound_ms(C, named, P, H, Hkv, D, 2)
+    shape = (f"q ({C}, {H}, {D}) bf16, pools ({st[1].shape[0]}, {P}, {Hkv}, "
+             f"{D}) bf16, table ({C}, {NB}), {named} pages named a row")
+    say("paged", f"decode at {WHISPER}'s shape {shape}: {ms:.4f} ms, plain "
+                 f"{plain:.4f} ms, bound {bound:.4f} ms by {by}")
+    out[K3] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                   shape=shape)
+    del st, state
+
+    # the self pages: paged_admit_kv, as admission calls it
+    NP_ = PagedKVCache.RESERVED + C * NB
+    pages = rng.permutation(np.arange(PagedKVCache.RESERVED,
+                                      NP_))[:named].tolist()
+    case = admission_case(rng, S, NP_, P, Hkv, D, pages, WHISPER_PROMPT,
+                          torch.bfloat16, dev)
+    hold_admission(errs, case, f"{WHISPER} self pages: {named} pages of "
+                               f"{P * Hkv * D * 2} B blocks, {S} stages")
+    ms = cuda_ms(lambda: pa.paged_admit_kv(*case), 50, flush)
+    plain = cuda_ms(lambda: pa.paged_admit_kv_plain(*case), 20, flush)
+    bound = admission_bound_ms(S, named, P, Hkv * D, WHISPER_PROMPT, 2)
+    shape = (f"admission: pools 2 x ({S}, {NP_}, {P}, {Hkv}, {D}) bf16, "
+             f"{named} pages, ring {WHISPER_PROMPT}, bf16 sources, positions")
+    say("paged", f"{WHISPER} {shape}: {ms:.4f} ms, plain {plain:.4f} ms, "
+                 f"bound {bound:.4f} ms")
+    out[f"{K4} self"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                             bound_by="bytes", shape=shape)
+    del case
+
+    # the cross pages: paged_prefill_scatter of the padded frames' K (or
+    # V), as admission's paged_admit_cross calls it
+    nbc = -(-cfg.encoder_seq_len // P)
+    NPc = PagedKVCache.RESERVED + C * nbc
+    pool = torch.zeros((S, NPc, P, Hkv, D), dtype=torch.bfloat16, device=dev)
+    cpages = torch.from_numpy(rng.permutation(np.arange(
+        PagedKVCache.RESERVED, NPc))[:nbc].astype(np.int32)).to(dev)
+    dense = torch.randn((S, cfg.encoder_seq_len, Hkv, D),
+                        device=dev).to(torch.bfloat16)
+    values = torch.nn.functional.pad(
+        dense, (0, 0, 0, 0, 0, nbc * P - cfg.encoder_seq_len)).reshape(
+        S, nbc, P, Hkv, D)
+    errs.hold_bits(K4, *scatter_pair(pool, cpages, values),
+                   f"{WHISPER} cross pages: {nbc} pages, {S} stages")
+    long_pages = cpages.long()
+    ms = cuda_ms(lambda: pa.paged_prefill_scatter(pool, cpages, values), 50,
+                 flush)
+    plain = cuda_ms(lambda: pa.paged_prefill_scatter_plain(pool, cpages,
+                                                           values),
+                    20, flush)
+    lib = cuda_ms(lambda: pool.index_copy_(1, long_pages, values), 20, flush)
+    bound = scatter_bound_ms(S, nbc, P * Hkv * D, 2)
+    shape = (f"scatter: pool ({S}, {NPc}, {P}, {Hkv}, {D}) bf16, {nbc} "
+             f"pages, bf16 values ({S}, {nbc}, {P}, {Hkv}, {D})")
+    say("paged", f"{WHISPER} cross {shape}: {ms:.4f} ms, plain {plain:.4f} "
+                 f"ms, index_copy_ {lib:.4f} ms, bound {bound:.4f} ms")
+    out[f"{K4} cross"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=bound, bound_by="bytes", shape=shape)
+    return out
+
+
+def phase_serve_whisper(errs: Errors, dev) -> dict:
+    """serve-whisper: whisper-base at its published width and depth, bf16,
+    random weights from seed 0, through ``launch.serve.main``: continuous
+    (``serve_arch_continuous``: launches by sub-layer -- K5 per encoder
+    layer and twice per decoder layer a prefill, K3 per decoder layer a
+    step, K4 three a admission: the self pages, the cross K, the cross V
+    --, the pool and the cross space conserved, every request's cross row
+    taken and given back, each step's logits against ``generate``'s, the
+    repeated prompt with its frames prefilled again, rounds eager against
+    graph), then overlapped (tokens equal to ``generate`` per batch).
+    Then K3, K4 and K5 held and timed at whisper's shapes."""
+    t0 = time.perf_counter()
+    runs = {"continuous": serve_arch_continuous(errs, WHISPER, None,
+                                                WHISPER_PROMPT, dev,
+                                                phase="serve-whisper")}
+    o = serve_slots_once(WHISPER, WHISPER_PROMPT, "overlapped", dev)
+    o.pop("tokens")
+    runs["overlapped"] = o
+    cont = runs["continuous"]
+    comp = cont["rounds_compared"]
+    step_floor = cont["decode_step_floor_ms"]
+    say("serve-whisper", f"{WHISPER}: prefill ms (encoder included) "
+        f"{[round(x, 3) for x in cont['prefill_ms']]}; replayed round "
+        f"{comp['graph']['round_ms_median']:.3f} ms, eager round "
+        f"{comp['eager']['round_ms_median']:.3f} ms, against a floor of "
+        f"{4 * step_floor:.4f} ms a round of 4 steps (weights and "
+        f"{cont['cross_read_mb_per_step']:.1f} MB of cross K/V a step at "
+        f"{PEAK_BYTES_PER_S / 1e12} TB/s); capture ms "
+        f"{comp['graph']['capture_ms']}; peak {cont['peak_gib']:.2f} GiB "
+        f"continuous, {o['peak_gib']:.2f} GiB overlapped")
+    # where a width-8 prefill's time goes, on an engine of its own (the
+    # served one went with its run)
+    cfg = get_config(WHISPER)
+    eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
+    runs["profile_prefill"] = profile_prefill(eng, dev, 8, WHISPER_PROMPT)
+    del eng
+    kern = {"paged": whisper_paged(errs, dev)}
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    kern["flash"] = {name: flash_timed(errs, dev, name, *shape, flush)
+                     for name, *shape in WHISPER_FLASH}
+    del flush
+    say("serve-whisper", f"{time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "kernels": kern,
+            "launches": {WHISPER: cont["launches"],
+                         f"{WHISPER} slots": o["launches"]}}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3965,6 +4195,13 @@ def main() -> int:
         kern[K3]["layouts"] = archs["runs"].pop("paged_layouts")
         kern[K6]["jamba"] = archs["runs"].pop("ssd_jamba")
         lap("serve-archs")
+        whisper = phase_serve_whisper(errs, dev)
+        wk = whisper.pop("kernels")
+        kern[K3][WHISPER] = wk["paged"][K3]
+        kern[K4][WHISPER] = {k.split()[-1]: v for k, v in wk["paged"].items()
+                             if k.startswith(K4)}
+        kern[K5][WHISPER] = wk["flash"]
+        lap("serve-whisper")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3990,7 +4227,7 @@ def main() -> int:
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     # launches on the serving paths, each read just after its own run
-    arch_paths = archs["launches"]
+    arch_paths = {**archs["launches"], **whisper["launches"]}
     paths = {"internlm2-1.8b": serving["launches"],
              "olmoe-1b-7b": olmoe["launches"],
              **{f"{a} slots": {K3: 0, K4: 0, **n}
@@ -4062,7 +4299,9 @@ def main() -> int:
                       "serving_reduced": reduced,
                       "serving_rounds": serving["rounds"]}))
     print(json.dumps({"serve_slots": slots["runs"]}))
-    print(json.dumps({"serve_archs": archs["runs"], "phase_seconds": laps}))
+    print(json.dumps({"serve_archs": archs["runs"],
+                      "serve_whisper": whisper["runs"],
+                      "phase_seconds": laps}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,12 @@ and, cut to size by ``.reduced()``, by the CPU tests.  The classes and
 ``reduced()`` are the JAX package's, field for field, so a config built here
 and one built there describe the same model.
 
-The port serves every decoder-only arch (``PORTED_ARCHS``): the dense
-attention archs, the pure-SSM mamba2, the MoE olmoe and llama4 (routed
-experts beside a shared one), the hybrid jamba (Mamba-2 and attention
-layers, MoE every other layer) and the vision llava (patch embeddings
-merged into the leading positions).  ``get_config`` raises
-``NotImplementedError`` for whisper-base, the encoder-decoder arch, which
-comes with slice 4c of the port.
+The port serves every arch (``PORTED_ARCHS``): the dense attention archs,
+the pure-SSM mamba2, the MoE olmoe and llama4 (routed experts beside a
+shared one), the hybrid jamba (Mamba-2 and attention layers, MoE every
+other layer), the vision llava (patch embeddings merged into the leading
+positions) and the encoder-decoder whisper-base (encoder frames, decoder
+cross-attention).
 """
 from __future__ import annotations
 
@@ -222,24 +221,18 @@ ARCH_IDS = (
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 _MODULE_FOR["risk-analysis"] = "risk_app"
 
-# archs whose whole serving path the port runs today (decoder only:
-# attention and Mamba-2 mixers with a dense, routed or no MLP, patch
-# embeddings merged into the prompt); whisper-base comes with slice 4c of
-# the port (ROADMAP.md)
+# archs whose whole serving path the port runs (attention and Mamba-2
+# mixers with a dense, routed or no MLP, patch embeddings merged into the
+# prompt, and the encoder-decoder with its cross-attention pages)
 PORTED_ARCHS = ("internlm2-1.8b", "qwen3-32b", "h2o-danube-1.8b",
                 "mamba2-2.7b", "olmoe-1b-7b", "mistral-large-123b",
                 "jamba-1.5-large-398b", "llama4-maverick-400b-a17b",
-                "llava-next-mistral-7b", "risk-analysis")
+                "llava-next-mistral-7b", "whisper-base", "risk-analysis")
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in _MODULE_FOR:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULE_FOR)}")
-    if arch_id not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet: the encoder-decoder arch "
-            "comes with slice 4c of the port (ROADMAP.md); ported: "
-            f"{', '.join(a for a in PORTED_ARCHS if a != 'risk-analysis')}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_MODULE_FOR[arch_id]}")
     return mod.CONFIG

@@ -113,6 +113,13 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
                                          page_table, positions, window=window)
 
 
+def paged_prefill_scatter(pool, pages, values):
+    """Page blocks ``values`` (S, nb, P, Hkv, D) into ``pool``'s pages
+    ``pages``, in place (see
+    :func:`repro_torch.kernels.paged_attention.paged_prefill_scatter`)."""
+    return _paged.paged_prefill_scatter(pool, pages, values)
+
+
 def paged_admit_kv(k_pool, v_pool, pos_pool, pages, k_src, v_src, pos_src):
     """One attention sub-layer's admission, K, V and positions in one launch
     (see :func:`repro_torch.kernels.paged_attention.paged_admit_kv`)."""

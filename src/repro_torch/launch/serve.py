@@ -20,6 +20,10 @@
         --arch jamba-1.5-large-398b --no-reduced --num-layers 5 \\
         --mode continuous --prompt-len 1024 --new-tokens 32 --capacity 8
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+        --no-reduced --mode continuous --prompt-len 64 --new-tokens 32 \\
+        --capacity 8
+
     PYTHONPATH=src python -m repro_torch.launch.serve --list-archs
 
 Builds the model (weights drawn from ``--seed``, at full width with
@@ -48,7 +52,11 @@ its experts with capacity per routing group, so its rows are coupled (see
 ``serving/continuous.py``).  A hybrid arch (jamba) carries attention pages
 and SSM rows at once.  A vision arch's requests (llava) carry synthetic
 patch embeddings (``synth_extra_inputs``), merged into the leading
-positions of the prompt.  ``--list-archs`` prints what each arch's serving
+positions of the prompt.  An encoder-decoder arch's requests (whisper)
+carry synthetic encoder frames, ``encoder_seq_len x d_model`` each (the
+conv front end is a stub, as in the reference): every prefill encodes them
+and writes the decoder's cross-attention K/V into the request's cross
+pages.  ``--list-archs`` prints what each arch's serving
 offers (``ContinuousBatchingEngine.supported_modes``) without building a
 model, and exits.  ``--num-layers N`` serves a prefix of the published block
 schedule, ``N`` layers at the published widths: the depth cut the
@@ -101,19 +109,13 @@ LATER = {"swap": "slice 3", "max_backlog": "slice 3",
 
 def list_archs() -> int:
     """Print the per-arch serving capability table (no model is built: the
-    probe reads the arch config alone).  An arch the port does not serve
-    yet gets a row naming its slice."""
+    probe reads the arch config alone)."""
     hdr = (f"{'arch':<28} {'modes':<32} {'state kinds':<16} "
            f"{'preempt':<8} {'share':<14} {'exactness'}")
     print(hdr)
     print("-" * len(hdr))
     for arch in ARCH_IDS:
-        try:
-            cfg = get_config(arch)
-        except NotImplementedError:
-            print(f"{arch:<28} comes with slice 4c of the port "
-                  "(encoder-decoder)")
-            continue
+        cfg = get_config(arch)
         modes = ContinuousBatchingEngine.supported_modes(cfg)
         cont = modes["continuous"]
         share = ("window-phase" if cont["window_phase_keys"]

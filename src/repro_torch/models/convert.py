@@ -1,9 +1,11 @@
 """Parameters of the JAX package's model as the port's parameter tree.
 
 The reference's tree (``pp.split(build_model(cfg).init(key))[0]``) and the
-port's (:func:`repro_torch.models.transformer.init_lm`) have the same keys
-and shapes: ``embed/embedding``, ``embed/unembed``, ``stages/sub0/attn/wq``,
-..., every ``stages`` leaf with the stage axis first.  Given that tree with
+port's (``build_model(cfg).init``) have the same keys and shapes:
+``embed/embedding``, ``embed/unembed``, ``stages/sub0/attn/wq``, ...,
+every ``stages`` leaf with the stage axis first; an encoder-decoder's
+``enc_stages/attn/wq``, ``dec_stages/cross/wk``, ``enc_norm/scale``, ...,
+the same way.  Given that tree with
 numpy leaves, :func:`params_from_jax` returns the port's tensors, checking
 every key, shape and dtype against what the port would build (the MoE
 router, say, is float32 whatever the parameter type).  This is how
@@ -36,8 +38,8 @@ def _leaf(a: Any, want_dtype: torch.dtype, device, path: str
 def params_from_jax(cfg: ArchConfig, tree: Dict[str, Any],
                     device="cpu") -> Dict[str, Any]:
     """The port's parameter tree from the reference's (numpy leaves)."""
-    from repro_torch.models.transformer import init_lm
-    template = init_lm(cfg, 0, "meta")
+    from repro_torch.models.model import build_model
+    template = build_model(cfg).init(0, "meta")
 
     def walk(tmpl, src, path):
         if isinstance(tmpl, dict):

@@ -1,4 +1,5 @@
-"""Layer library: norms, RoPE, embeddings, GQA attention, SwiGLU MLP.
+"""Layer library: norms, RoPE and sinusoidal positions, embeddings, GQA
+self- and cross-attention, SwiGLU MLP.
 
 The JAX package's ``repro/models/layers.py`` as plain functions on tensors.
 Parameters are nested dicts with the reference's key names (``wq``,
@@ -12,12 +13,13 @@ bf16: a bf16 x bf16 product is representable in float32).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops
+from repro_torch.models.attention_core import naive_attention
 
 NEG_INF = -1e30
 POS_EMPTY = 2 ** 30        # position of an empty cache slot: never valid
@@ -122,6 +124,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def sinusoid_frequencies(dim: int, device=None) -> torch.Tensor:
+    """The ``dim // 2`` angular frequencies of the sinusoidal positions,
+    float32."""
+    half = dim // 2
+    return torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=device) / half)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, device=None
+                         ) -> torch.Tensor:
+    """(seq_len, dim) float32 absolute position embeddings: ``sin`` of each
+    position times each frequency, then ``cos`` (the encoder-decoder arch's
+    positions, added to frames and to the decoder's tokens)."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    ang = pos * sinusoid_frequencies(dim, device)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
@@ -168,8 +188,11 @@ def apply_unembed(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # GQA attention block
 # ---------------------------------------------------------------------------
 def init_attention(gen, cfg: ArchConfig, device,
-                   out: Optional[Dict[str, Any]] = None
+                   out: Optional[Dict[str, Any]] = None, cross: bool = False
                    ) -> Dict[str, torch.Tensor]:
+    """An attention block's projections (and qk-norm scales).  ``cross``
+    names a decoder's cross-attention block, as the reference's flag does;
+    it has the same leaves (wk/wv read the encoder's output)."""
     dt = dtype_of(cfg.param_dtype)
     d, H, Hkv, D = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s_in = 0.02
@@ -217,6 +240,44 @@ def apply_attention(p, x, cfg: ArchConfig, *,
     if return_kv:
         return out, (k, v)
     return out
+
+
+def apply_cross_attention(p, x, kv: Tuple[torch.Tensor, torch.Tensor],
+                          cfg: ArchConfig, *, decode: bool = False
+                          ) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V ``kv`` (each
+    ``(B, S_enc, Hkv, D)``), no masking.  A prefill's queries go through
+    ``ops.flash_attention(causal=False)`` (the FlashAttention kernel on the
+    card, Sq the prompt bucket against S_enc keys); a decode step's single
+    query (``decode``) through :func:`naive_attention`, as the reference
+    computes both."""
+    cdt = dtype_of(cfg.compute_dtype)
+    H, D = cfg.num_heads, cfg.head_dim
+    B, S = x.shape[0], x.shape[1]
+    q = torch.matmul(x, p["wq"].to(cdt)).reshape(B, S, H, D)
+    if cfg.qk_norm:
+        q = apply_rmsnorm_heads(p["q_norm"], q)
+    k, v = kv
+    if decode:
+        o = naive_attention(q, k, v, causal=False)
+    else:
+        o = ops.flash_attention(q, k, v, causal=False)
+    o = o.reshape(B, S, -1)
+    return torch.matmul(o, p["wo"].to(cdt))
+
+
+def precompute_cross_kv(p, enc_out: torch.Tensor, cfg: ArchConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross-attention K and V ``(B, S_enc, Hkv, D)`` of
+    the encoder's output, in the compute dtype."""
+    cdt = dtype_of(cfg.compute_dtype)
+    Hkv, D = cfg.num_kv_heads, cfg.head_dim
+    B, S = enc_out.shape[0], enc_out.shape[1]
+    k = torch.matmul(enc_out, p["wk"].to(cdt)).reshape(B, S, Hkv, D)
+    v = torch.matmul(enc_out, p["wv"].to(cdt)).reshape(B, S, Hkv, D)
+    if cfg.qk_norm:
+        k = apply_rmsnorm_heads(p["k_norm"], k)
+    return k, v
 
 
 def apply_attention_decode(p, x, cache: Dict[str, torch.Tensor],

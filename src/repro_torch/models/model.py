@@ -1,31 +1,42 @@
 """Model factory: ArchConfig -> init / prefill / decode callables.
 
-The decoder-only half of the JAX package's ``repro/models/model.py``
+The JAX package's ``repro/models/model.py``: the decoder-only family
 (attention and Mamba-2 mixers, dense and routed MLPs, and a vision arch's
-patch embeddings merged into the leading positions)::
+patch embeddings merged into the leading positions) and the
+encoder-decoder family (whisper: an encoder over precomputed frames, a
+decoder with self- and cross-attention, sinusoidal positions)::
 
     bundle = build_model(cfg)
     params = bundle.init(seed, device)             # tree of tensors
     logits, caches, idx = bundle.prefill_fn(params, batch)
     logits, caches = bundle.decode_fn(params, tokens, caches, idx)
 
-There is no ``loss_fn`` yet (training is slice 5 of the port), and the
-encoder-decoder bundle comes with slice 4c.
+There is no ``loss_fn`` yet (training is slice 5 of the port).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.layers import (apply_embedding, apply_unembed,
-                                       dtype_of, unembed_operand)
-from repro_torch.models.transformer import (VIS_WIDTH, check_supported,
-                                            init_lm, init_lm_caches,
+from repro_torch.models.layers import (apply_attention,
+                                       apply_attention_decode,
+                                       apply_cross_attention, apply_embedding,
+                                       apply_mlp, apply_rmsnorm,
+                                       apply_unembed, dtype_of,
+                                       init_attention, init_embedding,
+                                       init_kv_cache, init_mlp, init_rmsnorm,
+                                       precompute_cross_kv,
+                                       sinusoid_frequencies,
+                                       sinusoidal_positions, unembed_operand)
+from repro_torch.models.transformer import (VIS_WIDTH, _kv_to_cache,
+                                            check_supported, init_lm,
+                                            init_lm_caches, init_stacked,
                                             lm_backbone, lm_decode_backbone,
+                                            make_generator, stage_view,
                                             tree_map)
 
 # leaves the reference casts to the compute dtype at every use
@@ -46,6 +57,11 @@ class ModelBundle:
     prefill_fn: Callable[..., Tuple[torch.Tensor, Any, int]]
     decode_fn: Callable[..., Tuple[torch.Tensor, Any]]
     init_caches: Callable[..., Any]
+    # the encoder-decoder's parts (None for a decoder-only arch):
+    # encode(params, frames) -> the encoder's output, cross_kv_all(params,
+    # enc_out) -> every decoder layer's cross K and V
+    encode: Optional[Callable[..., Any]] = None
+    cross_kv_all: Optional[Callable[..., Any]] = None
 
 
 def prepare_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -96,13 +112,27 @@ def _merge_patches(params, x: torch.Tensor, patch_embeds: torch.Tensor,
     return torch.cat([pe.to(x.dtype), x[:, n:]], dim=1)
 
 
+def _sinusoid_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal embeddings at the positions ``pos``, a device tensor whose
+    last axis broadcasts against the ``dim // 2`` frequencies: a 0-d
+    position gives ``(dim,)``, per-row positions ``(C, 1, 1)`` give ``(C,
+    1, dim)``.  Read on the device, so a captured decode round reads each
+    row's position where it lies, not a host int."""
+    ang = pos.float() * sinusoid_frequencies(dim, pos.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def _embed(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig
            ) -> torch.Tensor:
     """The prefill's input embeddings: the tokens', with a vision arch's
-    patch embeddings merged in when the batch carries them."""
+    patch embeddings merged in when the batch carries them, plus the
+    sinusoidal positions where the arch has no rotary ones."""
     x = apply_embedding(params["embed"], batch["tokens"], cfg)
     if cfg.num_patches and "patch_embeds" in batch:
         x = _merge_patches(params, x, batch["patch_embeds"], cfg)
+    if not cfg.use_rope:
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)[None]
     return x
 
 
@@ -118,6 +148,8 @@ def _build_decoder_only(cfg: ArchConfig) -> ModelBundle:
 
     def decode_fn(params, tokens, caches, cache_index: int):
         x = apply_embedding(params["embed"], tokens, cfg)
+        if not cfg.use_rope:
+            x = x + _position_at(cache_index, cfg, x)
         h, caches = lm_decode_backbone(params, x, caches, cache_index, cfg)
         return apply_unembed(params["embed"], h, cfg)[:, 0], caches
 
@@ -127,8 +159,160 @@ def _build_decoder_only(cfg: ArchConfig) -> ModelBundle:
     return ModelBundle(cfg, init, prefill_fn, decode_fn, init_caches)
 
 
+def _position_at(cache_index: int, cfg: ArchConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """The dense decode's sinusoidal embedding at ``cache_index``, shaped
+    ``(1, 1, d)`` in ``x``'s dtype (a fill, no host-to-device copy)."""
+    pos = torch.full((), int(cache_index), dtype=torch.int32,
+                     device=x.device)
+    return _sinusoid_at(pos, cfg.d_model).to(x.dtype)[None, None]
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder family (whisper)
+# ---------------------------------------------------------------------------
+def _init_enc_stage(gen, cfg: ArchConfig, device,
+                    out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """One encoder layer: self-attention and a SwiGLU MLP, each behind an
+    RMSNorm (written into ``out``'s views when given)."""
+    dt = dtype_of(cfg.param_dtype)
+    o = out or {}
+    return {"norm1": init_rmsnorm(cfg.d_model, dt, device, o.get("norm1")),
+            "attn": init_attention(gen, cfg, device, o.get("attn")),
+            "norm2": init_rmsnorm(cfg.d_model, dt, device, o.get("norm2")),
+            "mlp": init_mlp(gen, cfg, device, out=o.get("mlp"))}
+
+
+def _init_dec_stage(gen, cfg: ArchConfig, device,
+                    out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """One decoder layer: causal self-attention, cross-attention to the
+    encoder's output and a SwiGLU MLP, each behind an RMSNorm."""
+    dt = dtype_of(cfg.param_dtype)
+    o = out or {}
+    return {"norm1": init_rmsnorm(cfg.d_model, dt, device, o.get("norm1")),
+            "attn": init_attention(gen, cfg, device, o.get("attn")),
+            "norm_c": init_rmsnorm(cfg.d_model, dt, device, o.get("norm_c")),
+            "cross": init_attention(gen, cfg, device, o.get("cross"),
+                                    cross=True),
+            "norm2": init_rmsnorm(cfg.d_model, dt, device, o.get("norm2")),
+            "mlp": init_mlp(gen, cfg, device, out=o.get("mlp"))}
+
+
+def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
+    """The reference's ``_build_enc_dec``.  A prefill encodes the batch's
+    ``frames`` ``(B, S_enc, d)`` (non-causal self-attention), projects
+    every decoder layer's cross K/V of the encoder's output, and runs the
+    decoder over the tokens; its caches are ``{"self": {k, v, pos}
+    (n_dec, B, S, Hkv, D), "cross": {k, v} (n_dec, B, S_enc, Hkv, D)}``,
+    the cross K/V in the compute dtype.  A decode step updates the self
+    cache in place and reads the cross cache."""
+    n_enc, n_dec = cfg.num_encoder_layers, cfg.num_layers
+    cdt = dtype_of(cfg.compute_dtype)
+
+    def init(seed: int = 0, device=None):
+        gen = make_generator(seed, device)
+        dt = dtype_of(cfg.param_dtype)
+        return {
+            "embed": init_embedding(gen, cfg, device),
+            "enc_stages": init_stacked(
+                gen, n_enc, lambda g, d, o: _init_enc_stage(g, cfg, d, o),
+                device),
+            "dec_stages": init_stacked(
+                gen, n_dec, lambda g, d, o: _init_dec_stage(g, cfg, d, o),
+                device),
+            "enc_norm": init_rmsnorm(cfg.d_model, dt, device),
+            "final_norm": init_rmsnorm(cfg.d_model, dt, device)}
+
+    def encode(params, frames: torch.Tensor) -> torch.Tensor:
+        x = frames.to(cdt)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)[None]
+        for i in range(n_enc):
+            sp = stage_view(params["enc_stages"], i)
+            x = x + apply_attention(sp["attn"], apply_rmsnorm(sp["norm1"], x),
+                                    cfg, causal=False)
+            x = x + apply_mlp(sp["mlp"], apply_rmsnorm(sp["norm2"], x), cfg)
+        return apply_rmsnorm(params["enc_norm"], x)
+
+    def cross_kv_all(params, enc_out: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every decoder layer's cross K and V, stacked ``(n_dec, B, S_enc,
+        Hkv, D)``."""
+        kv = [precompute_cross_kv(stage_view(params["dec_stages"], i)["cross"],
+                                  enc_out, cfg) for i in range(n_dec)]
+        return (torch.stack([k for k, _ in kv]),
+                torch.stack([v for _, v in kv]))
+
+    def decode_full(params, tokens, enc_out, collect_cache: bool = False):
+        x = apply_embedding(params["embed"], tokens, cfg)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(x.dtype)[None]
+        ck, cv = cross_kv_all(params, enc_out)
+        positions = torch.arange(x.shape[1], device=x.device)
+        caches = []
+        for i in range(n_dec):
+            sp = stage_view(params["dec_stages"], i)
+            a = apply_attention(sp["attn"], apply_rmsnorm(sp["norm1"], x),
+                                cfg, positions=positions,
+                                return_kv=collect_cache)
+            if collect_cache:
+                a, (k, v) = a
+                caches.append(_kv_to_cache(k, v, positions, cfg))
+            x = x + a
+            x = x + apply_cross_attention(
+                sp["cross"], apply_rmsnorm(sp["norm_c"], x), (ck[i], cv[i]),
+                cfg)
+            x = x + apply_mlp(sp["mlp"], apply_rmsnorm(sp["norm2"], x), cfg)
+        x = apply_rmsnorm(params["final_norm"], x)
+        self_caches = ({k: torch.stack([c[k] for c in caches])
+                        for k in caches[0]} if collect_cache else None)
+        return x, self_caches, (ck, cv)
+
+    def prefill_fn(params, batch: Dict[str, torch.Tensor]):
+        enc_out = encode(params, batch["frames"])
+        h, self_caches, (ck, cv) = decode_full(params, batch["tokens"],
+                                               enc_out, collect_cache=True)
+        logits = apply_unembed(params["embed"], h[:, -1:], cfg)
+        caches = {"self": self_caches, "cross": {"k": ck, "v": cv}}
+        return logits[:, 0], caches, int(batch["tokens"].shape[1])
+
+    def decode_fn(params, tokens, caches, cache_index: int):
+        x = apply_embedding(params["embed"], tokens, cfg)
+        x = x + _position_at(cache_index, cfg, x)
+        cross = caches["cross"]
+        for i in range(n_dec):
+            sp = stage_view(params["dec_stages"], i)
+            a, _ = apply_attention_decode(sp["attn"],
+                                          apply_rmsnorm(sp["norm1"], x),
+                                          stage_view(caches["self"], i), cfg,
+                                          cache_index)
+            x = x + a
+            x = x + apply_cross_attention(
+                sp["cross"], apply_rmsnorm(sp["norm_c"], x),
+                (cross["k"][i].to(x.dtype), cross["v"][i].to(x.dtype)), cfg,
+                decode=True)
+            x = x + apply_mlp(sp["mlp"], apply_rmsnorm(sp["norm2"], x), cfg)
+        x = apply_rmsnorm(params["final_norm"], x)
+        return apply_unembed(params["embed"], x, cfg)[:, 0], caches
+
+    def init_caches(batch: int, seq_len: int, device=None):
+        self_c = tree_map(
+            lambda a: a[None].repeat((n_dec,) + (1,) * a.dim()),
+            init_kv_cache(cfg, batch, seq_len, device=device))
+        shape = (n_dec, batch, cfg.encoder_seq_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"self": self_c,
+                "cross": {k: torch.zeros(shape, dtype=torch.bfloat16,
+                                         device=device) for k in "kv"}}
+
+    return ModelBundle(cfg, init, prefill_fn, decode_fn, init_caches,
+                       encode, cross_kv_all)
+
+
 def build_model(cfg: ArchConfig) -> ModelBundle:
     check_supported(cfg)
+    if cfg.enc_dec:
+        return _build_enc_dec(cfg)
     return _build_decoder_only(cfg)
 
 

@@ -1,5 +1,5 @@
 """Decoder-only transformer stack (attention or Mamba-2 mixers; dense, routed
-or no MLP).
+or no MLP), and the stacked-stage initialiser both model families share.
 
 The JAX package's ``repro/models/transformer.py`` for the archs the port
 serves so far.  Layers are grouped into ``n_stages`` identical stages of
@@ -30,19 +30,20 @@ VIS_WIDTH = 1024  # CLIP ViT-L/14 stub feature width (the reference's)
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    a block schedule of anything but attention or Mamba-2 mixers with a
-    dense, routed or no MLP, and the encoder-decoder arch (sinusoidal
-    positions, cross-attention; slice 4c)."""
+    """Raise ``NotImplementedError`` for a block schedule of anything but
+    attention or Mamba-2 mixers with a dense, routed or no MLP, and for an
+    encoder-decoder arch whose decoder is not attention with a dense MLP
+    (the reference's ``_build_enc_dec`` builds only that).  Sinusoidal
+    positions (``use_rope=False``) are admitted."""
     for mixer, mlp in cfg.block_schedule():
         if mixer not in (ATTN, MAMBA) or mlp not in (DENSE, MOE, NONE):
             raise NotImplementedError(
                 f"{cfg.name}: {mixer}/{mlp} sublayers are not in the "
                 "reference's block schedules")
-    if cfg.enc_dec or not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and sinusoidal-position archs "
-            "come with slice 4c of the port (ROADMAP.md)")
+        if cfg.enc_dec and (mixer, mlp) != (ATTN, DENSE):
+            raise NotImplementedError(
+                f"{cfg.name}: an encoder-decoder layer is attention with a "
+                f"dense MLP, not {mixer}/{mlp}")
 
 
 def tree_map(fn, tree):
@@ -93,6 +94,30 @@ def init_stage(gen, cfg: ArchConfig, device,
     return res
 
 
+def init_stacked(gen, n: int, init_one, device) -> Dict[str, Any]:
+    """``n`` stages of ``init_one(gen, device, out=None)`` as one tree of
+    stacked leaves ``(n, ...)``: each leaf allocated once, each stage drawn
+    straight into its views (nothing drawn on the meta device).  The
+    numbers are those of drawing the stages one by one and stacking
+    them."""
+    stages = tree_map(lambda t: torch.empty((n,) + tuple(t.shape),
+                                            dtype=t.dtype, device=device),
+                      init_one(None, "meta", None))
+    if torch.device(device or "cpu").type != "meta":
+        for i in range(n):
+            init_one(gen, device, stage_view(stages, i))
+    return stages
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    """The parameter draws' generator on ``device`` (the CPU's for the
+    meta device)."""
+    dev = torch.device(device or "cpu")
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(int(seed))
+    return gen
+
+
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -111,18 +136,13 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     patch projection ``mm_proj`` (the reference's ``transformer.py:65-72``;
     drawn last)."""
     check_supported(cfg)
-    dev = torch.device(device or "cpu")
-    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
-    gen.manual_seed(int(seed))
+    gen = make_generator(seed, device)
     n_stages = cfg.num_layers // cfg.stage_period
     dt = dtype_of(cfg.param_dtype)
     embed = init_embedding(gen, cfg, device)
-    stages = tree_map(lambda t: torch.empty((n_stages,) + tuple(t.shape),
-                                            dtype=t.dtype, device=device),
-                      init_stage(None, cfg, "meta"))
-    if dev.type != "meta":
-        for i in range(n_stages):
-            init_stage(gen, cfg, device, out=stage_view(stages, i))
+    stages = init_stacked(gen, n_stages,
+                          lambda g, d, o: init_stage(g, cfg, d, out=o),
+                          device)
     p = {"embed": embed, "stages": stages,
          "final_norm": init_rmsnorm(cfg.d_model, dt, device)}
     if cfg.num_patches:
@@ -133,17 +153,23 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
 
 
 def init_footprint(cfg: ArchConfig) -> Tuple[int, int]:
-    """(bytes of the parameter tree, bytes :func:`init_lm` holds at its
-    peak): the tree plus the float32 draw of its largest leaf or piece."""
+    """(bytes of the parameter tree, bytes the initialiser holds at its
+    peak): the tree plus the float32 draw of its largest leaf or piece --
+    a stage's leaf, as a stacked leaf is drawn stage by stage.  The
+    encoder-decoder's tree (embeddings, encoder and decoder stages, norms)
+    is reckoned by its own initialiser."""
+    from repro_torch.models.model import build_model
+
     def leaves(tree) -> List[torch.Tensor]:
         out: List[torch.Tensor] = []
         tree_map(out.append, tree)
         return out
 
-    tree = init_lm(cfg, 0, "meta")
+    tree = build_model(cfg).init(0, "meta")
     weights = sum(t.numel() * t.element_size() for t in leaves(tree))
-    drawn = leaves({"embed": tree["embed"], "mm_proj": tree.get("mm_proj", {}),
-                    "stage": init_stage(None, cfg, "meta")})
+    stacked = ("stages", "enc_stages", "dec_stages")
+    drawn = leaves({k: v for k, v in tree.items() if k not in stacked})
+    drawn += [t[0] for k in stacked if k in tree for t in leaves(tree[k])]
     return weights, weights + 4 * min(max(t.numel() for t in drawn),
                                       DRAW_PIECE)
 

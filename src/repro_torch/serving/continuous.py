@@ -1,9 +1,8 @@
 """Continuous batching over a persistent slot table (paged KV-cache decode).
 
 The JAX package's ``repro/serving/continuous.py`` without preemption,
-restore and swap (slice 3 of the port) and without the cross-attention
-state kind (slice 4c).  A fixed-capacity *slot table* lives on the device
-and three events interleave per outer step:
+restore and swap (slice 3 of the port).  A fixed-capacity *slot table*
+lives on the device and three events interleave per outer step:
 
 * **admission** -- queued requests are prefilled at their page-aligned
   prompt bucket (same-bucket admissions batched into one prefill call of
@@ -40,6 +39,18 @@ frozen, with no host synchronisation), and an arch without attention pages
 nothing.  That state is neither paged nor cached, so only a pure-attention
 arch skips a prefill or caches its logits (the reference's ``_pure_attn``);
 a hybrid arch shares its attention pages all the same.
+
+An encoder-decoder arch (whisper) carries a second paged kind, ``cross``:
+admission takes the request's row of ``cross_blocks = ceil(S_enc /
+page_size)`` private pages from the pool's cross space
+(:meth:`PagedKVCache.alloc_cross`) and writes its prefill's cross K/V into
+them once, by the scatter kernel, and its cross page table row
+(``cross_pt``); a decode step runs each decoder layer's paged
+self-attention, then gathers the row's cross pages into a dense ``(C,
+S_enc, Hkv, D)`` view and attends to it (the reference's ``naive_attention``,
+as it does), then the MLP.  Frames salt the chain keys like any extra
+input; the cross pages are per request, so such an arch never skips a
+prefill.
 
 Rows are masked, not compacted: an inactive row samples into the void (its
 emission is dropped) and writes its K/V and position to the reserved TRASH
@@ -84,8 +95,10 @@ import torch
 
 from repro_torch.configs import ATTN, MOE, NONE, ArchConfig
 from repro_torch.core.tenancy import resolve_devices
-from repro_torch.models.layers import (apply_embedding, apply_rmsnorm,
+from repro_torch.models.layers import (apply_cross_attention, apply_embedding,
+                                       apply_mlp, apply_rmsnorm,
                                        apply_unembed, pad_vocab)
+from repro_torch.models.model import _sinusoid_at
 from repro_torch.models.ssm import apply_ssm_decode, init_ssm_state
 from repro_torch.models.transformer import apply_ffn, stage_view
 from repro_torch.obs.telemetry import Telemetry, get_telemetry
@@ -95,8 +108,9 @@ from repro_torch.serving.engine import (CudaGraphs, ServingEngine,
                                         resolve_extra_inputs, sample_rows,
                                         to_device)
 from repro_torch.serving.kvcache import (POS_SENTINEL, PagedKVCache,
-                                         paged_attention_decode,
-                                         paged_admit, ssm_subs,
+                                         gather_cross, paged_admit,
+                                         paged_admit_cross,
+                                         paged_attention_decode, ssm_subs,
                                          state_kinds)
 
 
@@ -293,9 +307,14 @@ class ContinuousBatchingEngine:
         self.page_size = page_size
         self.state_kinds = state_kinds(cfg)
         self.ssm_subs = ssm_subs(cfg)
+        # enc-dec: the whole encoder output's cross K/V pages per request,
+        # written once at admission into the pool's separate cross space
+        self.cross_blocks = (-(-cfg.encoder_seq_len // page_size)
+                             if cfg.enc_dec else 0)
         max_ring = self._ring_len(self.bucket_len(max_prompt_len))
         self.kv = PagedKVCache(cfg, capacity, page_size,
-                               -(-max_ring // page_size), num_pages)
+                               -(-max_ring // page_size), num_pages,
+                               cross_blocks=self.cross_blocks)
         self.prefix_sharing = bool(prefix_sharing and self.kv.attn_subs)
         # pristine-preserve policy: False = never copy; True (default) =
         # reuse-aware (preserve a sole-owner registered page only once its
@@ -303,8 +322,9 @@ class ContinuousBatchingEngine:
         self.preserve_pristine = preserve_pristine
         self.batch_admission = batch_admission
         # a prefill skip rebuilds a row from shared pages and cached logits
-        # alone: SSM state is neither paged nor cached, so only
-        # pure-attention archs skip a prefill (or cache its logits)
+        # alone: cross pages are per request and SSM state is neither paged
+        # nor cached, so only pure-attention archs skip a prefill (or cache
+        # its logits)
         self._pure_attn = tuple(self.state_kinds) == ("attn",)
         self.logits_cache_size = int(logits_cache_size)
         self._logits_cache: "collections.OrderedDict[bytes, torch.Tensor]" = \
@@ -397,7 +417,13 @@ class ContinuousBatchingEngine:
             caches[name] = {k: v[None].repeat((self.n_stages,)
                                               + (1,) * v.dim())
                             for k, v in init_ssm_state(cfg, c, dev).items()}
+        extra = {}
+        if self.cross_blocks:
+            caches["cross"] = self.kv.make_cross_pools(self.n_stages, dev)
+            # per-slot cross page rows (the cross space's page table)
+            extra["cross_pt"] = self.kv.make_cross_page_table(dev)
         return {
+            **extra,
             "caches": caches,
             "page_table": self.kv.make_page_table(dev),
             "pos_pool": self.kv.make_pos_pool(dev),
@@ -443,6 +469,33 @@ class ContinuousBatchingEngine:
                 active, pos, st["pos_sentinel"])
 
         x = apply_embedding(params["embed"], tok[:, None], cfg)
+        if not cfg.use_rope:
+            # per-row positions (C, 1, 1) -> (C, 1, d), read on the device
+            x = x + _sinusoid_at(pos[:, None, None],
+                                 cfg.d_model).to(x.dtype)
+        if self.cross_blocks:
+            x = self._enc_dec_layers(x, pt, page, off, pos)
+        else:
+            x = self._decoder_layers(x, active, pt, page, off, pos)
+        h = apply_rmsnorm(params["final_norm"], x)
+        new_logits = apply_unembed(params["embed"], h, cfg)[:, 0]
+        st["nonfinite"] += (active
+                            & ~torch.isfinite(new_logits).all(dim=-1)).sum()
+        st["logits"].copy_(torch.where(active[:, None], new_logits,
+                                       st["logits"]))
+        step = active.to(torch.int32)
+        pos.add_(step)
+        st["remaining"].sub_(step)
+        st["lstep"].add_(step)
+        emitted_row.copy_(torch.where(active, tok, -1))
+        act_row.copy_(active)
+
+    def _decoder_layers(self, x: torch.Tensor, active: torch.Tensor,
+                        pt: torch.Tensor, page, off, pos: torch.Tensor
+                        ) -> torch.Tensor:
+        """The decoder-only stages of one step: paged attention or the SSM
+        decode per sublayer, then its MLP."""
+        cfg, st, params = self.cfg, self.state, self.params
         for s in range(self.n_stages):
             sp = stage_view(params["stages"], s)
             sc = stage_view(st["caches"], s)
@@ -467,18 +520,32 @@ class ContinuousBatchingEngine:
                     # compete for expert capacity, as in the reference
                     x = x + apply_ffn(sub, apply_rmsnorm(sub["norm2"], x),
                                       cfg)
-        h = apply_rmsnorm(params["final_norm"], x)
-        new_logits = apply_unembed(params["embed"], h, cfg)[:, 0]
-        st["nonfinite"] += (active
-                            & ~torch.isfinite(new_logits).all(dim=-1)).sum()
-        st["logits"].copy_(torch.where(active[:, None], new_logits,
-                                       st["logits"]))
-        step = active.to(torch.int32)
-        pos.add_(step)
-        st["remaining"].sub_(step)
-        st["lstep"].add_(step)
-        emitted_row.copy_(torch.where(active, tok, -1))
-        act_row.copy_(active)
+        return x
+
+    def _enc_dec_layers(self, x: torch.Tensor, pt: torch.Tensor,
+                        page: torch.Tensor, off: torch.Tensor,
+                        pos: torch.Tensor) -> torch.Tensor:
+        """The encoder-decoder's decoder layers of one step: paged
+        self-attention, then the read-only gather of each row's cross pages
+        and the cross-attention to them, then the MLP -- ``decode_fn``'s
+        residual structure operation for operation, per row."""
+        cfg, st, params = self.cfg, self.state, self.params
+        self_pool = st["caches"][self.kv.attn_subs[0]]
+        cross, cpt = st["caches"]["cross"], st["cross_pt"]
+        for s in range(self.n_stages):
+            sp = stage_view(params["dec_stages"], s)
+            a, _ = paged_attention_decode(
+                sp["attn"], apply_rmsnorm(sp["norm1"], x),
+                stage_view(self_pool, s), pt, page, off, pos, cfg,
+                st["pos_pool"])
+            x = x + a
+            ck = gather_cross(cross["k"][s], cpt, cfg.encoder_seq_len)
+            cv = gather_cross(cross["v"][s], cpt, cfg.encoder_seq_len)
+            x = x + apply_cross_attention(
+                sp["cross"], apply_rmsnorm(sp["norm_c"], x),
+                (ck.to(x.dtype), cv.to(x.dtype)), cfg, decode=True)
+            x = x + apply_mlp(sp["mlp"], apply_rmsnorm(sp["norm2"], x), cfg)
+        return x
 
     def _enqueue_round(self, emitted: torch.Tensor, act: torch.Tensor,
                        all_greedy: bool, any_topk: bool) -> None:
@@ -662,6 +729,13 @@ class ContinuousBatchingEngine:
                                     will_write)
             if pages is None:
                 return False             # pool pressure: retry later
+        cross_pages = None
+        if self.cross_blocks:
+            cross_pages = kv.alloc_cross(slot)
+            if cross_pages is None:
+                if nb:
+                    kv.free(slot)        # undo the attn half
+                return False             # cross-space pressure
         self._free_slots.pop()
         temp = getattr(req, "temperature", None)
         if temp is None:
@@ -675,11 +749,22 @@ class ContinuousBatchingEngine:
             self.prefill_skips += 1
             self.tel.count("admit.prefill_skips")
         else:
+            caches = pl["caches"]
+            if self.cross_blocks:
+                # the prefill's {"self", "cross"}: the self caches go to the
+                # (single) attention sublayer's pages, the cross K/V once
+                # into the slot's private cross pages
+                cross_dev = to_device(cross_pages, self.device)
+                paged_admit_cross(self.state["caches"]["cross"], cross_dev,
+                                  {k: a[:, 0] for k, a in
+                                   caches["cross"].items()})
+                self.state["cross_pt"][slot].copy_(cross_dev)
+                caches = {self.kv.attn_subs[0]: caches["self"]}
             if nb:
-                self._admit_kv(pages_dev, pl["caches"])
+                self._admit_kv(pages_dev, caches)
             for name in self.ssm_subs:       # the prefilled state, one row
                 for k, rows in self.state["caches"][name].items():
-                    rows[:, slot].copy_(pl["caches"][name][k][:, 0])
+                    rows[:, slot].copy_(caches[name][k][:, 0])
             if self.prefix_sharing and self._pure_attn and pl["keys"]:
                 self._logits_cache_put(pl["keys"][-1], pl["logits"][0])
         if self.prefix_sharing and pl["keys"]:
@@ -817,10 +902,11 @@ class ContinuousBatchingEngine:
         return out
 
     def assert_conserved(self) -> None:
-        """Audit every state kind the slot rows carry: the attention page
-        space (:meth:`PagedKVCache.assert_conserved`, and every page row
-        held by an occupied slot), and the slot rows that hold the SSM
-        state (the free and the occupied rows partition the table)."""
+        """Audit every state kind the slot rows carry: the attention and
+        cross page spaces (:meth:`PagedKVCache.assert_conserved`, and every
+        page row and cross row held by an occupied slot), and the slot rows
+        that hold the SSM state (the free and the occupied rows partition
+        the table)."""
         occupied = {c for c, s in enumerate(self._slots) if s is not None}
         free = set(self._free_slots)
         assert len(free) == len(self._free_slots), "a slot freed twice"
@@ -830,6 +916,10 @@ class ContinuousBatchingEngine:
             self.kv.assert_conserved()
             holding = {c for c in range(self.capacity)
                        if self.kv.owned_pages(c)}
+            assert holding == occupied, (sorted(holding), sorted(occupied))
+        if self.cross_blocks:
+            holding = {c for c in range(self.capacity)
+                       if self.kv.cross_pages_of(c)}
             assert holding == occupied, (sorted(holding), sorted(occupied))
 
     # ------------------------------------------------------------------

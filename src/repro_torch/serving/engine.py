@@ -19,6 +19,12 @@ one sampling schedule:
   behind a prefill on a second one; on the CPU the same loop runs eagerly
   and the handle is complete when ``dispatch`` returns.
 
+An encoder-decoder arch's prefill returns ``{"self", "cross"}`` caches (the
+decoder's self-attention ring and every decoder layer's cross K/V of the
+encoder's output); both paths thread them as any cache tree: ``generate``
+decodes from them, and a captured decode loop copies both into its static
+inputs.
+
 Sampling.  Greedy rows take the first maximum (``argmax``), the contract
 shared with the JAX package.  Sampled rows draw Gumbel noise from a
 counter-based hash of ``(seed, local step, vocab index)`` computed on the
@@ -121,13 +127,9 @@ def resolve_extra_inputs(cfg: ArchConfig, req: Any) -> Dict[str, np.ndarray]:
 def extras_to_device(extra: Dict[str, Any], device: torch.device
                      ) -> Dict[str, torch.Tensor]:
     """A batch's stacked non-token prefill inputs on the device.  Patch
-    embeddings are merged by a vision arch's prefill (and ignored by the
-    others, as the reference's are); encoder frames raise: the
-    encoder-decoder arch comes with slice 4c of the port."""
-    if "frames" in extra:
-        raise NotImplementedError(
-            "encoder frames (the encoder-decoder arch) come with slice 4c "
-            "of the port (ROADMAP.md)")
+    embeddings are merged by a vision arch's prefill and encoder frames
+    encoded by an encoder-decoder's; an arch that takes neither ignores
+    them, as the reference's prefill does."""
     return {k: to_device(np.asarray(v), device) for k, v in extra.items()}
 
 

@@ -1,7 +1,7 @@
 """Paged KV-cache for continuous batching (vLLM-style).
 
-The JAX package's ``repro/serving/kvcache.py`` for the attention and SSM
-state kinds.
+The JAX package's ``repro/serving/kvcache.py`` for the attention, cross-
+attention and SSM state kinds.
 The pool is broken into fixed-size *pages* so a persistent slot table (see
 :mod:`repro_torch.serving.continuous`) can admit and retire requests
 independently:
@@ -20,7 +20,8 @@ independently:
   device tensors: the engine applies the device half of every fork/remap it
   decides (:meth:`PagedKVCache.note_write`).
 * **device primitives** -- :func:`paged_write` (one entry per row, in
-  place), :func:`paged_attend` and :func:`paged_admit`, which go through
+  place), :func:`paged_attend`, :func:`paged_admit` and
+  :func:`paged_admit_cross`, which go through
   :mod:`repro_torch.kernels.ops`: a CUDA tensor to the hand-written kernels
   of :mod:`repro_torch.kernels.paged_attention`, a CPU tensor to their plain
   versions.  The reference's ``backend="jnp"`` dense gather is that plain
@@ -29,15 +30,20 @@ independently:
 Masked (inactive) rows redirect their writes to the reserved ``TRASH`` page,
 which no active row's page table ever references.
 
-State kinds: ``attn`` (the page space above) and ``ssm``; a hybrid arch
-(jamba) carries both.  SSM slot state is not paged: it lives dense in the
-engine's slot table, one row per slot.  An arch without attention
+State kinds: ``attn`` (the page space above), ``cross`` and ``ssm``; a
+hybrid arch (jamba) carries attn and ssm, the encoder-decoder arch
+(whisper) attn and cross.  The cross space holds each request's whole
+encoder output's cross-attention K/V, ``cross_blocks`` pages a row in its
+own pools ``(n_stages, num_cross_pages, page_size, Hkv, D)`` in the compute
+dtype: written once at admission, read-only after, private to the request,
+so it needs no refcounts, trie or copy-on-write, only its own free list
+(:meth:`PagedKVCache.alloc_cross`).  SSM slot state is not paged: it lives
+dense in the engine's slot table, one row per slot.  An arch without attention
 sublayers (mamba2) therefore has no page space at all -- ``blocks_for`` gives 0, nothing is allocated, shared or registered,
 and the conservation audit holds trivially.
 
-Left for later slices of the port: the swap ledgers and host tier of
-preemption (slice 3), the cross-attention page space of encoder-decoder
-archs (slice 4c).
+Left for a later slice of the port: the swap ledgers and host tier of
+preemption (slice 3).
 
 Exactness contract (as the reference's): the paged read/write replicates the
 dense ring cache of :func:`repro_torch.models.layers.apply_attention_decode`
@@ -76,8 +82,10 @@ def ssm_subs(cfg: ArchConfig) -> List[str]:
 
 def state_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
     """Names of the state kinds an arch's slot rows carry, in the
-    reference's order (the cross-attention kind comes with slice 4c)."""
+    reference's order: attention pages, cross-attention pages (an
+    encoder-decoder arch), SSM slot state."""
     return (("attn",) if attn_subs(cfg) else ()) + \
+        (("cross",) if cfg.enc_dec else ()) + \
         (("ssm",) if ssm_subs(cfg) else ())
 
 
@@ -96,13 +104,26 @@ class PagedKVCache:
     RESERVED = 2
 
     def __init__(self, cfg: ArchConfig, capacity: int, page_size: int,
-                 max_blocks: int, num_pages: Optional[int] = None):
+                 max_blocks: int, num_pages: Optional[int] = None,
+                 cross_blocks: int = 0):
         self.cfg = cfg
         self.capacity = capacity
         self.page_size = page_size
         self.max_blocks = max(max_blocks, 1)
         self.attn_subs = attn_subs(cfg)
         self.state_kinds = state_kinds(cfg)
+        # cross-attention page space: per-request, written once at
+        # admission, read-only thereafter -- no refcounts, trie or CoW,
+        # just its own free list.  Sized to hold every slot's row plus the
+        # two reserved pages (SENTINEL for vacated page-table rows).
+        self.cross_blocks = int(cross_blocks)
+        self.num_cross_pages = (self.RESERVED + capacity * self.cross_blocks
+                                if self.cross_blocks else 0)
+        self._cross_free: List[int] = list(
+            range(self.num_cross_pages - 1, self.RESERVED - 1, -1))
+        self._cross_owned: Dict[int, List[int]] = {}
+        self.cross_pages_allocated = 0
+        self.cross_pages_freed = 0
         if not self.attn_subs:
             num_pages = self.RESERVED      # no page space: nothing is paged
         elif num_pages is None:
@@ -288,6 +309,39 @@ class PagedKVCache:
                       shared=len(shared))
         return np.asarray(self._owned[slot], np.int32)
 
+    def alloc_cross(self, slot: int) -> Optional[np.ndarray]:
+        """Take ``slot``'s row of ``cross_blocks`` pages from the cross page
+        space; None when the space is short (the request stays queued).
+        Cross pages are private and written once, so there is nothing to
+        share and no reserve to keep."""
+        if slot in self._cross_owned:
+            raise ValueError(
+                f"slot {slot} already owns cross pages; free() it before "
+                f"re-allocating")
+        if len(self._cross_free) < self.cross_blocks:
+            self.tel.count("kv.alloc_blocked")
+            return None
+        pages = [self._cross_free.pop() for _ in range(self.cross_blocks)]
+        self._cross_owned[slot] = pages
+        self.cross_pages_allocated += len(pages)
+        if self.tel.enabled:
+            self.tel.count("kv.cross.pages_allocated", len(pages))
+        return np.asarray(pages, np.int32)
+
+    def cross_pages_of(self, slot: int) -> List[int]:
+        """The slot's cross page row (block order), read-only."""
+        return list(self._cross_owned.get(slot, ()))
+
+    def _free_cross(self, slot: int) -> int:
+        pages = self._cross_owned.pop(slot, None)
+        if not pages:
+            return 0
+        self._cross_free.extend(pages)
+        self.cross_pages_freed += len(pages)
+        if self.tel.enabled:
+            self.tel.count("kv.cross.pages_freed", len(pages))
+        return len(pages)
+
     def register(self, slot: int, keys: List[bytes]) -> None:
         """Enter ``slot``'s pages into the prefix trie under their chain
         keys.  First registration wins (duplicate-content pages from one
@@ -369,11 +423,13 @@ class PagedKVCache:
         return list(self._owned.get(slot, ()))
 
     def free(self, slot: int) -> int:
-        """Retire a slot: decrement its pages' refcounts.  Pages reaching
-        refcount 0 return to the free list -- or stay behind as cached
-        (evictable) pristine pages when still trie-registered, so a later
-        identical prefix can re-share them.  Returns the number of pages
-        whose refcount dropped to 0."""
+        """Retire a slot: decrement its pages' refcounts and return its
+        cross row (if any) to the cross free list.  Attention pages
+        reaching refcount 0 return to the free list -- or stay behind as
+        cached (evictable) pristine pages when still trie-registered, so a
+        later identical prefix can re-share them.  Returns the number of
+        attention pages whose refcount dropped to 0."""
+        self._free_cross(slot)
         released = 0
         for blk, page in enumerate(self._owned.pop(slot, [])):
             self._ref[page] -= 1
@@ -417,7 +473,8 @@ class PagedKVCache:
     # ------------------------------------------------------------------
     def assert_conserved(self) -> None:
         """Audit the allocator: page conservation, refcount integrity, trie
-        consistency and fork-reserve headroom (the swap ledgers of the
+        consistency, fork-reserve headroom and -- when a cross page space
+        exists -- cross-row conservation (the swap ledgers of the
         reference's two-tier audit come with slice 3)."""
         usable = self.num_pages - self.RESERVED
         live = {p for p, r in self._ref.items() if r > 0}
@@ -449,6 +506,19 @@ class PagedKVCache:
         # always be coverable, so a copy-on-write fork can never fail
         assert self.available() >= self.cow_reserve, \
             (self.available(), self.cow_reserve)
+        if self.cross_blocks:
+            cross_live = [p for pages in self._cross_owned.values()
+                          for p in pages]
+            cross_free = set(self._cross_free)
+            assert len(cross_free) == len(self._cross_free), \
+                "cross free list has duplicates"
+            assert len(set(cross_live)) == len(cross_live), \
+                "cross page owned twice"
+            assert not (cross_free & set(cross_live)), \
+                "cross page both free and owned"
+            assert len(cross_free) + len(cross_live) == \
+                self.num_cross_pages - self.RESERVED, \
+                (len(cross_free), len(cross_live), self.num_cross_pages)
         self.tel.count("kv.conservation_checks")
 
     # ------------------------------------------------------------------
@@ -472,6 +542,23 @@ class PagedKVCache:
                        "v": torch.zeros(shape, dtype=torch.bfloat16,
                                         device=device)}
                 for name in self.attn_subs}
+
+
+    def make_cross_page_table(self, device=None) -> torch.Tensor:
+        return torch.full((self.capacity, self.cross_blocks), self.SENTINEL,
+                          dtype=torch.int32, device=device)
+
+    def make_cross_pools(self, n_stages: int, device=None
+                         ) -> Dict[str, torch.Tensor]:
+        """Cross-attention page pools, in the *compute* dtype: ``generate``
+        decodes straight from the prefill's cross K/V (compute dtype), so
+        storing anything else here would break bitwise parity with it."""
+        cfg = self.cfg
+        shape = (n_stages, self.num_cross_pages, self.page_size,
+                 cfg.num_kv_heads, cfg.head_dim)
+        dt = dtype_of(cfg.compute_dtype)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +597,37 @@ def paged_admit(pool: Dict[str, torch.Tensor],
     index-puts on the CPU; bit-exact with each other."""
     ops.paged_admit_kv(pool["k"], pool["v"], pos_pool, pages, cache["k"],
                        cache["v"], pos_src)
+
+
+def paged_admit_cross(pools: Dict[str, torch.Tensor], pages: torch.Tensor,
+                      cross: Dict[str, torch.Tensor]) -> None:
+    """Admission's write-once cross scatter, in place: one request's cross
+    K/V ``cross`` {"k","v"} (S, S_enc, Hkv, D) zero-padded to its
+    ``nbc = len(pages)`` whole pages and written into ``pools``' pages
+    ``pages`` -- one launch of the scatter kernel per pool on a CUDA
+    device, ``index_copy_`` on the CPU (bit-exact with each other).  The
+    pools are in the compute dtype, as the K/V are: the pages hold the
+    prefill's cross K/V bit for bit, and the zeros past ``S_enc`` are
+    dropped by :func:`gather_cross`."""
+    for kind in ("k", "v"):
+        pool, leaf = pools[kind], cross[kind]
+        S, s_enc = leaf.shape[:2]
+        nbc, psz = pages.shape[0], pool.shape[2]
+        vals = torch.nn.functional.pad(
+            leaf, (0, 0, 0, 0, 0, nbc * psz - s_enc))
+        ops.paged_prefill_scatter(
+            pool, pages, vals.reshape(S, nbc, psz, *leaf.shape[2:]))
+
+
+def gather_cross(pool: torch.Tensor, cross_pt: torch.Tensor, s_enc: int
+                 ) -> torch.Tensor:
+    """The slot rows' cross K (or V) as a dense view ``(C, s_enc, Hkv,
+    D)``: pool ``(NPc, P, Hkv, D)`` gathered through the cross page table
+    ``(C, nbc)`` and cut to ``s_enc`` (bitwise the prefill's cross K/V of
+    each row's request)."""
+    C, nbc = cross_pt.shape
+    g = pool[cross_pt.long()]                       # (C, nbc, P, Hkv, D)
+    return g.reshape(C, nbc * pool.shape[1], *pool.shape[2:])[:, :s_enc]
 
 
 def paged_attention_decode(p, x, pool: Dict[str, torch.Tensor],

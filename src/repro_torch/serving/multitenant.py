@@ -54,8 +54,9 @@ that wait.
 Priorities order continuous admission but never preempt: swap preemption,
 load shedding by backlog (``max_backlog``), fault injection, the request
 journal and engine checkpoints come with slice 3 of the port and raise
-``NotImplementedError``.  A batch's patch embeddings are stacked per row
-(``_batch_extras``); encoder frames raise (slice 4c).
+``NotImplementedError``.  A batch's extra inputs -- patch embeddings,
+encoder frames (zero frames for a whisper request that carries none) --
+are stacked per row (``_batch_extras``), in both slot schedules.
 """
 from __future__ import annotations
 

@@ -54,10 +54,16 @@ LLAVA = "llava-next-mistral-7b"
 
 
 def _extras(cfg, rng, B):
-    if not cfg.num_patches:
-        return {}
-    return {"patch_embeds": torch.from_numpy(rng.normal(
-        size=(B, cfg.num_patches, 1024)).astype(np.float32))}
+    """A prefill batch's non-token inputs: patch embeddings (llava) or
+    encoder frames (whisper)."""
+    out = {}
+    if cfg.num_patches:
+        out["patch_embeds"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.num_patches, 1024)).astype(np.float32))
+    if cfg.enc_dec:
+        out["frames"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32))
+    return out
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -307,9 +313,9 @@ def test_synth_extra_inputs_match_reference():
 
 
 def test_list_archs_rows_match_reference():
-    """The port's capability table: each ported arch's row equals the
-    reference's but for the ``preempt`` column (swap is slice 3); whisper's
-    row names slice 4c; no model is built."""
+    """The port's capability table: each arch's row, whisper's among them,
+    equals the reference's but for the ``preempt`` column (swap is slice
+    3); no model is built."""
     bufs = []
     for fn in (serve.main, jserve.main):
         buf = io.StringIO()
@@ -319,8 +325,9 @@ def test_list_archs_rows_match_reference():
                      buf.getvalue().splitlines()[2:]})
     mine, ref = bufs
     assert set(mine) == set(ref) == set(ARCH_IDS)
+    assert "whisper-base" in LM_ARCHS
     for arch in LM_ARCHS:
         a, b = mine[arch], ref[arch]
         assert a[:3] + a[4:] == b[:3] + b[4:], arch
         assert a[3] == "no"
-    assert "slice 4c" in " ".join(mine["whisper-base"])
+    assert mine["whisper-base"][2] == "attn+cross"

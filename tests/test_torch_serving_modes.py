@@ -134,16 +134,26 @@ def test_pending_generation_handle(rng):
 
 
 def test_extra_inputs_raise_naming_their_slice(rng):
-    eng, _ = _engines("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        eng.dispatch(_prompts(eng, rng), 2,
-                     extra_inputs={"frames": np.zeros((2, 4, 8))})
+    """Encoder frames given to a decoder-only arch are ignored, as the
+    reference's prefill ignores them: ``dispatch`` and a slot schedule
+    give the tokens of the same prompts without them, and the reference's
+    ``dispatch`` the same."""
+    eng, jeng = _engines("internlm2-1.8b")
+    prompts = _prompts(eng, rng)
+    frames = {"frames": np.zeros((2, 4, 8), np.float32)}
+    plain = eng.await_result(eng.dispatch(prompts, 2)).tokens
+    np.testing.assert_array_equal(
+        eng.await_result(eng.dispatch(prompts, 2, extra_inputs=frames)
+                         ).tokens, plain)
+    np.testing.assert_array_equal(np.asarray(jeng.await_result(
+        jeng.dispatch(prompts, 2, extra_inputs=frames)).tokens), plain)
     sched = MultiTenantScheduler(eng, max_batch=2)
-    sched.submit(Request("a", _prompts(eng, rng, B=1)[0], 2,
+    sched.submit(Request("a", prompts[0], 2,
                          extra_inputs={"frames": np.zeros((4, 8))}))
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        sched.step()
+    out = sched.drain()
     sched.close()
+    np.testing.assert_array_equal(out[0].tokens,
+                                  eng.generate(prompts[:1], 2).tokens[0])
 
 
 # ---------------------------------------------------------------------
