@@ -36,7 +36,17 @@ Drives the port's paths through the entry points a user calls:
   at Sq 64 against 1,500 keys for the cross attention), admission writes
   each request's cross K/V into its private cross pages with the scatter
   kernel, and every decode step reads the self pages through the paged
-  decode kernel and attends to the gathered cross pages.
+  decode kernel and attends to the gathered cross pages;
+* ``serve-overload``: overload and crash safety at full width --
+  internlm2-1.8b, mamba2-2.7b and whisper-base each with a slot table of 8
+  tier-1 rows (128-token prompts, 96 new tokens; whisper's 64) hit by a
+  tier-0 burst that preempts through the pinned host swap tier while
+  ``max_backlog`` sheds, then the same traffic under a ``FaultPlane``
+  dropping rounds, stalling admissions and poisoning swap reads;
+* ``serve-crash``: ``launch.serve`` children at internlm2-1.8b's full
+  width with a request journal and checkpoints every 4 rounds, killed by
+  SIGKILL at round 6 and inside a swap-out, then recovered by fresh
+  processes, every request's tokens equal to an uncrashed run's.
 
 Every serving path decodes through rounds captured as CUDA graphs and
 replayed (``serving.continuous.RoundProgram``); the same admissions of
@@ -98,8 +108,19 @@ launches by sub-layer, the pool and the cross space conserved, every
 request's cross row taken and given back, logits at each step against
 ``generate``'s, the repeated prompt with its frames prefilled again,
 rounds eager against graph; overlapped: tokens equal to ``generate`` per
-batch; then K3, K4 and K5 held and timed at whisper's shapes).  The
-serving reduced phase
+batch; then K3, K4 and K5 held and timed at whisper's shapes),
+serve-overload (per arch: every request one outcome, the victims -- greedy
+and seeded-sampling rows -- token-identical to the same requests run
+without preemption in the same engine, restored rows bit for bit their
+snapshots, both tiers conserved and the host tier empty, no round key
+captured again, every dispatch and restore under
+``set_sync_debug_mode("error")``, launches by sub-layer with the restores'
+scatter launches; swap-out, prefetch (beside bytes over the risk staging's
+host-to-device rate), restore wait and restore-write times, replayed
+rounds with and without a swap before them), serve-crash (both children
+exit -9, the recovered journals' tokens equal the uncrashed ones'; journal
+append us as a share of a replayed round, checkpoint ms and bytes, recover
+ms).  The serving reduced phase
 runs every decoder-only arch, and a hybrid without MoE.  Each phase's
 seconds are printed at the end.
 """
@@ -112,6 +133,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -131,6 +153,7 @@ from repro_torch.core import planner
 from repro_torch.core.pipeline import timeline_overlaps
 from repro_torch.core.simulator import SimInputs, simulate
 from repro_torch.core.tenancy import TenancyConfig
+from repro_torch.distributed.fault import FaultPlane
 from repro_torch.kernels import aggregate_loss as agg
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
@@ -152,6 +175,7 @@ from repro_torch.risk import metrics
 from repro_torch.risk.analysis import AggregateRiskAnalysis
 from repro_torch.risk.tables import (GENERATE_PEAK_BYTES_PER_EVENT, RiskTables,
                                      generate)
+from repro_torch.serving import journal as journal_mod
 from repro_torch.serving.continuous import ContinuousBatchingEngine
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kvcache import POS_SENTINEL, PagedKVCache
@@ -4137,6 +4161,681 @@ def phase_serve_whisper(errs: Errors, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# serve-overload: a tier-0 burst against a slot table full of tier-1 rows
+# (priority admission, swap preemption, shedding past max_backlog), then the
+# same traffic under injected faults; each arch's victims held to the same
+# requests run without preemption in the same engine
+OVERLOAD_ARCHS = (("internlm2-1.8b", 128), ("mamba2-2.7b", 128),
+                  (WHISPER, WHISPER_PROMPT))
+OVERLOAD_CAPACITY = 8
+OVERLOAD_NEW = 96            # a tier-1 row's tokens
+OVERLOAD_HI_NEW = 24         # a tier-0 row's tokens
+OVERLOAD_BURST = 4           # tier-0 requests of the burst
+OVERLOAD_LATE = 4            # tier-1 requests arriving with it
+OVERLOAD_BACKLOG = 4         # max_backlog: the burst and the late rows
+#                              queue 8, so 4 are shed
+OVERLOAD_FAULTS = dict(drop_round_every=5, stall_admission_every=3,
+                       poison_swap_every=4)
+OVERLOAD_CHECKED = 4         # restores held bit for bit against their
+#                              snapshots, per arch and run
+
+
+def overload_traffic(cfg, prompt_len: int, seed: int,
+                     new=None, hi_new=None) -> dict:
+    """The requests of one overload run (fresh objects each call, the same
+    draws for one seed): 8 tier-1 rows -- greedy, seeded temperature, and
+    temperature with top-k 20 -- the tier-0 burst and the late tier-1
+    rows, each with its own tenant."""
+    rng = np.random.default_rng(seed)
+    new, hi_new = new or OVERLOAD_NEW, hi_new or OVERLOAD_HI_NEW
+
+    def mk(tag, i, prio, n, sampled):
+        kw = {}
+        if sampled:
+            kw = dict(temperature=0.8, seed=100 + i,
+                      top_k=20 if i % 4 == 3 else 0)
+        return Request(f"{tag}{i}", rng.integers(
+            1, cfg.vocab_size, prompt_len).astype(np.int32), n,
+            priority=prio, extra_inputs=serve_cli.synth_extra_inputs(
+                cfg, rng) or None, **kw)
+
+    return {"tier1": [mk("lo", i, 1, new, i % 2)
+                      for i in range(OVERLOAD_CAPACITY)],
+            "burst": [mk("hi", i, 0, hi_new, False)
+                      for i in range(OVERLOAD_BURST)],
+            "late": [mk("late", i, 1, new, i % 2)
+                     for i in range(OVERLOAD_LATE)]}
+
+
+def clone_request(r: Request) -> Request:
+    return Request(r.tenant, r.prompt.copy(), r.max_new_tokens,
+                   temperature=r.temperature, top_k=r.top_k, seed=r.seed,
+                   priority=r.priority, extra_inputs=r.extra_inputs)
+
+
+@contextlib.contextmanager
+def sync_errors(dev):
+    """``set_sync_debug_mode("error")`` for the block (a CUDA device)."""
+    if dev.type != "cuda":
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size() if tree is not None else 0
+
+
+def record_bytes(rec) -> int:
+    return (tree_bytes(rec.host_kv) + tree_bytes(rec.host_pos)
+            + tree_bytes(rec.logits) + tree_bytes(rec.host_cross)
+            + tree_bytes(rec.host_state))
+
+
+def restored_matches(ceng, rec) -> bool:
+    """The restored row of ``rec``'s request against the snapshot, bit for
+    bit: every page of its row (K, V and positions in every stage), its
+    cross pages, its SSM records, its logits row."""
+    slot = next(c for c, s in enumerate(ceng._slots)
+                if s is not None and s.req is rec.req)
+    st, kv, dev = ceng.state, ceng.kv, ceng.device
+
+    def same(a, b) -> bool:
+        b = b.to(dev)
+        return a.dtype == b.dtype and a.shape == b.shape and bool(
+            torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                        else a, b.view(torch.int16)
+                        if b.dtype == torch.bfloat16 else b))
+
+    ok = same(st["logits"][slot], rec.logits)
+    pages = kv.owned_pages(slot)
+    if pages:
+        idx = torch.tensor(pages, device=dev)
+        ok &= same(st["pos_pool"].index_select(0, idx), rec.host_pos)
+        for name, blocks in rec.host_kv.items():
+            for k in "kv":
+                ok &= same(st["caches"][name][k].index_select(1, idx),
+                           blocks[k])
+    if rec.host_cross is not None:
+        idx = torch.tensor(kv.cross_pages_of(slot), device=dev)
+        for k in "kv":
+            ok &= same(st["caches"]["cross"][k].index_select(1, idx),
+                       rec.host_cross[k])
+    for name, leaves in (rec.host_state or {}).items():
+        for k, v in leaves.items():
+            ok &= same(st["caches"][name][k][:, slot], v)
+    return ok
+
+
+class SwapProbe:
+    """Wraps one engine's swap path for a run: CUDA events around each
+    swap-out (snapshot gather, copy to pinned memory, evict), around the
+    compute stream's wait for each staged record, and around each restore's
+    page writes (the scatter kernel's launches and the slot's scalars);
+    every dispatch and restore under ``set_sync_debug_mode("error")``; the
+    first restores held bit for bit against their snapshots; and per round
+    whether a swap came before it."""
+
+    def __init__(self, ceng, dev):
+        self.ceng, self.dev = ceng, dev
+        self.out, self.wait, self.write = [], [], []
+        self.out_bytes, self.k4_restore, self.checked = [], 0, 0
+        self.mismatch = 0
+        self.swapped_before: list = []
+        self._swap_since = False
+        self._orig = {}
+        store = ceng.swap_store
+        store.prefetch_log.clear()
+        self._patch(ceng, "preempt", self._preempt)
+        self._patch(ceng, "try_restore", self._try_restore)
+        self._patch(ceng, "_restore_row", self._restore_row)
+        self._patch(ceng, "dispatch_round", self._dispatch)
+        self._patch(store, "fetch", self._fetch)
+
+    def _patch(self, obj, name, fn):
+        self._orig[(obj, name)] = getattr(obj, name)
+        setattr(obj, name, fn)
+
+    def close(self):
+        for (obj, name) in self._orig:
+            delattr(obj, name)
+
+    def _call(self, obj, name, *a):
+        return self._orig[(obj, name)](*a)
+
+    def _events(self):
+        if self.dev.type != "cuda":
+            return None, None
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def _timed(self, sink, obj, name, *a):
+        e0, e1 = self._events()
+        if e0 is not None:
+            e0.record()
+        r = self._call(obj, name, *a)
+        if e1 is not None:
+            e1.record()
+            sink.append((e0, e1))
+        return r
+
+    def _preempt(self, slot):
+        ticket = self._timed(self.out, self.ceng, "preempt", slot)
+        self.out_bytes.append(record_bytes(
+            self.ceng.swap_store.record(ticket)))
+        self._swap_since = True
+        return ticket
+
+    def _fetch(self, ticket):
+        return self._timed(self.wait, self.ceng.swap_store, "fetch", ticket)
+
+    def _restore_row(self, slot, rec, arrays, pages, n_shared, cross_pages):
+        self.k4_restore += (len(self.ceng.kv.attn_subs)
+                            * (len(pages) > n_shared)
+                            + 2 * (cross_pages is not None))
+        return self._timed(self.write, self.ceng, "_restore_row", slot, rec,
+                           arrays, pages, n_shared, cross_pages)
+
+    def _try_restore(self, ticket):
+        rec = self.ceng.swap_store.record(ticket)
+        with sync_errors(self.dev):
+            ok = self._call(self.ceng, "try_restore", ticket)
+        if ok:
+            self._swap_since = True
+            if self.checked < OVERLOAD_CHECKED:
+                self.checked += 1
+                self.mismatch += not restored_matches(self.ceng, rec)
+        return ok
+
+    def _dispatch(self):
+        with sync_errors(self.dev):
+            h = self._call(self.ceng, "dispatch_round")
+        self.swapped_before.append(self._swap_since)
+        self._swap_since = False
+        return h
+
+    def numbers(self, h2d_gbps: float) -> dict:
+        ms = lambda evs: [a.elapsed_time(b) for a, b in evs]
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+        pre = [(a.elapsed_time(b), n) for a, b, n in
+               self.ceng.swap_store.prefetch_log]
+        pre_bytes = [n for _, n in pre]
+        rounds = self.ceng.round_ms[-len(self.swapped_before):] \
+            if self.ceng.round_ms else []
+        with_swap = [r for r, s in zip(rounds, self.swapped_before) if s]
+        without = [r for r, s in zip(rounds, self.swapped_before) if not s]
+        med = lambda x: float(np.median(x)) if x else None
+        return dict(
+            swap_outs=len(self.out_bytes), swap_out_ms=ms(self.out),
+            swap_out_bytes=self.out_bytes, prefetches=len(pre),
+            prefetch_ms=[m for m, _ in pre], prefetch_bytes=pre_bytes,
+            prefetch_bound_ms=[n / (h2d_gbps * 1e9) * 1e3
+                               for n in pre_bytes],
+            h2d_gbps=h2d_gbps, restore_wait_ms=ms(self.wait),
+            restore_write_ms=ms(self.write),
+            restore_k4_launches=self.k4_restore,
+            restores_checked=self.checked,
+            round_ms_after_swap_median=med(with_swap),
+            round_ms_no_swap_median=med(without),
+            rounds_after_swap=len(with_swap), rounds_no_swap=len(without))
+
+
+def overload_run(ceng, traffic, dev, h2d_gbps, faults=None) -> dict:
+    """One overload run through ``MultiTenantScheduler``: 8 tier-1 rows
+    admitted (4, then 4), a round on the card, then the tier-0 burst with
+    the late tier-1 rows; drained.  Counts reset just before, read just
+    after."""
+    eng = ceng.engine
+    plane = None
+    if faults:
+        plane = FaultPlane(**faults)
+        ceng.fault_plane = ceng.swap_store.fault_plane = plane
+    probe = SwapProbe(ceng, dev)
+    calls0 = ceng.prefill_calls
+    rounds0, pre0, res0 = ceng.rounds, ceng.preemptions, ceng.restores
+    for m in (agg, pa, fa, ssd):
+        m.reset_counts()                 # just before the serving path
+    try:
+        sched = MultiTenantScheduler(eng, mode="continuous",
+                                     continuous_engine=ceng,
+                                     max_backlog=OVERLOAD_BACKLOG)
+        out = []
+        tier1 = traffic["tier1"]
+        for part in (tier1[:OVERLOAD_CAPACITY // 2],
+                     tier1[OVERLOAD_CAPACITY // 2:]):
+            for r in part:
+                sched.submit(r)
+            out += sched.step() or []
+        while ceng.active_count() < len(tier1) and sched.pending():
+            out += sched.step() or []    # stalled admissions retry
+        out += sched.step() or []
+        for r in traffic["burst"] + traffic["late"]:
+            sched.submit(r)
+        with torch.no_grad():
+            out += sched.drain()
+    finally:
+        probe.close()
+        ceng.fault_plane = ceng.swap_store.fault_plane = None
+    launches, plains = slot_launches()   # just after
+    variants = {K5: dict(fa.variant_counts), K6: dict(ssd.variant_counts)}
+    return dict(out=out, sched=sched, probe=probe, plane=plane,
+                launches=launches, plains=plains, variants=variants,
+                prefill_calls=ceng.prefill_calls - calls0,
+                rounds=ceng.rounds - rounds0,
+                preemptions=ceng.preemptions - pre0,
+                restores=ceng.restores - res0,
+                numbers=probe.numbers(h2d_gbps))
+
+
+def hold_overload_run(arch: str, tag: str, ceng, traffic, run, want,
+                      traces: int) -> dict:
+    """Every request in exactly one outcome; the completed tier-1 rows --
+    the victims among them -- token-identical to their uninterrupted run;
+    the shed count; both tiers conserved and the host tier empty; no key
+    captured again; each kernel's launches by sub-layer, restores
+    included."""
+    out, sched = run["out"], run["sched"]
+    what = f"{arch} {tag}"
+    reqs = traffic["tier1"] + traffic["burst"] + traffic["late"]
+    by = {}
+    for r in out:
+        check(r.tenant not in by, f"{what}: {r.tenant} has two outcomes")
+        by[r.tenant] = r
+    check(set(by) == {r.tenant for r in reqs},
+          f"{what}: {len(by)} outcomes for {len(reqs)} requests")
+    check(all(r.outcome in ("completed", "rejected", "failed")
+              for r in out), f"{what}: outcomes {[r.outcome for r in out]}")
+    shed = sum(int(s["shed"]) for s in sched.stats.values())
+    victims = [r.tenant for r in traffic["tier1"]
+               if by[r.tenant].preemptions > 0]
+    for r in traffic["tier1"]:
+        got = by[r.tenant]
+        if got.outcome != "completed":
+            continue
+        check(np.array_equal(got.tokens, want[r.tenant]),
+              f"{what}: {r.tenant} ({got.preemptions} preemptions, "
+              f"temperature {r.temperature}) differs from its run without "
+              "preemption")
+    for r in reqs:
+        got = by[r.tenant]
+        if got.outcome == "completed":
+            check(got.tokens.size == r.max_new_tokens
+                  and int(got.tokens.min()) >= 0
+                  and int(got.tokens.max()) < ceng.cfg.vocab_size,
+                  f"{what}: {r.tenant} tokens")
+    sampled = [t for t in victims
+               if next(r for r in reqs if r.tenant == t).temperature]
+    check(run["preemptions"] >= 1 and run["restores"] >= 1 and victims
+          and (tag != "overload" or 0 < len(sampled) < len(victims)),
+          f"{what}: {run['preemptions']} preemptions, {run['restores']} "
+          f"restores, victims {victims} (sampled {sampled})")
+    check(shed >= 1 and shed == sum(r.outcome == "rejected" for r in out),
+          f"{what}: shed {shed}, rejected "
+          f"{sum(r.outcome == 'rejected' for r in out)}")
+    check(len(ceng.swap_store) == 0, f"{what}: host tier not empty")
+    ceng.assert_conserved()
+    check(ceng.nonfinite_rows == 0, f"{what}: non-finite logits")
+    check(ceng.decode_traces == traces and (
+        ceng.round_program is None
+        or len(ceng.round_program.rounds) == traces),
+          f"{what}: a round key was captured again ({ceng.decode_traces} "
+          f"keys, {traces} before)")
+    check(run["probe"].mismatch == 0,
+          f"{what}: {run['probe'].mismatch} restored rows differ from "
+          "their snapshots")
+    eng, cfg = ceng.engine, ceng.cfg
+    launches, plains = run["launches"], run["plains"]
+    n_attn = ceng.n_stages * len(ceng.kv.attn_subs)
+    n_ssm = ceng.n_stages * len(ceng.ssm_subs)
+    admitted = run["prefill_calls"]      # one prefill an admission
+    want_l = {K5: k5_per_prefill(cfg) * admitted,
+              K3: n_attn * run["rounds"] * ceng.inner_steps,
+              K4: (len(ceng.kv.attn_subs) + 2 * bool(ceng.cross_blocks))
+              * admitted + run["probe"].k4_restore,
+              K6: n_ssm * admitted}
+    want_l = {k: n for k, n in want_l.items() if n}
+    check(all(launches[k] == n for k, n in want_l.items())
+          and all(v == 0 for k, v in launches.items() if k not in want_l)
+          and not any(plains.values()),
+          f"{what}: launches {launches}, expected {want_l} ({admitted} "
+          f"admissions, {run['rounds']} rounds, {run['restores']} "
+          f"restores), plain calls {plains}")
+    if ceng.device.type == "cuda":
+        for k in (K5, K6):
+            check(run["variants"][k] == {"bf16_mma": want_l.get(k, 0),
+                                         "f32_simt": 0},
+                  f"{what}: {k} variants {run['variants'][k]}")
+    outcomes = {o: sum(r.outcome == o for r in out)
+                for o in ("completed", "rejected", "failed")}
+    return dict(outcomes=outcomes, victims=victims,
+                victims_sampled=len(sampled), shed=shed,
+                preemptions=run["preemptions"], restores=run["restores"],
+                rounds=run["rounds"], admissions=admitted, launches=want_l,
+                **run["numbers"])
+
+
+def serve_overload_arch(arch: str, prompt_len: int, dev,
+                        h2d_gbps: float) -> dict:
+    """One arch at its published width and depth, bf16, random weights
+    from seed 0: capacity 8, 4 steps a round, preemption on, one prefill an
+    admission (a prefill's bits in bf16 depend on its batch width; at width
+    1 a request's tokens depend on the request alone, so runs with and
+    without preemption are comparable bit for bit)."""
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
+    ceng = ContinuousBatchingEngine(
+        eng, capacity=OVERLOAD_CAPACITY, page_size=16, inner_steps=4,
+        max_prompt_len=2 * prompt_len, batch_admission=False)
+    check(ceng.can_preempt, f"{arch}: the engine cannot preempt")
+    with torch.no_grad():
+        # every round key captured up front: greedy, temperature, top-k
+        for kw in ({}, dict(temperature=0.8, seed=1),
+                   dict(temperature=0.8, seed=2, top_k=20)):
+            ceng.run_all([Request("warm", np.arange(1, 9, dtype=np.int32),
+                                  4, extra_inputs=serve_cli.synth_extra_inputs(
+                                      cfg, np.random.default_rng(0)) or None,
+                                  **kw)])
+        traces = ceng.decode_traces
+        check(traces == 3, f"{arch}: {traces} round keys after the warm-up")
+        traffic = overload_traffic(cfg, prompt_len, 0)
+        want = {r.tenant: t for r, t in ceng.run_all(
+            [clone_request(r) for r in traffic["tier1"]])}
+    res = {}
+    for tag, faults in (("overload", None), ("faults", OVERLOAD_FAULTS)):
+        traffic = overload_traffic(cfg, prompt_len, 0)
+        run = overload_run(ceng, traffic, dev, h2d_gbps, faults)
+        res[tag] = hold_overload_run(arch, tag, ceng, traffic, run, want,
+                                     traces)
+        if faults:
+            plane, sched = run["plane"], run["sched"]
+            check(plane.total_injected() > 0
+                  and sched.faults_survived == plane.total_injected(),
+                  f"{arch} faults: injected {plane.injected}, survived "
+                  f"{sched.faults_survived}")
+            res[tag].update(injected=dict(plane.injected),
+                            faults_survived=sched.faults_survived)
+    res["wall_s"] = time.perf_counter() - t0
+    del eng, ceng
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_overload(dev, h2d_gbps: float) -> dict:
+    """serve-overload: ``serve_overload_arch`` for internlm2-1.8b (attention
+    pages), mamba2-2.7b (SSM records) and whisper-base (self and cross
+    pages); prints each arch's swap-out, prefetch (beside its bound at the
+    risk staging's host-to-device rate), restore wait and restore-write
+    times and the replayed round with and without a swap before it."""
+    t0 = time.perf_counter()
+    runs, launches = {}, {}
+    for arch, prompt_len in OVERLOAD_ARCHS:
+        r = serve_overload_arch(arch, prompt_len, dev, h2d_gbps)
+        runs[arch] = r
+        launches[f"{arch} overload"] = {
+            k: r["overload"]["launches"].get(k, 0)
+            + r["faults"]["launches"].get(k, 0) for k in (K3, K4, K5, K6)}
+        for tag in ("overload", "faults"):
+            n = r[tag]
+            mean = lambda x: float(np.mean(x)) if x else float("nan")
+            say("serve-overload", f"{arch} {tag}: outcomes {n['outcomes']}, "
+                f"victims {len(n['victims'])}, preemptions "
+                f"{n['preemptions']}, restores {n['restores']} "
+                f"({n['restores_checked']} held bit for bit), shed "
+                f"{n['shed']}; swap-out {mean(n['swap_out_ms']):.3f} ms "
+                f"a row for {mean(n['swap_out_bytes']) / 1e6:.2f} MB; "
+                f"prefetch {mean(n['prefetch_ms']):.3f} ms a record "
+                f"(bound {mean(n['prefetch_bound_ms']):.3f} ms at "
+                f"{h2d_gbps:.1f} GB/s); restore wait "
+                f"{mean(n['restore_wait_ms']):.3f} ms, writes "
+                f"{mean(n['restore_write_ms']):.3f} ms "
+                f"({n['restore_k4_launches']} K4 launches); round "
+                f"{n['round_ms_no_swap_median']} ms, after a swap "
+                f"{n['round_ms_after_swap_median']} ms"
+                + (f"; injected {n['injected']}" if "injected" in n else ""))
+    say("serve-overload", f"{time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# serve-crash: launch.serve children killed by SIGKILL (at a dispatched
+# round, and inside a swap-out), each followed by a --recover child; every
+# recovered request's tokens held to an uncrashed run's journal
+CRASH_ARGV = ["--arch", "internlm2-1.8b", "--no-reduced", "--mode",
+              "continuous", "--tenants", "3", "--requests", "12",
+              "--prompt-len", "128", "--new-tokens", "48", "--capacity", "8",
+              "--page-size", "16", "--inner-steps", "4",
+              "--no-batch-admission", "--checkpoint-every", "4"]
+CRASH_ROUND = 6
+CRASH_NEW, CRASH_HI_NEW = 48, 12        # the swap workload's tier-1 and tier-0
+CRASH_CHILD_S = 600          # a child's time limit
+CRASH_CHILD_ARGS = ["cuda", "full"]     # the workload child's device, size
+
+
+def crash_workload(root: str, phase: str, dev, reduced: bool = False) -> dict:
+    """The mid-preemption crash's workload (the serve CLI has no swap crash
+    flag): internlm2-1.8b at full width with a journal and checkpoints
+    every 4 rounds, 8 tier-1 rows, two rounds, then two tier-0 rows that
+    preempt.  ``crash``: SIGKILL inside the first swap-out's put;
+    ``recover``: rebuild from the journal and the latest checkpoint and
+    drain; ``base``: the same traffic uncrashed."""
+    cfg = get_config("internlm2-1.8b")
+    if reduced:
+        cfg = cfg.reduced()
+    eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
+    plane = FaultPlane(crash_at_swap=1) if phase == "crash" else None
+    ceng = ContinuousBatchingEngine(
+        eng, capacity=8, page_size=16, inner_steps=4, max_prompt_len=256,
+        batch_admission=False, fault_plane=plane)
+    sched = MultiTenantScheduler(
+        eng, mode="continuous", continuous_engine=ceng,
+        journal=os.path.join(root, "journal.jsonl"),
+        checkpoint_dir=os.path.join(root, "checkpoints"), checkpoint_every=4)
+    traffic = overload_traffic(cfg, 128, 7, CRASH_NEW, CRASH_HI_NEW)
+    out = {}
+    with torch.no_grad():
+        if phase == "recover":
+            t0 = time.perf_counter()
+            s = sched.recover()
+            out["recover_ms"] = (time.perf_counter() - t0) * 1e3
+            out.update(restored_live=s.restored_live,
+                       restored_swapped=s.restored_swapped,
+                       requeued=s.requeued, step=s.checkpoint_step)
+        else:
+            for r in traffic["tier1"]:
+                sched.submit(r)
+            while not sched.checkpoints_taken:
+                sched.step()
+            sched.step()
+            for r in traffic["burst"][:2]:
+                sched.submit(r)
+        sched.drain()
+    out.update(preemptions=ceng.preemptions, restores=ceng.restores)
+    return out
+
+
+def crash_child_main(phase: str, root: str, device: str = "cuda",
+                     size: str = "full") -> int:
+    """``chip_smoke.py --serve-crash-child PHASE ROOT [DEVICE SIZE]``:
+    ``crash_workload`` in a process of its own; prints its numbers as one
+    JSON line."""
+    out = crash_workload(root, phase, torch.device(device),
+                       reduced=size == "reduced")
+    print("CRASH_CHILD " + json.dumps(out), flush=True)
+    return 3 if phase == "crash" else 0      # a crash that did not fire
+
+
+def retired_tokens(journal: str) -> dict:
+    """rid -> tokens of the last RETIRE record of each rid."""
+    return {r["rid"]: r["tokens"] for r in journal_mod.read_journal(journal)
+            if r["kind"] == "RETIRE"}
+
+
+def start_children(cmds) -> list:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    return [subprocess.Popen(c, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, env=env,
+                             cwd=ROOT) for c in cmds]
+
+
+def finish_children(procs) -> list:
+    out = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=CRASH_CHILD_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        out.append((p.returncode, so, se))
+    return out
+
+
+def phase_serve_crash(dev) -> dict:
+    """serve-crash: (1) ``launch.serve.main`` in this process with
+    ``--journal-dir`` and ``--checkpoint-every 4``, uncrashed: its
+    journal is the baseline, and each journal append (fsync included) and
+    each checkpoint is timed; (2) two children at once, a ``launch.serve``
+    child with ``--crash-at-round 6`` and a ``crash_workload`` child with
+    ``crash_at_swap=1``, each to exit by SIGKILL (-9); (3) two recovering
+    children at once, ``launch.serve --recover`` and ``crash_workload``'s
+    recover; every request's final tokens in each journal equal the
+    uncrashed run's (the workload's baseline runs here)."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="serve_crash_")
+    dirs = {k: os.path.join(root, k) for k in ("base", "round", "swap",
+                                               "swap_base")}
+    appends = []
+    write = journal_mod.JournalWriter.append
+
+    def timed_append(self, kind, **fields):
+        t = time.perf_counter()
+        seq = write(self, kind, **fields)
+        appends.append((kind, time.perf_counter() - t))
+        return seq
+
+    ckpts = []
+
+    def observe(sched):
+        if getattr(sched, "_timed", False):
+            return
+        sched._timed = True
+        save = sched.save_checkpoint
+
+        def timed_save():
+            t = time.perf_counter()
+            step = save()
+            d = os.path.join(sched.checkpoint_dir, f"engine_{step}")
+            ckpts.append(((time.perf_counter() - t) * 1e3, sum(
+                os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))))
+            return step
+
+        sched.save_checkpoint = timed_save
+        observe.sched = sched
+
+    journal_mod.JournalWriter.append = timed_append
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = serve_cli.main(CRASH_ARGV + ["--journal-dir",
+                                              dirs["base"]], observe=observe)
+    finally:
+        journal_mod.JournalWriter.append = write
+    check(rc == 0, f"serve-crash baseline returned {rc}")
+    ceng = observe.sched.continuous_engine
+    round_ms = float(np.median(ceng.round_ms)) if ceng.round_ms else None
+    n_rounds = len(ceng.round_ms) or ceng.rounds
+    base = retired_tokens(os.path.join(dirs["base"], "journal.jsonl"))
+    check(len(base) == 12, f"serve-crash baseline retired {len(base)}")
+    del ceng, observe.sched
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    serve = [sys.executable, "-m", "repro_torch.launch.serve"] + CRASH_ARGV
+    me = [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+          "--serve-crash-child"]
+    crashed = finish_children(start_children([
+        serve + ["--journal-dir", dirs["round"], "--crash-at-round",
+                 str(CRASH_ROUND)],
+        me + ["crash", dirs["swap"]] + CRASH_CHILD_ARGS]))
+    for (rc, so, se), what in zip(crashed, ("round", "swap")):
+        check(rc == -9, f"serve-crash {what} child exited {rc}, not -9: "
+                        f"{se[-2000:]}")
+    swap_base = crash_workload(dirs["swap_base"], "base", dev,
+                             reduced=CRASH_CHILD_ARGS[1] == "reduced")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_rec = time.perf_counter()
+    recovered = finish_children(start_children([
+        serve + ["--journal-dir", dirs["round"], "--recover"],
+        me + ["recover", dirs["swap"]] + CRASH_CHILD_ARGS]))
+    rec_wall = time.perf_counter() - t_rec
+    for (rc, so, se), what in zip(recovered, ("round", "swap")):
+        check(rc == 0, f"serve-crash {what} recovery exited {rc}: "
+                       f"{se[-2000:]}")
+    m = re.search(r"recovered in ([\d.]+) ms", recovered[0][1])
+    check(m is not None, "serve-crash: no recovery line")
+    swap_rec = json.loads(next(
+        ln.split(" ", 1)[1] for ln in recovered[1][1].splitlines()
+        if ln.startswith("CRASH_CHILD ")))
+    got = retired_tokens(os.path.join(dirs["round"], "journal.jsonl"))
+    check(got == base, f"serve-crash round: recovered tokens differ from "
+          f"the uncrashed run's for rids "
+          f"{sorted(r for r in base if got.get(r) != base[r])}")
+    want = retired_tokens(os.path.join(dirs["swap_base"], "journal.jsonl"))
+    got = retired_tokens(os.path.join(dirs["swap"], "journal.jsonl"))
+    check(len(want) == 10 and got == want,
+          f"serve-crash swap: recovered tokens differ from the uncrashed "
+          f"run's for rids "
+          f"{sorted(r for r in want if got.get(r) != want[r])}")
+    check(swap_base["preemptions"] >= 1,
+          "serve-crash: the swap workload's traffic did not preempt")
+    kinds = [r["kind"] for r in journal_mod.read_journal(
+        os.path.join(dirs["swap"], "journal.jsonl"))]
+    check("PREEMPT" not in kinds[:kinds.index("RECOVER")],
+          "serve-crash swap: a PREEMPT record before the crash")
+    us = [s * 1e6 for _, s in appends]
+    per_round = len(appends) / max(n_rounds, 1)
+    out = dict(
+        journal_appends=len(appends),
+        journal_append_us_median=float(np.median(us)),
+        journal_append_us_max=float(max(us)),
+        appends_per_round=per_round,
+        journal_share_of_round=(float(np.median(us)) * 1e-3 * per_round
+                                / round_ms) if round_ms else None,
+        replayed_round_ms=round_ms,
+        checkpoints=len(ckpts),
+        checkpoint_ms=[c for c, _ in ckpts],
+        checkpoint_bytes=[b for _, b in ckpts],
+        recover_round_ms=float(m.group(1)),
+        recover_swap_ms=swap_rec["recover_ms"],
+        recover_swap_summary=swap_rec, recovery_children_wall_s=rec_wall,
+        swap_base=swap_base)
+    say("serve-crash", f"both children killed (-9) and recovered token for "
+        f"token; journal append {out['journal_append_us_median']:.1f} us "
+        f"median (max {out['journal_append_us_max']:.1f}), "
+        f"{per_round:.2f} a round: {out['journal_share_of_round']} of a "
+        f"{round_ms} ms replayed round; checkpoints "
+        f"{[round(c, 1) for c in out['checkpoint_ms']]} ms, "
+        f"{[round(b / 1e6, 1) for b in out['checkpoint_bytes']]} MB; "
+        f"recover {out['recover_round_ms']:.1f} ms (round crash), "
+        f"{out['recover_swap_ms']:.1f} ms (swap crash: {swap_rec}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4202,6 +4901,11 @@ def main() -> int:
                              if k.startswith(K4)}
         kern[K5][WHISPER] = wk["flash"]
         lap("serve-whisper")
+        overload = phase_serve_overload(
+            dev, main_path["runs"]["1x1"]["h2d_gbps"])
+        lap("serve-overload")
+        crash = phase_serve_crash(dev)
+        lap("serve-crash")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4227,7 +4931,8 @@ def main() -> int:
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
     flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     # launches on the serving paths, each read just after its own run
-    arch_paths = {**archs["launches"], **whisper["launches"]}
+    arch_paths = {**archs["launches"], **whisper["launches"],
+                  **overload["launches"]}
     paths = {"internlm2-1.8b": serving["launches"],
              "olmoe-1b-7b": olmoe["launches"],
              **{f"{a} slots": {K3: 0, K4: 0, **n}
@@ -4302,6 +5007,8 @@ def main() -> int:
     print(json.dumps({"serve_archs": archs["runs"],
                       "serve_whisper": whisper["runs"],
                       "phase_seconds": laps}))
+    print(json.dumps({"serve_overload": overload["runs"],
+                      "serve_crash": crash}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -4311,4 +5018,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-crash-child"]:
+        sys.exit(crash_child_main(*sys.argv[2:6]))
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""Fault tolerance pieces the serving path uses: a heartbeat watchdog and a
-straggler detector.
+"""Fault tolerance pieces the serving path uses: a heartbeat watchdog, a
+straggler detector and a deterministic fault injector.
 
 The JAX package's ``repro/distributed/fault.py`` in part:
 
@@ -9,14 +9,22 @@ The JAX package's ``repro/distributed/fault.py`` in part:
   silent hang.
 * StragglerDetector -- per-tenant EWMA of step times; the scheduler feeds it
   each retired request's busy share.
+* FaultPlane / InjectedFault -- deterministic every-k fault injection for the
+  serving overload tests: drop a decode round, stall an admission batch,
+  poison a swap-store read, or SIGKILL the process at an exact round or
+  swap-out.  A transient injection *raises* before the state mutation it
+  guards, so the caller's retry/limit policy decides whether the request
+  survives; a crash gives the process no chance to unwind.
 
-``FaultPlane`` / ``InjectedFault`` (fault injection) and
-``run_with_recovery`` come with slice 3 of the port.
+``run_with_recovery`` (the supervised training loop) comes with the
+training slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import signal
 import time
 from typing import Dict, List
 
@@ -45,6 +53,92 @@ class HeartbeatMonitor:
                 tel.event("heartbeat.suspect", missed=self.missed)
             return True
         return False
+
+
+class InjectedFault(RuntimeError):
+    """A fault raised by :class:`FaultPlane`.  Always transient from the
+    injector's point of view -- whether it becomes terminal is the caller's
+    retry/limit policy, never the engine's."""
+
+
+@dataclasses.dataclass
+class FaultPlane:
+    """Deterministic every-k fault injection for the serving stack.
+
+    Each knob is a period: ``0`` disables that fault, ``k`` fires it on
+    every k-th event of its kind (events counted from 1).  Every injection
+    raises *before* the mutation it guards:
+
+    * ``drop_round_every`` -- :meth:`round_fault` raises at the top of
+      ``dispatch_round`` (before the copy-on-write scan), so a dropped round
+      leaves the slot table as it was and a bare re-dispatch is sound;
+    * ``stall_admission_every`` -- :meth:`admission_fault` raises at the top
+      of ``try_admit_batch`` (before any prefill or page allocation);
+    * ``poison_swap_every`` -- :meth:`swap_read_fault` raises inside the
+      swap store's read, before the staged copy is handed to the restore;
+      the host record is untouched, so a retry re-reads the intact copy.
+
+    Crash injection is exact-once: ``crash_at_round=k`` SIGKILLs the process
+    at the k-th dispatched round, ``crash_at_swap=k`` at the k-th swap-store
+    put (mid-preemption).  Counters are process-local, so the restarted
+    process starts at zero and does not crash again.
+    """
+    drop_round_every: int = 0
+    stall_admission_every: int = 0
+    poison_swap_every: int = 0
+    crash_at_round: int = 0
+    crash_at_swap: int = 0
+    rounds: int = 0
+    admissions: int = 0
+    swap_reads: int = 0
+    swap_puts: int = 0
+    injected: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"round": 0, "admission": 0, "swap": 0})
+
+    def _fire(self, every: int, count: int) -> bool:
+        return every > 0 and count % every == 0
+
+    def _record(self, kind: str) -> None:
+        tel = get_telemetry(None)
+        if tel.enabled:
+            tel.count(f"fault.{kind}")
+            tel.event("fault.injected", kind=kind, n=self.injected[kind])
+
+    def _maybe_crash(self, at: int, count: int) -> None:
+        if at > 0 and count == at:
+            os.kill(os.getpid(), signal.SIGKILL)   # no unwind, no flush
+
+    def round_fault(self) -> None:
+        self.rounds += 1
+        self._maybe_crash(self.crash_at_round, self.rounds)
+        if self._fire(self.drop_round_every, self.rounds):
+            self.injected["round"] += 1
+            self._record("round")
+            raise InjectedFault("injected fault: decode round dropped")
+
+    def admission_fault(self) -> None:
+        self.admissions += 1
+        if self._fire(self.stall_admission_every, self.admissions):
+            self.injected["admission"] += 1
+            self._record("admission")
+            raise InjectedFault("injected fault: admission stalled")
+
+    def swap_read_fault(self) -> None:
+        self.swap_reads += 1
+        if self._fire(self.poison_swap_every, self.swap_reads):
+            self.injected["swap"] += 1
+            self._record("swap")
+            raise InjectedFault("injected fault: swap read poisoned")
+
+    def swap_put_crash(self) -> None:
+        """Mid-preemption crash point (the swap store's put): SIGKILL
+        between the victim's host gather and its journal and ledger
+        bookkeeping; never raises, never returns when it fires."""
+        self.swap_puts += 1
+        self._maybe_crash(self.crash_at_swap, self.swap_puts)
+
+    def total_injected(self) -> int:
+        return sum(self.injected.values())
 
 
 class StragglerDetector:

@@ -24,6 +24,10 @@
         --no-reduced --mode continuous --prompt-len 64 --new-tokens 32 \\
         --capacity 8
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+        --no-reduced --mode continuous --capacity 8 --priority 3 \\
+        --max-backlog 8 --journal-dir /tmp/j --checkpoint-every 4
+
     PYTHONPATH=src python -m repro_torch.launch.serve --list-archs
 
 Builds the model (weights drawn from ``--seed``, at full width with
@@ -63,26 +67,37 @@ schedule, ``N`` layers at the published widths: the depth cut the
 reference applies in its dry-run (``launch/dryrun.py``), so that a model
 too large for one card still runs at full width.
 
-The flags are the JAX package's ``repro.launch.serve`` as far as this slice
-of the port reaches.  Deliberate differences: ``--reduced`` is a boolean
-pair (``--no-reduced`` runs the published width; the reference's
-``store_true`` with ``default=True`` never can); ``--swap`` defaults off;
-there is no ``--kernel-backend`` -- the device decides (the hand-written
-kernels for a CUDA device, their plain versions on the CPU); tier-0
-requests are submitted with the rest, not held back to land mid-flight
-(the reference does so to show preemption, which is slice 3);
-``--num-layers`` is the port's (the reference's serve driver has none).
-Flags of later slices (``--swap``, ``--max-backlog``, ``--mesh``, the
-journal and crash flags) raise ``NotImplementedError`` naming the slice.
-Since ``main`` also runs inside other programs, the plane it lights starts
-empty and is turned off again when it returns (the reference's process
-simply exits).
+Overload (``--mode continuous``): ``--priority K`` marks every K-th request
+tier 0 -- held back until the tier-1 work has filled the slot table, then
+landed at once -- ``--swap`` (the default) lets a blocked tier-0 arrival
+preempt a tier-1 row through the host swap tier (restored token-exactly),
+and ``--max-backlog N`` sheds the lowest-priority queued work past N with a
+``rejected`` outcome.  Crash safety (``--mode continuous`` only):
+``--journal-dir DIR`` writes the request journal to ``DIR/journal.jsonl``
+(fsync'd ahead of every mutation) and engine checkpoints to
+``DIR/checkpoints`` every ``--checkpoint-every K`` collected rounds;
+``--crash-at-round N`` SIGKILLs the process at its N-th dispatched round;
+``--recover`` rebuilds from the journal and the latest checkpoint instead
+of submitting requests, replays the rounds past it and drains.
+
+The flags are the JAX package's ``repro.launch.serve``.  Deliberate
+differences: ``--reduced`` is a boolean pair (``--no-reduced`` runs the
+published width; the reference's ``store_true`` with ``default=True`` never
+can); there is no ``--kernel-backend`` -- the device decides (the
+hand-written kernels for a CUDA device, their plain versions on the CPU);
+``--num-layers`` is the port's (the reference's serve launcher has none).
+``--mesh`` comes with a later slice of the port and raises
+``NotImplementedError`` naming it.  Since ``main`` also runs inside other
+programs, the plane it lights starts empty and is turned off again when it
+returns (the reference's process simply exits).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -91,6 +106,7 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.pipeline import timeline_overlaps
 from repro_torch.core.tenancy import TenancyConfig, resolve_devices
+from repro_torch.distributed.fault import FaultPlane
 from repro_torch.models.model import build_model, param_count
 from repro_torch.models.transformer import VIS_WIDTH, init_footprint
 from repro_torch.obs import TELEMETRY
@@ -101,10 +117,7 @@ from repro_torch.serving.multitenant import (MODES, MultiTenantScheduler,
                                              Request)
 
 # flag -> the slice of the port that brings it
-LATER = {"swap": "slice 3", "max_backlog": "slice 3",
-         "journal_dir": "slice 3", "checkpoint_every": "slice 3",
-         "crash_at_round": "slice 3", "recover": "slice 3",
-         "mesh": "slice 6"}
+LATER = {"mesh": "slice 6"}
 
 
 def list_archs() -> int:
@@ -194,16 +207,33 @@ def build_parser() -> argparse.ArgumentParser:
                     help="prepend a common system-prompt prefix of this "
                          "many tokens to every request")
     ap.add_argument("--priority", type=int, default=0, metavar="K",
-                    help="mark every K-th request tier 0 (admitted first; "
-                         "no preemption in this slice).  0 = single tier")
+                    help="continuous mode: mark every K-th request tier 0 "
+                         "(admitted first, shed last, preempts tier-1 rows "
+                         "with --swap).  0 = single tier")
     ap.add_argument("--swap", action=argparse.BooleanOptionalAction,
-                    default=False,
-                    help="preemption via KV swap (slice 3 of the port)")
-    for flag, kw in (("--max-backlog", dict(type=int)),
-                     ("--mesh", dict()), ("--journal-dir", dict()),
-                     ("--checkpoint-every", dict(type=int)),
-                     ("--crash-at-round", dict(type=int))):
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kw)
+                    default=True,
+                    help="continuous mode: preemption via KV tiering -- a "
+                         "blocked higher-priority arrival swaps a lower-"
+                         "priority row out to pinned host memory, restored "
+                         "token-exactly when capacity frees (--no-swap: "
+                         "admission waits).  Every state kind swaps")
+    ap.add_argument("--max-backlog", type=int, default=None, metavar="N",
+                    help="continuous mode: past N queued requests the "
+                         "lowest-priority (then latest-deadline) queued "
+                         "work is shed with a rejected outcome")
+    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--journal-dir", default=None, metavar="DIR",
+                    help="continuous mode: write the request journal to "
+                         "DIR/journal.jsonl (fsync'd ahead of every "
+                         "mutation) and engine checkpoints to "
+                         "DIR/checkpoints")
+    ap.add_argument("--checkpoint-every", type=int, default=0, metavar="K",
+                    help="continuous mode: checkpoint the serving state "
+                         "every K collected rounds (needs --journal-dir; "
+                         "0 = journal only)")
+    ap.add_argument("--crash-at-round", type=int, default=0, metavar="N",
+                    help="continuous mode: SIGKILL this process at its N-th "
+                         "dispatched round (fault injection; 0 = never)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome-trace/Perfetto JSON of the run's "
                          "telemetry spans to PATH (enables the telemetry "
@@ -215,16 +245,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="print a one-line telemetry summary every N "
                          "scheduling steps (enables the telemetry plane; "
                          "0 = never)")
-    ap.add_argument("--recover", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--recover", action="store_true",
+                    help="recover from --journal-dir instead of submitting "
+                         "requests: rebuild from the latest checkpoint, "
+                         "re-queue unfinished work, replay the rounds past "
+                         "it and drain")
     return ap
 
 
 def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
     """Run the driver; ``observe(scheduler)`` (optional) is called once
     after the scheduler is built and then after every scheduling step."""
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     if args.list_archs:
         return list_archs()
+    mode = args.mode or ("blocking" if args.blocking else "overlapped")
+    if args.journal_dir and mode != "continuous":
+        # only the continuous collect loop journals round commits and
+        # retirements
+        ap.error("--journal-dir requires --mode continuous")
+    if not args.journal_dir and (args.recover or args.checkpoint_every):
+        ap.error("--recover/--checkpoint-every need --journal-dir")
     for name, slice_ in LATER.items():
         if getattr(args, name):
             raise NotImplementedError(
@@ -262,24 +304,47 @@ def _serve(args, dev: torch.device,
     preserve = {"never": False, "reuse": True,
                 "always": "always"}[args.preserve_pristine]
     mode = args.mode or ("blocking" if args.blocking else "overlapped")
+    crash_kw = {}
+    if args.journal_dir:
+        crash_kw = dict(
+            journal=os.path.join(args.journal_dir, "journal.jsonl"),
+            checkpoint_dir=os.path.join(args.journal_dir, "checkpoints"),
+            checkpoint_every=args.checkpoint_every)
+    if args.crash_at_round:
+        crash_kw["fault_plane"] = FaultPlane(
+            crash_at_round=args.crash_at_round)
     sched = MultiTenantScheduler(
         engine, max_batch=args.max_batch,
         tenancy=TenancyConfig(1, args.tenants), mode=mode,
         stage_depth=args.stage_depth,
+        preemption=args.swap, max_backlog=args.max_backlog,
         continuous=dict(capacity=args.capacity, page_size=args.page_size,
                         inner_steps=args.inner_steps,
                         prefix_sharing=args.prefix_sharing,
                         batch_admission=args.batch_admission,
                         preserve_pristine=preserve,
                         max_prompt_len=max(64, 2 * args.prompt_len
-                                           + args.shared_prefix_len)))
+                                           + args.shared_prefix_len)),
+        **crash_kw)
     if observe is not None:
         observe(sched)
+    if args.recover:
+        t0 = time.perf_counter()
+        s = sched.recover()
+        print(f"recovered in {(time.perf_counter() - t0) * 1e3:.1f} ms "
+              f"from checkpoint step={s.checkpoint_step}: "
+              f"live={s.restored_live} swapped={s.restored_swapped} "
+              f"requeued={s.requeued} "
+              f"already_complete={len(s.already_complete)} "
+              f"rounds_replayed={s.rounds_replayed} "
+              f"tokens preserved={s.tokens_preserved} "
+              f"replayed={s.tokens_replayed}")
 
     rng = np.random.default_rng(0)
     shared_prefix = rng.integers(1, cfg.vocab_size,
                                  args.shared_prefix_len).astype(np.int32)
-    for i in range(args.requests):
+    late = []               # tier-0 arrivals held back to land mid-flight
+    for i in range(0 if args.recover else args.requests):
         tenant = f"tenant-{i % args.tenants}"
         prompt = rng.integers(1, cfg.vocab_size,
                               args.prompt_len).astype(np.int32)
@@ -288,21 +353,33 @@ def _serve(args, dev: torch.device,
         tier0 = args.priority > 0 and i % args.priority == args.priority - 1
         if tier0:
             tenant += "-hi"          # its own lane: queues are FIFO
-        sched.submit(Request(tenant, prompt,
-                             max(4, args.new_tokens // 4) if tier0
-                             else args.new_tokens,
-                             priority=0 if tier0 else 1,
-                             extra_inputs=synth_extra_inputs(cfg, rng)
-                             or None))
+        req = Request(tenant, prompt,
+                      max(4, args.new_tokens // 4) if tier0
+                      else args.new_tokens,
+                      priority=0 if tier0 else 1,
+                      extra_inputs=synth_extra_inputs(cfg, rng) or None)
+        # continuous: tier-0 requests arrive once the tier-1 work has
+        # filled the slot table, so they meet it full
+        if tier0 and mode == "continuous":
+            late.append(req)
+        else:
+            sched.submit(req)
+    if not sched.pending():          # all tier 0: nothing to hold them for
+        for req in late:
+            sched.submit(req)
+        late = []
 
     responses = []
     steps = 0
     with torch.no_grad():
-        while sched.pending():
+        while sched.pending() or late:
             r = sched.step()
             if r:
                 responses.extend(r)
             steps += 1
+            for req in late:         # the tier-0 burst meets full slots
+                sched.submit(req)
+            late = []
             if observe is not None:
                 observe(sched)
             if args.stats_every and steps % args.stats_every == 0:
@@ -317,7 +394,8 @@ def _serve(args, dev: torch.device,
     print(f"arch={cfg.name} params={n_params / 1e9:.3f}B device={dev} "
           f"compute={cfg.compute_dtype}")
     print(f"served {len(responses)} requests (completed={n_done} "
-          f"rejected={sum(r.outcome == 'rejected' for r in responses)})")
+          f"rejected={sum(r.outcome == 'rejected' for r in responses)})"
+          f"{' failed=%d' % sum(r.outcome == 'failed' for r in responses)}")
     for t, rep in sorted(sched.utilization_report().items()):
         print(f"  {t}: requests={rep['requests']:.0f} "
               f"tokens={rep['tokens']:.0f} busy={rep['busy_s']*1e3:.1f}ms "
@@ -364,6 +442,11 @@ def _report_continuous(sched, dev: torch.device, ov) -> None:
           f"shared={eng.kv.pages_shared} cow_forks={eng.kv.cow_forks} "
           f"pristine_forks={eng.kv.pristine_forks}; "
           f"prefill calls={eng.prefill_calls} skipped={eng.prefill_skips}")
+    shed = sum(int(s["shed"]) for s in sched.stats.values())
+    print(f"overload: preemption={'on' if sched.preemption else 'off'} "
+          f"preemptions={eng.preemptions} restores={eng.restores} "
+          f"shed={shed} faults_survived={sched.faults_survived} "
+          f"heartbeat_suspects={sched.heartbeat_suspects}")
     if dev.type == "cuda":
         pre = eng.prefill_ms()
         rnd = eng.round_ms

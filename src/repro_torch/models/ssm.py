@@ -8,8 +8,9 @@ out_proj.  Decode keeps (ssm_state, conv_state).
 
 One difference of layout, not of numbers: with one group, B and C are
 viewed over every head with a head stride of 0 (the reference repeats them
-per head), so the scan reads one copy.  The per-slot checkpoint and restore
-of the SSM state serve swap preemption and come with slice 3 of the port.
+per head), so the scan reads one copy.  :func:`checkpoint_slot_state` and
+:func:`restore_slot_state` take one slot's row of the decode state out and
+write it back in place, for swap preemption.
 """
 from __future__ import annotations
 
@@ -148,6 +149,35 @@ def init_ssm_state(cfg: ArchConfig, batch: int, device=None
     f32 = dict(dtype=torch.float32, device=device)
     return {"ssm": torch.zeros((batch, H, sc.head_dim, sc.d_state), **f32),
             "conv": torch.zeros((batch, sc.d_conv - 1, conv_dim), **f32)}
+
+
+def checkpoint_slot_state(state: Any, slot: int) -> Any:
+    """One slot's SSM decode state as fixed-width records.
+
+    ``state`` is a stage-stacked decode-state tree (dicts of tensors whose
+    leaves lead with ``(n_stages, capacity, ...)``: the ``(n_stages,
+    capacity, H, P, N)`` SSD state and the ``(n_stages, capacity, W-1,
+    conv_dim)`` convolution window); the record drops the capacity axis, so
+    its shapes depend only on the arch.  The leaves are copies on the
+    state's device, enqueued on the current stream: reading a quiesced row
+    is bitwise, so a checkpoint followed by :func:`restore_slot_state`
+    gives back the same bits."""
+    if isinstance(state, dict):
+        return {k: checkpoint_slot_state(v, slot) for k, v in state.items()}
+    return state[:, slot].clone()
+
+
+def restore_slot_state(state: Any, slot: int, record: Any) -> Any:
+    """Write a :func:`checkpoint_slot_state` record back into ``slot``'s row
+    of ``state``, in place (every tensor keeps its storage, so a captured
+    decode round reads the restored row); other rows are untouched.
+    Returns ``state``."""
+    if isinstance(state, dict):
+        for k, v in state.items():
+            restore_slot_state(v, slot, record[k])
+        return state
+    state[:, slot].copy_(record, non_blocking=True)
+    return state
 
 
 def apply_ssm_decode(p, x, state: Dict[str, torch.Tensor], cfg: ArchConfig

@@ -1,8 +1,7 @@
 """Continuous batching over a persistent slot table (paged KV-cache decode).
 
-The JAX package's ``repro/serving/continuous.py`` without preemption,
-restore and swap (slice 3 of the port).  A fixed-capacity *slot table*
-lives on the device and three events interleave per outer step:
+The JAX package's ``repro/serving/continuous.py``.  A fixed-capacity *slot
+table* lives on the device and three events interleave per outer step:
 
 * **admission** -- queued requests are prefilled at their page-aligned
   prompt bucket (same-bucket admissions batched into one prefill call of
@@ -75,6 +74,31 @@ padded prompt up to its end is byte-identical, forks copy pages before the
 first divergent write, and cached admission logits are the stored output of
 the identical earlier prefill.
 
+Preemption (overload survival): a live row can be *swapped out* --
+:meth:`ContinuousBatchingEngine.preempt` snapshots its page blocks, its
+cross page row, its SSM records and its per-slot decode state into pinned
+host memory (one gather and one device-to-host copy on the engine's stream,
+completed by one CUDA event), parks them in a
+:class:`repro_torch.serving.swap.HostSwapStore`, drops its page references
+through the ordinary allocator accounting and vacates the row *in place*
+(``remaining`` 0, the page-table and cross rows SENTINEL).
+:meth:`ContinuousBatchingEngine.try_restore` re-admits it: unwritten prefix
+blocks still registered are re-shared from the trie, the record is staged
+back on a copy stream (prefetched ahead), and the *fresh* pages alone --
+distinct, never TRASH -- receive the snapshot through the scatter kernel
+(``paged_admit_kv`` for the attention blocks and their positions, one launch
+a sublayer; ``paged_prefill_scatter`` for the cross pages), the SSM records
+and the slot scalars written back in place.  Every state tensor keeps its
+storage, so a captured round goes on replaying across any number of swaps.
+The reference rebuilds its state pytree in jitted ``evict_fn`` /
+``restore_fn`` and pads the restore to the page-table width with TRASH
+redirects so that it traces once; the port has no shape to keep.
+Preemption needs a quiesced engine (no round in flight): the scheduler
+collects first.  A :class:`repro_torch.distributed.fault.FaultPlane` hooks
+the top of :meth:`ContinuousBatchingEngine.dispatch_round` and
+:meth:`ContinuousBatchingEngine.try_admit_batch`, raising before anything
+changes.
+
 MoE archs (olmoe) are the exception, as in the reference: expert-capacity
 routing couples the rows of a batch -- a prefill's rows, and every decode
 step's capacity rows, masked ones included -- so a MoE row is only
@@ -95,11 +119,15 @@ import torch
 
 from repro_torch.configs import ATTN, MOE, NONE, ArchConfig
 from repro_torch.core.tenancy import resolve_devices
+from repro_torch.core.transfer import tree_map
+from repro_torch.distributed.fault import InjectedFault
+from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_cross_attention, apply_embedding,
                                        apply_mlp, apply_rmsnorm,
                                        apply_unembed, pad_vocab)
 from repro_torch.models.model import _sinusoid_at
-from repro_torch.models.ssm import apply_ssm_decode, init_ssm_state
+from repro_torch.models.ssm import (apply_ssm_decode, checkpoint_slot_state,
+                                    init_ssm_state, restore_slot_state)
 from repro_torch.models.transformer import apply_ffn, stage_view
 from repro_torch.obs.telemetry import Telemetry, get_telemetry
 from repro_torch.serving.engine import (CudaGraphs, ServingEngine,
@@ -112,6 +140,7 @@ from repro_torch.serving.kvcache import (POS_SENTINEL, PagedKVCache,
                                          paged_admit_cross,
                                          paged_attention_decode, ssm_subs,
                                          state_kinds)
+from repro_torch.serving.swap import HostSwapStore, SwapRecord
 
 
 @dataclasses.dataclass
@@ -127,6 +156,10 @@ class _Slot:
     tokens: List[int] = dataclasses.field(  # CoW write scan runs at dispatch)
         default_factory=list)
     t_first: Optional[float] = None  # wall stamp of the first collected token
+    priority: int = 1              # the request's tier (preemption order)
+    preemptions: int = 0           # times this request has been swapped out
+    chain_keys: List[bytes] = dataclasses.field(default_factory=list)
+    seed: int = 0
 
 
 @dataclasses.dataclass
@@ -165,6 +198,7 @@ class CollectResult:
 
 
 RoundKey = Tuple[int, bool, bool]       # (steps, all_greedy, any_topk)
+
 
 
 def _addresses(tree: Any, path: str = "") -> List[Tuple[str, int]]:
@@ -280,7 +314,8 @@ class ContinuousBatchingEngine:
                  preserve_pristine: Any = True,
                  batch_admission: bool = True,
                  logits_cache_size: int = 32,
-                 swap: bool = False,
+                 swap: bool = True,
+                 fault_plane: Optional[Any] = None,
                  admission_retry_limit: int = 8,
                  telemetry: Optional[Telemetry] = None,
                  device=None, round_graphs: bool = True):
@@ -289,10 +324,6 @@ class ContinuousBatchingEngine:
             if dev != engine.device:
                 raise ValueError(f"device {dev}: the engine's parameters "
                                  f"live on {engine.device}")
-        if swap:
-            raise NotImplementedError(
-                "swap preemption (serving/swap.py) comes with slice 3 of "
-                "the port")
         cfg = engine.cfg
         self.engine = engine
         self.cfg = cfg
@@ -329,6 +360,11 @@ class ContinuousBatchingEngine:
         self.logits_cache_size = int(logits_cache_size)
         self._logits_cache: "collections.OrderedDict[bytes, torch.Tensor]" = \
             collections.OrderedDict()
+        # preemption: every state kind has a host snapshot (attention and
+        # cross pages as page blocks, SSM slot state as fixed-width
+        # records), so any arch preempts when swap is on
+        self.fault_plane = fault_plane
+        self.can_preempt = bool(swap)
         self.admission_retry_limit = int(admission_retry_limit)
         self.rejected: List[Any] = []   # run_all's terminal REJECTED requests
         # first uses of a round key: the reference counts its round_fn's
@@ -340,10 +376,15 @@ class ContinuousBatchingEngine:
         self.rounds = 0
         self.row_steps = 0         # sum over rounds of live rows per step
         self.nonfinite_rows = 0    # live row-steps with a non-finite logit
+        self.preemptions = 0
+        self.restores = 0
         self.pdev = 0
         self.tel = get_telemetry(telemetry)
         self._round_log: List[Tuple[int, int, int]] = []
         self.kv.tel = self.tel
+        self.swap_store = (HostSwapStore(self.device, fault_plane=fault_plane,
+                                         telemetry=self.tel)
+                           if self.can_preempt else None)
         # CUDA-event windows: (start, end) per prefill call and per round
         self._prefill_events: List[Tuple[Any, Any]] = []
         self.round_ms: List[float] = []
@@ -376,6 +417,10 @@ class ContinuousBatchingEngine:
     def free_slot_count(self) -> int:
         return len(self._free_slots)
 
+    def live_priorities(self) -> List[int]:
+        """Priorities of every live row, in no particular order."""
+        return [s.priority for s in self._slots if s is not None]
+
     def occupancy(self) -> float:
         """Fraction of row-steps that decoded a live row, over collected
         micro-rounds."""
@@ -386,18 +431,18 @@ class ContinuousBatchingEngine:
 
     @classmethod
     def supported_modes(cls, cfg: ArchConfig) -> Dict[str, Dict[str, Any]]:
-        """Capability probe: what each serving mode offers for ``cfg`` in
-        the port so far (the reference's table, with the qualifiers later
-        slices bring marked as such; SSM rows keep their
-        state in the slot table, so they share no prefix; MoE capacity
-        routing couples rows, so a MoE arch's continuous decode is only
+        """Capability probe: what each serving mode offers for ``cfg`` (the
+        reference's table: the state kinds a row carries, whether rows can
+        be swap-preempted, whether prefix sharing applies -- through
+        window-phase keys on a sliding-window arch -- and whether continuous
+        decode is bitwise or, under MoE capacity routing, only
         statistically exchangeable with ``generate``)."""
         names = list(state_kinds(cfg))
         moe = any(mlp == MOE for _, mlp in cfg.block_schedule())
         cont = {
             "supported": True,
             "state_kinds": names,
-            "preemptable": False,          # swap: slice 3
+            "preemptable": True,           # every state kind swaps
             "prefix_sharing": "attn" in names,
             "window_phase_keys": ("attn" in names
                                   and cfg.sliding_window is not None),
@@ -559,22 +604,22 @@ class ContinuousBatchingEngine:
     # ------------------------------------------------------------------
     def _write_row(self, slot: int, pages: np.ndarray, logits0: torch.Tensor,
                    remaining: int, temp: float, topk: int, seed: int,
-                   bucket: int, ring: int) -> torch.Tensor:
-        """Page-table row + the slot's sampling state; returns the row's
-        pages on the device."""
+                   pos: int, ring: int, lstep: int = 0) -> torch.Tensor:
+        """Page-table row + the slot's sampling state, in place and without
+        a host synchronisation (``fill_`` takes its scalar as a kernel
+        argument; an index assignment of a Python number copies it from
+        pageable memory); returns the row's pages on the device."""
         st = self.state
         row = np.full((self.kv.max_blocks,), PagedKVCache.SENTINEL, np.int32)
         row[:len(pages)] = pages
         row_dev = to_device(row, self.device)
         st["page_table"][slot].copy_(row_dev)
         st["logits"][slot].copy_(logits0)
-        st["pos"][slot] = bucket
-        st["ring"][slot] = ring
-        st["remaining"][slot] = remaining
-        st["temps"][slot] = temp
-        st["topks"][slot] = topk
-        st["seeds"][slot] = seed
-        st["lstep"][slot] = 0
+        for name, value in (("pos", pos), ("ring", ring),
+                            ("remaining", remaining), ("temps", temp),
+                            ("topks", topk), ("seeds", seed),
+                            ("lstep", lstep)):
+            st[name][slot].fill_(value)
         return row_dev[:len(pages)]
 
     def _admit_kv(self, pages_dev: torch.Tensor,
@@ -599,7 +644,7 @@ class ContinuousBatchingEngine:
             pool["k"][:, dst].copy_(pool["k"][:, src])
             pool["v"][:, dst].copy_(pool["v"][:, src])
         st["pos_pool"][dst].copy_(st["pos_pool"][src])
-        st["page_table"][slot, blk] = dst
+        st["page_table"][slot, blk].fill_(dst)
 
     # ------------------------------------------------------------------
     # admission
@@ -614,7 +659,11 @@ class ContinuousBatchingEngine:
         batched prefill per prompt bucket for every plan that cannot skip
         it, then admit each in order (re-probing the trie, so same-batch
         prefix sharing works).  Returns one admitted-flag per request;
-        rejected requests (slot or page pressure) are untouched."""
+        rejected requests (slot or page pressure) are untouched.  An
+        injected admission stall (fault plane) raises before any prefill or
+        page allocation, so the whole batch stays with the caller."""
+        if self.fault_plane is not None and reqs:
+            self.fault_plane.admission_fault()
         with self.tel.span("admit.batch", n=len(reqs)) as admit_span:
             flags = self._try_admit_batch_inner(reqs)
             admit_span.note(admitted=sum(flags))
@@ -770,7 +819,10 @@ class ContinuousBatchingEngine:
         if self.prefix_sharing and pl["keys"]:
             kv.register(slot, pl["keys"][:nb])
         self._slots[slot] = _Slot(req, target, float(temp), topk,
-                                  bucket=bucket, ring=ring)
+                                  bucket=bucket, ring=ring,
+                                  priority=int(getattr(req, "priority", 1)),
+                                  chain_keys=list(pl["keys"][:nb]),
+                                  seed=seed)
         return True
 
     def _logits_cache_put(self, key: bytes, row: torch.Tensor) -> None:
@@ -811,7 +863,11 @@ class ContinuousBatchingEngine:
     @torch.no_grad()
     def dispatch_round(self) -> RoundHandle:
         """Enqueue one masked micro-round (non-blocking); the caller may
-        admit the next requests while it runs on the device."""
+        admit the next requests while it runs on the device.  An injected
+        round drop (fault plane) raises before the copy-on-write scan, so a
+        bare re-dispatch is sound."""
+        if self.fault_plane is not None:
+            self.fault_plane.round_fault()
         rnd = self.rounds
         with self.tel.span("round.dispatch", round=rnd, pdev=self.pdev):
             t0 = time.perf_counter()
@@ -893,6 +949,281 @@ class ContinuousBatchingEngine:
                 self._free_slots.append(c)
         return CollectResult(finished, active_steps, slot_reqs, retired)
 
+    # ------------------------------------------------------------------
+    # preemption: swap-out / swap-in (KV tiering)
+    # ------------------------------------------------------------------
+    def _to_host(self, tree: Any) -> Any:
+        """Device tensors -> host tensors: on a CUDA device one pinned
+        non-blocking copy per leaf on the current stream, completed by one
+        event (the one host synchronisation of a snapshot); on the CPU the
+        leaves are already fresh host copies."""
+        if self.device.type != "cuda":
+            return tree
+
+        def pinned(t: torch.Tensor) -> torch.Tensor:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return h.copy_(t, non_blocking=True)
+
+        host = tree_map(pinned, tree)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return host
+
+    def _snapshot_slot(self, slot: int, preempting: bool = False
+                       ) -> SwapRecord:
+        """One live slot as a :class:`SwapRecord` -- a pure read (sharers,
+        allocator and device state untouched), shared by :meth:`preempt`
+        (which then vacates the slot) and :meth:`snapshot_live` (engine
+        checkpoints).  The gathers and the copy to pinned host memory are
+        enqueued on the current stream behind the last collected round, and
+        the slot's device scalars ride the same copy.  Caller contract: no
+        round in flight."""
+        s = self._slots[slot]
+        if s is None:
+            raise ValueError(f"slot {slot} is empty")
+        if not self.can_preempt:
+            raise RuntimeError(
+                "engine cannot preempt: swap disabled or the arch registered "
+                "an unswappable state kind")
+        if self.prefix_sharing:
+            assert s.planned == len(s.tokens), \
+                "slot snapshot with a decode round in flight"
+        kv, st = self.kv, self.state
+        pages = kv.owned_pages(slot)
+        dev: Dict[str, Any] = {
+            "logits": st["logits"][slot].clone(),
+            "scalars": torch.stack([st["pos"][slot], st["remaining"][slot],
+                                    st["lstep"][slot]]),
+            "kv": {}, "pos": st["pos_pool"][:0].clone()}
+        if pages:
+            idx = to_device(np.asarray(pages, np.int64), self.device)
+            dev["kv"] = {name: {k: st["caches"][name][k].index_select(1, idx)
+                                for k in "kv"}
+                         for name in kv.attn_subs}
+            dev["pos"] = st["pos_pool"].index_select(0, idx)
+        n_cross = 0
+        if self.cross_blocks:
+            cpages = kv.cross_pages_of(slot)
+            cidx = to_device(np.asarray(cpages, np.int64), self.device)
+            dev["cross"] = {k: st["caches"]["cross"][k].index_select(1, cidx)
+                            for k in "kv"}
+            n_cross = len(cpages)
+        if self.ssm_subs:
+            dev["state"] = {name: checkpoint_slot_state(st["caches"][name],
+                                                        slot)
+                            for name in self.ssm_subs}
+        host = self._to_host(dev)
+        pos, remaining, lstep = (int(v) for v in host["scalars"])
+        written = {((s.bucket + t) % s.ring) // self.page_size
+                   for t in range(min(len(s.tokens), s.ring))}
+        return SwapRecord(
+            req=s.req, priority=s.priority, target=s.target, temp=s.temp,
+            top_k=s.top_k, bucket=s.bucket, ring=s.ring,
+            tokens=list(s.tokens), chain_keys=list(s.chain_keys),
+            written=written, pos=pos, remaining=remaining, lstep=lstep,
+            seed=s.seed, logits=host["logits"], host_kv=host["kv"],
+            host_pos=host["pos"], n_private=len(kv.private_blocks(slot)),
+            preemptions=s.preemptions + (1 if preempting else 0),
+            t_first=s.t_first, host_cross=host.get("cross"),
+            n_cross=n_cross, host_state=host.get("state"),
+            n_state=len(self.ssm_subs))
+
+    def _evict(self, slot: int) -> None:
+        """Vacate a row in place: no budget left, the page-table row (and
+        cross row) at SENTINEL, so the stale row can neither decode nor
+        address pages given to newer requests."""
+        st = self.state
+        st["remaining"][slot].fill_(0)
+        st["page_table"][slot].fill_(PagedKVCache.SENTINEL)
+        if self.cross_blocks:
+            st["cross_pt"][slot].fill_(PagedKVCache.SENTINEL)
+
+    @torch.no_grad()
+    def preempt(self, slot: int) -> int:
+        """Swap a live row out to the host tier and vacate its slot: snapshot
+        every page block (a pure read), park the record, drop the page
+        references through the ordinary accounting (shared pages keep their
+        other readers; only the private suffix is host-held) and evict the
+        row.  Caller contract: no round in flight.  Returns the ticket."""
+        rec = self._snapshot_slot(slot, preempting=True)
+        with self.tel.span("swap.out", slot=slot,
+                           pages=len(self.kv.owned_pages(slot)),
+                           private=rec.n_private, pdev=self.pdev):
+            ticket = self.swap_store.put(rec)
+            self.kv.swap_out(slot, rec.n_private, cross_blocks=rec.n_cross,
+                             state_records=rec.n_state)
+            self._evict(slot)
+        self._slots[slot] = None
+        self._free_slots.append(slot)
+        self.preemptions += 1
+        self.tel.count("swap.preemptions")
+        return ticket
+
+    @torch.no_grad()
+    def snapshot_live(self) -> List[Tuple[int, SwapRecord]]:
+        """Engine-checkpoint gather: every live slot as a record, in slot
+        order, vacating nothing.  Caller contract: no round in flight."""
+        return [(c, self._snapshot_slot(c))
+                for c, s in enumerate(self._slots) if s is not None]
+
+    def restore_from(self, live: List[SwapRecord],
+                     swapped: Dict[int, SwapRecord]) -> int:
+        """Rebuild a *fresh* engine from a checkpoint: re-park the host
+        tier's ``swapped`` records under their original tickets (seeding the
+        empty pool's ledgers), then re-admit every checkpointed ``live``
+        record through the ordinary restore.  Returns the live slots
+        rebuilt."""
+        if not live and not swapped:
+            return 0
+        assert self.swap_store is not None, "restore_from needs a swap store"
+        assert self.active_count() == 0, "restore_from on a non-empty engine"
+        with self.tel.span("recovery.restore", live=len(live),
+                           swapped=len(swapped), pdev=self.pdev):
+            self.swap_store.restore_records(swapped)
+            for rec in [*swapped.values(), *live]:
+                # a checkpointed live slot was never swapped out of this
+                # pool: credit the ledger before try_restore debits it
+                self.kv.adopt_swapped(rec.n_private,
+                                      cross_blocks=rec.n_cross,
+                                      state_records=rec.n_state)
+            for rec in live:
+                ticket = self.swap_store.put(rec)
+                if not self.try_restore(ticket):
+                    raise RuntimeError(
+                        "recovery: pool/slot pressure rebuilding a "
+                        "checkpointed live slot")
+        self.tel.count("recovery.slots_restored", len(live))
+        return len(live)
+
+    @torch.no_grad()
+    def try_restore(self, ticket: int) -> bool:
+        """Swap a preempted request back into a free slot, token-exactly.
+
+        Blocks the victim never wrote whose chain is still registered are
+        re-shared from the trie (their pages hold the snapshot's bits);
+        every other block gets a fresh page, and only those fresh pages
+        receive the staged copy.  The slot's scalars are written back, so
+        the rest of the decode -- same ``(seed, lstep)`` schedule, positions
+        and page content -- is that of an uninterrupted run.
+
+        Returns False (allocator untouched, record kept) under slot or page
+        pressure; raises :class:`InjectedFault` on a poisoned swap read
+        (record kept for the retry)."""
+        if not self._free_slots:
+            return False
+        kv = self.kv
+        rec = self.swap_store.record(ticket)
+        nb = kv.blocks_for(rec.ring)         # 0 without attention sublayers
+        # pristine prefix: leading blocks the decode ring never wrote
+        pristine = 0
+        while pristine < nb and pristine not in rec.written:
+            pristine += 1
+        shared: List[int] = []
+        if self.prefix_sharing and rec.chain_keys:
+            shared = kv.lookup_chain(rec.chain_keys)[:pristine]
+        will_write = ({((rec.pos + t) % rec.ring) // self.page_size
+                       for t in range(min(rec.remaining, rec.ring))}
+                      if nb else ())
+        slot = self._free_slots[-1]
+        pages = np.zeros((0,), np.int32)
+        if nb:
+            pages = kv.alloc_shared(slot, shared, nb - len(shared),
+                                    will_write)
+            if pages is None:
+                return False
+        cross_pages = None
+        if self.cross_blocks:
+            cross_pages = kv.alloc_cross(slot)
+            if cross_pages is None:
+                if nb:
+                    kv.free(slot)        # undo the attn half; retry later
+                return False
+        try:
+            arrays = self.swap_store.fetch(ticket)
+        except InjectedFault:
+            kv.free(slot)                # undo both kinds; record intact
+            raise
+        self._free_slots.pop()
+        with self.tel.span("swap.restore", slot=slot, pages=nb,
+                           reshared=len(shared), pdev=self.pdev):
+            self._restore_row(slot, rec, arrays, pages, len(shared),
+                              cross_pages)
+            kv.swap_in(rec.n_private, cross_blocks=rec.n_cross,
+                       state_records=rec.n_state)
+        self.swap_store.pop(ticket)
+        if self.prefix_sharing and rec.chain_keys:
+            # unwritten restored blocks hold their chains' prefill content:
+            # register them again so later identical prefixes re-share
+            kv.register(slot, rec.chain_keys[:pristine])
+        self._slots[slot] = _Slot(
+            rec.req, rec.target, rec.temp, rec.top_k, bucket=rec.bucket,
+            ring=rec.ring, planned=len(rec.tokens), tokens=list(rec.tokens),
+            t_first=rec.t_first, priority=rec.priority,
+            preemptions=rec.preemptions, chain_keys=list(rec.chain_keys),
+            seed=rec.seed)
+        self.restores += 1
+        self.tel.count("swap.restores")
+        return True
+
+    def _restore_row(self, slot: int, rec: SwapRecord, arrays: Dict[str, Any],
+                     pages: np.ndarray, n_shared: int,
+                     cross_pages: Optional[np.ndarray]) -> None:
+        """The device half of a restore, in place on the current stream:
+        the page-table row, the fresh pages' K/V and positions through the
+        admission scatter (``pages[n_shared:]`` with the matching blocks of
+        the snapshot: distinct non-reserved ids), the cross row through the
+        cross scatter, the SSM records and the slot's scalars."""
+        st = self.state
+        nb = len(pages)
+        row_dev = self._write_row(slot, pages, arrays["logits"],
+                                  rec.remaining, rec.temp, rec.top_k,
+                                  rec.seed, rec.pos, rec.ring, rec.lstep)
+        if nb > n_shared:
+            fresh = row_dev[n_shared:nb]
+            pos_rows = arrays["pos"][n_shared:nb]
+            for i, name in enumerate(self.kv.attn_subs):
+                blocks = {k: arrays["kv"][name][k][:, n_shared:nb]
+                          for k in "kv"}
+                S, nf, P = blocks["k"].shape[:3]
+                paged_admit(st["caches"][name],
+                            None if i else st["pos_pool"], fresh,
+                            {k: b.reshape(S, nf * P, *b.shape[3:])
+                             for k, b in blocks.items()},
+                            pos_rows.reshape(-1))
+        if cross_pages is not None:
+            cross_dev = to_device(cross_pages, self.device)
+            for k in "kv":
+                ops.paged_prefill_scatter(st["caches"]["cross"][k], cross_dev,
+                                          arrays["cross"][k])
+            st["cross_pt"][slot].copy_(cross_dev)
+        for name in self.ssm_subs:
+            restore_slot_state(st["caches"][name], slot,
+                               arrays["state"][name])
+
+    def drop_swapped(self, ticket: int) -> SwapRecord:
+        """Abandon a swapped-out record (terminal failure past the restore
+        retry budget): its blocks leave the ledger without a restore."""
+        rec = self.swap_store.pop(ticket)
+        self.kv.swap_in(rec.n_private, restored=False,
+                        cross_blocks=rec.n_cross, state_records=rec.n_state)
+        return rec
+
+    def fail_live(self) -> List[Any]:
+        """Terminal failure path (round-fault limit exceeded): vacate every
+        live row and return the abandoned requests.  Caller contract: no
+        round in flight."""
+        failed: List[Any] = []
+        for c, s in enumerate(self._slots):
+            if s is None:
+                continue
+            failed.append(s.req)
+            self.kv.free(c)
+            self._evict(c)
+            self._slots[c] = None
+            self._free_slots.append(c)
+        return failed
+
     def prefill_ms(self) -> List[float]:
         """CUDA-event time of every prefill call so far (waits for them)."""
         out = []
@@ -904,16 +1235,19 @@ class ContinuousBatchingEngine:
     def assert_conserved(self) -> None:
         """Audit every state kind the slot rows carry: the attention and
         cross page spaces (:meth:`PagedKVCache.assert_conserved`, and every
-        page row and cross row held by an occupied slot), and the slot rows
+        page row and cross row held by an occupied slot), the slot rows
         that hold the SSM state (the free and the occupied rows partition
-        the table)."""
+        the table), and -- with a swap store -- the host tier's per-kind
+        ledgers against the store."""
         occupied = {c for c, s in enumerate(self._slots) if s is not None}
         free = set(self._free_slots)
         assert len(free) == len(self._free_slots), "a slot freed twice"
         assert not (free & occupied) and \
             len(free) + len(occupied) == self.capacity, (free, occupied)
+        self.kv.assert_conserved(
+            None if self.swap_store is None
+            else self.swap_store.pages_by_kind())
         if self.kv.attn_subs:
-            self.kv.assert_conserved()
             holding = {c for c in range(self.capacity)
                        if self.kv.owned_pages(c)}
             assert holding == occupied, (sorted(holding), sorted(occupied))
@@ -928,7 +1262,9 @@ class ContinuousBatchingEngine:
         pages free up, one micro-round per iteration.  Returns (request,
         tokens) in completion order.  A head request the pool cannot admit
         while nothing is in flight is retried ``admission_retry_limit``
-        times, then dropped into ``self.rejected``."""
+        times (injected admission stalls are transient, a pool too small is
+        not), then dropped into ``self.rejected``; a dropped round is simply
+        dispatched again."""
         queue: Deque[Any] = collections.deque(requests)
         done: List[Tuple[Any, np.ndarray]] = []
         stall = 0
@@ -937,7 +1273,12 @@ class ContinuousBatchingEngine:
             while queue and self._free_slots:
                 take = [queue.popleft() for _ in
                         range(min(len(queue), len(self._free_slots)))]
-                flags = self.try_admit_batch(take)
+                try:
+                    flags = self.try_admit_batch(take)
+                except InjectedFault:
+                    for req in reversed(take):
+                        queue.appendleft(req)
+                    break
                 for req, ok in reversed(list(zip(take, flags))):
                     if not ok:
                         queue.appendleft(req)
@@ -951,6 +1292,9 @@ class ContinuousBatchingEngine:
                     stall = 0
                 continue
             stall = 0
-            res = self.collect(self.dispatch_round())
+            try:
+                res = self.collect(self.dispatch_round())
+            except InjectedFault:
+                continue               # dropped round: state untouched
             done.extend((req, toks) for req, toks, _ in res.finished)
         return done

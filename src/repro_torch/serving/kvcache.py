@@ -42,8 +42,13 @@ dense in the engine's slot table, one row per slot.  An arch without attention
 sublayers (mamba2) therefore has no page space at all -- ``blocks_for`` gives 0, nothing is allocated, shared or registered,
 and the conservation audit holds trivially.
 
-Left for a later slice of the port: the swap ledgers and host tier of
-preemption (slice 3).
+Preemption (see :mod:`repro_torch.serving.swap`) adds a *host tier* on top
+without disturbing the device invariant: a swap-out frees the victim's
+device pages through the ordinary accounting and records its private
+blocks, cross pages and SSM records in per-kind ledgers (``swapped_pages``,
+``swapped_cross``, ``swapped_state``), which ``assert_conserved(host_pages=
+...)`` audits against the swap store -- an int the attention ledger, a
+``{"attn", "cross", "ssm"}`` dict every kind.
 
 Exactness contract (as the reference's): the paged read/write replicates the
 dense ring cache of :func:`repro_torch.models.layers.apply_attention_decode`
@@ -54,7 +59,7 @@ with ``ServingEngine.generate`` on the same padded prompt.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Set, Tuple
+from typing import Dict, Iterable, List, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -152,6 +157,15 @@ class PagedKVCache:
         self.pages_shared = 0
         self.cow_forks = 0
         self.pristine_forks = 0
+        # host tier (preemption swap): blocks whose only copy lives in the
+        # host swap store right now, per state kind -- attention page
+        # blocks, cross pages, SSM records (one per SSM sublayer a victim)
+        self.swapped_pages = 0
+        self.swapped_cross = 0
+        self.swapped_state = 0
+        self.swap_outs = 0
+        self.swap_ins = 0
+        self.swap_drops = 0
         # telemetry plane: every host counter above is mirrored as a
         # ``kv.*`` metric.  The owning engine re-points this at its own
         # plane; standalone pools report to the global one.
@@ -422,6 +436,77 @@ class PagedKVCache:
         """The slot's current page row (block order), read-only."""
         return list(self._owned.get(slot, ()))
 
+    def private_blocks(self, slot: int) -> List[int]:
+        """Block indices whose page content exists nowhere but this slot's
+        row: refcount 1 and not trie-registered -- a preemption victim's
+        private suffix, the only blocks a swap-out moves to the host tier
+        (shared pages keep serving their other readers, registered pristine
+        pages linger as cache)."""
+        return [b for b, p in enumerate(self._owned.get(slot, ()))
+                if self._ref.get(p, 0) == 1 and p not in self._page_key]
+
+    def trie_keys(self) -> List[bytes]:
+        """Every chain key registered in the prefix trie, sorted (recorded
+        in engine checkpoints for audit)."""
+        return sorted(self._prefix)
+
+    def swapped_by_kind(self) -> Dict[str, int]:
+        """Host-tier ledger per state kind."""
+        return {"attn": self.swapped_pages, "cross": self.swapped_cross,
+                "ssm": self.swapped_state}
+
+    def swap_out(self, slot: int, host_blocks: int, cross_blocks: int = 0,
+                 state_records: int = 0) -> int:
+        """Preemption swap-out: retire a victim slot's page references --
+        exactly :meth:`free`, cross row included -- and account its snapshot
+        against the per-kind host ledger.  The engine snapshots content
+        before calling this; the allocator only moves the ledger.  Returns
+        the attention pages whose refcount dropped to 0."""
+        released = self.free(slot)
+        self.swapped_pages += host_blocks
+        self.swapped_cross += cross_blocks
+        self.swapped_state += state_records
+        self.swap_outs += 1
+        self.tel.count("kv.swap_out_blocks", host_blocks)
+        if cross_blocks:
+            self.tel.count("kv.cross.swap_out_blocks", cross_blocks)
+        if state_records:
+            self.tel.count("kv.ssm.swap_out_records", state_records)
+        self.tel.gauge("kv.swapped_pages", self.swapped_pages)
+        return released
+
+    def adopt_swapped(self, host_blocks: int, cross_blocks: int = 0,
+                      state_records: int = 0) -> None:
+        """Crash recovery: seed a fresh pool's host ledger for a
+        checkpointed swap record re-parked in the store without ever having
+        been swapped out of this pool."""
+        self.swapped_pages += host_blocks
+        self.swapped_cross += cross_blocks
+        self.swapped_state += state_records
+        self.tel.gauge("kv.swapped_pages", self.swapped_pages)
+
+    def swap_in(self, host_blocks: int, restored: bool = True,
+                cross_blocks: int = 0, state_records: int = 0) -> None:
+        """Account a record's blocks leaving the host tier: restored into
+        fresh pages and slot rows (``restored``), or dropped with a
+        terminally failed record."""
+        assert self.swapped_pages >= host_blocks, \
+            (self.swapped_pages, host_blocks)
+        assert self.swapped_cross >= cross_blocks, \
+            (self.swapped_cross, cross_blocks)
+        assert self.swapped_state >= state_records, \
+            (self.swapped_state, state_records)
+        self.swapped_pages -= host_blocks
+        self.swapped_cross -= cross_blocks
+        self.swapped_state -= state_records
+        if restored:
+            self.swap_ins += 1
+            self.tel.count("kv.swap_in_blocks", host_blocks)
+        else:
+            self.swap_drops += 1
+            self.tel.count("kv.swap_drop_blocks", host_blocks)
+        self.tel.gauge("kv.swapped_pages", self.swapped_pages)
+
     def free(self, slot: int) -> int:
         """Retire a slot: decrement its pages' refcounts and return its
         cross row (if any) to the cross free list.  Attention pages
@@ -471,11 +556,15 @@ class PagedKVCache:
         return page
 
     # ------------------------------------------------------------------
-    def assert_conserved(self) -> None:
+    def assert_conserved(
+            self, host_pages: Optional[Union[int, Dict[str, int]]] = None
+    ) -> None:
         """Audit the allocator: page conservation, refcount integrity, trie
         consistency, fork-reserve headroom and -- when a cross page space
-        exists -- cross-row conservation (the swap ledgers of the
-        reference's two-tier audit come with slice 3)."""
+        exists -- cross-row conservation.  With ``host_pages`` (the swap
+        store's count) the audit covers the host tier too: an int checks
+        the attention ledger (``swapped_pages == host_pages``), a dict
+        (``store.pages_by_kind()``) every kind's ledger."""
         usable = self.num_pages - self.RESERVED
         live = {p for p, r in self._ref.items() if r > 0}
         free_set = set(self._free)
@@ -519,6 +608,16 @@ class PagedKVCache:
             assert len(cross_free) + len(cross_live) == \
                 self.num_cross_pages - self.RESERVED, \
                 (len(cross_free), len(cross_live), self.num_cross_pages)
+        ledger = self.swapped_by_kind()
+        assert all(v >= 0 for v in ledger.values()), ledger
+        if host_pages is not None:
+            if isinstance(host_pages, dict):
+                want = {k: 0 for k in ledger}
+                want.update(host_pages)
+                assert ledger == want, (ledger, want)
+            else:
+                assert self.swapped_pages == host_pages, \
+                    (self.swapped_pages, host_pages)
         self.tel.count("kv.conservation_checks")
 
     # ------------------------------------------------------------------

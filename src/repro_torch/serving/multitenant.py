@@ -36,6 +36,40 @@ three schedules (``mode=``):
   request.  A :class:`repro_torch.distributed.fault.HeartbeatMonitor` is
   beaten per collected round.
 
+Overload (continuous mode), as the reference's:
+
+* **priority + fair share** -- a :class:`Request` carries a ``priority``
+  tier (0 highest) and an optional ``deadline_s``; admission orders by
+  them when the heads span tiers (above).  Past ``max_backlog`` queued
+  requests, the lowest-priority, furthest-deadline, newest queued work is
+  shed (``REJECTED``, counted in ``shed``).
+* **preemption via KV tiering** -- when a higher-priority request cannot
+  admit and a strictly lower-priority row is live, the scheduler collects
+  the round in flight (preemption needs a quiesced engine) and swaps the
+  victim out (:meth:`repro_torch.serving.continuous.
+  ContinuousBatchingEngine.preempt`).  Swapped requests wait in a restore
+  queue served before fresh picks of their own or lower tiers, their
+  records prefetched ``restore_prefetch`` at a time, and resume
+  token-exactly.  Every state kind swaps.
+* **faults** -- a :class:`repro_torch.distributed.fault.FaultPlane` drops
+  rounds, stalls admissions and poisons swap reads; each injection raises
+  before state changes and feeds a retry/limit policy
+  (``round_fault_limit``): past it requests end ``FAILED``.
+
+Every request ends in exactly one outcome -- ``completed``, ``rejected`` or
+``failed`` -- and ``drain()`` returns a response for each, with its
+``ttft_s`` and ``preemptions``.
+
+Crash safety (continuous mode): ``journal=`` (a path or a
+:class:`repro_torch.serving.journal.JournalWriter`) writes every submission,
+admission, collected round, retirement, rejection, failure, preemption,
+restore and checkpoint ahead of the mutation; with ``checkpoint_dir`` and
+``checkpoint_every=K`` the whole serving state -- every live slot's record,
+the host swap tier, the queues, the restore queue -- is saved every K
+collected rounds (the engine quiesced: one pipeline bubble a checkpoint).
+:meth:`MultiTenantScheduler.recover` rebuilds a fresh scheduler and engine
+from the (journal, latest checkpoint) pair and replays the rounds past it.
+
 Slot selection is straggler-aware: with ``straggler_priority=True`` the
 tenant with the slowest recent per-request time is served first, every
 backlogged tenant once per round.  In the overlapped schedule the EWMA is
@@ -51,10 +85,7 @@ slot's compute window opens no earlier than the previous slot's end: a
 slot enqueued behind another's decode on the one stream is not billed for
 that wait.
 
-Priorities order continuous admission but never preempt: swap preemption,
-load shedding by backlog (``max_backlog``), fault injection, the request
-journal and engine checkpoints come with slice 3 of the port and raise
-``NotImplementedError``.  A batch's extra inputs -- patch embeddings,
+A batch's extra inputs -- patch embeddings,
 encoder frames (zero frames for a whisper request that carries none) --
 are stacked per row (``_batch_extras``), in both slot schedules.
 """
@@ -69,12 +100,19 @@ import numpy as np
 
 from repro_torch.core.pipeline import CompletionWaiter, TenantTimeline
 from repro_torch.core.tenancy import TenancyConfig, resolve_devices
-from repro_torch.distributed.fault import HeartbeatMonitor, StragglerDetector
+from repro_torch.distributed import checkpoint as ckpt_mod
+from repro_torch.distributed.fault import (HeartbeatMonitor, InjectedFault,
+                                           StragglerDetector)
 from repro_torch.obs.telemetry import Telemetry, get_telemetry, record_timeline
+from repro_torch.serving import journal as journal_mod
 from repro_torch.serving.engine import (GenerationResult, PendingGeneration,
                                         ServingEngine, resolve_extra_inputs)
+from repro_torch.serving.journal import JournalWriter, RecoverySummary
+from repro_torch.serving.swap import (swap_record_from_payload,
+                                      swap_record_to_payload)
 
 MODES = ("continuous", "overlapped", "blocking")
+OUTCOMES = ("completed", "rejected", "failed")
 
 
 @dataclasses.dataclass
@@ -88,8 +126,9 @@ class Request:
     top_k: int = 0
     seed: int = 0
     arrival_s: float = dataclasses.field(default_factory=time.perf_counter)
-    # priority tier (0 = highest; lower tiers are admitted first) and an
-    # optional absolute-deadline hint used to order same-tier admissions
+    # priority tier (0 = highest; lower tiers are admitted first, shed
+    # last, and preempt higher numbers) and an optional absolute-deadline
+    # hint used to order same-tier admissions and pick shedding victims
     priority: int = 1
     deadline_s: Optional[float] = None
     extra_inputs: Optional[Dict[str, Any]] = None
@@ -101,11 +140,13 @@ class Response:
     tokens: np.ndarray
     latency_s: float
     batch_size: int
-    # terminal outcome: "completed" (tokens valid) or "rejected" (admission
-    # retry budget or deadline shed; tokens empty)
+    # terminal outcome: "completed" (tokens valid), "rejected" (admission
+    # retry budget or load shed; tokens empty) or "failed" (fault-injection
+    # limit exceeded; tokens empty)
     outcome: str = "completed"
     ttft_s: Optional[float] = None   # first collected token minus arrival
     priority: int = 1
+    preemptions: int = 0             # times the row was swapped out
 
 
 @dataclasses.dataclass
@@ -128,9 +169,14 @@ class _InflightRound:
     stamped: Any
 
 
-def _later_slice(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with {slice_} of the port "
-                               "(ROADMAP.md)")
+def _remove(q: Deque[Request], req: Request) -> None:
+    """Remove ``req`` itself from ``q``.  ``deque.remove`` compares by
+    ``==``, which on two requests of one tenant compares their prompt
+    arrays and raises (the reference sheds only queue heads safely)."""
+    for i, r in enumerate(q):
+        if r is req:
+            del q[i]
+            return
 
 
 class MultiTenantScheduler:
@@ -147,19 +193,30 @@ class MultiTenantScheduler:
                  stage_depth: int = 1,
                  continuous: Optional[Dict[str, Any]] = None,
                  continuous_engine: Optional[Any] = None,
-                 preemption: bool = False,
+                 preemption: bool = True,
                  max_backlog: Optional[int] = None,
                  admission_retry_limit: int = 8,
+                 round_fault_limit: int = 3,
+                 fault_plane: Optional[Any] = None,
                  heartbeat_timeout_s: float = 300.0,
+                 restore_prefetch: int = 4,
                  telemetry: Optional[Telemetry] = None,
+                 journal: Optional[Any] = None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 0,
+                 checkpoint_keep: int = 3,
                  device=None):
         self.mode = mode or ("overlapped" if overlapped else "blocking")
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}")
-        if preemption:
-            raise _later_slice("swap preemption", "slice 3")
-        if max_backlog is not None:
-            raise _later_slice("backlog shedding (max_backlog)", "slice 3")
+        if self.mode != "continuous" and (journal is not None
+                                          or checkpoint_dir is not None):
+            # only the continuous collect loop journals ROUND_COMMIT and
+            # RETIRE: a journal of another mode would replay every
+            # completed request as pending
+            raise ValueError(
+                "journal/checkpoint_dir require mode='continuous' "
+                f"(got mode={self.mode!r})")
         if device is not None:
             dev = resolve_devices(1, device)[0]        # raises: no card
             if dev != engine.device:
@@ -177,7 +234,7 @@ class MultiTenantScheduler:
         self.detector = StragglerDetector()
         self.stats: Dict[str, Dict[str, float]] = collections.defaultdict(
             lambda: {"requests": 0, "tokens": 0, "busy_s": 0.0,
-                     "rejected": 0, "shed": 0})
+                     "rejected": 0, "failed": 0, "preempted": 0, "shed": 0})
         self.timeline: List[TenantTimeline] = []
         self._order: List[str] = []
         self._slot_of: Dict[str, int] = {}
@@ -202,6 +259,8 @@ class MultiTenantScheduler:
                 from repro_torch.serving.continuous import \
                     ContinuousBatchingEngine
                 ckw = dict(continuous or {})
+                if fault_plane is not None:
+                    ckw.setdefault("fault_plane", fault_plane)
                 ckw.setdefault("telemetry", telemetry)
                 if device is not None:
                     ckw.setdefault("device", device)
@@ -209,28 +268,285 @@ class MultiTenantScheduler:
         self._cont_inflight: Optional[_InflightRound] = None
         self._cont_rounds = 0
         self._row_busy: Dict[int, float] = collections.defaultdict(float)
+        # ---- overload survival (continuous mode) ----
+        self.preemption = preemption
+        self.max_backlog = max_backlog
         self.admission_retry_limit = int(admission_retry_limit)
+        self.round_fault_limit = int(round_fault_limit)
+        self.restore_prefetch = max(int(restore_prefetch), 1)
+        self.fault_plane = fault_plane or getattr(self._ceng, "fault_plane",
+                                                  None)
         self.heartbeat = HeartbeatMonitor(timeout_s=heartbeat_timeout_s)
         self.heartbeat_suspects = 0
+        self.faults_survived = 0        # injected faults retried past
         self.rejected: List[Request] = []
+        self.failed: List[Request] = []
         self._terminal: List[Response] = []   # awaiting emission via step()
         self._adm_clock = 0             # admission passes (backoff clock)
         self._attempts: Dict[int, int] = {}       # id(req) -> failed admits
         self._backoff: Dict[int, int] = {}        # id(req) -> eligible clock
+        self._restore_q: List[int] = []           # swap tickets to re-admit
+        self._ticket_attempts: Dict[int, int] = {}
+        self._ticket_backoff: Dict[int, int] = {}
         self._tenant_steps: Dict[str, int] = collections.defaultdict(int)
+        self._round_fault_streak = 0
+        self._admission_blocked = False
         # continuous: one entry per admitted request (transfer window = its
         # admission batch's host window), kept apart from the round timeline
         self.admission_timeline: List[TenantTimeline] = []
+        # ---- crash safety (continuous mode) ----
+        self.journal: Optional[JournalWriter] = None
+        if journal is not None:
+            self.journal = (journal if isinstance(journal, JournalWriter)
+                            else JournalWriter(str(journal),
+                                               telemetry=telemetry))
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
+        self.checkpoint_keep = int(checkpoint_keep)
+        self.checkpoints_taken = 0
+        self._rids: Dict[int, int] = {}       # id(req) -> stable journal rid
+        self._next_rid = 0
+        self._committed_rounds = 0            # collected decode rounds
+        self._last_ckpt_round = 0
+        self._ckpt_step = 0
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
-        self._register_tenant(req.tenant)
-        self.queues[req.tenant].append(req)
+        # write-ahead: the SUBMIT record is on disk before the queue
+        # mutation, so a crash between the two re-queues the request
+        if self.journal is not None:
+            rid = self._next_rid
+            self._next_rid += 1
+            self._rids[id(req)] = rid
+            self.journal.append(
+                "SUBMIT", **journal_mod.request_to_record(rid, req))
+        self._enqueue(req)
 
     def _register_tenant(self, tenant: str) -> None:
         if tenant not in self._order:
             self._slot_of[tenant] = len(self._order)
             self._order.append(tenant)
+
+    def _enqueue(self, req: Request) -> None:
+        self._register_tenant(req.tenant)
+        self.queues[req.tenant].append(req)
+
+    # ------------------------------------------------------------------
+    # crash safety: journal hooks (no-ops without a journal)
+    # ------------------------------------------------------------------
+    def _rid(self, req: Any) -> int:
+        return self._rids.get(id(req), -1)
+
+    def _journal(self, kind: str, **fields: Any) -> None:
+        if self.journal is not None:
+            self.journal.append(kind, **fields)
+
+    def _journal_admits(self, reqs: List[Request]) -> None:
+        """ADMIT records for freshly admitted picks (the slot-table rows
+        these request objects landed in)."""
+        if self.journal is None or not reqs:
+            return
+        want = {id(r) for r in reqs}
+        for c, s in enumerate(self._ceng._slots):
+            if s is not None and id(s.req) in want:
+                self.journal.append(
+                    "ADMIT", rid=self._rid(s.req), slot=int(c),
+                    bucket=int(s.bucket), ring=int(s.ring))
+
+    def _journal_round(self, res: Any) -> None:
+        """One collected round: cumulative emitted token counts of every
+        row live in it (retired rows their final count)."""
+        self._committed_rounds += 1
+        if self.journal is None:
+            return
+        emitted: Dict[str, int] = {}
+        for (req, tokens, _c), _srec in zip(res.finished, res.retired):
+            emitted[str(self._rid(req))] = int(tokens.size)
+        for s in self._ceng._slots:
+            if s is not None:
+                emitted[str(self._rid(s.req))] = len(s.tokens)
+        self.journal.append("ROUND_COMMIT", rnd=self._committed_rounds,
+                            emitted=emitted)
+
+    # ------------------------------------------------------------------
+    # crash safety: engine checkpoint + recovery (continuous mode)
+    # ------------------------------------------------------------------
+    def _checkpoint_due(self, pending: int = 0) -> bool:
+        """``pending`` counts rounds collected but not yet journalled at the
+        call site (the dispatch-suppression check runs before the current
+        round's ROUND_COMMIT), so a checkpoint lands every K rounds, not
+        K+1."""
+        return (self.checkpoint_dir is not None
+                and self.checkpoint_every > 0
+                and self._committed_rounds + pending - self._last_ckpt_round
+                >= self.checkpoint_every)
+
+    def save_checkpoint(self) -> int:
+        """Save the whole serving state (engine quiesced: no round in
+        flight): one :class:`~repro_torch.serving.swap.SwapRecord` payload
+        per live slot (the preemption snapshot, vacating nothing) and the
+        host tier's records under their tickets, plus the queued requests in
+        admission order, the restore queue, ticket retry budgets and the
+        trie's chain keys; written atomically by
+        :func:`repro_torch.distributed.checkpoint.save_engine_checkpoint`,
+        then journalled as a CHECKPOINT record (the recovery baseline)."""
+        eng = self._ceng
+        assert eng is not None and self._cont_inflight is None, \
+            "engine checkpoint requires a quiesced continuous engine"
+        step = self._ckpt_step
+        self._ckpt_step += 1
+        arrays: Dict[str, Any] = {}
+
+        def payload(rec, key: str, prefix: str) -> Dict[str, Any]:
+            m, arrs = swap_record_to_payload(
+                rec, journal_mod.request_to_record(self._rid(rec.req),
+                                                   rec.req))
+            for k, v in arrs.items():
+                arrays[f"{prefix}/{k}"] = v
+            return {key: int(prefix.split("/")[1]),
+                    "rid": self._rid(rec.req), "rec": m}
+
+        live_meta = [payload(rec, "slot", f"live/{c}")
+                     for c, rec in eng.snapshot_live()]
+        swapped_meta = []
+        if eng.swap_store is not None:
+            swapped_meta = [payload(eng.swap_store.record(t), "ticket",
+                                    f"swapped/{t}")
+                            for t in eng.swap_store.tickets()]
+        queued = [journal_mod.request_to_record(self._rid(r), r)
+                  for t in self._order for r in self.queues[t]]
+        meta = {
+            "step": int(step),
+            "rounds": int(self._committed_rounds),
+            "next_rid": int(self._next_rid),
+            "live": live_meta,
+            "swapped": swapped_meta,
+            "queued": queued,
+            "restore_q": [int(t) for t in self._restore_q],
+            "ticket_attempts": {str(k): int(v) for k, v in
+                                self._ticket_attempts.items()},
+            "trie": [k.hex() for k in eng.kv.trie_keys()],
+        }
+        ckpt_mod.save_engine_checkpoint(self.checkpoint_dir, step, meta,
+                                        arrays,
+                                        keep_last=self.checkpoint_keep)
+        self._last_ckpt_round = self._committed_rounds
+        self.checkpoints_taken += 1
+        self._journal("CHECKPOINT", step=int(step),
+                      rnd=int(self._committed_rounds))
+        if self.tel.enabled:
+            self.tel.count("recovery.checkpoints")
+        return step
+
+    def recover(self) -> RecoverySummary:
+        """Rebuild serving state on a *fresh* scheduler and engine from the
+        (journal, latest checkpoint) pair after a crash: checkpointed live
+        slots re-enter through the ordinary swap restore, host-tier records
+        re-park under their tickets, queued requests re-queue in admission
+        order, journalled rids neither terminal nor checkpointed re-queue
+        (never lost), and rounds committed after the checkpoint are
+        replayed -- seeded sampling regenerates their tokens bit for bit on
+        non-MoE archs, and the post-checkpoint RETIRE records become the
+        ``replay_check`` oracle.  Wall clocks are process-relative: every
+        rebuilt request is stamped with the recovery time."""
+        assert self.mode == "continuous", "recover() is continuous-only"
+        assert self.journal is not None, "recover() needs a journal"
+        eng = self._ceng
+        assert eng.active_count() == 0 and not any(
+            len(q) for q in self.queues.values()), \
+            "recover() must run on a fresh scheduler"
+        with self.tel.span("recovery.replay") as sp:
+            js = journal_mod.replay(journal_mod.read_journal(
+                self.journal.path))
+            step = (ckpt_mod.latest_engine_step(self.checkpoint_dir)
+                    if self.checkpoint_dir is not None else None)
+            meta, arrays = ((None, None) if step is None else
+                            ckpt_mod.load_engine_checkpoint(
+                                self.checkpoint_dir, step))
+            now = time.perf_counter()
+            accounted: set = set()
+            live_recs: List[Any] = []
+            swapped_recs: Dict[int, Any] = {}
+            tokens_preserved = 0
+
+            def rebuild(ent: Dict[str, Any], prefix: str):
+                sub = {k[len(prefix):]: v for k, v in arrays.items()
+                       if k.startswith(prefix)}
+                req = journal_mod.request_from_record(ent["rec"]["req"])
+                req.arrival_s = now
+                self._register_tenant(req.tenant)
+                rec = swap_record_from_payload(ent["rec"], sub, req)
+                rec.t_first = None
+                self._rids[id(req)] = int(ent["rid"])
+                accounted.add(int(ent["rid"]))
+                return rec
+
+            if meta is not None:
+                for ent in meta["live"]:
+                    rec = rebuild(ent, f"live/{ent['slot']}/")
+                    live_recs.append(rec)
+                    tokens_preserved += len(rec.tokens)
+                for ent in meta["swapped"]:
+                    rec = rebuild(ent, f"swapped/{ent['ticket']}/")
+                    swapped_recs[int(ent["ticket"])] = rec
+                    tokens_preserved += len(rec.tokens)
+            eng.restore_from(live_recs, swapped_recs)
+            if meta is not None:
+                self._restore_q = [int(t) for t in meta["restore_q"]]
+                self._ticket_attempts = {
+                    int(k): int(v)
+                    for k, v in meta["ticket_attempts"].items()}
+                for qrec in meta["queued"]:
+                    req = journal_mod.request_from_record(qrec)
+                    req.arrival_s = now
+                    self._rids[id(req)] = int(qrec["rid"])
+                    accounted.add(int(qrec["rid"]))
+                    self._enqueue(req)
+                self._committed_rounds = max(int(meta["rounds"]),
+                                             js.last_round)
+                self._ckpt_step = int(meta["step"]) + 1
+            else:
+                self._committed_rounds = js.last_round
+            self._last_ckpt_round = self._committed_rounds
+            # journalled but neither terminal nor checkpointed: SUBMIT hit
+            # the disk before the crash, so the request re-queues
+            requeued = 0
+            for rid in js.pending():
+                if rid in accounted:
+                    continue
+                req = journal_mod.request_from_record(js.submitted[rid])
+                req.arrival_s = now
+                self._rids[id(req)] = rid
+                self._enqueue(req)
+                requeued += 1
+            self._next_rid = max(js.next_rid,
+                                 0 if meta is None else int(
+                                     meta["next_rid"]))
+            already, oracle = {}, {}
+            for rid, toks in js.retired_tokens.items():
+                (oracle if rid in accounted else already)[rid] = toks
+            summary = RecoverySummary(
+                checkpoint_step=step,
+                restored_live=len(live_recs),
+                restored_swapped=len(swapped_recs),
+                requeued=requeued,
+                already_complete=already,
+                replay_check=oracle,
+                rounds_replayed=js.rounds_after_checkpoint,
+                tokens_preserved=tokens_preserved,
+                tokens_replayed=js.tokens_after_checkpoint)
+            sp.note(step=-1 if step is None else int(step),
+                    restored_live=summary.restored_live,
+                    restored_swapped=summary.restored_swapped,
+                    requeued=summary.requeued,
+                    rounds_replayed=summary.rounds_replayed)
+        self._journal("RECOVER", step=-1 if step is None else int(step),
+                      restored_live=summary.restored_live,
+                      restored_swapped=summary.restored_swapped,
+                      requeued=summary.requeued,
+                      rounds_replayed=summary.rounds_replayed)
+        self.heartbeat.beat()
+        return summary
 
     def pending(self) -> int:
         n = sum(len(q) for q in self.queues.values())
@@ -239,6 +555,7 @@ class MultiTenantScheduler:
         n += sum(len(fl.reqs) for fl in self._inflight)   # dispatched slots
         if self._ceng is not None:       # admitted, not yet retired rows
             n += self._ceng.active_count()
+        n += len(self._restore_q)        # swapped out, awaiting re-admission
         n += len(self._terminal)         # terminal responses to emit
         return n
 
@@ -506,12 +823,30 @@ class MultiTenantScheduler:
         if shed:
             st["shed"] += 1
             self.tel.count("sched.shed")
+        self._journal("REJECT", rid=self._rid(req), shed=bool(shed))
+        self._rids.pop(id(req), None)
         self._attempts.pop(id(req), None)
         self._backoff.pop(id(req), None)
         self._terminal.append(Response(
             req.tenant, np.zeros((0,), np.int32),
             time.perf_counter() - req.arrival_s, 0, outcome="rejected",
             priority=self._prio(req)))
+
+    def _fail(self, req: Any, preemptions: int = 0) -> None:
+        """Terminal FAILED outcome (a fault-injection retry limit was
+        exceeded for this request)."""
+        self.failed.append(req)
+        self.stats[req.tenant]["failed"] += 1
+        self.tel.count("sched.failed")
+        self._journal("FAIL", rid=self._rid(req),
+                      preemptions=int(preemptions))
+        self._rids.pop(id(req), None)
+        self._attempts.pop(id(req), None)
+        self._backoff.pop(id(req), None)
+        self._terminal.append(Response(
+            req.tenant, np.zeros((0,), np.int32),
+            time.perf_counter() - req.arrival_s, 0, outcome="failed",
+            priority=self._prio(req), preemptions=preemptions))
 
     def _pop_terminal(self, responses: Optional[List[Response]] = None
                       ) -> List[Response]:
@@ -520,6 +855,25 @@ class MultiTenantScheduler:
             out.extend(self._terminal)
             self._terminal.clear()
         return out
+
+    def _shed_backlog(self) -> None:
+        """Load-shed above the SLO bound: while the queued backlog exceeds
+        ``max_backlog``, the lowest-priority, furthest-deadline, newest
+        queued request ends REJECTED."""
+        if self.max_backlog is None:
+            return
+        backlog = sum(len(q) for q in self.queues.values())
+        while backlog > self.max_backlog:
+            victim = None
+            for t, q in self.queues.items():
+                for r in q:
+                    key = (self._prio(r), self._deadline(r), r.arrival_s)
+                    if victim is None or key > victim[0]:
+                        victim = (key, t, r)
+            _, tenant, req = victim
+            _remove(self.queues[tenant], req)
+            self._reject(req, shed=True)
+            backlog -= 1
 
     def _tenant_pages(self) -> Dict[str, int]:
         """Pages currently held per tenant (fair-share accounting input)."""
@@ -550,7 +904,7 @@ class MultiTenantScheduler:
         now = time.perf_counter()
         for q in self.queues.values():
             for req in [r for r in q if self._deadline(r) < now]:
-                q.remove(req)
+                _remove(q, req)
                 self._reject(req, shed=True)
         picked: List[Request] = []
         while len(picked) < budget:
@@ -578,32 +932,169 @@ class MultiTenantScheduler:
             picked.append(self.queues[tenant].popleft())
         return picked
 
-    def _admit_continuous(self) -> int:
-        """Admit queued requests into free slots as one batch.  Rejected
-        picks are requeued at the front of their tenant's queue; when
-        nothing is in flight and nothing was admitted (so no retirement can
-        free pages), failed picks count against the bounded retry budget
-        and reject terminally past it."""
+    def _victim_slot(self, prio: int) -> Optional[int]:
+        """Preemption victim: the live row with the *largest* priority
+        number strictly above ``prio``, ties broken toward the most decode
+        budget left.  None when nobody is preemptable."""
+        eng = self._ceng
+        best = None
+        for c, s in enumerate(eng._slots):
+            if s is None or s.priority <= prio:
+                continue
+            key = (-s.priority, -(s.target - len(s.tokens)), c)
+            if best is None or key < best[0]:
+                best = (key, c)
+        return None if best is None else best[1]
+
+    def _preempt_slot(self, victim: int) -> int:
+        """Swap one victim row out and queue its restore ticket
+        (journalled: PREEMPT names the ticket)."""
+        eng = self._ceng
+        req = eng._slots[victim].req
+        self.stats[req.tenant]["preempted"] += 1
+        # the victim's busy share must not leak onto the slot's next row
+        self._row_busy.pop(victim, None)
+        ticket = eng.preempt(victim)
+        self._journal("PREEMPT", rid=self._rid(req), ticket=int(ticket))
+        self._restore_q.append(ticket)
+        return ticket
+
+    def _preempt_for(self, reqs: List[Request]
+                     ) -> Tuple[int, List[Request]]:
+        """Admit failed picks by swapping strictly-lower-priority victims
+        out (the caller quiesced the engine).  Returns (newly admitted,
+        still failed)."""
+        eng = self._ceng
+        admitted, remaining = 0, []
+        for req in sorted(reqs, key=self._prio):
+            ok = False
+            while not ok:
+                victim = self._victim_slot(self._prio(req))
+                if victim is None:
+                    break
+                self._preempt_slot(victim)
+                try:
+                    ok = eng.try_admit_batch([req])[0]
+                except InjectedFault:
+                    self.faults_survived += 1
+                    break
+            if ok:
+                admitted += 1
+                self._attempts.pop(id(req), None)
+                self._backoff.pop(id(req), None)
+                self._journal_admits([req])
+            else:
+                remaining.append(req)
+        return admitted, remaining
+
+    def _drain_restores(self, allow_preempt: bool) -> int:
+        """Re-admit swapped-out requests, highest tier first.  A restore
+        beats fresh picks of its own or lower tiers but never takes a free
+        slot a strictly-higher-priority queued arrival is waiting for.  A
+        restore blocked on pool pressure with an otherwise idle engine, or
+        a poisoned swap read past the retry budget, fails terminally, so the
+        drain never hangs on an unrestorable ticket.  A window of
+        ``restore_prefetch`` tickets at the head of the queue is staged
+        ahead of its re-admission."""
+        eng = self._ceng
+        if not self._restore_q or eng.swap_store is None:
+            return 0
+        pending = sorted(self._restore_q,
+                         key=lambda t: eng.swap_store.record(t).priority)
+        self._restore_q = []
+        done = 0
+        for ticket in pending:
+            if self._adm_clock < self._ticket_backoff.get(ticket, 0):
+                self._restore_q.append(ticket)
+                continue
+            rec = eng.swap_store.record(ticket)
+            hi_wait = sum(1 for q in self.queues.values() for r in q
+                          if self._prio(r) < rec.priority)
+            if hi_wait and eng.free_slot_count() <= hi_wait:
+                self._restore_q.append(ticket)
+                continue
+            try:
+                ok = eng.try_restore(ticket)
+                if not ok and allow_preempt and self.preemption:
+                    victim = self._victim_slot(rec.priority)
+                    if victim is not None:
+                        self._preempt_slot(victim)
+                        ok = eng.try_restore(ticket)
+            except InjectedFault:
+                self.faults_survived += 1
+                n = self._ticket_attempts.get(ticket, 0) + 1
+                if n > self.round_fault_limit:
+                    self._drop_ticket(ticket)
+                    continue
+                self._ticket_attempts[ticket] = n
+                self._ticket_backoff[ticket] = self._adm_clock + min(
+                    1 << (n - 1), 16)
+                self._restore_q.append(ticket)
+                continue
+            if ok:
+                done += 1
+                self._ticket_attempts.pop(ticket, None)
+                self._ticket_backoff.pop(ticket, None)
+                self._journal("RESTORE", rid=self._rid(rec.req),
+                              ticket=int(ticket))
+                continue
+            if eng.active_count() == 0 and self._cont_inflight is None:
+                # nothing live can ever free more pages: bound the spin
+                n = self._ticket_attempts.get(ticket, 0) + 1
+                self._ticket_attempts[ticket] = n
+                if n > self.admission_retry_limit:
+                    self._drop_ticket(ticket)
+                    continue
+            self._restore_q.append(ticket)
+        for ticket in self._restore_q[:self.restore_prefetch]:
+            eng.swap_store.prefetch(ticket)
+        return done
+
+    def _drop_ticket(self, ticket: int) -> None:
+        """Fail a swapped-out request terminally: its record leaves the
+        store and the ledger, and both ticket maps forget it."""
+        rec = self._ceng.drop_swapped(ticket)
+        self._ticket_attempts.pop(ticket, None)
+        self._ticket_backoff.pop(ticket, None)
+        self._fail(rec.req, preemptions=rec.preemptions)
+
+    def _admit_continuous(self, allow_preempt: bool = False) -> int:
+        """Admit queued requests into free slots: restores of preempted
+        work first, then one queue head per pick (the rotation or the
+        priority order, :meth:`_pick_continuous`), admitted as one batch.
+        Rejected picks are requeued at the front of their tenant's queue;
+        when nothing is in flight, nothing was admitted and nothing is
+        restorable (so no retirement can free pages), failed picks count
+        against the bounded retry budget and reject terminally past it."""
         with self.tel.span("sched.admit",
                            backlog=sum(len(q) for q in
                                        self.queues.values())) as sp:
-            n = self._admit_continuous_inner()
+            n = self._admit_continuous_inner(allow_preempt)
             sp.note(admitted=n)
             return n
 
-    def _admit_continuous_inner(self) -> int:
+    def _admit_continuous_inner(self, allow_preempt: bool) -> int:
         eng = self._ceng
         self._adm_clock += 1
-        admitted = 0
+        self._shed_backlog()
+        admitted = self._drain_restores(allow_preempt)
         picked = self._pick_continuous(eng.free_slot_count())
-        if not picked:
-            return 0
-        t0 = time.perf_counter() - self._t0
-        flags = eng.try_admit_batch(picked)
-        t1 = time.perf_counter() - self._t0
         failures: List[Request] = []
-        for req, ok in zip(picked, flags):
-            if ok:
+        can_preempt = (allow_preempt and self.preemption
+                       and eng.can_preempt)
+        if picked:
+            t0 = time.perf_counter() - self._t0
+            try:
+                flags = eng.try_admit_batch(picked)
+            except InjectedFault:
+                self.faults_survived += 1
+                flags = [False] * len(picked)
+            t1 = time.perf_counter() - self._t0
+            self._journal_admits([r for r, ok in zip(picked, flags) if ok])
+            for req, ok in zip(picked, flags):
+                if not ok:
+                    failures.append(req)
+                    continue
                 admitted += 1
                 self._attempts.pop(id(req), None)
                 self._backoff.pop(id(req), None)
@@ -616,26 +1107,46 @@ class MultiTenantScheduler:
                 record_timeline(self.tel, entry, base=self._t0,
                                 prefix="admission", tenant=req.tenant,
                                 nv=self.tenancy.n_vdev)
-            else:
-                failures.append(req)
-        hopeless = (admitted == 0 and eng.active_count() == 0
-                    and self._cont_inflight is None)
-        still: List[Request] = []
-        for req in failures:
-            if not hopeless:
+            if failures and can_preempt:
+                extra, failures = self._preempt_for(failures)
+                admitted += extra
+            hopeless = (admitted == 0 and eng.active_count() == 0
+                        and self._cont_inflight is None
+                        and not self._restore_q)
+            still: List[Request] = []
+            for req in failures:
+                if not hopeless:
+                    still.append(req)
+                    continue
+                n = self._attempts.get(id(req), 0) + 1
+                if n > self.admission_retry_limit:
+                    self._reject(req)
+                    continue
+                self._attempts[id(req)] = n
+                self._backoff[id(req)] = self._adm_clock + min(
+                    1 << (n - 1), 16)
                 still.append(req)
-                continue
-            n = self._attempts.get(id(req), 0) + 1
-            if n > self.admission_retry_limit:
-                self._reject(req)
-                continue
-            self._attempts[id(req)] = n
-            self._backoff[id(req)] = self._adm_clock + min(1 << (n - 1), 16)
-            still.append(req)
-        for req in reversed(still):
-            self.queues[req.tenant].appendleft(req)
-            # the pick didn't result in service: keep the tenant's place
-            self._round_served.discard(req.tenant)
+            for req in reversed(still):
+                self.queues[req.tenant].appendleft(req)
+                # the pick didn't result in service: keep the tenant's place
+                self._round_served.discard(req.tenant)
+        elif can_preempt and eng.free_slot_count() == 0:
+            # slot exhaustion (nothing pickable): a waiting request of a
+            # strictly higher tier than some live row still preempts
+            heads = [q[0] for q in self.queues.values() if q]
+            if heads:
+                best = min(heads, key=lambda r: (
+                    self._prio(r), self._deadline(r), r.arrival_s))
+                if self._victim_slot(self._prio(best)) is not None:
+                    self.queues[best.tenant].popleft()
+                    extra, remaining = self._preempt_for([best])
+                    admitted += extra
+                    for req in remaining:
+                        self.queues[req.tenant].appendleft(req)
+        starved = (eng.free_slot_count() == 0
+                   and any(self.queues.values()))
+        self._admission_blocked = bool(failures or self._restore_q
+                                       or starved)
         return admitted
 
     def _dispatch_round(self, asm_start: float) -> _InflightRound:
@@ -649,6 +1160,42 @@ class MultiTenantScheduler:
         stamped = self._get_waiter().submit(handle.done, entry)
         return _InflightRound(handle, entry, stamped)
 
+    def _try_dispatch_round(self, asm0: float) -> Optional[_InflightRound]:
+        """Dispatch under the round-fault retry/limit policy: a dropped
+        round raises before any state changes, so it is simply dispatched
+        again next step; a streak past ``round_fault_limit`` fails every
+        live row terminally, so the drain always finishes."""
+        try:
+            fl = self._dispatch_round(asm0)
+        except InjectedFault:
+            self.faults_survived += 1
+            self._round_fault_streak += 1
+            if self._round_fault_streak > self.round_fault_limit:
+                for req in self._ceng.fail_live():
+                    self._fail(req)
+                self._round_fault_streak = 0
+            return None
+        self._round_fault_streak = 0
+        return fl
+
+    def _preemption_pressure(self) -> bool:
+        """True when the round in flight should be collected now so that a
+        preemption can run on a quiesced engine: admission is blocked, a
+        strictly higher-priority request waits (queued or swapped), and a
+        lower-priority victim is live."""
+        eng = self._ceng
+        if not (self.preemption and eng.can_preempt
+                and self._admission_blocked):
+            return False
+        prios = [self._prio(q[0]) for q in self.queues.values() if q]
+        if eng.swap_store is not None:
+            prios += [eng.swap_store.record(t).priority
+                      for t in self._restore_q]
+        if not prios:
+            return False
+        p = min(prios)
+        return any(lp > p for lp in eng.live_priorities())
+
     def _step_continuous(self) -> Optional[List[Response]]:
         eng = self._ceng
         if self.heartbeat.suspect():
@@ -657,26 +1204,41 @@ class MultiTenantScheduler:
                 self.tel.count("heartbeat.missed")
                 self.tel.gauge("heartbeat.suspects", self.heartbeat_suspects)
         if self._cont_inflight is None:
+            # engine quiesced: the only sound window for a checkpoint
+            if self._checkpoint_due():
+                self.save_checkpoint()
             asm0 = time.perf_counter() - self._t0
-            admitted = self._admit_continuous()
+            admitted = self._admit_continuous(allow_preempt=self.preemption)
             if admitted == 0 and eng.active_count() == 0:
                 # nothing in flight and nothing admitted: queued heads are
                 # in bounded retry/backoff, so drain() still progresses
                 return self._pop_terminal() or None
-            self._cont_inflight = self._dispatch_round(asm0)
+            self._cont_inflight = self._try_dispatch_round(asm0)
+            if self._cont_inflight is None:      # injected round drop
+                return self._pop_terminal() or None
         cur = self._cont_inflight
         # retire-before-dispatch: when round k has already landed, retire
         # its finished rows now so this step's admissions can use them
         res = eng.collect(cur.handle) if cur.handle.ready() else None
+        if res is None and self._preemption_pressure():
+            # preemption runs on a quiesced engine: collect round k now,
+            # trading one round of pipelining for the higher tier
+            res = eng.collect(cur.handle)
         # overlap point: the next round's admissions and its dispatch land
         # here, while round k may still occupy the device
         asm0 = time.perf_counter() - self._t0
-        admitted = self._admit_continuous()
+        admitted = self._admit_continuous(
+            allow_preempt=self.preemption and res is not None)
+        # a due checkpoint holds the next dispatch back, so the next step
+        # starts quiesced (pending=1: round k commits below)
         live = eng.live_after(0 if res is not None else eng.inner_steps)
-        self._cont_inflight = (self._dispatch_round(asm0)
-                               if admitted or live else None)
+        self._cont_inflight = (self._try_dispatch_round(asm0)
+                               if (admitted or live)
+                               and not self._checkpoint_due(pending=1)
+                               else None)
         if res is None:
             res = eng.collect(cur.handle)
+        self._journal_round(res)
         self.heartbeat.beat()                    # round k landed
         self.tel.count("heartbeat.beats")
         cur.stamped.wait()
@@ -710,9 +1272,13 @@ class MultiTenantScheduler:
             self.detector.update({self._slot_of[req.tenant]: row_busy})
             ttft = (None if srec.t_first is None
                     else srec.t_first - req.arrival_s)
+            self._journal("RETIRE", rid=self._rid(req),
+                          tokens=[int(t) for t in tokens])
+            self._rids.pop(id(req), None)
             responses.append(Response(
                 req.tenant, tokens, done_abs - req.arrival_s, 1,
-                ttft_s=ttft, priority=self._prio(req)))
+                ttft_s=ttft, priority=self._prio(req),
+                preemptions=srec.preemptions))
         return self._pop_terminal(responses)
 
     # ------------------------------------------------------------------
@@ -739,7 +1305,16 @@ class MultiTenantScheduler:
             if r:
                 out.extend(r)
         if self._ceng is not None:
-            self._ceng.kv.assert_conserved()
+            # two-tier audit: every request is terminal, so the host tier's
+            # ledgers must agree with the store and no ticket bookkeeping
+            # may outlive its record
+            eng = self._ceng
+            eng.kv.assert_conserved(
+                None if eng.swap_store is None
+                else eng.swap_store.pages_by_kind())
+            leaked = set(self._ticket_attempts) | set(self._ticket_backoff)
+            assert not leaked, \
+                f"drain: ticket bookkeeping leaked for {sorted(leaked)}"
         self.close()
         return out
 

@@ -5,10 +5,10 @@ copy-on-write reserve, conservation audit) is numpy and plain Python in both
 packages.  A lockstep machine drives one allocator of each package with the
 same seeded (and Hypothesis-drawn) interleavings of shared and unshared
 admission, decode writes under the three preserve policies, and retirement
--- the machine of ``tests/test_kvcache.py`` for the attention state kind
-(swap and crash recovery come with a later slice of the port) -- and
-requires every return value, counter, free list and trie to agree after
-every operation.  The device constructors and the per-row write/read
+-- the machine of ``tests/test_kvcache.py`` for the attention state kind,
+preemption swap cycles and checkpoint adoption included -- and requires
+every return value, counter, free list, trie and host-tier ledger to agree
+after every operation.  The device constructors and the per-row write/read
 primitives are held against the reference too.
 """
 import jax
@@ -308,3 +308,91 @@ def test_paged_layer_decode_matches_reference():
         np.testing.assert_array_equal(
             pool_t[kind].float().numpy(),
             np.asarray(pool_j[kind].astype(jnp.float32)))
+
+
+class SwapLockstep(Lockstep):
+    """The lockstep machine with the host tier: a swap-out moves a live
+    slot's private blocks to a host record (``swap_out``), a swap-back
+    returns or drops the oldest record (``swap_in``), and an adoption seeds
+    the ledger as a checkpointed live slot does (``adopt_swapped``); the
+    per-kind ledgers and both audits agree after every operation."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.host = []
+
+    def check(self):
+        assert _state(self.t) == _state(self.j)
+        for kv in (self.t, self.j):
+            assert kv.swapped_by_kind() == {"attn": sum(self.host),
+                                            "cross": 0, "ssm": 0}
+            assert (kv.swap_outs, kv.swap_ins, kv.swap_drops) == (
+                self.j.swap_outs, self.j.swap_ins, self.j.swap_drops)
+        self.t.assert_conserved(host_pages=sum(self.host))
+        self.t.assert_conserved(host_pages={"attn": sum(self.host)})
+        self.j.assert_conserved(host_pages={"attn": sum(self.host)})
+
+    def swap_out(self, slot):
+        if slot not in self.live:
+            return
+        n = len(self.both("private_blocks", slot))
+        self.both("trie_keys")
+        self.both("swap_out", slot, n)
+        del self.live[slot]
+        self.host.append(n)
+
+    def swap_back(self, restored):
+        if self.host:
+            self.both("swap_in", self.host.pop(0), restored=restored)
+
+    def adopt(self, slot):
+        """An engine checkpoint's live slot re-parked: the record's private
+        blocks credited to a fresh ledger before its restore debits them."""
+        if slot not in self.live:
+            return
+        n = len(self.both("private_blocks", slot))
+        self.both("free", slot)
+        del self.live[slot]
+        self.both("adopt_swapped", n)
+        self.host.append(n)
+
+
+def test_lockstep_swap_cycles_match_reference():
+    """tests/test_kvcache.py's swap cycles on the port: swap-outs of live
+    slots (shared pages stay with their other readers), swap-ins restored
+    and dropped, adoptions -- the two-tier ledger, its counters and the
+    audits in both forms agree with the reference after every step."""
+    rng = np.random.default_rng(11)
+    draw_int = lambda lo, hi: int(rng.integers(lo, hi + 1))
+    draw_bool = lambda: bool(rng.integers(0, 2))
+    swaps = 0
+    for _ in range(120):
+        m = SwapLockstep(tkv.PagedKVCache.RESERVED + draw_int(6, 20),
+                         capacity=draw_int(2, 6))
+        for op, slot, *params in _ops(draw_int, draw_bool, m.capacity,
+                                      draw_int(5, 40)):
+            if op == "retire" and draw_bool():
+                op = ("swap", "swapback", "adopt")[draw_int(0, 2)]
+            if op == "admit":
+                i, max_new, share = params
+                m.admit(slot, PROMPTS[i], max_new, share)
+            elif op == "write":
+                m.write(slot, params[0])
+            elif op == "retire":
+                m.retire(slot)
+            elif op == "swap":
+                m.swap_out(slot)
+                swaps += 1
+            elif op == "adopt":
+                m.adopt(slot)
+            else:
+                m.swap_back(restored=draw_bool())
+            m.check()
+        while m.host:
+            m.swap_back(restored=False)
+            m.check()
+        for slot in sorted(m.live):
+            m.retire(slot)
+        m.check()
+        assert m.t.swapped_pages == 0
+    assert swaps > 50

@@ -37,7 +37,7 @@ from repro_torch.obs.telemetry import Telemetry
 from repro_torch.serving.continuous import (ContinuousBatchingEngine,
                                             RoundProgram)
 from repro_torch.serving.engine import ServingEngine
-from repro_torch.serving.multitenant import Request
+from repro_torch.serving.multitenant import MultiTenantScheduler, Request
 
 KW = dict(capacity=2, page_size=8, inner_steps=4, max_prompt_len=32)
 CAPTURED_LAUNCHES = 7        # what the stub's capture counts, as a wrapper
@@ -249,3 +249,49 @@ def test_detached_decode_scratch_leaves_the_cache():
     assert ops.detach_decode_scratch(cpu, 991) is sc
     assert (cpu.index, 991) not in pa._SCRATCH
     assert ops.detach_decode_scratch(cpu, 991) is None
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b"])
+def test_preempt_and_restore_between_stub_replays(arch, engines):
+    """Preempt and restore between replays of captured rounds: evict and
+    restore write the state in place, so the program keeps replaying the
+    graphs it captured -- no new capture of a key, no address error -- and
+    the victim's tokens equal the same request's uninterrupted run; the
+    restore's page writes go through the scatter entry."""
+    eng = engines[0] if arch == "internlm2-1.8b" else _engines(arch)[0]
+    rng = np.random.default_rng(17)
+    V = eng.cfg.vocab_size
+    los = [Request(f"lo{i}", rng.integers(1, V, 10).astype(np.int32),
+                   max_new_tokens=24, priority=1, seed=3 + i,
+                   temperature=0.8 if i else None) for i in range(2)]
+    hi = Request("hi", rng.integers(1, V, 6).astype(np.int32),
+                 max_new_tokens=4, priority=0)
+    ceng = ContinuousBatchingEngine(eng, **KW)
+    backend = StubBackend()
+    prog = ceng.round_program = RoundProgram(backend)
+    want = {}
+    for r in [*los, hi]:
+        clone = Request(r.tenant, r.prompt.copy(), r.max_new_tokens,
+                        temperature=r.temperature, seed=r.seed)
+        want.update({q.tenant: t for q, t in ceng.run_all([clone])})
+    keys, captured = dict(prog.rounds), len(backend.captured)
+    replays0 = sum(c.replays for c in prog.rounds.values())
+    pa.reset_counts()
+    sched = MultiTenantScheduler(eng, mode="continuous",
+                                 continuous_engine=ceng, preemption=True)
+    for r in los:
+        sched.submit(r)
+    sched.step()
+    sched.submit(hi)
+    out = {r.tenant: r for r in sched.drain()}
+    assert ceng.preemptions >= 1 and ceng.restores >= 1
+    assert sum(r.preemptions for r in out.values()) >= 1
+    for t, toks in want.items():
+        np.testing.assert_array_equal(out[t].tokens, toks)
+    assert prog.rounds == keys and len(backend.captured) == captured
+    assert sum(c.replays for c in prog.rounds.values()) > replays0
+    assert ceng.decode_traces == len(keys)
+    if ceng.kv.attn_subs:      # one scatter call per sublayer per restore
+        assert pa.plain_counts["paged_prefill_scatter_plain"] >= \
+            2 * len(ceng.kv.attn_subs) * (ceng.restores + 1)
+    ceng.assert_conserved()

@@ -267,20 +267,28 @@ def test_unadmittable_request_rejects_not_spins(engines, monkeypatch):
 
 
 def test_what_later_slices_bring_raises(engines):
-    eng, _ = engines
+    """Only ``--mesh`` is left to a later slice; swap, preemption and the
+    backlog bound build, and the crash flags are validated as the
+    reference validates them."""
+    eng, jeng = engines
     modes = ContinuousBatchingEngine.supported_modes(eng.cfg)
     assert modes["continuous"]["supported"]
     assert modes["continuous"]["state_kinds"] == ["attn"]
+    assert modes["continuous"]["preemptable"]
+    assert modes == JaxCont.supported_modes(jeng.cfg)
     assert modes["overlapped"]["supported"] and modes["blocking"]["supported"]
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ContinuousBatchingEngine(eng, capacity=2, max_prompt_len=16,
-                                 swap=True)
+    ceng = ContinuousBatchingEngine(eng, capacity=2, max_prompt_len=16,
+                                    swap=True)
+    assert ceng.can_preempt and ceng.swap_store is not None
+    assert not ContinuousBatchingEngine(eng, capacity=2, max_prompt_len=16,
+                                        swap=False).can_preempt
     for kw in (dict(preemption=True), dict(max_backlog=4)):
-        with pytest.raises(NotImplementedError):
-            MultiTenantScheduler(eng, **kw)
-    for argv in (["--swap"], ["--mesh", "1x2"], ["--max-backlog", "3"],
-                 ["--journal-dir", "j"], ["--recover"]):
-        with pytest.raises(NotImplementedError, match="slice"):
+        MultiTenantScheduler(eng, mode="continuous", **kw)
+    with pytest.raises(NotImplementedError, match="slice"):
+        serve.main(["--device", "cpu", "--mesh", "1x2"])
+    for argv in (["--journal-dir", "j"], ["--recover"],
+                 ["--mode", "continuous", "--checkpoint-every", "2"]):
+        with pytest.raises(SystemExit):
             serve.main(["--device", "cpu"] + argv)
 
 

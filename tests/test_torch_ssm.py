@@ -194,9 +194,9 @@ def test_supported_modes_and_state_kinds(engines):
     ref = JaxCont.supported_modes(jeng.cfg)["continuous"]
     assert mine["state_kinds"] == ref["state_kinds"] == ["ssm"]
     for k in ("supported", "prefix_sharing", "window_phase_keys",
-              "exactness"):
+              "exactness", "preemptable"):
         assert mine[k] == ref[k], k
-    assert not mine["preemptable"]               # swap: slice 3
+    assert mine["preemptable"]
     assert state_kinds(eng.cfg) == ("ssm",)
 
 
