@@ -46,7 +46,13 @@ Drives the port's paths through the entry points a user calls:
 * ``serve-crash``: ``launch.serve`` children at internlm2-1.8b's full
   width with a request journal and checkpoints every 4 rounds, killed by
   SIGKILL at round 6 and inside a swap-out, then recovered by fresh
-  processes, every request's tokens equal to an uncrashed run's.
+  processes, every request's tokens equal to an uncrashed run's;
+* training: ``repro_torch.launch.train`` at the published widths and
+  depths of internlm2-1.8b, mamba2-2.7b and whisper-base (batch 8, 6 AdamW
+  steps, random weights from a seed), every attention forward and its
+  recompute through the FlashAttention kernel with its log-sum-exp, every
+  Mamba-2 forward through the SSD scan kernel, the backwards the
+  reference's own (it has no backward kernel).
 
 Every serving path decodes through rounds captured as CUDA graphs and
 replayed (``serving.continuous.RoundProgram``); the same admissions of
@@ -120,7 +126,19 @@ host-to-device rate), restore wait and restore-write times, replayed
 rounds with and without a swap before them), serve-crash (both children
 exit -9, the recovered journals' tokens equal the uncrashed ones'; journal
 append us as a share of a replayed round, checkpoint ms and bytes, recover
-ms).  The serving reduced phase
+ms), then training: train-kernels (``FlashAttentionFn`` and
+``SsdChunkedFn`` against autograd through the plain versions -- forward,
+log-sum-exp, every input's grad -- over the reference's grad cases and
+the training shapes in float32 and bf16; K5 with and without the
+log-sum-exp, the backwards and ``scaled_dot_product_attention``'s forward
+and backward timed), train-reduced (every arch, one step on the card
+against the CPU), train (the three runs above: launches by layer, one
+profiled step, step ms, tokens/s, model-FLOPs share, peak memory), the
+checks (internlm2's gradient against finite differences in float32, 2
+tenant microbatches against 1), train-recovery (``run_with_recovery``
+with an injected failure, bit for bit) and train-lm
+(``examples/torch_train_lm.py``, 300 steps, the loss falling).  The
+serving reduced phase
 runs every decoder-only arch, and a hybrid without MoE.  Each phase's
 seconds are printed at the end.
 """
@@ -165,7 +183,15 @@ from repro_torch.launch import risk as risk_cli
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.model import build_model, param_count
 from repro_torch.models.layers import dtype_of, unembed_operand
-from repro_torch.models.transformer import init_footprint, tree_map
+from repro_torch.models.transformer import (init_footprint, tree_leaves,
+                                            tree_map, tree_map2)
+from repro_torch.data.tokens import DataConfig, synth_batch
+from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed.fault import run_with_recovery
+from repro_torch.launch import train as train_cli
+from repro_torch.models.attention_core import blockwise_attention_bwd
+from repro_torch.training.optimizer import Optimizer, make_optimizer
+from repro_torch.training.train_loop import build_train_step, init_train_state
 from repro_torch.obs import TELEMETRY
 from repro_torch.obs import fit as obs_fit
 from repro_torch.obs.export import parse_prometheus_text
@@ -348,6 +374,8 @@ R = "aggregate_row_losses"           # the gather's row pass
 K3, K4 = "paged_attention_decode", "paged_prefill_scatter"
 K6 = "ssd_chunked"
 K5 = "flash_attention"
+# the training backwards' grads, held apart from the kernels' forwards
+K5B, K6B = "flash_attention_bwd", "ssd_chunked_bwd"
 # SSD scan vs its plain version: tests/test_kernels_ssd.py's tolerances --
 # float32 1e-4 (the chunk's cumulative decay is summed in another order and
 # exp(a_cum[l] - a_cum[s]) amplifies the difference); bfloat16 inputs are
@@ -373,7 +401,7 @@ class Errors:
     """Largest disagreement seen per kernel, over every comparison."""
 
     def __init__(self):
-        self.abs = dict.fromkeys((G, R, O, K3, K4, K6, K5), 0.0)
+        self.abs = dict.fromkeys((G, R, O, K3, K4, K6, K5, K5B, K6B), 0.0)
         self.rel = dict(self.abs)
         self.cases = dict.fromkeys(self.abs, 0)
 
@@ -4836,6 +4864,604 @@ def phase_serve_crash(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# training (slice 5): the autograd Functions against autograd through the
+# plain versions, every arch reduced against the CPU, three archs at full
+# width through launch.train, finite differences, tenant microbatches,
+# recovery, and the example that learns
+# ---------------------------------------------------------------------------
+# the Functions' grads against autograd through the plain versions:
+# tests/test_attention.py's 2e-3 (blockwise VJP vs naive autodiff) and
+# tests/test_kernels_ssd.py's 1e-4 (the Pallas VJP vs the oracle's
+# autodiff).  bfloat16 attention: the reference's own bf16 attention
+# tolerance, 5e-2 (tests/test_attention.py::test_bf16_path), against the
+# float32 plain version on the same rounded inputs, the absolute part
+# scaled by the largest |grad| (a grad is a sum of bf16-rounded terms of
+# that size).  The SSD's bfloat16 grads are one arithmetic on both sides
+# (the backward recomputes the oracle): 1e-4, also scaled by the largest.
+TRAIN_ATTN_GRAD = 2e-3
+TRAIN_ATTN_BF16 = 5e-2
+TRAIN_SSD_GRAD = 1e-4
+# tests/test_attention.py's grad cases, then FLASH_SWEEP's windows, cross
+# lengths, the ragged 1500 and the rows with no admissible key:
+# (B, Sq, Skv, Hq, Hkv, D, causal, window)
+TRAIN_FLASH_SWEEP = [
+    (2, 64, 64, 4, 2, 16, True, None), (2, 64, 64, 4, 2, 16, True, 16),
+    (2, 64, 64, 4, 2, 16, False, None), (1, 128, 128, 4, 1, 16, True, 32),
+    (1, 32, 32, 2, 2, 64, False, 8), (1, 32, 128, 4, 2, 16, False, None),
+    (1, 45, 90, 16, 2, 32, False, None), (1, 24, 200, 4, 2, 16, False, 16),
+    (1, 203, 203, 8, 1, 128, True, 50), (1, 1500, 1500, 2, 2, 64, False, None),
+    (1, 140, 20, 2, 1, 16, True, 8)]
+# the training path's attention shapes at full width (batch 8)
+TRAIN_FLASH_FULL = [
+    ("internlm2-1.8b", 8, 512, 512, 16, 8, 128, True),
+    ("whisper-base encoder", 8, 1500, 1500, 8, 8, 64, False),
+    ("whisper-base decoder self", 8, 64, 64, 8, 8, 64, True),
+    ("whisper-base cross", 8, 64, 1500, 8, 8, 64, False)]
+# mamba2-2.7b's training scan: 512 tokens a row, two chunks of 256, one
+# group's B and C over the 80 heads
+TRAIN_SSD_FULL = dict(b=8, L=512, H=80, P=64, N=128, chunk=256)
+# full width through launch.train: (arch, --seq, reckoned GB of params,
+# grads and AdamW's m and v at 16 B a parameter)
+TRAIN_RUNS = (("internlm2-1.8b", 512, 30.2), ("mamba2-2.7b", 512, 43.2),
+              ("whisper-base", 64, 1.8))
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_PROFILED = 8, 6, 3
+TRAIN_ARGV = ["--batch", str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS),
+              "--log-every", "1", "--profile-step", str(TRAIN_PROFILED)]
+# finite differences on internlm2-1.8b in float32: a batch of 2 x 128,
+# steps of FD_EPS (and a tenth and ten times it) along the unit gradient
+FD_BATCH, FD_SEQ, FD_EPS, FD_TOL = 2, 128, 1e-3, 0.02
+# tests/test_system.py::test_microbatch_tenancy_matches_single_shot
+MB_LOSS_TOL, MB_PARAM_TOL = 2e-3, 5e-3
+# tests/test_system.py::test_train_checkpoint_restart_bitexact
+RECOVERY_ATOL = 1e-6
+TRAIN_LM_STEPS, TRAIN_LM_DROP = 300, 1.0
+TRAIN_LM_ARGV = ["--steps", str(TRAIN_LM_STEPS)]
+
+
+def reset_kernel_counts() -> None:
+    for m in (agg, pa, ssd, fa):
+        m.reset_counts()
+
+
+def mamba_count(cfg) -> int:
+    return sum(mixer == "mamba" for mixer, _ in cfg.block_schedule())
+
+
+def keyless_rows(Sq, Skv, causal, window) -> bool:
+    """Whether some query row admits no key under this mask."""
+    qp, kp = np.arange(Sq)[:, None], np.arange(Skv)[None, :]
+    ok = np.ones((Sq, Skv), bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    return not bool(ok.any(axis=1).all())
+
+
+def hold_scaled(errs: Errors, name: str, got, want, what: str, tol: float):
+    """``got`` against ``want`` at rtol ``tol`` and atol ``tol`` times the
+    largest |want|."""
+    scale = float(want.float().abs().max()) or 1.0
+    errs.hold(name, got.float(), want.float(), what, tol=(tol, tol * scale))
+
+
+def flash_grads_case(errs: Errors, rng, B, Sq, Skv, Hq, Hkv, D, causal,
+                     window, dev, what: str) -> None:
+    """``FlashAttentionFn`` on the card (the kernel forward, the
+    reference's backward) against autograd through the plain version on
+    the same tensors: o, the log-sum-exp, dq, dk, dv; float32 at 2e-3 and
+    bfloat16 inputs against float32 on the same rounded numbers.  A case
+    with rows that admit no key is held against the reference's own
+    backward of the plain forward (its p = exp(s - lse) is 1 there, not
+    autograd's 1/Skv)."""
+    q0, k0, v0 = flash_case(rng, B, Sq, Skv, Hq, Hkv, D, dev)
+    do0 = torch.from_numpy(rng.standard_normal((B, Sq, Hq, D)).astype(
+        np.float32)).to(dev)
+    keyless = keyless_rows(Sq, Skv, causal, window)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype).requires_grad_() for t in (q0, k0, v0))
+        do = do0.to(dtype)
+        o = kops.FlashAttentionFn.apply(q, k, v, causal, window)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        _, lse = fa.flash_attention(q.detach(), k.detach(), v.detach(),
+                                    causal=causal, window=window,
+                                    return_lse=True)
+        qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+        ow, lw = kref.blockwise_attention(qf, kf, vf, causal=causal,
+                                          window=window, return_lse=True)
+        if keyless:
+            want = blockwise_attention_bwd(qf.detach(), kf.detach(),
+                                           vf.detach(), ow.detach(),
+                                           lw.detach(), do.float(),
+                                           causal=causal,
+                                           window=window)
+        else:
+            want = torch.autograd.grad(ow, (qf, kf, vf), do.float())
+        tag = f"{what} {str(dtype)[6:]}"
+        bf16 = dtype == torch.bfloat16
+        errs.hold(K5, o.detach().float(), ow.detach(), tag + " o",
+                  tol=(FLASH_BF16_RTOL, FLASH_BF16_ATOL) if bf16 else None)
+        errs.hold(K5, lse, lw.detach(), tag + " lse")
+        for n, g, w in zip("qkv", grads, want):
+            if bf16:
+                hold_scaled(errs, K5B, g, w, f"{tag} d{n}", TRAIN_ATTN_BF16)
+            else:
+                errs.hold(K5B, g, w, f"{tag} d{n}",
+                          tol=(TRAIN_ATTN_GRAD, TRAIN_ATTN_GRAD))
+
+
+def ssd_grads_case(errs: Errors, rng, b, L, H, P, N, chunk, dev, *,
+                   h0: bool, one_group: bool, dtype, what: str) -> None:
+    """``SsdChunkedFn`` on the card (the kernel forward, the oracle's
+    recomputed backward) against autograd through the chunked oracle on
+    the same tensors: y, the state and the grads of x, dt, a, B, C (one
+    group's, summed through the stride-0 view) and h0."""
+    x, dt, a, Bm, Cm, hh = ssd_case(rng, b, L, H, P, N, dev, dtype=dtype,
+                                    one_group=one_group)
+    if one_group:                    # the leaves are the group's
+        Bm, Cm = Bm[:, :, :1], Cm[:, :, :1]
+    dy = torch.from_numpy(rng.standard_normal((b, L, H, P)).astype(
+        np.float32)).to(dev, dtype)
+    dh = torch.from_numpy(rng.standard_normal((b, H, P, N)).astype(
+        np.float32)).to(dev)
+    outs = {}
+    for side in ("fn", "ref"):
+        ins = [t.detach().clone().requires_grad_()
+               for t in (x, dt, a, Bm, Cm, hh)]
+        Bv, Cv = ((t.expand(-1, -1, H, -1) for t in ins[3:5]) if one_group
+                  else ins[3:5])
+        h_in = ins[5] if h0 else None
+        if side == "fn":
+            y, h = kops.SsdChunkedFn.apply(ins[0], ins[1], ins[2], Bv, Cv,
+                                           h_in, chunk)
+        else:
+            y, h = kref.ssd_chunked_ref(ins[0], ins[1], ins[2], Bv, Cv,
+                                        chunk, initial_state=h_in)
+        wrt = ins if h0 else ins[:5]
+        outs[side] = (y, h, torch.autograd.grad((y, h), wrt, (dy, dh)))
+    (y, h, g), (yw, hw, gw) = outs["fn"], outs["ref"]
+    bf16 = dtype == torch.bfloat16
+    tag = f"{what} {str(dtype)[6:]}"
+    errs.hold(K6, y.detach(), yw.detach(), tag + " y",
+              tol=(SSD_BF16_Y,) * 2 if bf16 else None)
+    errs.hold(K6, h.detach(), hw.detach(), tag + " state",
+              tol=(SSD_BF16_STATE,) * 2 if bf16 else None)
+    for n, gi, wi in zip(("x", "dt", "a", "B", "C", "h0"), g, gw):
+        hold_scaled(errs, K6B, gi, wi, f"{tag} d{n}", TRAIN_SSD_GRAD)
+
+
+def sdpa_fwd_bwd(q, k, v, do, causal):
+    """One PyTorch call's forward and backward of the same attention
+    (``scaled_dot_product_attention``, used nowhere in the port): the
+    library time beside the kernel and the backward."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    o = sdpa(qt, kt, vt, is_causal=causal,
+             enable_gqa=q.shape[2] != k.shape[2])
+    return torch.autograd.grad(o, (q, k, v), do.transpose(1, 2))
+
+
+def train_flash_timed(errs: Errors, rng, dev, name, B, Sq, Skv, Hq, Hkv, D,
+                      causal, flush) -> dict:
+    """One training attention shape at full width: the Function held in
+    float32 and bf16, then (bf16) K5 with and without the log-sum-exp, the
+    backward, and scaled_dot_product_attention's forward and backward,
+    timed in turns."""
+    flash_grads_case(errs, rng, B, Sq, Skv, Hq, Hkv, D, causal, None, dev,
+                     f"full width {name}")
+    g = torch.Generator(device=dev).manual_seed(12)
+    q, k, v, do = (torch.randn((B, s, h, D), generator=g, device=dev).to(
+        torch.bfloat16) for s, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv),
+                                     (Sq, Hq)))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = kops.FlashAttentionFn.apply(q, k, v, causal, None)
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    turns = {"lse": [], "no_lse": [], "bwd": [], "sdpa": []}
+    for _ in range(2):
+        turns["lse"].append(cuda_ms(lambda: fa.flash_attention(
+            qd, kd, vd, causal=causal, return_lse=True), 10, flush))
+        turns["no_lse"].append(cuda_ms(lambda: fa.flash_attention(
+            qd, kd, vd, causal=causal), 10, flush))
+        turns["bwd"].append(cuda_ms(lambda: torch.autograd.grad(
+            o, (q, k, v), do, retain_graph=True), 5, flush))
+        turns["sdpa"].append(cuda_ms(lambda: sdpa_fwd_bwd(q, k, v, do,
+                                                          causal), 5, flush))
+    ms = {k_: statistics.median(t) for k_, t in turns.items()}
+    ms["plain"] = cuda_ms(lambda: fa.flash_attention_plain(
+        qd, kd, vd, causal=causal, return_lse=True), 3, flush)
+    bound, by = flash_bound_ms(B, Sq, Skv, Hq, Hkv, D, causal, None, 2)
+    shape = (f"q ({B}, {Sq}, {Hq}, {D}), k/v ({B}, {Skv}, {Hkv}, {D}) bf16, "
+             + ("causal" if causal else "non-causal"))
+    say("train", f"K5 {name}: {shape}: with lse {ms['lse']:.4f} ms, without "
+                 f"{ms['no_lse']:.4f} ms, backward {ms['bwd']:.4f} ms, "
+                 f"scaled_dot_product_attention forward+backward "
+                 f"{ms['sdpa']:.4f} ms, plain (with lse) {ms['plain']:.4f} ms, "
+                 f"forward bound {bound:.4f} ms by {by}")
+    return dict(ms_with_lse=ms["lse"], ms=ms["no_lse"], backward_ms=ms["bwd"],
+                library_fwd_bwd_ms=ms["sdpa"], plain_ms=ms["plain"],
+                bound_ms=bound, bound_by=by, shape=shape)
+
+
+def phase_train_kernels(errs: Errors, dev) -> dict:
+    """The two autograd Functions on CUDA tensors against autograd through
+    the plain versions: the sweeps, then the training path's full-width
+    shapes (held in float32 and bf16, then timed)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(24)
+    n5, n6 = errs.cases[K5B], errs.cases[K6B]
+    for B, Sq, Skv, Hq, Hkv, D, causal, window in TRAIN_FLASH_SWEEP:
+        flash_grads_case(errs, rng, B, Sq, Skv, Hq, Hkv, D, causal, window,
+                         dev, f"grads B{B} Sq{Sq} Skv{Skv} Hq{Hq} Hkv{Hkv} "
+                              f"D{D} causal {causal} window {window}")
+    for b, L, H, P, N, chunk in SSD_SWEEP:
+        for h0 in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                ssd_grads_case(errs, rng, b, L, H, P, N, chunk, dev, h0=h0,
+                               one_group=False, dtype=dtype,
+                               what=f"grads b{b} L{L} H{H} P{P} N{N} h0 {h0}")
+    for dtype in (torch.float32, torch.bfloat16):
+        ssd_grads_case(errs, rng, 2, 128, 6, 16, 32, 64, dev, h0=True,
+                       one_group=True, dtype=dtype,
+                       what="grads one group's stride-0 B/C")
+    say("train", f"Function grads hold: {errs.cases[K5B] - n5} attention "
+                 f"(max abs err {errs.abs[K5B]:.3g}) and "
+                 f"{errs.cases[K6B] - n6} SSD grad comparisons (max abs err "
+                 f"{errs.abs[K6B]:.3g}); attention float32 rtol=atol="
+                 f"{TRAIN_ATTN_GRAD}, bf16 {TRAIN_ATTN_BF16} scaled; SSD "
+                 f"{TRAIN_SSD_GRAD} scaled")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    flash = {name: train_flash_timed(errs, rng, dev, name, *shape,
+                                     flush=flush)
+             for name, *shape in TRAIN_FLASH_FULL}
+    f = TRAIN_SSD_FULL
+    for dtype in (torch.float32, torch.bfloat16):
+        ssd_grads_case(errs, rng, f["b"], f["L"], f["H"], f["P"], f["N"],
+                       f["chunk"], dev, h0=False, one_group=True,
+                       dtype=dtype, what="full width mamba2-2.7b")
+    x, dt, a, Bm, Cm, _ = ssd_case(rng, f["b"], f["L"], f["H"], f["P"],
+                                   f["N"], dev, dtype=torch.bfloat16,
+                                   one_group=True)
+    ins = [t.detach().clone().requires_grad_()
+           for t in (x, dt, a, Bm[:, :, :1], Cm[:, :, :1])]
+    Bv, Cv = (t.expand(-1, -1, f["H"], -1) for t in ins[3:])
+    y, h = kops.SsdChunkedFn.apply(ins[0], ins[1], ins[2], Bv, Cv, None,
+                                   f["chunk"])
+    dy, dh = torch.randn_like(y), torch.randn_like(h)
+    fwd_ms = cuda_ms(lambda: ssd.ssd_chunked(x, dt, a, Bm, Cm,
+                                             chunk=f["chunk"]), 10, flush)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad((y, h), ins, (dy, dh),
+                                                 retain_graph=True), 3, flush)
+    bound, by = ssd_bound_ms(f["b"], f["L"], f["H"], f["P"], f["N"],
+                             f["chunk"], 2, 1)
+    say("train", f"K6 mamba2-2.7b training scan x ({f['b']}, {f['L']}, "
+                 f"{f['H']}, {f['P']}), N {f['N']}, chunk {f['chunk']}, "
+                 f"bf16: forward {fwd_ms:.4f} ms, backward (the oracle "
+                 f"recomputed and differentiated) {bwd_ms:.4f} ms, forward "
+                 f"bound {bound:.4f} ms by {by}")
+    del flush
+    return {"flash": flash, "ssd": dict(ms=fwd_ms, backward_ms=bwd_ms,
+                                        bound_ms=bound, bound_by=by)}
+
+
+def capture_grads(opt: Optimizer, store: list) -> Optimizer:
+    """``opt`` whose update first keeps a copy of the (clipped) grads it is
+    given."""
+    def update(grads, state, params, lr):
+        store.append(tree_map(lambda t: t.detach().clone(), grads))
+        return opt.update(grads, state, params, lr)
+    return Optimizer(opt.init, update, opt.state_axes)
+
+
+def reduced_step(cfg, params, batch, device) -> tuple:
+    """One ``build_train_step`` step of ``cfg`` from ``params`` on
+    ``device``: (metrics as floats, the clipped grads)."""
+    bundle = build_model(cfg)
+    grads: list = []
+    opt = capture_grads(make_optimizer(cfg), grads)
+    step = build_train_step(bundle, opt,
+                            lr_fn=lambda s: torch.full((), 1e-3))
+    state = init_train_state(bundle, opt, tree_map(
+        lambda t: t.detach().clone().to(device), params))
+    state, m = step(state, {k: torch.from_numpy(v).to(device)
+                            for k, v in batch.items()})
+    return {k: float(v) for k, v in m.items()}, grads[0]
+
+
+def phase_train_reduced(dev) -> dict:
+    """Every arch reduced (float32): one training step on the card against
+    the same port model on the CPU (the plain versions), loss at rtol 1e-5
+    and every leaf's grad at rtol 1e-3 / atol 1e-5; MoE archs' aux
+    non-zero; K5 and K6 launches equal attention or Mamba layers times
+    microbatches, and no plain call on the card."""
+    from repro_torch.configs import ARCH_IDS
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        params = build_model(cfg).init(0, "cpu")
+        batch = synth_batch(DataConfig(2, 32, cfg.vocab_size), 0, cfg)
+        reset_kernel_counts()            # just before the card's step
+        m_dev, g_dev = reduced_step(cfg, params, batch, dev)
+        torch.cuda.synchronize()
+        launches = {K5: fa.launch_counts[K5], K6: ssd.launch_counts[K6],
+                    "bwd5": fa.backward_counts["flash_attention_bwd"],
+                    "bwd6": ssd.backward_counts["ssd_chunked_bwd"],
+                    "plain": sum(fa.plain_counts.values())
+                    + sum(ssd.plain_counts.values())}
+        m_cpu, g_cpu = reduced_step(cfg, params, batch, "cpu")
+        mb = max(1, cfg.microbatches)
+        want5, want6 = k5_per_prefill(cfg) * mb, mamba_count(cfg) * mb
+        check(launches[K5] == want5 and launches[K6] == want6,
+              f"train-reduced {arch}: K5/K6 launches {launches[K5]}/"
+              f"{launches[K6]}, want {want5}/{want6}")
+        check(launches["bwd5"] == want5 and launches["bwd6"] == want6,
+              f"train-reduced {arch}: backward calls {launches['bwd5']}/"
+              f"{launches['bwd6']}, want {want5}/{want6}")
+        check(launches["plain"] == 0,
+              f"train-reduced {arch}: {launches['plain']} plain calls on "
+              "the card")
+        check(abs(m_dev["loss"] - m_cpu["loss"]) <= 1e-5 * abs(m_cpu["loss"]),
+              f"train-reduced {arch}: loss {m_dev['loss']} vs CPU "
+              f"{m_cpu['loss']}")
+        if cfg.moe is not None:
+            check(m_dev["aux"] > 0, f"train-reduced {arch}: MoE aux "
+                                    f"{m_dev['aux']} is not positive")
+        worst = 0.0
+        for gd, gc_ in zip(tree_leaves(g_dev), tree_leaves(g_cpu)):
+            gd = gd.cpu()
+            worst = max(worst, float((gd - gc_).abs().max()))
+            check(bool(torch.allclose(gd, gc_, rtol=1e-3, atol=1e-5)),
+                  f"train-reduced {arch}: a grad leaf differs from the "
+                  f"CPU's by {float((gd - gc_).abs().max()):.3g}")
+        say("train", f"reduced {arch}: loss {m_dev['loss']:.6f} (CPU "
+                     f"{m_cpu['loss']:.6f}), aux {m_dev['aux']:.4g}, grad "
+                     f"norm {m_dev['grad_norm']:.4f}; every grad leaf within "
+                     f"rtol 1e-3 / atol 1e-5 (max abs diff {worst:.3g}); K5 "
+                     f"{launches[K5]}, K6 {launches[K6]} launches, backward "
+                     f"{launches['bwd5']} / {launches['bwd6']}")
+        out[arch] = dict(loss=m_dev["loss"], loss_cpu=m_cpu["loss"],
+                         aux=m_dev["aux"], grad_max_abs_diff=worst,
+                         launches={K5: launches[K5], K6: launches[K6]})
+    return out
+
+
+def train_run(arch: str, seq: int, reckoned_gb: float, dev) -> dict:
+    """``launch.train.main`` at full width and depth: --batch 8, 6 steps,
+    step 3 profiled; counts reset just before and read just after."""
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--seq", str(seq)] + TRAIN_ARGV
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_kernel_counts()                # just before the path
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    launches = {K5: fa.launch_counts[K5], K6: ssd.launch_counts[K6]}
+    variants = {K5: dict(fa.variant_counts), K6: dict(ssd.variant_counts)}
+    bwd = {K5: fa.backward_counts["flash_attention_bwd"],
+           K6: ssd.backward_counts["ssd_chunked_bwd"]}
+    plain = sum(fa.plain_counts.values()) + sum(ssd.plain_counts.values())
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        say("train", f"{arch}: {line[:400]}")
+    check(rc == 0, f"train {arch}: launch.train exited {rc}")
+    res = json.loads(lines[-1])["train"]
+    remat = 2 if cfg.remat == "full" else 1
+    want = {K5: k5_per_prefill(cfg) * remat * TRAIN_STEPS,
+            K6: mamba_count(cfg) * remat * TRAIN_STEPS}
+    check(launches == want, f"train {arch}: launches {launches}, want {want}")
+    check(bwd == {K5: k5_per_prefill(cfg) * TRAIN_STEPS,
+                  K6: mamba_count(cfg) * TRAIN_STEPS},
+          f"train {arch}: backward calls {bwd}")
+    check(all(v["f32_simt"] == 0 for v in variants.values()),
+          f"train {arch}: variants {variants}, want bf16_mma only")
+    check(plain == 0, f"train {arch}: {plain} plain calls")
+    check(res["final_step"] == TRAIN_STEPS and res["steps"] == TRAIN_STEPS,
+          f"train {arch}: step counter {res['final_step']}")
+    check(all(np.isfinite(res["losses"])), f"train {arch}: a loss is not "
+                                           "finite")
+    tokens = TRAIN_BATCH * seq
+    mfu = (6 * res["params"] * tokens / (res["median_step_ms"] / 1e3)
+           / PEAK_BF16_FLOPS)
+    prof = res["profile"] or {}
+    say("train", f"{arch} full width (batch {TRAIN_BATCH} x {seq}): median "
+                 f"step {res['median_step_ms']:.1f} ms (CUDA events, step 1 "
+                 f"left out), {res['tokens_per_s']:.0f} tokens/s, model "
+                 f"FLOPs share {mfu:.4f} (6 N tokens over the step, N "
+                 f"{res['params']:,}, against the bf16 dense peak "
+                 f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; remat's recompute "
+                 f"not counted), peak memory {res['peak_mem_gb']} GB "
+                 f"(reckoned params+grads+m+v {reckoned_gb} GB), device idle "
+                 f"share {prof.get('device_idle_share')} in profiled step "
+                 f"{TRAIN_PROFILED} ({prof.get('window_ms')} ms), feed wait "
+                 f"{res['feed_wait_ms']:.2f} ms over {TRAIN_STEPS} steps; "
+                 f"launches {launches}, backward calls {bwd}")
+    return dict(res, launches=launches, variants=variants, backward=bwd,
+                mfu=mfu, reckoned_gb=reckoned_gb)
+
+
+def fd_check(dev) -> dict:
+    """internlm2-1.8b at full width in float32 (K5's f32_simt): the loss's
+    derivative along the unit gradient by central differences against the
+    gradient's norm."""
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"),
+                              compute_dtype="float32")
+    bundle = build_model(cfg)
+    params = bundle.init(0, dev)
+    tree_map(lambda t: t.requires_grad_(), params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(FD_BATCH, FD_SEQ, cfg.vocab_size), 0).items()}
+    fa.reset_counts()
+    loss, _ = bundle.loss_fn(params, batch)
+    grads = list(torch.autograd.grad(loss, tree_leaves(params)))
+    loss = loss.detach()
+    check(fa.variant_counts["f32_simt"] > 0
+          and fa.variant_counts["bf16_mma"] == 0,
+          f"fd: variants {fa.variant_counts}, want f32_simt")
+    gnorm = float(torch.sqrt(sum(torch.sum(g * g) for g in grads)))
+    ghat = [g / gnorm for g in grads]
+    del grads
+
+    @torch.no_grad()
+    def loss_at(eps):
+        it = iter(ghat)
+        shifted = tree_map(lambda p: p.detach() + eps * next(it), params)
+        return float(bundle.loss_fn(shifted, batch)[0])
+
+    ratios = {}
+    for eps in (FD_EPS / 10, FD_EPS, FD_EPS * 10):
+        ratios[eps] = (loss_at(eps) - loss_at(-eps)) / (2 * eps) / gnorm
+    say("train", f"finite differences, internlm2-1.8b float32 (batch "
+                 f"{FD_BATCH} x {FD_SEQ}): loss {float(loss):.6f}, |g| "
+                 f"{gnorm:.6f}; (L(t+e g^) - L(t-e g^)) / 2e / |g| at e = "
+                 + ", ".join(f"{e:g}: {r:.6f}" for e, r in ratios.items()))
+    check(abs(ratios[FD_EPS] - 1) <= FD_TOL,
+          f"fd: ratio {ratios[FD_EPS]:.6f} at eps {FD_EPS} outside "
+          f"{FD_TOL}")
+    return dict(loss=float(loss), grad_norm=gnorm, eps=FD_EPS,
+                ratios={str(k): v for k, v in ratios.items()})
+
+
+def microbatch_check(dev) -> dict:
+    """internlm2-1.8b at full width: one step with 2 tenant microbatches
+    against one with 1 on the same batch from the same parameters and a
+    constant learning rate; loss within 2e-3, parameters within 5e-3 (the
+    two grad norms printed beside)."""
+    cfg1 = get_config("internlm2-1.8b")
+    cfg2 = dataclasses.replace(cfg1, microbatches=2)
+    params = build_model(cfg1).init(0, dev)
+    p0 = tree_map(lambda t: t.detach().clone(), params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(TRAIN_BATCH, 512, cfg1.vocab_size), 0).items()}
+    lr = lambda s: torch.full((), cfg1.learning_rate, device=dev)
+    res, after = {}, None
+    for cfg in (cfg1, cfg2):
+        if after is not None:
+            with torch.no_grad():
+                tree_map2(lambda p, q: p.copy_(q), params, p0)
+        bundle = build_model(cfg)
+        opt = make_optimizer(cfg)
+        state = init_train_state(bundle, opt, params)
+        _, m = build_train_step(bundle, opt, lr_fn=lr)(state, batch)
+        res[cfg.microbatches] = (float(m["loss"]), float(m["grad_norm"]))
+        del state, opt, m
+        if after is None:
+            after = tree_map(lambda t: t.detach().clone(), params)
+    (l1, n1), (l2, n2) = res[1], res[2]
+    worst = max(float((a - b.detach()).abs().max()) for a, b in zip(
+        tree_leaves(after), tree_leaves(params)))
+    ok = all(bool(torch.allclose(a, b.detach(), rtol=MB_PARAM_TOL,
+                                 atol=MB_PARAM_TOL))
+             for a, b in zip(tree_leaves(after), tree_leaves(params)))
+    say("train", f"microbatches 2 vs 1, internlm2-1.8b full width (batch "
+                 f"{TRAIN_BATCH} x 512, lr {cfg1.learning_rate}): loss "
+                 f"{l2:.6f} vs {l1:.6f}, params max abs diff {worst:.3g}, "
+                 f"grad norm {n2:.6f} vs {n1:.6f}")
+    check(abs(l1 - l2) < MB_LOSS_TOL, f"microbatches: loss {l2} vs {l1}")
+    check(ok, f"microbatches: params differ by {worst:.3g}")
+    return dict(loss_1=l1, loss_2=l2, params_max_abs_diff=worst,
+                grad_norm_1=n1, grad_norm_2=n2)
+
+
+def phase_train_recovery(dev) -> dict:
+    """``run_with_recovery`` on reduced h2o-danube (sliding window) on the
+    card: 6 steps, a checkpoint every 2, a failure injected at step 4; the
+    final parameters equal an uninterrupted run's at atol 1e-6."""
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    bundle = build_model(cfg)
+    opt = make_optimizer(cfg)
+    step = build_train_step(bundle, opt)
+    dc = DataConfig(4, 16, cfg.vocab_size)
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in synth_batch(dc, i).items()}
+
+    def fresh():
+        return init_train_state(bundle, opt, bundle.init(0, dev))
+
+    ref = fresh()
+    for i in range(6):
+        ref = step(ref, batch(i))[0]
+    crashed = [False]
+
+    def step_fn(state, i):
+        if i == 4 and not crashed[0]:
+            crashed[0] = True
+            raise RuntimeError("injected device loss")
+        return step(state, batch(i))[0]
+
+    with tempfile.TemporaryDirectory() as d:
+        rep = run_with_recovery(step_fn, fresh(), 6, d, save_every=2,
+                                max_failures=2, device=dev)
+        final = ckpt.restore(d, 6, ref, device=dev)
+    check((rep.steps_done, rep.failures, rep.restarts) == (6, 1, [4]),
+          f"recovery: report {rep}")
+    diffs = []                       # leaf by leaf, by key
+    tree_map2(lambda a, b: diffs.append(float((a.detach() - b).abs().max())),
+              ref["params"], final["params"])
+    worst = max(diffs)
+    check(worst <= RECOVERY_ATOL, f"recovery: params differ by {worst:.3g}")
+    say("train", f"recovery (reduced h2o-danube, window {cfg.sliding_window}):"
+                 f" {rep}; final params against the uninterrupted run's: max "
+                 f"abs diff {worst:.3g} (atol {RECOVERY_ATOL})")
+    return dict(steps_done=rep.steps_done, failures=rep.failures,
+                restarts=rep.restarts, max_abs_diff=worst)
+
+
+def phase_train_lm(dev) -> dict:
+    """``examples/torch_train_lm.py`` for 300 steps on the card: the loss is
+    finite and falls, the mean of the last 10 steps at least 1.0 below the
+    mean of the first 10."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", "torch_train_lm.py")
+    spec = importlib.util.spec_from_file_location("torch_train_lm", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(buf):
+        out = mod.main(TRAIN_LM_ARGV + ["--ckpt-dir", d])
+    for line in buf.getvalue().strip().splitlines()[:-1]:
+        say("train", f"train-lm: {line[:300]}")
+    losses = out["losses"]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    check(len(losses) == TRAIN_LM_STEPS and bool(np.isfinite(losses).all()),
+          f"train-lm: {len(losses)} losses, finite "
+          f"{bool(np.isfinite(losses).all())}")
+    check(last <= first - TRAIN_LM_DROP,
+          f"train-lm: mean loss {first:.3f} -> {last:.3f}, not "
+          f"{TRAIN_LM_DROP} lower")
+    say("train", f"train-lm: {TRAIN_LM_STEPS} steps in {out['wall_s']:.1f} s;"
+                 f" loss {losses[0]:.3f} -> {losses[-1]:.3f}, mean of the "
+                 f"first 10 {first:.3f} -> of the last 10 {last:.3f} (the "
+                 "example's docstring: ~10.4 to well under 7)")
+    return dict(first10=first, last10=last, loss_first=losses[0],
+                loss_last=losses[-1], wall_s=out["wall_s"])
+
+
+def phase_train(errs: Errors, dev, laps) -> dict:
+    """The training phases in order; ``laps(name)`` closes each one's
+    seconds."""
+    out = {"kernels": phase_train_kernels(errs, dev)}
+    laps("train-kernels")
+    out["reduced"] = phase_train_reduced(dev)
+    laps("train-reduced")
+    out["runs"] = {arch: train_run(arch, seq, gb, dev)
+                   for arch, seq, gb in TRAIN_RUNS}
+    laps("train")
+    for name, fn in (("fd", fd_check), ("microbatches", microbatch_check)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = fn(dev)
+    laps("train checks")
+    out["recovery"] = phase_train_recovery(dev)
+    laps("train-recovery")
+    out["train_lm"] = phase_train_lm(dev)
+    laps("train-lm")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4906,6 +5532,7 @@ def main() -> int:
         lap("serve-overload")
         crash = phase_serve_crash(dev)
         lap("serve-crash")
+        train = phase_train(errs, dev, lap)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4942,6 +5569,12 @@ def main() -> int:
     k6_paths = {"mamba2-2.7b": mamba["launches"],
                 "mamba2-2.7b slots": slots["launches"]["mamba2-2.7b"][K6],
                 **{a: n[K6] for a, n in arch_paths.items() if n.get(K6)}}
+    # the training path: launch.train at full width, forward and remat
+    train_paths = {f"{a} train": r["launches"]
+                   for a, r in train["runs"].items()}
+    paths.update({a: {K3: 0, K4: 0, K5: n[K5]}
+                  for a, n in train_paths.items() if n[K5]})
+    k6_paths.update({a: n[K6] for a, n in train_paths.items() if n[K6]})
     on_paths = {k: sum(p[k] for p in paths.values()) for k in (K3, K4, K5)}
     by_path = {k: {a: p[k] for a, p in paths.items()} for k in (K3, K4, K5)}
     # the gather on the risk paths, each read just after its own run
@@ -4972,7 +5605,10 @@ def main() -> int:
               **kern[K4]}),
             (K6, ssd_src, "src/repro/kernels/ssd_scan.py:29",
              {"launches": sum(k6_paths.values()),
-              "launches_by_path": k6_paths, **kern[K6]}),
+              "launches_by_path": k6_paths, **kern[K6],
+              "train": {**train["kernels"]["ssd"],
+                        "grad_max_abs_err": errs.abs[K6B],
+                        "grad_cases": errs.cases[K6B]}}),
             (K5, flash_src, "src/repro/kernels/flash_attention.py:32",
              {"launches": on_paths[K5], "launches_by_path": by_path[K5],
               # every other path's held to bf16_mma alone by its phase
@@ -4980,8 +5616,13 @@ def main() -> int:
                   "internlm2-1.8b": serving["variants"],
                   "olmoe-1b-7b": olmoe["variants"],
                   **{a: {"bf16_mma": n[K5], "f32_simt": 0}
-                     for a, n in arch_paths.items() if n.get(K5)}},
-              **kern[K5]})):
+                     for a, n in arch_paths.items() if n.get(K5)},
+                  **{f"{a} train": r["variants"][K5]
+                     for a, r in train["runs"].items()
+                     if r["launches"][K5]}},
+              **kern[K5], "train": {"shapes": train["kernels"]["flash"],
+                                    "grad_max_abs_err": errs.abs[K5B],
+                                    "grad_cases": errs.cases[K5B]}})):
         keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -5009,6 +5650,8 @@ def main() -> int:
                       "phase_seconds": laps}))
     print(json.dumps({"serve_overload": overload["runs"],
                       "serve_crash": crash}))
+    print(json.dumps({"train": {k: v for k, v in train.items()
+                                if k != "kernels"}}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

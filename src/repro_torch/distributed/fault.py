@@ -16,8 +16,10 @@ The JAX package's ``repro/distributed/fault.py`` in part:
   guards, so the caller's retry/limit policy decides whether the request
   survives; a crash gives the process no chance to unwind.
 
-``run_with_recovery`` (the supervised training loop) comes with the
-training slice of the port.
+* run_with_recovery / RecoveryReport -- the supervised training loop:
+  checkpoint every ``save_every`` steps through
+  :mod:`repro_torch.distributed.checkpoint`, and on a failed step restore
+  the latest checkpoint and go on from there.
 """
 from __future__ import annotations
 
@@ -26,8 +28,9 @@ import math
 import os
 import signal
 import time
-from typing import Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
+from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.obs.telemetry import get_telemetry
 
 
@@ -171,3 +174,50 @@ class StragglerDetector:
     def staging_priority(self) -> Dict[int, float]:
         """For core.transfer.reorder_for_stragglers: slowest staged first."""
         return dict(self.mean)
+
+
+@dataclasses.dataclass
+class RecoveryReport:
+    steps_done: int
+    failures: int
+    restarts: List[int]
+
+
+def run_with_recovery(step_fn: Callable[[Any, int], Any], state: Any,
+                      num_steps: int, ckpt_dir, save_every: int = 50,
+                      max_failures: int = 3,
+                      state_template: Optional[Any] = None, device=None,
+                      monitor: Optional[HeartbeatMonitor] = None,
+                      ) -> RecoveryReport:
+    """Supervised loop: ``step_fn(state, i) -> state``; a checkpoint every
+    ``save_every`` steps and at the end; a step that raises restores the
+    latest checkpoint (its leaves onto ``device``, default the host) and
+    the loop goes on from its step, up to ``max_failures`` times.  A
+    checkpoint already in ``ckpt_dir`` is resumed from."""
+    template = state_template if state_template is not None else state
+    failures = 0
+    restarts: List[int] = []
+    start = ckpt.latest_step(ckpt_dir)
+    i = 0
+    if start is not None:
+        state = ckpt.restore(ckpt_dir, start, template, device)
+        i = start
+    while i < num_steps:
+        try:
+            state = step_fn(state, i)
+            if monitor is not None:
+                monitor.beat()
+            i += 1
+            if i % save_every == 0 or i == num_steps:
+                ckpt.save(ckpt_dir, i, state)
+        except Exception:
+            failures += 1
+            if failures > max_failures:
+                raise
+            last = ckpt.latest_step(ckpt_dir)
+            if last is None:
+                raise
+            restarts.append(i)
+            state = ckpt.restore(ckpt_dir, last, template, device)
+            i = last
+    return RecoveryReport(i, failures, restarts)

@@ -69,7 +69,14 @@
 //   * q, k and v are read through their (batch, seq, head) strides with the
 //     head axis contiguous (the wrapper hands over 16-byte aligned views);
 //     the output (B, Sq, Hq, D) is contiguous in the inputs' type, bfloat16
-//     rounded to nearest even.
+//     rounded to nearest even;
+//   * given a pointer `lse`, each row's log-sum-exp of its scores, float32
+//     (B, Sq, Hq), in natural-log units of s = q.k / sqrt(D): m + log(l) with
+//     the l == 0 guard, m the row's largest admitted score, or -1e30 for a row
+//     with no admissible key (the reference's `attn_fwd` residual, which its
+//     backward reads as p = exp(s - lse)); nothing is written when it is null.
+//     The tensor-core kernel keeps m in the base-2 domain of its exponentials
+//     (m2 = m log2(e)) and writes m2 ln(2) + log(l).
 //
 // Plain C interface: the entry launches on the stream it is given,
 // allocates nothing, does not synchronise, and returns cudaGetLastError().
@@ -141,8 +148,9 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const float* src,
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     Strides sd, int Sq, int Skv, int Hq, int rep, int D,
-                     float scale, int causal, int has_window, int window) {
+                     float* __restrict__ lse, Strides sd, int Sq, int Skv,
+                     int Hq, int rep, int D, float scale, int causal,
+                     int has_window, int window) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int ld = D + 4;
@@ -294,6 +302,8 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = q0 + ty + kGrid * i;
     if (qpos >= Sq) continue;
     const float ls = l[i] == 0.0f ? 1.0f : l[i];
+    if (lse != nullptr && tx == 0)   // m and l: the same in the row's 16 lanes
+      lse[((long long)b * Sq + qpos) * Hq + h] = m[i] + logf(ls);
     float* orow = o + (((long long)b * Sq + qpos) * Hq + h) * D;
 #pragma unroll
     for (int g = 0; g < kMaxGroups; ++g) {
@@ -306,10 +316,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-               int causal, int has_window, int window, const Strides& sd,
-               cudaStream_t s) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+               float scale, int causal, int has_window, int window,
+               const Strides& sd, cudaStream_t s) {
   const size_t smem = smem_bytes_f32(D);
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -319,8 +329,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                   (unsigned)B);
   flash_fwd_kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sd, Sq, Skv, Hq,
-      Hq / Hkv, D, scale, causal, has_window, window);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sd, Sq, Skv,
+      Hq, Hq / Hkv, D, scale, causal, has_window, window);
   return (int)cudaGetLastError();
 }
 
@@ -348,7 +358,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o, Strides sd, int Sq,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, Strides sd, int Sq,
                          int Skv, int Hq, int rep, int G, int nchunk, int D,
                          float scale_log2, int causal, int has_window,
                          int window) {
@@ -536,6 +547,15 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
       o + (((long long)b * Sq + qpos0) * Hq + hk * rep + g0 + r0 % G) * D;
   __nv_bfloat16* o1 =
       o + (((long long)b * Sq + qpos1) * Hq + hk * rep + g0 + r1 % G) * D;
+  if (lse != nullptr && tq == 0) {  // m and l: the same in the quad's 4 lanes
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (ok0)
+      lse[((long long)b * Sq + qpos0) * Hq + hk * rep + g0 + r0 % G] =
+          (m0 == kNegInf ? kNegInf : m0 * kLn2) + logf(ls0);
+    if (ok1)
+      lse[((long long)b * Sq + qpos1) * Hq + hk * rep + g0 + r1 % G] =
+          (m1 == kNegInf ? kNegInf : m1 * kLn2) + logf(ls1);
+  }
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int col = 8 * n + 2 * tq;
@@ -550,10 +570,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 }
 
 template <int DP>
-int launch_mma_dp(const void* q, const void* k, const void* v, void* o, int B,
-                  int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-                  int causal, int has_window, int window, const Strides& sd,
-                  cudaStream_t s) {
+int launch_mma_dp(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                  float scale, int causal, int has_window, int window,
+                  const Strides& sd, cudaStream_t s) {
   constexpr size_t smem = smem_bytes_mma(DP);
   auto kernel = flash_fwd_mma_kernel<DP>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -570,17 +590,17 @@ int launch_mma_dp(const void* q, const void* k, const void* v, void* o, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      sd, Sq, Skv, Hq, rep, G, nchunk, D, scale * 1.4426950408889634f,
+      lse, sd, Sq, Skv, Hq, rep, G, nchunk, D, scale * 1.4426950408889634f,
       causal, has_window, window);
   return (int)cudaGetLastError();
 }
 
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-               int causal, int has_window, int window, const Strides& sd,
-               cudaStream_t s) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+               float scale, int causal, int has_window, int window,
+               const Strides& sd, cudaStream_t s) {
 #define LAUNCH_MMA(DP)                                                      \
-  return launch_mma_dp<DP>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale,       \
+  return launch_mma_dp<DP>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale,  \
                            causal, has_window, window, sd, s)
   switch ((D + 15) / 16) {          // D padded to a multiple of 16
     case 1: LAUNCH_MMA(16);
@@ -603,12 +623,13 @@ extern "C" {
 // the SIMT kernel) or all bfloat16 (the tensor-core kernel), read through
 // strides[9] = (batch, seq, head) element strides of q, k and v in that
 // order, the last axis contiguous and every row 16-byte aligned; o: (B, Sq,
-// Hq, D) contiguous, of the inputs' type.  Needs Hq % Hkv == 0, D % 8 == 0,
-// D <= 128, Skv >= 1.  has_window == 0 ignores `window`.
+// Hq, D) contiguous, of the inputs' type; lse: (B, Sq, Hq) float32
+// contiguous, or null for none.  Needs Hq % Hkv == 0, D % 8 == 0, D <= 128,
+// Skv >= 1.  has_window == 0 ignores `window`.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int in_bf16, int B, int Sq, int Skv,
-                           int Hq, int Hkv, int D, float scale, int causal,
-                           int has_window, int window,
+                           void* o, void* lse, int in_bf16, int B, int Sq,
+                           int Skv, int Hq, int Hkv, int D, float scale,
+                           int causal, int has_window, int window,
                            const long long* strides, void* stream) {
   if (B <= 0 || Sq <= 0 || Hq <= 0) return (int)cudaSuccess;
   if (Skv <= 0 || Hkv <= 0 || Hq % Hkv || D <= 0 || D % 8 || D > kMaxD ||
@@ -619,10 +640,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                       strides[6], strides[7], strides[8]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16)
-    return launch_mma(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal,
-                      has_window, window, sd, s);
-  return launch_f32(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal,
-                    has_window, window, sd, s);
+    return launch_mma(q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, Hq,
+                      Hkv, D, scale, causal, has_window, window, sd, s);
+  return launch_f32(q, k, v, o, static_cast<float*>(lse), B, Sq, Skv, Hq,
+                    Hkv, D, scale, causal, has_window, window, sd, s);
 }
 
 }  // extern "C"

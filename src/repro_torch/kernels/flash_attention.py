@@ -27,6 +27,10 @@ picks one of two kernels (``variant_counts`` says which ran):
 
 Both skip key tiles that the causal or window mask hides whole (exactly),
 mask ragged edges in the kernel and read q, k and v through their strides.
+Asked for it (``return_lse=True``, the training forward of
+:class:`repro_torch.kernels.ops.FlashAttentionFn`), both also write each
+row's log-sum-exp of its scores, the residual the reference's backward
+reads (``attn_fwd`` in ``repro/models/attention_core.py``).
 
 Beside the kernels stands their plain PyTorch version
 (:func:`flash_attention_plain`): the port's
@@ -56,23 +60,28 @@ plain_counts: Dict[str, int] = {"flash_attention_plain": 0}
 #: inputs) and the SIMT kernel (float32 inputs); they sum to
 #: ``launch_counts["flash_attention"]``
 variant_counts: Dict[str, int] = {"bf16_mma": 0, "f32_simt": 0}
+#: calls of the training backward (``ops.FlashAttentionFn.backward``, the
+#: reference's ``attn_bwd`` in PyTorch; no kernel of its own)
+backward_counts: Dict[str, int] = {"flash_attention_bwd": 0}
 
 MAX_HEAD_DIM = 128           # the accumulators' width in both kernels
 
 
 def reset_counts() -> None:
-    for d in (launch_counts, plain_counts, variant_counts):
+    for d in (launch_counts, plain_counts, variant_counts, backward_counts):
         for k in d:
             d[k] = 0
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          return_lse: bool = False):
     """Plain PyTorch version of :func:`flash_attention`: the blockwise
     online softmax at the reference's blocks of 512 queries and 1024 keys."""
     plain_counts["flash_attention_plain"] += 1
     return blockwise_attention(q, k, v, causal=causal, window=window,
-                               block_q=512, block_kv=1024)
+                               block_q=512, block_kv=1024,
+                               return_lse=return_lse)
 
 
 _ENTRY = []
@@ -84,7 +93,7 @@ def _entry():
     if not _ENTRY:
         fn = build.load_library("flash_attention").flash_attention_launch
         P_, I_ = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P_, P_, P_, P_, I_, I_, I_, I_, I_, I_, I_,
+        fn.argtypes = [P_, P_, P_, P_, P_, I_, I_, I_, I_, I_, I_, I_,
                        ctypes.c_float, I_, I_, I_,
                        ctypes.POINTER(ctypes.c_longlong), P_]
         fn.restype = ctypes.c_int
@@ -119,7 +128,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None, return_lse: bool = False):
     """Attention forward, the contract of
     :func:`repro_torch.kernels.ref.flash_attention_ref`.
 
@@ -127,12 +136,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
     float32 or bfloat16 (one type for all three: bfloat16 goes to the
     tensor-core kernel, float32 to the SIMT kernel); ``causal`` top-left
     aligned (query and key positions both from 0); ``window`` admits keys
-    ``k > q - window``, or None.  Returns ``(B, Sq, Hq, D)`` in q's type.
+    ``k > q - window``, or None.  Returns ``(B, Sq, Hq, D)`` in q's type;
+    with ``return_lse``, ``(o, lse)``, lse ``(B, Sq, Hq)`` float32 (each
+    row's ``m + log(l)`` with the reference's guards, natural-log units).
     CUDA tensors go to the kernel (D a multiple of 8 up to 128), CPU tensors
     to the plain version."""
     B, Sq, Hq, D, Skv, Hkv = _check(q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     return_lse=return_lse)
     build.require_cuda(q, k, v)
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
@@ -143,14 +155,17 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"{MAX_HEAD_DIM}")
     q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if B * Sq * Hq == 0:             # nothing to launch, nothing counted
-        return out
+        return (out, lse) if return_lse else out
     strides = (ctypes.c_longlong * 9)(*(
         s for t in (q, k, v) for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             int(q.dtype == torch.bfloat16), B, Sq, Skv, Hq, Hkv, D,
             1.0 / math.sqrt(D), int(bool(causal)), int(window is not None),
             0 if window is None else int(window), strides, stream)
@@ -161,4 +176,4 @@ def flash_attention(q, k, v, *, causal: bool = True,
     launch_counts["flash_attention"] += 1
     variant_counts["bf16_mma" if q.dtype == torch.bfloat16 else
                    "f32_simt"] += 1
-    return out
+    return (out, lse) if return_lse else out

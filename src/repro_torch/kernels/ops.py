@@ -9,6 +9,18 @@ for CPU tensors only).  What can be chosen is the lookup strategy of
 ``aggregate_loss`` (:func:`use_aggregate_variant`, or the
 ``REPRO_AGG_VARIANT`` environment variable, checked when this module is
 imported).
+
+Training differentiates through the two kernels of the model's forward with
+two ``torch.autograd.Function``s, where the reference keeps its custom VJPs:
+:class:`FlashAttentionFn` (the FlashAttention kernel forward, with its
+log-sum-exp; the reference's blockwise backward) and :class:`SsdChunkedFn`
+(the SSD scan kernel forward; the backward recomputes the chunked oracle
+and differentiates it, as the reference's ``_ssd_pallas_vjp`` does).  The
+forward is the kernel on the card, never a plain version; the backward is
+the reference's own, which has no Pallas kernel either.  :func:`flash_attention`
+and :func:`ssd` take a ``Function`` only when grad mode is on and an input
+requires grad; otherwise (every serving path, CUDA graph captures
+included) they call the kernel wrapper directly.
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.models.attention_core import blockwise_attention_bwd
 
 # single source of truth for aggregate_loss lookup strategies
 _AGG_KERNELS = {"gather": _agg.aggregate_loss_gather,
@@ -95,6 +108,9 @@ def ssd(x, dt, a_log_decay, B, C, chunk: int,
         y, h = ssd(*(_pad_steps(t, pad) for t in (x, dt, a_log_decay, B, C)),
                    chunk, initial_state)
         return y[:, :L], h
+    if _differentiable(x, dt, a_log_decay, B, C, initial_state):
+        return SsdChunkedFn.apply(x, dt, a_log_decay, B, C, initial_state,
+                                  chunk)
     return _ssd.ssd_chunked(x, dt, a_log_decay, B, C, chunk=chunk,
                             initial_state=initial_state)
 
@@ -132,8 +148,80 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Prefill attention forward (see
     :func:`repro_torch.kernels.flash_attention.flash_attention`): the
     FlashAttention kernel for CUDA tensors, for CPU tensors its plain
-    version -- the reference layers' ``blockwise_attention``."""
+    version -- the reference layers' ``blockwise_attention``.  Under grad
+    with an input that requires grad, through :class:`FlashAttentionFn`."""
+    if _differentiable(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
     return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def _differentiable(*tensors) -> bool:
+    """Whether a call must record its backward: grad mode on and some
+    input requiring grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the reference's custom VJP (``attn_fwd`` /
+    ``attn_bwd`` of ``repro/models/attention_core.py``): the forward is
+    :func:`repro_torch.kernels.flash_attention.flash_attention` with its
+    log-sum-exp (the kernel for CUDA tensors) and saves ``(q, k, v, o,
+    lse)``; the backward is
+    :func:`repro_torch.models.attention_core.blockwise_attention_bwd`,
+    counted in ``flash_attention.backward_counts``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        o, lse = _flash.flash_attention(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        _flash.backward_counts["flash_attention_bwd"] += 1
+        dq, dk, dv = blockwise_attention_bwd(q, k, v, o, lse, do,
+                                             causal=ctx.causal,
+                                             window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+class SsdChunkedFn(torch.autograd.Function):
+    """The SSD scan with the reference's ``_ssd_pallas_vjp``: the forward
+    is :func:`repro_torch.kernels.ssd_scan.ssd_chunked` (the kernel for
+    CUDA tensors) and saves its inputs; the backward recomputes
+    :func:`repro_torch.kernels.ref.ssd_chunked_ref` on them under grad and
+    differentiates it against ``(dy, dh)``, counted in
+    ``ssd_scan.backward_counts``.  B and C may be one group's stride-0 view
+    over the heads: their grads come back per head, and autograd sums them
+    through the ``expand`` into the group."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, B, C, h0, chunk: int):
+        y, h = _ssd.ssd_chunked(x, dt, a, B, C, chunk=chunk, initial_state=h0)
+        ctx.save_for_backward(x, dt, a, B, C, h0)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        _ssd.backward_counts["ssd_chunked_bwd"] += 1
+        need = ctx.needs_input_grad[:6]
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        wanted = [i for i, t in enumerate(ins) if t is not None and need[i]]
+        with torch.enable_grad():
+            y, h = _ref.ssd_chunked_ref(*ins[:5], ctx.chunk,
+                                        initial_state=ins[5])
+            got = torch.autograd.grad((y, h), [ins[i] for i in wanted],
+                                      (dy, dh), allow_unused=True)
+        grads = [None] * 6
+        for i, g in zip(wanted, got):
+            grads[i] = g
+        return (*grads, None)
 
 
 def counters() -> List[Dict[str, int]]:

@@ -36,6 +36,12 @@ def ssd_chunked_ref(x, dt, a_log_decay, B, C, chunk: int,
     Recurrence: h_t = exp(a_t) h_{t-1} + dt_t * (B_t ⊗ x_t);  y_t = C_t · h_t.
     The masked half of the decay matrix is a select, never a product with a
     0/1 mask: there ``a_cum[l] - a_cum[s] > 0`` and its ``exp`` may be inf.
+    The select comes before the ``exp`` (-inf there, so 0 after it): the
+    values are the reference's ``where(causal, exp(seg), 0)`` bit for bit,
+    and so are the gradients wherever the reference's are finite; where
+    ``exp(seg)`` overflows (a chunk of 256 steps whose decays sum below
+    -88, as mamba2-2.7b's strongest heads give), the reference's backward
+    is ``0 * inf = nan`` and this one is 0.
     """
     b, L, H, P = x.shape
     N = B.shape[-1]
@@ -57,8 +63,8 @@ def ssd_chunked_ref(x, dt, a_log_decay, B, C, chunk: int,
     seg = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]   # (b,nc,l,s,H)
     li = torch.arange(chunk, device=x.device)
     causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
-    Lmat = torch.where(causal, torch.exp(seg),
-                       torch.zeros((), dtype=f32, device=x.device))
+    Lmat = torch.exp(torch.where(causal, seg, torch.full(
+        (), float("-inf"), dtype=f32, device=x.device)))
     CB = torch.einsum("bclhn,bcshn->bclsh", Cc, Bc)
     M = CB * Lmat * dtc[:, :, None, :, :]               # dt_s enters at source
     y_diag = torch.einsum("bclsh,bcshp->bclhp", M, xc)
@@ -284,14 +290,17 @@ def mask_bias(q_pos, k_pos, causal: bool, window: Optional[int],
 
 
 def _blockwise_fwd(q, k, v, causal: bool, window: Optional[int],
-                   block_q: int, block_kv: int) -> torch.Tensor:
-    """q: (B, Sq, Hkv, rep, D); returns the float32 output, same shape."""
+                   block_q: int, block_kv: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q: (B, Sq, Hkv, rep, D); returns the float32 output, same shape,
+    and each row's log-sum-exp ``m + log(l_safe)`` (B, Sq, Hkv, rep), the
+    reference's ``_fwd_inner`` residuals."""
     B, Sq, Hkv, rep, D = q.shape
     Skv = k.shape[1]
     nq, nk = Sq // block_q, Skv // block_kv
     scale = 1.0 / math.sqrt(D)
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qblk = q[:, qi * block_q:(qi + 1) * block_q].float()
         q_pos = qi * block_q + torch.arange(block_q, device=dev)
@@ -317,13 +326,16 @@ def _blockwise_fwd(q, k, v, causal: bool, window: Optional[int],
             m = m_new
         l_safe = torch.where(l == 0.0, 1.0, l)
         outs.append(acc / l_safe[..., None])
-    return torch.cat(outs, dim=1)
+        lses.append(m + torch.log(l_safe))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
 
 
 def blockwise_attention(q, k, v, *, causal: bool = True,
                         window: Optional[int] = None,
-                        block_q: int = 512, block_kv: int = 1024):
-    """Flash-style attention.  q: (B,Sq,Hq,D); k/v: (B,Skv,Hkv,D)."""
+                        block_q: int = 512, block_kv: int = 1024,
+                        return_lse: bool = False):
+    """Flash-style attention.  q: (B,Sq,Hq,D); k/v: (B,Skv,Hkv,D).  With
+    ``return_lse``, also each row's log-sum-exp, float32 ``(B, Sq, Hq)``."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     assert Hq % Hkv == 0, (Hq, Hkv)
@@ -331,5 +343,6 @@ def blockwise_attention(q, k, v, *, causal: bool = True,
     bq = _pick_block(Sq, block_q)
     bk = _pick_block(k.shape[1], block_kv)
     qr = q.reshape(B, Sq, Hkv, rep, D)
-    o = _blockwise_fwd(qr, k, v, causal, window, bq, bk)
-    return o.to(q.dtype).reshape(B, Sq, Hq, D)
+    o, lse = _blockwise_fwd(qr, k, v, causal, window, bq, bk)
+    o = o.to(q.dtype).reshape(B, Sq, Hq, D)
+    return (o, lse.reshape(B, Sq, Hq)) if return_lse else o

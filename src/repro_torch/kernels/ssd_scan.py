@@ -53,6 +53,9 @@ launch_counts: Dict[str, int] = {"ssd_chunked": 0}
 plain_counts: Dict[str, int] = {"ssd_chunked_plain": 0}
 #: launches by kernel: ``bf16_mma`` (tensor cores), ``f32_simt``
 variant_counts: Dict[str, int] = {"bf16_mma": 0, "f32_simt": 0}
+#: calls of the training backward (``ops.SsdChunkedFn.backward``: the
+#: chunked oracle recomputed and differentiated, no kernel of its own)
+backward_counts: Dict[str, int] = {"ssd_chunked_bwd": 0}
 
 MAX_HEAD_DIM = 64            # P: the SIMT kernel's 16 x 16 thread grid
 MAX_STATE = 128              # N: ... and the state rows it walks
@@ -62,7 +65,7 @@ P_TILE = 32                  # columns of P a block of it takes
 
 
 def reset_counts() -> None:
-    for d in (launch_counts, plain_counts, variant_counts):
+    for d in (launch_counts, plain_counts, variant_counts, backward_counts):
         for k in d:
             d[k] = 0
 

@@ -8,20 +8,24 @@ decoder with self- and cross-attention, sinusoidal positions)::
 
     bundle = build_model(cfg)
     params = bundle.init(seed, device)             # tree of tensors
+    loss, metrics = bundle.loss_fn(params, batch)  # training
     logits, caches, idx = bundle.prefill_fn(params, batch)
     logits, caches = bundle.decode_fn(params, tokens, caches, idx)
 
-There is no ``loss_fn`` yet (training is slice 5 of the port).
+``loss_fn`` computes with the float32 master leaves, cast at each use as the
+reference casts them, so its gradients reach every leaf;
+:func:`prepare_params` (cast once) is for serving only.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs import ArchConfig
+from repro_torch.configs import ArchConfig, ShapeCell
 from repro_torch.models.layers import (apply_attention,
                                        apply_attention_decode,
                                        apply_cross_attention, apply_embedding,
@@ -36,8 +40,8 @@ from repro_torch.models.transformer import (VIS_WIDTH, _kv_to_cache,
                                             check_supported, init_lm,
                                             init_lm_caches, init_stacked,
                                             lm_backbone, lm_decode_backbone,
-                                            make_generator, stage_view,
-                                            tree_map)
+                                            make_generator, remat_wrap,
+                                            stage_view, tree_map)
 
 # leaves the reference casts to the compute dtype at every use
 # (``p[...].astype(cdt)``; a MoE sublayer's experts w_gate/w_up/w_down too,
@@ -62,6 +66,17 @@ class ModelBundle:
     # enc_out) -> every decoder layer's cross K and V
     encode: Optional[Callable[..., Any]] = None
     cross_kv_all: Optional[Callable[..., Any]] = None
+    # loss_fn(params, batch) -> (loss, {"xent", "aux"}): the training
+    # objective, the next-token cross-entropy plus the MoE aux losses
+    loss_fn: Optional[Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]] = None
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy of float32 ``logits`` (..., V) against
+    integer ``labels`` (...), the reference's ``_xent``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -torch.mean(ll)
 
 
 def prepare_params(cfg: ArchConfig, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -140,9 +155,16 @@ def _build_decoder_only(cfg: ArchConfig) -> ModelBundle:
     def init(seed: int = 0, device=None):
         return init_lm(cfg, seed, device)
 
+    def loss_fn(params, batch: Dict[str, torch.Tensor]):
+        x = _embed(params, batch, cfg)
+        h, aux, _ = lm_backbone(params, x, cfg, train=True)
+        logits = apply_unembed(params["embed"], h, cfg)
+        loss = _xent(logits, batch["labels"])
+        return loss + aux, {"xent": loss, "aux": aux}
+
     def prefill_fn(params, batch: Dict[str, torch.Tensor]):
         x = _embed(params, batch, cfg)
-        h, caches = lm_backbone(params, x, cfg, collect_cache=True)
+        h, _, caches = lm_backbone(params, x, cfg, collect_cache=True)
         logits = apply_unembed(params["embed"], h[:, -1:], cfg)
         return logits[:, 0], caches, int(x.shape[1])
 
@@ -156,7 +178,8 @@ def _build_decoder_only(cfg: ArchConfig) -> ModelBundle:
     def init_caches(batch: int, seq_len: int, device=None):
         return init_lm_caches(cfg, batch, seq_len, device)
 
-    return ModelBundle(cfg, init, prefill_fn, decode_fn, init_caches)
+    return ModelBundle(cfg, init, prefill_fn, decode_fn, init_caches,
+                       loss_fn=loss_fn)
 
 
 def _position_at(cache_index: int, cfg: ArchConfig, x: torch.Tensor
@@ -243,7 +266,18 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
         return (torch.stack([k for k, _ in kv]),
                 torch.stack([v for _, v in kv]))
 
-    def decode_full(params, tokens, enc_out, collect_cache: bool = False):
+    def dec_layer(stages, i: int, x, ck, cv, positions):
+        """Decoder layer ``i`` without caches (what a checkpointed layer
+        runs)."""
+        sp = stage_view(stages, i)
+        x = x + apply_attention(sp["attn"], apply_rmsnorm(sp["norm1"], x),
+                                cfg, positions=positions)
+        x = x + apply_cross_attention(
+            sp["cross"], apply_rmsnorm(sp["norm_c"], x), (ck, cv), cfg)
+        return x + apply_mlp(sp["mlp"], apply_rmsnorm(sp["norm2"], x), cfg)
+
+    def decode_full(params, tokens, enc_out, collect_cache: bool = False,
+                    train: bool = False):
         x = apply_embedding(params["embed"], tokens, cfg)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(x.dtype)[None]
@@ -251,13 +285,16 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
         for i in range(n_dec):
+            if not collect_cache:
+                x = remat_wrap(functools.partial(
+                    dec_layer, params["dec_stages"], i), cfg, train)(
+                        x, ck[i], cv[i], positions)
+                continue
             sp = stage_view(params["dec_stages"], i)
-            a = apply_attention(sp["attn"], apply_rmsnorm(sp["norm1"], x),
-                                cfg, positions=positions,
-                                return_kv=collect_cache)
-            if collect_cache:
-                a, (k, v) = a
-                caches.append(_kv_to_cache(k, v, positions, cfg))
+            a, (k, v) = apply_attention(sp["attn"],
+                                        apply_rmsnorm(sp["norm1"], x), cfg,
+                                        positions=positions, return_kv=True)
+            caches.append(_kv_to_cache(k, v, positions, cfg))
             x = x + a
             x = x + apply_cross_attention(
                 sp["cross"], apply_rmsnorm(sp["norm_c"], x), (ck[i], cv[i]),
@@ -267,6 +304,15 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
         self_caches = ({k: torch.stack([c[k] for c in caches])
                         for k in caches[0]} if collect_cache else None)
         return x, self_caches, (ck, cv)
+
+    def loss_fn(params, batch: Dict[str, torch.Tensor]):
+        enc_out = encode(params, batch["frames"])
+        h, _, _ = decode_full(params, batch["tokens"], enc_out, train=True)
+        logits = apply_unembed(params["embed"], h, cfg)
+        loss = _xent(logits, batch["labels"])
+        return loss, {"xent": loss,
+                      "aux": torch.zeros((), dtype=torch.float32,
+                                         device=loss.device)}
 
     def prefill_fn(params, batch: Dict[str, torch.Tensor]):
         enc_out = encode(params, batch["frames"])
@@ -306,7 +352,7 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
                                          device=device) for k in "kv"}}
 
     return ModelBundle(cfg, init, prefill_fn, decode_fn, init_caches,
-                       encode, cross_kv_all)
+                       encode, cross_kv_all, loss_fn)
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
@@ -320,3 +366,30 @@ def param_count(params: Dict[str, Any]) -> int:
     n = [0]
     tree_map(lambda a: n.__setitem__(0, n[0] + a.numel()), params)
     return n[0]
+
+
+# ---------------------------------------------------------------------------
+# Input specs per (arch x shape) cell: meta tensors, no allocation
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ArchConfig, shape: ShapeCell) -> Dict[str, torch.Tensor]:
+    """The batch of one ``shape`` cell as meta tensors of the reference's
+    shapes and dtypes (its ``input_specs``): int32 tokens (and labels for
+    training), bf16 patch embeddings and frames where the arch takes
+    them."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind == "train":
+        specs = {"tokens": meta((B, S), i32), "labels": meta((B, S), i32)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": meta((B, S), i32)}
+    else:  # decode: one new token; caches are built separately
+        specs = {"tokens": meta((B, 1), i32)}
+    if cfg.num_patches and shape.kind != "decode":
+        specs["patch_embeds"] = meta((B, cfg.num_patches, VIS_WIDTH), bf16)
+    if cfg.enc_dec and shape.kind != "decode":
+        specs["frames"] = meta((B, cfg.encoder_seq_len, cfg.d_model), bf16)
+    return specs

@@ -7,14 +7,20 @@ serves so far.  Layers are grouped into ``n_stages`` identical stages of
 carries the stage axis first (the reference's stacked ``lax.scan`` layout),
 and the port walks the stages with a Python loop over views.  A MoE
 sublayer (``mlp == "moe"``) runs :func:`repro_torch.models.moe.apply_moe`;
-its aux losses are dropped here, as the reference's prefill and decode drop
-them (they matter to a loss, which is slice 5's).
+the full-sequence forward sums its aux losses (``moe_aux + moe_z``) into the
+``aux`` it returns, as the reference's ``lm_backbone`` does, and the decode
+step drops them.  A training forward (``train=True``) recomputes each stage
+in the backward as ``cfg.remat`` says (:func:`remat_wrap`); prefill and
+decode never do.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ATTN, DENSE, MAMBA, MOE, NONE, ArchConfig
 from repro_torch.models import moe as moe_mod
@@ -53,10 +59,18 @@ def tree_map(fn, tree):
 
 
 def tree_map2(fn, a, b):
-    """``fn`` over the leaves of two trees of the same structure."""
+    """``fn`` over the leaves of two trees of the same structure (``b``'s
+    leaves may be subtrees: they are handed to ``fn`` whole)."""
     if isinstance(a, dict):
         return {k: tree_map2(fn, v, b[k]) for k, v in a.items()}
     return fn(a, b)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a nested dict, in its order."""
+    out: List[Any] = []
+    tree_map(out.append, tree)
+    return out
 
 
 def stage_view(stages: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -181,9 +195,47 @@ def apply_ffn(sub: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig
               ) -> torch.Tensor:
     """A sublayer's MLP on its normed input: the routed experts where the
     sublayer has them (aux losses dropped), else the dense SwiGLU."""
+    return apply_ffn_aux(sub, h, cfg)[0]
+
+
+def apply_ffn_aux(sub: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`apply_ffn` and the routed experts' aux losses summed
+    (``moe_aux + moe_z``, float32), or None for a dense MLP."""
     if "moe" in sub:
-        return moe_mod.apply_moe(sub["moe"], h, cfg)[0]
-    return apply_mlp(sub["mlp"], h, cfg)
+        y, losses = moe_mod.apply_moe(sub["moe"], h, cfg)
+        return y, losses["moe_aux"] + losses["moe_z"]
+    return apply_mlp(sub["mlp"], h, cfg), None
+
+
+# the products whose outputs the ``dots`` policy keeps (the reference's
+# ``checkpoint_dots``): PyTorch's matmul and einsum reach these
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default,
+                      torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn: Callable, cfg: ArchConfig, train: bool) -> Callable:
+    """``fn`` as a training forward runs it under ``cfg.remat``: ``full``
+    saves only its inputs and recomputes the rest in the backward
+    (``jax.checkpoint``), ``dots`` keeps the matmul outputs and recomputes
+    the rest (``checkpoint_dots``), ``none`` (or not training) runs it as it
+    is."""
+    if not train or cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat={cfg.remat!r}: one of none, full, dots")
 
 
 def _kv_to_cache(k, v, positions, cfg: ArchConfig):
@@ -200,8 +252,11 @@ def _kv_to_cache(k, v, positions, cfg: ArchConfig):
 
 
 def _stage_forward(sp, x, cfg: ArchConfig, positions, collect_cache: bool):
+    """One stage: (x, the sum of its MoE sublayers' aux losses, float32,
+    or None without one, caches)."""
     sched = cfg.block_schedule()[:cfg.stage_period]
     caches = {}
+    aux = None
     for i, (mixer, mlp) in enumerate(sched):
         sub = sp[f"sub{i}"]
         h = apply_rmsnorm(sub["norm1"], x)
@@ -218,25 +273,47 @@ def _stage_forward(sp, x, cfg: ArchConfig, positions, collect_cache: bool):
             h = ssm_mod.apply_ssm(sub["mamba"], h, cfg)
         x = x + h
         if mlp != NONE:
-            x = x + apply_ffn(sub, apply_rmsnorm(sub["norm2"], x), cfg)
-    return x, caches
+            h, a = apply_ffn_aux(sub, apply_rmsnorm(sub["norm2"], x), cfg)
+            x = x + h
+            if a is not None:
+                aux = a if aux is None else aux + a
+    return x, aux, caches
 
 
 def lm_backbone(params, x, cfg: ArchConfig,
                 positions: Optional[torch.Tensor] = None,
-                collect_cache: bool = False):
-    """x: (B, S, d) embedded inputs -> (hidden, caches|None); caches stack
-    the stage axis first, like the reference's scan output."""
+                collect_cache: bool = False, train: bool = False):
+    """x: (B, S, d) embedded inputs -> (hidden, aux, caches|None): aux the
+    float32 sum of every MoE sublayer's aux losses (0 without one), caches
+    stacked with the stage axis first, like the reference's scan output.
+    ``train`` recomputes each stage in the backward as ``cfg.remat``
+    says."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     n_stages = cfg.num_layers // cfg.stage_period
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_stage = []
     for i in range(n_stages):
-        x, c = _stage_forward(stage_view(params["stages"], i), x, cfg,
-                              positions, collect_cache)
-        per_stage.append(c)
+        if collect_cache:
+            x, a, c = _stage_forward(stage_view(params["stages"], i), x, cfg,
+                                     positions, True)
+            per_stage.append(c)
+        else:
+            x, a = remat_wrap(functools.partial(
+                _stage_train, params["stages"], i, cfg=cfg,
+                positions=positions), cfg, train)(x)
+        if a is not None:
+            aux = aux + a
     x = apply_rmsnorm(params["final_norm"], x)
-    return x, (_stack(per_stage) if collect_cache else None)
+    return x, aux, (_stack(per_stage) if collect_cache else None)
+
+
+def _stage_train(stages, i: int, x, *, cfg: ArchConfig, positions):
+    """Stage ``i`` without caches: (x, aux or None) -- what a
+    checkpointed stage returns."""
+    x, aux, _ = _stage_forward(stage_view(stages, i), x, cfg, positions,
+                               False)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ DIAGNOSTICS = [os.path.join(ROOT, "diagnostics", f)
 EXAMPLES = [os.path.join(ROOT, "examples", f)
             for f in ("torch_quickstart.py", "torch_risk_realtime.py",
                       "torch_deployment_planner.py",
-                      "torch_serve_multitenant.py")]
+                      "torch_serve_multitenant.py", "torch_train_lm.py")]
 
 IMPORT_ALL = textwrap.dedent("""
     import importlib, pkgutil, sys
@@ -62,7 +62,12 @@ IMPORT_ALL = textwrap.dedent("""
             "repro_torch.kernels.flash_attention", "repro_torch.models.moe",
             "repro_torch.configs.olmoe_1b_7b",
             "repro_torch.core.simulator", "repro_torch.obs.fit",
-            "repro_torch.obs.export", "repro_torch.obs.gauge"}
+            "repro_torch.obs.export", "repro_torch.obs.gauge",
+            "repro_torch.data.tokens", "repro_torch.models.params",
+            "repro_torch.training.optimizer",
+            "repro_torch.training.train_loop",
+            "repro_torch.training.grad_compression",
+            "repro_torch.launch.train"}
     assert want <= set(names), want - set(names)
     print("IMPORTED", len(names))
 """)
@@ -97,7 +102,10 @@ def test_sources_name_neither_jax_nor_the_jax_package():
             "src/repro_torch/core/simulator.py",
             "src/repro_torch/obs/fit.py", "src/repro_torch/obs/export.py",
             "src/repro_torch/obs/gauge.py", "diagnostics/risk_pairs.py",
-            "examples/torch_deployment_planner.py"} <= names
+            "examples/torch_deployment_planner.py",
+            "src/repro_torch/training/train_loop.py",
+            "src/repro_torch/data/tokens.py", "src/repro_torch/launch/train.py",
+            "examples/torch_train_lm.py"} <= names
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
@@ -307,3 +315,57 @@ def test_a_header_edit_renames_every_library_that_includes_it(tmp_path,
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: build.library_path(n).name for n in build.sources()}
     assert {n for n in before if before[n] != after[n]} == users
+
+
+def test_train_lm_example_runs_on_the_cpu(tmp_path):
+    """examples/torch_train_lm.py end to end on the host at a few steps
+    (the full ~100M model, a short batch): finite losses, its JSON line."""
+    import json
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, EXAMPLES[-1], "--device", "cpu", "--steps", "2",
+         "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])["train_lm"]
+    assert out["steps"] == 2 and len(out["losses"]) == 2
+    assert all(10.0 < x < 11.0 for x in out["losses"])
+
+
+def test_serving_calls_take_no_autograd_function(monkeypatch):
+    """Under ``torch.no_grad()`` (every serving path), and with inputs that
+    require no grad, ``ops.flash_attention`` and ``ops.ssd`` call the
+    kernel wrappers as before the training slice: no ``Function``, the
+    same numbers bit for bit, no backward counted."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan
+
+    def refuse(*a, **k):
+        raise AssertionError("an autograd Function on a serving call")
+    monkeypatch.setattr(ops.FlashAttentionFn, "apply", refuse)
+    monkeypatch.setattr(ops.SsdChunkedFn, "apply", refuse)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 40, 4, 16), generator=g, requires_grad=True)
+    k = torch.randn((2, 40, 2, 16), generator=g, requires_grad=True)
+    fa.reset_counts()
+    ssd_scan.reset_counts()
+    with torch.no_grad():
+        o = ops.flash_attention(q, k, k, causal=True, window=8)
+    assert torch.equal(o, fa.flash_attention(q.detach(), k.detach(),
+                                             k.detach(), causal=True,
+                                             window=8))
+    assert torch.equal(ops.flash_attention(q.detach(), k.detach(),
+                                           k.detach()),
+                       fa.flash_attention_plain(q.detach(), k.detach(),
+                                                k.detach()))
+    x = torch.randn((1, 40, 2, 8), generator=g, requires_grad=True)
+    dt = torch.rand((1, 40, 2), generator=g)
+    B = torch.randn((1, 40, 1, 16), generator=g).expand(1, 40, 2, 16)
+    with torch.no_grad():
+        y, h = ops.ssd(x, dt, -dt, B, B, chunk=16)
+    y2, h2 = ops.ssd(x.detach(), dt, -dt, B, B, chunk=16)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert fa.backward_counts["flash_attention_bwd"] == 0
+    assert ssd_scan.backward_counts["ssd_chunked_bwd"] == 0
