@@ -47,6 +47,16 @@ Drives the port's paths through the entry points a user calls:
   width with a request journal and checkpoints every 4 rounds, killed by
   SIGKILL at round 6 and inside a swap-out, then recovered by fresh
   processes, every request's tokens equal to an uncrashed run's;
+* ``mesh``: the device mesh on this one card, its positions the card
+  repeated -- ``launch.serve --mesh 1x1`` at internlm2-1.8b's full width
+  against the same run without a mesh (tokens and final logits bit for
+  bit), then 1x2 and 1x8 meshes through the Python API (the K/V pools split
+  on KV heads, every decode and admission one kernel launch a shard) on a
+  prefix-sharing mix with a pool tight enough to recycle cached pages,
+  greedy tokens against no mesh, and a preempt / restore cycle through the
+  per-position staging lanes; ``mesh risk``: the risk step at the
+  published size with its trials split over a 1x4 mesh
+  (``make_sharded_step``) against ``run_single``;
 * training: ``repro_torch.launch.train`` at the published widths and
   depths of internlm2-1.8b, mamba2-2.7b and whisper-base (batch 8, 6 AdamW
   steps, random weights from a seed), every attention forward and its
@@ -96,8 +106,8 @@ under ``set_sync_debug_mode("error")``.
 Phases: device, build, kernels (aggregate sweep), paged kernels (the
 reference's cases), ssd kernel (the reference's sweep and the edges), flash
 kernel (the reference's sweep and the edges), tables, kernels (full width),
-main path (gather, full width), power, fit, pairs, main path (onehot,
-1,000,000 trials, catalog cut), cli, serving (reduced internlm2, h2o-danube
+main path (gather, full width), power, fit, pairs, mesh risk, main path
+(onehot, 1,000,000 trials, catalog cut), cli, serving (reduced internlm2, h2o-danube
 and mamba2, token-exact with ``generate`` through graph rounds of several
 keys, and reduced olmoe), serving (full width, internlm2; then its rounds
 eager against graph), serve-obs, paged kernels (full width), serving (full
@@ -126,7 +136,11 @@ host-to-device rate), restore wait and restore-write times, replayed
 rounds with and without a swap before them), serve-crash (both children
 exit -9, the recovered journals' tokens equal the uncrashed ones'; journal
 append us as a share of a replayed round, checkpoint ms and bytes, recover
-ms), then training: train-kernels (``FlashAttentionFn`` and
+ms), mesh (the sharded decode and scatter against the unsharded kernels,
+bit for bit: the reference's three dispatch shapes at 1x8, then internlm2's
+full-width decode and admission at 1x2, 1x4 and 1x8, the decode timed at
+each; then the serving checks above, launches a shard, replayed round ms
+and peak memory beside no mesh), then training: train-kernels (``FlashAttentionFn`` and
 ``SsdChunkedFn`` against autograd through the plain versions -- forward,
 log-sum-exp, every input's grad -- over the reference's grad cases and
 the training shapes in float32 and bf16; K5 with and without the
@@ -187,6 +201,7 @@ from repro_torch.models.transformer import (init_footprint, tree_leaves,
                                             tree_map, tree_map2)
 from repro_torch.data.tokens import DataConfig, synth_batch
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed.sharding import parse_mesh, serving_sharder
 from repro_torch.distributed.fault import run_with_recovery
 from repro_torch.launch import train as train_cli
 from repro_torch.models.attention_core import blockwise_attention_bwd
@@ -2463,9 +2478,10 @@ class ServeRecorder:
     every retired (request, tokens), and a copy of one live round's paged
     state (first layer's pools, position pool, page table, positions)."""
 
-    def __init__(self):
+    def __init__(self, snap: bool = True):
         self.sched = None
         self.finished = []
+        self.want_snap = snap
         self.snap = None
         self.init_peak_gib = None
         self.t_first = None
@@ -2486,7 +2502,7 @@ class ServeRecorder:
                 return res
 
             eng.collect = recording_collect
-        elif (self.snap is None and eng.kv.attn_subs
+        elif (self.want_snap and self.snap is None and eng.kv.attn_subs
               and eng.active_count() == eng.capacity):
             # enqueued behind the round in flight: the state it leaves
             st, sub = eng.state, eng.kv.attn_subs[0]
@@ -4864,6 +4880,355 @@ def phase_serve_crash(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# mesh (slice 6a): KV pools split on KV heads over a one-process mesh whose
+# positions are this one card, repeated; the risk step split over trials
+# ---------------------------------------------------------------------------
+MESH_KERNEL_WIDTHS = (2, 4, 8)       # model extents of the kernel checks
+MESH_SERVE_WIDTHS = (2, 8)           # 1xM meshes of the Python-API runs
+MESH_RISK = "1x4"
+POOL4 = (None, None, "kv", None)     # a stage's pool (NP, P, Hkv, D)
+POOL5 = (None, None, None, "kv", None)
+MESH_ARGV = SERVE_ARGV + ["--shared-prefix-len", "64"]
+MESH_REQUESTS = 16                   # half behind a 64-token shared prefix
+MESH_PAGES = PagedKVCache.RESERVED + 40   # tight: cached pages recycled
+MESH_NEW = 24
+
+
+def mesh_sharder(m: int, dev):
+    """A serving sharder on a 1xm mesh of ``dev`` repeated m times."""
+    return serving_sharder(parse_mesh(f"1x{m}", [dev] * m))
+
+
+def mesh_kernels(errs: Errors, dev) -> dict:
+    """The sharded wrappers on the card against the unsharded kernels.
+    First the reference's three dispatch shapes at 1x8
+    (``tests/test_mesh_serving.py`` SHARDED_KERNEL_SCRIPT: GQA and
+    indivisible heads bit for bit, MQA held at the decode's tolerance with
+    its bitwise agreement a number) and its scatter; then internlm2's
+    full-width decode and admission at M = 2, 4, 8, bit for bit the
+    unsharded call's, the decode timed at each M beside it."""
+    rng = np.random.default_rng(11)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    sh8 = mesh_sharder(8, dev)
+    C, H, Hkv, D, NP_, P, NB = 4, 16, 8, 16, 10, 4, 3
+    on = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    q = on(rng.normal(size=(C, H, D)).astype(np.float32))
+    kp = on(rng.normal(size=(NP_, P, Hkv, D)).astype(np.float32)).to(
+        torch.bfloat16)
+    vp = on(rng.normal(size=(NP_, P, Hkv, D)).astype(np.float32)).to(
+        torch.bfloat16)
+    rest = (on(rng.integers(0, 8, (NP_, P)).astype(np.int32)),
+            on(rng.integers(2, NP_, (C, NB)).astype(np.int32)),
+            on(rng.integers(4, 12, (C,)).astype(np.int32)))
+    out = {}
+    for shape, (qq, k, v) in (
+            ("gqa", (q, kp, vp)),
+            ("mqa", (q, kp[:, :, :1].contiguous(), vp[:, :, :1].contiguous())),
+            ("indivisible", (q[:, :12].contiguous(), kp[:, :, :3].contiguous(),
+                             vp[:, :, :3].contiguous()))):
+        ref = pa.paged_attention_decode(qq, k, v, *rest)
+        got = sh8.constrain(pa.paged_attention_decode_sharded(
+            qq, sh8.place(k, POOL4), sh8.place(v, POOL4), *rest, sh8),
+            (None, None, None))
+        same = torch.equal(got, ref)
+        out[f"reference {shape} bitwise"] = same
+        if shape == "mqa":
+            errs.hold(K3, got, ref, "mesh 1x8 MQA, q split on heads")
+        else:
+            check(same, f"mesh 1x8 {shape}: the sharded decode is not bit "
+                        "for bit the unsharded call")
+    pool = torch.zeros((2, NP_, P, Hkv, D), dtype=torch.bfloat16, device=dev)
+    pages = torch.tensor([3, 5, 7], dtype=torch.int32, device=dev)
+    vals = torch.randn((2, 3, P, Hkv, D), device=dev)
+    sp = sh8.place(pool.clone(), POOL5)
+    pa.paged_prefill_scatter_sharded(sp, pages, vals, sh8)
+    errs.hold_bits(K4, sp.full(), pa.paged_prefill_scatter(pool, pages, vals),
+                   "mesh 1x8 scatter, the reference's case")
+
+    # internlm2 at full width: the serving path's decode and admission
+    Cf, Hf, Hkf, Df, Pf, Sf, NBf = (FULL_C, FULL_H, FULL_HKV, FULL_D, FULL_P,
+                                    FULL_S, 20)
+    st = rand_paged_state(rng, C=Cf, NB=NBf, P=Pf, H=Hf, Hkv=Hkf, D=Df,
+                          dev=dev, q_dtype=torch.bfloat16, full=True)
+    ref = pa.paged_attention_decode(*st)
+    NPa = PagedKVCache.RESERVED + Cf * NBf
+    case = admission_case(rng, Sf, NPa, Pf, Hkf, Df, list(range(3, 15)),
+                          12 * Pf, torch.bfloat16, dev)
+    want = [t.clone() for t in case[:3]]
+    pa.paged_admit_kv(*want, *case[3:])
+    timed = {1: cuda_ms(lambda: pa.paged_attention_decode(*st), 30, flush)}
+    for m in MESH_KERNEL_WIDTHS:
+        sh = mesh_sharder(m, dev)
+        ks, vs = sh.place(st[1], POOL4), sh.place(st[2], POOL4)
+        o = pa.paged_attention_decode_sharded(st[0], ks, vs, *st[3:], sh)
+        check(len(o.unique()) == m
+              and torch.equal(sh.constrain(o, (None, None, None)), ref),
+              f"mesh 1x{m}: the full-width sharded decode is not bit for "
+              "bit the unsharded call")
+        errs.cases[K3] += 1
+        timed[m] = cuda_ms(lambda: pa.paged_attention_decode_sharded(
+            st[0], ks, vs, *st[3:], sh), 30, flush)
+        kp5, vp5 = (sh.place(t.clone(), POOL5) for t in case[:2])
+        pp = case[2].clone()
+        pa.paged_admit_kv_sharded(kp5, vp5, pp, *case[3:], sh)
+        for tag, a, b in (("K", kp5.full(), want[0]),
+                          ("V", vp5.full(), want[1])):
+            errs.hold_bits(K4, a, b, f"mesh 1x{m} full-width admission {tag}")
+        check(torch.equal(pp, want[2]), f"mesh 1x{m} admission: positions")
+        del ks, vs, kp5, vp5
+    bound, by = decode_bound_ms(Cf, NBf, Pf, Hf, Hkf, Df, 2)
+    say("mesh", f"sharded decode at internlm2's full width (q ({Cf}, {Hf}, "
+                f"{Df}) bf16, table ({Cf}, {NBf})): ms by model extent "
+                f"{ {k: round(v, 4) for k, v in timed.items()} }, bound "
+                f"{bound:.4f} ms by {by}; MQA bitwise "
+                f"{out['reference mqa bitwise']}")
+    return {"decode_ms_by_extent": timed, "bound_ms": bound, **out}
+
+
+def mesh_mix(cfg) -> list:
+    """The reference's SHARDED_ENGINE_SCRIPT mix at full width: every other
+    request behind one 64-token system prefix (trie hits, copy-on-write
+    forks as the decode ring wraps onto shared pages), tails of 32-64
+    tokens, greedy."""
+    rng = np.random.default_rng(12)
+    shared = rng.integers(1, cfg.vocab_size, 64).astype(np.int32)
+    reqs = []
+    for i in range(MESH_REQUESTS):
+        tail = rng.integers(1, cfg.vocab_size,
+                            32 + 16 * (i % 3)).astype(np.int32)
+        prompt = np.concatenate([shared, tail]) if i % 2 == 0 else tail
+        reqs.append(Request(f"t{i % 3}", prompt, MESH_NEW, seed=i))
+    return reqs
+
+
+def mesh_engine_run(cfg, params, m, dev) -> dict:
+    """One continuous engine at full width (no mesh for ``m`` None, else
+    1xm over the card) serving :func:`mesh_mix` through ``run_all`` with a
+    tight pool; counts reset just before, read just after."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(cfg, params, device=dev,
+                        sh=mesh_sharder(m, dev) if m else None)
+    ceng = ContinuousBatchingEngine(eng, capacity=8, page_size=16,
+                                    inner_steps=4, max_prompt_len=192,
+                                    num_pages=MESH_PAGES)
+    reset_kernel_counts()
+    with torch.no_grad():
+        out = ceng.run_all([clone_request(r) for r in mesh_mix(cfg)])
+    launches = {K3: pa.launch_counts[K3], K4: pa.launch_counts[K4],
+                K5: fa.launch_counts[K5]}
+    plains = sum(pa.plain_counts.values()) + sum(fa.plain_counts.values())
+    tag = f"mesh {'1x%d' % m if m else 'none'}"
+    check(len(out) == MESH_REQUESTS and plains == 0
+          and ceng.nonfinite_rows == 0,
+          f"{tag}: {len(out)} requests, plain calls {plains}, non-finite "
+          f"rows {ceng.nonfinite_rows}")
+    ceng.kv.assert_conserved(host_pages=ceng.swap_store.pages_by_kind())
+    ceng.assert_conserved()
+    n_attn = ceng.n_stages * len(ceng.kv.attn_subs)
+    # a launch a distinct shard: m where the kv heads split m ways
+    width = m if m and cfg.num_kv_heads % m == 0 else 1
+    want = {K3: ceng.rounds * ceng.inner_steps * n_attn * width,
+            K4: (len(out) - ceng.prefill_skips) * len(ceng.kv.attn_subs)
+            * width,
+            K5: ceng.prefill_calls * n_attn}
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    if m:
+        pool = ceng.state["caches"][ceng.kv.attn_subs[0]]["k"]
+        check(len(pool.unique()) == m and all(
+            t.shape[3] == cfg.num_kv_heads // m for t in pool.locals),
+            f"{tag}: pool shards {[tuple(t.shape) for t in pool.locals]}")
+    ms = ceng.round_ms[1:]            # after the capture round: replays
+    res = dict(tokens={r.prompt.tobytes(): t for r, t in out},
+               logits=ceng.state["logits"].clone(), launches=launches,
+               rounds=ceng.rounds, round_ms_median=float(np.median(ms)),
+               round_ms_min=float(np.min(ms)),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               prefill_ms=float(np.sum(ceng.prefill_ms())),
+               kv={k: getattr(ceng.kv, k) for k in (
+                   "pages_allocated", "pages_shared", "pages_reused",
+                   "cow_forks", "pristine_forks")},
+               **graph_rounds(ceng, tag))
+    del ceng, eng
+    return res
+
+
+def mesh_swap_cycle(cfg, params, m, dev) -> tuple:
+    """Two 30-token tier-1 rows fill a capacity-2 table, then a tier-0
+    arrival preempts one (the reference's swap_cycle), at full width; with
+    a mesh every swap-in rides one lane per position."""
+    rng = np.random.default_rng(13)
+    eng = ServingEngine(cfg, params, device=dev,
+                        sh=mesh_sharder(m, dev) if m else None)
+    sched = MultiTenantScheduler(
+        eng, mode="continuous", preemption=True,
+        continuous=dict(capacity=2, page_size=16, num_pages=24,
+                        inner_steps=4, max_prompt_len=128))
+    prompts = [rng.integers(1, cfg.vocab_size, 48 + 16 * (i % 2))
+               .astype(np.int32) for i in range(3)]
+    with torch.no_grad():
+        for i in range(2):
+            sched.submit(Request(f"lo{i}", prompts[i], 30, priority=1,
+                                 seed=i))
+        sched.step()
+        sched.submit(Request("hi", prompts[2], 8, priority=0))
+        res = sched.drain()
+    ceng = sched.continuous_engine
+    ceng.kv.assert_conserved(host_pages=ceng.swap_store.pages_by_kind())
+    check(ceng.preemptions > 0 and ceng.restores > 0
+          and all(r.outcome == "completed" for r in res),
+          f"swap cycle 1x{m}: preemptions {ceng.preemptions}, restores "
+          f"{ceng.restores}, outcomes {[r.outcome for r in res]}")
+    lanes = ceng.swap_store.lanes
+    logs = [len(e.log) for e in lanes.engines] if lanes else []
+    toks = {(r.tenant, tuple(r.tokens.tolist())) for r in res}
+    del sched, ceng, eng
+    return toks, logs
+
+
+def mesh_serve(errs: Errors, dev) -> dict:
+    """``launch.serve --mesh 1x1`` at internlm2's full width against the
+    same run without a mesh (tokens identical, final logits bit for bit);
+    then the Python API over 1x2 and 1x8 meshes of the card against no
+    mesh on a prefix-sharing mix with a pool tight enough to recycle cached
+    pages (greedy tokens equal; the logits' bitwise agreement a number;
+    replayed round ms, launches and peak memory beside the meshless
+    engine's); then one preempt / restore cycle through the lanes at
+    1x2."""
+    runs, recs = {}, {}
+    for tag, extra in (("none", []), ("1x1", ["--mesh", "1x1"])):
+        rec = ServeRecorder(snap=False)
+        reset_kernel_counts()
+        check(serve_cli.main(MESH_ARGV + extra, observe=rec) == 0,
+              f"serve --mesh {tag} failed")
+        eng = rec.sched.continuous_engine
+        n_attn = eng.n_stages * len(eng.kv.attn_subs)
+        launches = {K3: pa.launch_counts[K3], K4: pa.launch_counts[K4],
+                    K5: fa.launch_counts[K5]}
+        want = {K3: eng.rounds * eng.inner_steps * n_attn,
+                K4: (len(rec.finished) - eng.prefill_skips)
+                * len(eng.kv.attn_subs),
+                K5: eng.prefill_calls * n_attn}
+        check(launches == want and len(rec.finished) == 12,
+              f"serve --mesh {tag}: launches {launches}, expected {want}; "
+              f"{len(rec.finished)} requests")
+        recs[tag] = rec
+        runs[f"serve {tag}"] = dict(launches=launches, rounds=eng.rounds,
+                                    **graph_rounds(eng, f"serve {tag}"))
+    a, b = (recs[t] for t in ("none", "1x1"))
+    ta = {r.prompt.tobytes(): t for r, t in a.finished}
+    tb = {r.prompt.tobytes(): t for r, t in b.finished}
+    check(ta.keys() == tb.keys()
+          and all(np.array_equal(ta[k], tb[k]) for k in ta),
+          "serve --mesh 1x1: tokens differ from the run without a mesh")
+    la = a.sched.continuous_engine.state["logits"]
+    lb = b.sched.continuous_engine.state["logits"]
+    check(torch.equal(la, lb), "serve --mesh 1x1: final logits differ from "
+                               "the run without a mesh")
+    say("mesh", f"launch.serve --mesh 1x1 at full width: 12 requests "
+                f"token-identical, final logits bit for bit; launches "
+                f"{runs['serve 1x1']['launches']}")
+    cfg = b.sched.continuous_engine.cfg
+    del recs, a, b, la, lb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = build_model(cfg).init(0, dev)
+    base = mesh_engine_run(cfg, params, None, dev)
+    check(base["kv"]["pages_reused"] > 0
+          and base["kv"]["cow_forks"] + base["kv"]["pristine_forks"] > 0,
+          f"mesh mix: no recycled pages or forks {base['kv']}")
+    runs["none"] = {k: v for k, v in base.items()
+                    if k not in ("tokens", "logits")}
+    for m in MESH_SERVE_WIDTHS:
+        r = mesh_engine_run(cfg, params, m, dev)
+        same = [np.array_equal(r["tokens"][k], t)
+                for k, t in base["tokens"].items()]
+        check(all(same) and r["tokens"].keys() == base["tokens"].keys(),
+              f"mesh 1x{m}: {sum(same)} of {len(same)} requests "
+              "token-identical with no mesh")
+        check(r["kv"] == base["kv"], f"mesh 1x{m}: page accounting "
+                                     f"{r['kv']} against {base['kv']}")
+        runs[f"1x{m}"] = {k: v for k, v in r.items()
+                          if k not in ("tokens", "logits")}
+        runs[f"1x{m}"]["logits_bitwise"] = int(torch.equal(r["logits"],
+                                                           base["logits"]))
+        runs[f"1x{m}"]["logits_max_abs_diff"] = float(
+            (r["logits"] - base["logits"]).abs().max())
+        say("mesh", f"1x{m} over the card: {MESH_REQUESTS} requests "
+                    f"token-identical; replayed round median "
+                    f"{r['round_ms_median']:.3f} ms (no mesh "
+                    f"{base['round_ms_median']:.3f}), launches "
+                    f"{r['launches']}, peak {r['peak_gib']:.2f} GiB (no mesh "
+                    f"{base['peak_gib']:.2f}); logits bitwise "
+                    f"{runs[f'1x{m}']['logits_bitwise']}")
+    want, _ = mesh_swap_cycle(cfg, params, None, dev)
+    got, logs = mesh_swap_cycle(cfg, params, 2, dev)
+    check(got == want and len(logs) == 2 and all(logs),
+          f"swap cycle 1x2: tokens equal {got == want}, lane logs {logs}")
+    runs["swap 1x2"] = dict(lane_transfers=logs)
+    say("mesh", f"preempt / restore at 1x2: victims token-identical, lane "
+                f"transfers {logs}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_mesh(errs: Errors, dev) -> dict:
+    kern = mesh_kernels(errs, dev)
+    runs = mesh_serve(errs, dev)
+    launches = {f"internlm2-1.8b mesh {k}": v["launches"]
+                for k, v in runs.items() if "launches" in v}
+    return {"kernels": kern, "runs": runs, "launches": launches}
+
+
+def phase_mesh_risk(cfg: RiskAppConfig, tables: RiskTables, dev) -> dict:
+    """The risk step at the published size with its trials split over a
+    1x4 mesh of the card (``make_sharded_step``: K1 on each quarter)
+    against ``run_single`` at ``YLT_RTOL``; both timed on the
+    device-resident YET (CUDA events, the same inputs)."""
+    ara = AggregateRiskAnalysis(cfg, device=dev)
+    single = ara.run_single(tables)
+    elt, ret, lim = ara._resident_tables(tables)[0]
+    yet = torch.from_numpy(tables.yet).to(dev)
+    a_ret, a_lim, chunk = (float(tables.agg_ret), float(tables.agg_lim),
+                           ara._chunk(tables))
+    mesh = parse_mesh(MESH_RISK, [dev] * 4)
+    step = ara.make_sharded_step(mesh, chunk=chunk)
+    agg.reset_counts()                    # just before the mesh path
+    ylt = step(yet, elt, ret, lim, a_ret, a_lim)
+    torch.cuda.synchronize()
+    launches, rows = agg.launch_counts[G], agg.launch_counts[R]
+    check(launches == rows == mesh.size and ylt.shape == (len(single),),
+          f"mesh risk step: {launches} gather and {rows} row launches on "
+          f"{mesh.size} positions, ylt {tuple(ylt.shape)}")
+    got = ylt.cpu().numpy()
+    check(np.allclose(got, single, rtol=YLT_RTOL, atol=0),
+          f"mesh risk step: max rel diff "
+          f"{np.max(np.abs(got - single) / np.maximum(np.abs(single), 1e-30))}"
+          f" outside rtol={YLT_RTOL}")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    ms = {"single": [], "mesh": []}
+    for name in ("single", "mesh", "mesh", "single"):
+        fn = (lambda: ara._step(yet, elt, ret, lim, a_ret, a_lim, chunk)) \
+            if name == "single" else \
+            (lambda: step(yet, elt, ret, lim, a_ret, a_lim))
+        ms[name].append(cuda_ms(fn, 5, flush))
+    res = dict(trials=len(single), launches=launches, row_launches=rows,
+               bitwise=bool(np.array_equal(got, single)),
+               ms=statistics.median(ms["mesh"]),
+               single_ms=statistics.median(ms["single"]), turns=ms)
+    say("mesh", f"risk step {MESH_RISK} over the card at {len(single):,} "
+                f"trials: {res['ms']:.3f} ms against the single call's "
+                f"{res['single_ms']:.3f} ms; equal to run_single at "
+                f"rtol={YLT_RTOL} (bitwise {res['bitwise']})")
+    del yet, flush
+    torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # training (slice 5): the autograd Functions against autograd through the
 # plain versions, every arch reduced against the CPU, three archs at full
@@ -5496,6 +5861,8 @@ def main() -> int:
         lap("risk kernels, main path")
         loop = risk_loop(cfg, tables, dev, card)
         lap("power, fit, pairs")
+        mesh_risk = phase_mesh_risk(cfg, tables, dev)
+        lap("mesh risk")
         del tables                       # 4 GB of pinned host memory
         onehot = phase_main_onehot(errs, cfg, dev)
         phase_cli()
@@ -5532,6 +5899,9 @@ def main() -> int:
         lap("serve-overload")
         crash = phase_serve_crash(dev)
         lap("serve-crash")
+        mesh = phase_mesh(errs, dev)
+        kern[K3]["mesh"] = mesh["kernels"]
+        lap("mesh")
         train = phase_train(errs, dev, lap)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -5574,15 +5944,19 @@ def main() -> int:
                    for a, r in train["runs"].items()}
     paths.update({a: {K3: 0, K4: 0, K5: n[K5]}
                   for a, n in train_paths.items() if n[K5]})
+    # the mesh paths: K3 and K4 once a shard, K5 replicated
+    paths.update(mesh["launches"])
     k6_paths.update({a: n[K6] for a, n in train_paths.items() if n[K6]})
     on_paths = {k: sum(p[k] for p in paths.values()) for k in (K3, K4, K5)}
     by_path = {k: {a: p[k] for a, p in paths.items()} for k in (K3, K4, K5)}
     # the gather on the risk paths, each read just after its own run
     risk_paths = {"main": main_path["launches"],
-                  **{p: loop[p]["launches"] for p in ("power", "fit", "pairs")}}
+                  **{p: loop[p]["launches"] for p in ("power", "fit", "pairs")},
+                  f"mesh {MESH_RISK}": mesh_risk["launches"]}
     row_paths = {"main": main_path["row_launches"],
                  **{p: loop[p]["row_launches"]
-                    for p in ("power", "fit", "pairs")}}
+                    for p in ("power", "fit", "pairs")},
+                 f"mesh {MESH_RISK}": mesh_risk["row_launches"]}
     rows = []
     for name, src, replaces, numbers in (
             (G, agg_src, "src/repro/kernels/aggregate_loss.py:69",
@@ -5652,6 +6026,8 @@ def main() -> int:
                       "serve_crash": crash}))
     print(json.dumps({"train": {k: v for k, v in train.items()
                                 if k != "kernels"}}))
+    print(json.dumps({"mesh": {"serve": mesh["runs"], "risk": mesh_risk}},
+                     default=str))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,10 @@ silently removes the overlap this module exists for — the log records
 ``pinned`` per chunk so a caller can check.  On the CPU a chunk is staged by
 reference (no copy) and is ready at once.
 
+:class:`MeshStagingLanes` stages for a device mesh: one sequential engine
+per mesh position, each leaf sliced by its placement, each slice on its
+position's lane.
+
 The engine exposes two levels of API: non-blocking :meth:`StagingEngine.put`
 / :meth:`StagingEngine.wait` primitives that the overlapped executor in
 :mod:`repro_torch.core.pipeline` interleaves with compute dispatch, and the
@@ -33,8 +37,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.core.tenancy import (TenantTask, VirtualDevicePool,
-                                      resolve_devices)
+from repro_torch.core.tenancy import (TenancyConfig, TenantTask,
+                                      VirtualDevicePool, resolve_devices)
+from repro_torch.distributed.sharding import ShardedTensor
 from repro_torch.obs.telemetry import Telemetry, get_telemetry
 
 
@@ -246,6 +251,98 @@ class StagingEngine:
                 for c in out:
                     self.wait(c, t0)
         return out
+
+
+@dataclasses.dataclass
+class MeshStagedChunk:
+    """One logical host-to-device transfer split across per-position
+    lanes."""
+    chunks: List[StagedChunk]           # mesh position -> its slices' chunk
+    host_tree: Any                      # the host tree (for assembly)
+    logical_of: Callable[[Any], Sequence[Optional[str]]]
+
+
+class MeshStagingLanes:
+    """Per-mesh-position staging: one sequential :class:`StagingEngine` per
+    position of ``sharder``'s mesh, each with its own copy stream -- two
+    positions on one device are still two lanes.
+
+    A host tree bound for a split placement is sliced per position by
+    :meth:`repro_torch.distributed.sharding.Sharder.index_map` of each
+    leaf's logical axes (``logical_of(leaf)``) and each slice rides its
+    own lane, so slices of different lanes overlap; a replicated leaf is
+    staged whole on every lane.  :meth:`wait` assembles the staged slices
+    into :class:`repro_torch.distributed.sharding.ShardedTensor` leaves."""
+
+    def __init__(self, sharder, telemetry: Optional[Telemetry] = None):
+        self.sharder = sharder
+        self.tel = get_telemetry(telemetry)
+        devs = sharder.mesh.position_devices()
+        # lane p stages to position p's device (pdev p in its spans)
+        self.engines = [StagingEngine(VirtualDevicePool(
+            TenancyConfig(1, 1, "sequential"), devices=devs),
+            telemetry=self.tel) for _ in devs]
+
+    @property
+    def n_lanes(self) -> int:
+        return len(self.engines)
+
+    def retarget_telemetry(self, tel: Telemetry) -> None:
+        self.tel = tel
+        for eng in self.engines:
+            eng.tel = tel
+
+    def put(self, host_tree: Any,
+            logical_of: Callable[[Any], Sequence[Optional[str]]],
+            slot: int = 0) -> MeshStagedChunk:
+        """Enqueue every lane's slices and return at once.  A slice that is
+        not contiguous (heads of a pinned block) is packed first into a
+        pinned buffer, so its copy stays asynchronous."""
+        chunks = []
+        for lane, eng in enumerate(self.engines):
+            def slice_leaf(a, _lane=lane):
+                a = _as_tensor(a)
+                sl = self.sharder.index_map(logical_of(a), a.shape)[_lane]
+                h = a[sl]
+                if h.is_contiguous():
+                    return h
+                return torch.empty(h.shape, dtype=h.dtype,
+                                   pin_memory=a.is_pinned()).copy_(h)
+            task = TenantTask(vdev=0, pdev=lane, slot=slot, start=0, stop=1)
+            chunks.append(eng.put(task, tree_map(slice_leaf, host_tree)))
+        return MeshStagedChunk(chunks, host_tree, logical_of)
+
+    def wait(self, staged: MeshStagedChunk) -> Any:
+        """Every lane's slices ordered before the work its device's current
+        stream enqueues next -- the stream waits on the lane's copy event,
+        with no host synchronisation (on the CPU a slice is ready at once)
+        -- then the tree of :class:`ShardedTensor` leaves."""
+        with self.tel.span("transfer.assemble", lanes=len(staged.chunks)):
+            for eng, chunk in zip(self.engines, staged.chunks):
+                if chunk.event is None:
+                    eng.wait(chunk)
+                    continue
+                stream = torch.cuda.current_stream(eng.device_of(chunk.task))
+                stream.wait_event(chunk.event)
+                tree_map(lambda t: t.record_stream(stream), chunk.arrays)
+                eng.log.append({"vdev": chunk.task.vdev, "ready_s": None,
+                                "mode": eng.mode,
+                                "bytes": _tree_bytes(chunk.arrays),
+                                "pinned": chunk.pinned})
+        mesh = self.sharder.mesh
+
+        def assemble(host, *shards):
+            if isinstance(host, dict):
+                return {k: assemble(host[k], *(s[k] for s in shards))
+                        for k in host}
+            if isinstance(host, (list, tuple)):
+                return type(host)(assemble(h, *(s[i] for s in shards))
+                                  for i, h in enumerate(host))
+            host = _as_tensor(host)
+            spec = self.sharder.spec(staged.logical_of(host), host.shape)
+            return ShardedTensor.from_locals(mesh, spec, list(shards))
+
+        return assemble(staged.host_tree, *(c.arrays for c in staged.chunks))
 
 
 def reorder_for_stragglers(tasks: Sequence[TenantTask],

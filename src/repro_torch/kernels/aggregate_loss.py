@@ -244,7 +244,7 @@ def _cuda_operands(event_ids, elt_losses, occ_ret, occ_lim):
             occ_lim.float().contiguous())
 
 
-def _padded_rows(elt: torch.Tensor) -> bool:
+def padded_rows(elt: torch.Tensor) -> bool:
     """Whether the row pass can read ``elt``'s rows as ``float4``: 16 B
     aligned rows of ``4*ceil(M/4)`` readable floats inside the tensor's own
     storage, which is what :func:`pad_elt_columns` returns."""
@@ -260,7 +260,7 @@ def _padded_rows(elt: torch.Tensor) -> bool:
 def _require_padded_rows(elt: torch.Tensor) -> None:
     """The gather takes only a table in the layout of
     :func:`pad_elt_columns` (its row pass reads ``float4`` rows)."""
-    if not _padded_rows(elt):
+    if not padded_rows(elt):
         raise ValueError(
             f"aggregate_loss_gather: ELT {tuple(elt.shape)} with row stride "
             f"{elt.stride(0)} is not laid out for float4 row reads; pass "
@@ -374,7 +374,7 @@ def aggregate_loss_onehot(event_ids, elt_losses, occ_ret, occ_lim, agg_ret,
     out = torch.empty(T, dtype=torch.float32, device=ids.device)
     if T == 0:
         return out                     # nothing to launch, nothing counted
-    if not _padded_rows(elt):
+    if not padded_rows(elt):
         elt = pad_elt_columns(elt)
     f = aggregate_row_losses(elt, ret, lim)
     _call("aggregate_loss_onehot_launch", "aggregate_loss_onehot",

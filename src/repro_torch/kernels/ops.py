@@ -143,6 +143,31 @@ def paged_admit_kv(k_pool, v_pool, pos_pool, pages, k_src, v_src, pos_src):
                           pos_src)
 
 
+def paged_attention_decode_sharded(q, k_pool, v_pool, pos_pool, page_table,
+                                   positions, sh, window: Optional[int] = None):
+    """The decode read with pools split on KV heads over ``sh``'s mesh, one
+    call a shard (see :func:`repro_torch.kernels.paged_attention.
+    paged_attention_decode_sharded`); plain pools take the unsharded call."""
+    return _paged.paged_attention_decode_sharded(
+        q, k_pool, v_pool, pos_pool, page_table, positions, sh,
+        window=window)
+
+
+def paged_prefill_scatter_sharded(pool, pages, values, sh):
+    """:func:`paged_prefill_scatter` one call a shard (see
+    :func:`repro_torch.kernels.paged_attention.
+    paged_prefill_scatter_sharded`)."""
+    return _paged.paged_prefill_scatter_sharded(pool, pages, values, sh)
+
+
+def paged_admit_kv_sharded(k_pool, v_pool, pos_pool, pages, k_src, v_src,
+                           pos_src, sh):
+    """:func:`paged_admit_kv` one call a shard (see
+    :func:`repro_torch.kernels.paged_attention.paged_admit_kv_sharded`)."""
+    _paged.paged_admit_kv_sharded(k_pool, v_pool, pos_pool, pages, k_src,
+                                  v_src, pos_src, sh)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """Prefill attention forward (see

@@ -53,6 +53,12 @@ before, around two ``index_copy_``).  A wrapper
 takes the plain version only for tensors that lie on the CPU; for CUDA
 tensors it launches the kernel or raises.  ``launch_counts`` and
 ``plain_counts`` record which way each call went.
+
+On a device mesh the pools are split on KV heads
+(:class:`repro_torch.distributed.sharding.ShardedTensor`) and
+:func:`paged_attention_decode_sharded`, :func:`paged_prefill_scatter_sharded`
+and :func:`paged_admit_kv_sharded` call the wrappers above once a shard, on
+that shard's device (the reference's ``shard_map`` dispatch).
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import ShardedTensor, storage_key
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
@@ -229,7 +236,8 @@ def detach_scratch(dev: torch.device, stream: int
 
 
 def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
-                           positions, *, window: Optional[int] = None
+                           positions, *, window: Optional[int] = None,
+                           split_kv_heads: Optional[int] = None
                            ) -> torch.Tensor:
     """Single-token GQA decode read against a paged KV pool.
 
@@ -239,7 +247,12 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
     an empty entry); page_table ``(C, NB)`` int32; positions ``(C,)`` int32
     absolute position of each row's new token; ``window`` the sliding
     window or None.  Returns ``(C, H, D)`` float32.  CUDA tensors go to the
-    kernel, CPU tensors to the plain version."""
+    kernel, CPU tensors to the plain version.
+
+    ``split_kv_heads`` sizes the walk's split (:func:`decode_split`) from
+    that many kv heads instead of the pools' ``Hkv``: a shard holding some
+    of a pool's heads passes the whole pool's count, so it splits and
+    combines as the whole call does and gives its heads' bits."""
     C, H, D, NP, P, Hkv, NB = _check_decode(q, k_pool, v_pool, pos_pool,
                                             page_table, positions)
     if q.device.type == "cpu":
@@ -262,7 +275,7 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
         raise ValueError("k_pool/v_pool must be 16-byte aligned")
     if NB == 0:
         raise ValueError("page_table has no entries")
-    chunk = decode_split(Hkv, NB)
+    chunk = decode_split(split_kv_heads or Hkv, NB)
     q = q.contiguous()
     pos_pool = pos_pool.to(torch.int32).contiguous()
     page_table = page_table.to(torch.int32).contiguous()
@@ -432,3 +445,115 @@ def paged_admit_kv(k_pool, v_pool, pos_pool, pages, k_src, v_src,
         return
     _admit_launch("paged_admit_kv", k_pool, v_pool, pos_pool, pages, k_src,
                   v_src, pos_src)
+
+
+# ---------------------------------------------------------------------------
+# mesh dispatch: per-shard kernel calls along the KV-head axis
+# ---------------------------------------------------------------------------
+# The reference runs its kernels per shard under shard_map
+# (src/repro/kernels/paged_attention.py:198-270); here each shard's call is
+# the kernel's own wrapper on that shard's device.  Three shapes cover
+# every arch in configs/:
+#   * Hkv divisible by the "model" extent -- pools and q both split on
+#     heads.  A shard's contiguous query heads (H/n = group * Hkv/n) are
+#     exactly its kv heads' group, so its call is a self-contained decode;
+#     sized by the whole pool's Hkv (split_kv_heads) it splits and combines
+#     as the unsharded call does: bit-identical with its heads of it.
+#   * MQA (Hkv == 1) -- pools replicated, q split on H.
+#   * otherwise -- everything replicated: one call per distinct storage.
+# The outputs are sharded like q; the caller gathers them (data movement).
+
+def _heads(src, p: int, dim: int, sl: slice, dev: torch.device
+           ) -> torch.Tensor:
+    """Mesh position ``p``'s slice ``sl`` of ``src`` along ``dim`` on
+    ``dev``: its own local when ``src`` is sharded so, else a view of the
+    global tensor moved there (no copy on its own device)."""
+    if isinstance(src, ShardedTensor):
+        if src.slices[p][dim] != sl:
+            raise ValueError(f"source shard {src.slices[p][dim]} on dim "
+                             f"{dim} does not match the pool's {sl}")
+        return src.locals[p]
+    return src[(slice(None),) * dim + (sl,)].to(dev)
+
+
+def paged_attention_decode_sharded(q, k_pool, v_pool, pos_pool, page_table,
+                                   positions, sh, *,
+                                   window: Optional[int] = None):
+    """:func:`paged_attention_decode` partitioned along KV heads.
+
+    q ``(C, H, D)``, pos_pool, page_table and positions are global tensors
+    on the mesh's first device; k_pool / v_pool ``(NP, P, Hkv, D)``
+    :class:`ShardedTensor` placed by ``sh`` on ``(None, None, "kv",
+    None)``.  Returns a :class:`ShardedTensor` ``(C, H, D)`` float32, one
+    kernel launch per distinct shard.  Plain pools (off-mesh) take the
+    unsharded call."""
+    if not isinstance(k_pool, ShardedTensor):
+        return paged_attention_decode(q, k_pool, v_pool, pos_pool,
+                                      page_table, positions, window=window)
+    mesh = k_pool.mesh
+    H, Hkv = q.shape[1], k_pool.shape[2]
+    devs = mesh.position_devices()
+    if k_pool.spec[2] is not None:                 # GQA / MHA on kv heads
+        group = H // Hkv
+        q_sl = [slice(s[2].start * group, s[2].stop * group)
+                for s in k_pool.slices]
+        out_spec = (None, k_pool.spec[2], None)
+    elif Hkv == 1 and sh.extent("heads", H) > 1:   # MQA
+        q_sl = [s[1] for s in sh.index_map((None, "heads", None), q.shape)]
+        out_spec = sh.spec((None, "heads", None), q.shape)
+    else:                                          # indivisible: replicated
+        q_sl = [slice(0, H)] * mesh.size
+        out_spec = (None, None, None)
+    done: Dict[tuple, torch.Tensor] = {}
+    outs = []
+    for p, dev in enumerate(devs):
+        kl, vl = k_pool.locals[p], v_pool.locals[p]
+        key = (storage_key(kl), q_sl[p].start, q_sl[p].stop)
+        if key not in done:
+            done[key] = paged_attention_decode(
+                q[:, q_sl[p]].to(dev), kl, vl, pos_pool.to(dev),
+                page_table.to(dev), positions.to(dev), window=window,
+                split_kv_heads=Hkv)
+        outs.append(done[key])
+    return ShardedTensor.from_locals(mesh, out_spec, outs)
+
+
+def paged_prefill_scatter_sharded(pool, pages, values, sh):
+    """:func:`paged_prefill_scatter` partitioned along KV heads: pool
+    ``(S, NP, P, Hkv, D)`` a :class:`ShardedTensor` placed on ``(None,
+    None, None, "kv", None)``, values global or sharded alike.  One launch
+    per distinct shard (each its own heads of the values); returns the
+    pool.  A plain pool (off-mesh) takes the unsharded call."""
+    if not isinstance(pool, ShardedTensor):
+        return paged_prefill_scatter(pool, pages, values)
+    for p, local, sl in pool.unique():
+        dev = local.device
+        paged_prefill_scatter(local, pages.to(dev),
+                              _heads(values, p, 3, sl[3], dev))
+    return pool
+
+
+def paged_admit_kv_sharded(k_pool, v_pool, pos_pool, pages, k_src, v_src,
+                           pos_src, sh) -> None:
+    """:func:`paged_admit_kv` partitioned along KV heads: pools
+    :class:`ShardedTensor` placed on ``(None, None, None, "kv", None)``,
+    sources ``(S, ring, Hkv, D)`` global or sharded alike on their head
+    axis.  One launch per distinct shard, each its heads of K and V; the
+    (replicated, global) position pool is written once, by the launch of the
+    shard on its device.  Plain pools (off-mesh) take the unsharded call."""
+    if not isinstance(k_pool, ShardedTensor):
+        paged_admit_kv(k_pool, v_pool, pos_pool, pages, k_src, v_src,
+                       pos_src)
+        return
+    todo = pos_pool
+    for p, kl, sl in k_pool.unique():
+        dev = kl.device
+        pp = todo if todo is not None and todo.device == dev else None
+        paged_admit_kv(kl, v_pool.locals[p], pp, pages.to(dev),
+                       _heads(k_src, p, 2, sl[3], dev),
+                       _heads(v_src, p, 2, sl[3], dev), pos_src.to(dev))
+        if pp is not None:
+            todo = None
+    if todo is not None:
+        raise ValueError(f"the position pool on {todo.device} lies on no "
+                         "shard's device")

@@ -86,10 +86,22 @@ published width; the reference's ``store_true`` with ``default=True`` never
 can); there is no ``--kernel-backend`` -- the device decides (the
 hand-written kernels for a CUDA device, their plain versions on the CPU);
 ``--num-layers`` is the port's (the reference's serve launcher has none).
-``--mesh`` comes with a later slice of the port and raises
-``NotImplementedError`` naming it.  Since ``main`` also runs inside other
-programs, the plane it lights starts empty and is turned off again when it
-returns (the reference's process simply exits).
+Since ``main`` also runs inside other programs, the plane it lights starts
+empty and is turned off again when it returns (the reference's process
+simply exits).
+
+``--mesh AxB`` (continuous mode) splits the paged KV pools -- self- and
+cross-attention -- and the paged decode along KV heads over the "model"
+axis of a mesh of the visible CUDA devices (``--device cpu``: the one CPU
+device); page tables, the free list, the trie and refcounts stay
+host-global, so admission, prefix sharing, copy-on-write and preemption
+behave as without a mesh.  ``1x1`` is bit-identical with no mesh; wider
+meshes are greedy token-exact.  A spec needing more devices than there are
+raises ``ValueError``, as the reference's does.  The Python API
+(``ServingEngine(..., sh=serving_sharder(parse_mesh(spec, devices)))``)
+takes an explicit device list, in which a device may repeat: that is how
+one card runs ``1x8``.  The slot modes under a mesh need the dense caches
+of ``models/layers.py`` sharded and raise, naming slice 6b.
 """
 from __future__ import annotations
 
@@ -107,6 +119,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.pipeline import timeline_overlaps
 from repro_torch.core.tenancy import TenancyConfig, resolve_devices
 from repro_torch.distributed.fault import FaultPlane
+from repro_torch.distributed.sharding import parse_mesh, serving_sharder
 from repro_torch.models.model import build_model, param_count
 from repro_torch.models.transformer import VIS_WIDTH, init_footprint
 from repro_torch.obs import TELEMETRY
@@ -117,7 +130,7 @@ from repro_torch.serving.multitenant import (MODES, MultiTenantScheduler,
                                              Request)
 
 # flag -> the slice of the port that brings it
-LATER = {"mesh": "slice 6"}
+LATER: dict = {}
 
 
 def list_archs() -> int:
@@ -221,7 +234,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="continuous mode: past N queued requests the "
                          "lowest-priority (then latest-deadline) queued "
                          "work is shed with a rejected outcome")
-    ap.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh", default=None, metavar="AxB",
+                    help="continuous mode: device mesh spec, e.g. '1x8': "
+                         "split the paged KV pools and the paged decode "
+                         "along KV heads over the 'model' axis (B devices); "
+                         "page tables, free list, prefix trie and "
+                         "refcounts stay host-global.  '1x1' is "
+                         "bit-identical with no mesh, wider meshes greedy "
+                         "token-exact.  Needs A*B visible devices.  "
+                         "Default: no mesh")
     ap.add_argument("--journal-dir", default=None, metavar="DIR",
                     help="continuous mode: write the request journal to "
                          "DIR/journal.jsonl (fsync'd ahead of every "
@@ -272,6 +293,11 @@ def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} comes with {slice_} of the port "
                 "(ROADMAP.md)")
+    if args.mesh and mode != "continuous":
+        raise NotImplementedError(
+            f"--mesh with --mode {mode} comes with slice 6b of the port "
+            "(the slot schedules' dense caches sharded; ROADMAP.md); use "
+            "--mode continuous")
     dev = resolve_devices(1, args.device)[0]           # raises: no card
     obs_on = bool(args.trace_out or args.metrics_out or args.stats_every)
     if not obs_on:
@@ -287,6 +313,12 @@ def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
 
 def _serve(args, dev: torch.device,
            observe: Optional[Callable[[Any], None]]) -> int:
+    sh = None
+    if args.mesh:
+        # over the visible CUDA devices, or the one CPU device; raises
+        # before any weight is drawn when there are too few
+        sh = serving_sharder(parse_mesh(
+            args.mesh, None if dev.type == "cuda" else [dev]))
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -299,7 +331,7 @@ def _serve(args, dev: torch.device,
         print(f"init: weights {weight_bytes / 1e9:.2f} GB, peak reckoned "
               f"{init_peak / 1e9:.2f} GB, measured "
               f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    engine = ServingEngine(cfg, params, device=dev)
+    engine = ServingEngine(cfg, params, device=dev, sh=sh)
     del params                       # the engine keeps its compute copy
     preserve = {"never": False, "reuse": True,
                 "always": "always"}[args.preserve_pristine]

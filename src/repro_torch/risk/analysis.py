@@ -53,7 +53,8 @@ from repro_torch.core.tenancy import (TenancyConfig, TenantTask,
 from repro_torch.core.transfer import (DeviceStreams, PaddedRows,
                                        StagingEngine, reorder_for_stragglers)
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.aggregate_loss import pad_elt_columns
+from repro_torch.kernels.aggregate_loss import (pad_elt_columns,
+                                                padded_rows)
 from repro_torch.risk.tables import RiskTables
 
 # resident per-pdev table sets kept per engine (LRU on table identity)
@@ -272,6 +273,42 @@ class AggregateRiskAnalysis:
                          engine.log, timeline, base)
 
     # ------------------------------------------------------------------
+    def make_sharded_step(self, mesh, chunk: Optional[int] = None):
+        """The analysis step with the trials split over every position of
+        ``mesh`` (the reference's pjit'd step: the trial axis is
+        embarrassingly parallel, so every mesh axis is a data axis).
+
+        ``step(yet, elt, occ_ret, occ_lim, agg_ret, agg_lim)`` cuts the
+        trials into one contiguous slice a position (``torch.tensor_split``:
+        the first ``T % n`` slices one trial longer), runs
+        ``kops.aggregate_loss`` -- K1, or K2 under the onehot variant -- on
+        each slice on its position's device beside that device's copy of
+        the tables, and returns the ``(T,)`` year losses gathered on the
+        mesh's first device.  Trials are independent, so the result is the
+        single call's.  A table not laid out for the gather is padded once
+        per device and call (:func:`pad_elt_columns`)."""
+        c = chunk or self.cfg.chunk_events
+        devs = mesh.position_devices()
+
+        def step(yet, elt, occ_ret, occ_lim, agg_ret, agg_lim):
+            tables: Dict[str, Tuple] = {}
+            outs = []
+            for dev, ids in zip(devs, torch.tensor_split(yet, len(devs))):
+                key = str(dev)
+                if key not in tables:
+                    e = elt.to(dev)
+                    if dev.type == "cuda" and not padded_rows(e):
+                        e = pad_elt_columns(e)
+                    tables[key] = (e, occ_ret.to(dev), occ_lim.to(dev))
+                e, ret, lim = tables[key]
+                self.launch_shapes.add((tuple(ids.shape), tuple(e.shape), c))
+                outs.append(kops.aggregate_loss(
+                    ids.to(dev), e, ret, lim, float(agg_ret), float(agg_lim),
+                    chunk=c).to(devs[0]))
+            return torch.cat(outs)
+
+        return step
+
     def input_specs(self, num_trials: Optional[int] = None
                     ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
         """``name -> (shape, dtype)`` of the step's inputs (no allocation)."""

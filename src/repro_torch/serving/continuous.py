@@ -99,6 +99,19 @@ the top of :meth:`ContinuousBatchingEngine.dispatch_round` and
 :meth:`ContinuousBatchingEngine.try_admit_batch`, raising before anything
 changes.
 
+On a device mesh (``ServingEngine(..., sh=serving_sharder(mesh))``, the
+reference's ``--mesh``) the K/V pools of :meth:`_init_state` are split on
+KV heads over the mesh's "model" axis (:mod:`repro_torch.serving.kvcache`),
+each decode step, admission, copy-on-write and restore runs a shard at a
+time through the sharded kernel wrappers, and everything else -- weights,
+page table, position pool, SSM state, sampling state -- is global on the
+mesh's first device, where the one controller computes it once.  A swap
+snapshot gathers the shards into global host blocks and a swap-in stages
+each shard's heads on its own lane
+(:class:`repro_torch.core.transfer.MeshStagingLanes`), so a record restores
+onto any mesh.  A 1x1 mesh is bit for bit the meshless engine; the per-shard
+decode is bit for bit its heads of the whole call, so wider meshes are too.
+
 MoE archs (olmoe) are the exception, as in the reference: expert-capacity
 routing couples the rows of a batch -- a prefill's rows, and every decode
 step's capacity rows, masked ones included -- so a MoE row is only
@@ -121,6 +134,7 @@ from repro_torch.configs import ATTN, MOE, NONE, ArchConfig
 from repro_torch.core.tenancy import resolve_devices
 from repro_torch.core.transfer import tree_map
 from repro_torch.distributed.fault import InjectedFault
+from repro_torch.distributed.sharding import ShardedTensor
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_cross_attention, apply_embedding,
                                        apply_mlp, apply_rmsnorm,
@@ -136,7 +150,8 @@ from repro_torch.serving.engine import (CudaGraphs, ServingEngine,
                                         resolve_extra_inputs, sample_rows,
                                         to_device)
 from repro_torch.serving.kvcache import (POS_SENTINEL, PagedKVCache,
-                                         gather_cross, paged_admit,
+                                         copy_page, gather_cross,
+                                         gather_pages, paged_admit,
                                          paged_admit_cross,
                                          paged_attention_decode, ssm_subs,
                                          state_kinds)
@@ -202,9 +217,13 @@ RoundKey = Tuple[int, bool, bool]       # (steps, all_greedy, any_topk)
 
 
 def _addresses(tree: Any, path: str = "") -> List[Tuple[str, int]]:
-    """(path, data_ptr) of every tensor in a dict / list nest."""
+    """(path, data_ptr) of every tensor in a dict / list nest (every shard
+    of a :class:`ShardedTensor`)."""
     if isinstance(tree, torch.Tensor):
         return [(path, tree.data_ptr())]
+    if isinstance(tree, ShardedTensor):
+        return [(f"{path}/{p}", t.data_ptr())
+                for p, t in enumerate(tree.locals)]
     if isinstance(tree, dict):
         return [a for k, v in tree.items()
                 for a in _addresses(v, f"{path}/{k}")]
@@ -327,6 +346,7 @@ class ContinuousBatchingEngine:
         cfg = engine.cfg
         self.engine = engine
         self.cfg = cfg
+        self.sh = engine.sh
         self.device = engine.device
         self.params = engine.params
         self.bundle = engine.bundle
@@ -378,12 +398,16 @@ class ContinuousBatchingEngine:
         self.nonfinite_rows = 0    # live row-steps with a non-finite logit
         self.preemptions = 0
         self.restores = 0
-        self.pdev = 0
+        # lane/shard ordinal for telemetry: the lowest device ordinal of the
+        # mesh the pools are split over (0 on the single-device path)
+        self.pdev = (min(d.index or 0 for d in
+                         self.sh.mesh.position_devices())
+                     if self.sh.mesh is not None else 0)
         self.tel = get_telemetry(telemetry)
         self._round_log: List[Tuple[int, int, int]] = []
         self.kv.tel = self.tel
         self.swap_store = (HostSwapStore(self.device, fault_plane=fault_plane,
-                                         telemetry=self.tel)
+                                         telemetry=self.tel, sharder=self.sh)
                            if self.can_preempt else None)
         # CUDA-event windows: (start, end) per prefill call and per round
         self._prefill_events: List[Tuple[Any, Any]] = []
@@ -457,14 +481,17 @@ class ContinuousBatchingEngine:
     def _init_state(self) -> Dict[str, Any]:
         cfg, c, dev = self.cfg, self.capacity, self.device
         i32 = dict(dtype=torch.int32, device=dev)
-        caches = self.kv.make_pools(self.n_stages, dev)
+        # the K/V pools (self- and cross-attention) split on KV heads over
+        # the mesh; everything else global on the engine's device
+        caches = self.kv.make_pools(self.n_stages, dev, self.sh)
         for name in self.ssm_subs:
             caches[name] = {k: v[None].repeat((self.n_stages,)
                                               + (1,) * v.dim())
                             for k, v in init_ssm_state(cfg, c, dev).items()}
         extra = {}
         if self.cross_blocks:
-            caches["cross"] = self.kv.make_cross_pools(self.n_stages, dev)
+            caches["cross"] = self.kv.make_cross_pools(self.n_stages, dev,
+                                                       self.sh)
             # per-slot cross page rows (the cross space's page table)
             extra["cross_pt"] = self.kv.make_cross_page_table(dev)
         return {
@@ -550,7 +577,7 @@ class ContinuousBatchingEngine:
                 if mixer == ATTN:
                     hout, _ = paged_attention_decode(
                         sub["attn"], hin, sc[f"sub{i}"], pt, page, off, pos,
-                        cfg, st["pos_pool"])
+                        cfg, st["pos_pool"], self.sh)
                 else:
                     hout, new = apply_ssm_decode(sub["mamba"], hin,
                                                  sc[f"sub{i}"], cfg)
@@ -582,7 +609,7 @@ class ContinuousBatchingEngine:
             a, _ = paged_attention_decode(
                 sp["attn"], apply_rmsnorm(sp["norm1"], x),
                 stage_view(self_pool, s), pt, page, off, pos, cfg,
-                st["pos_pool"])
+                st["pos_pool"], self.sh)
             x = x + a
             ck = gather_cross(cross["k"][s], cpt, cfg.encoder_seq_len)
             cv = gather_cross(cross["v"][s], cpt, cfg.encoder_seq_len)
@@ -632,7 +659,7 @@ class ContinuousBatchingEngine:
             paged_admit(self.state["caches"][name],
                         None if i else self.state["pos_pool"], pages_dev,
                         {kind: caches[name][kind][:, 0] for kind in "kv"},
-                        pos_src)
+                        pos_src, self.sh)
 
     def _cow(self, src: int, dst: int, slot: int, blk: int) -> None:
         """Copy-on-write fork: copy page ``src`` -> ``dst`` in every
@@ -640,9 +667,8 @@ class ContinuousBatchingEngine:
         page-table entry."""
         st = self.state
         for name in self.kv.attn_subs:
-            pool = st["caches"][name]
-            pool["k"][:, dst].copy_(pool["k"][:, src])
-            pool["v"][:, dst].copy_(pool["v"][:, src])
+            for kind in "kv":
+                copy_page(st["caches"][name][kind], src, dst)
         st["pos_pool"][dst].copy_(st["pos_pool"][src])
         st["page_table"][slot, blk].fill_(dst)
 
@@ -806,7 +832,7 @@ class ContinuousBatchingEngine:
                 cross_dev = to_device(cross_pages, self.device)
                 paged_admit_cross(self.state["caches"]["cross"], cross_dev,
                                   {k: a[:, 0] for k, a in
-                                   caches["cross"].items()})
+                                   caches["cross"].items()}, self.sh)
                 self.state["cross_pt"][slot].copy_(cross_dev)
                 caches = {self.kv.attn_subs[0]: caches["self"]}
             if nb:
@@ -998,7 +1024,9 @@ class ContinuousBatchingEngine:
             "kv": {}, "pos": st["pos_pool"][:0].clone()}
         if pages:
             idx = to_device(np.asarray(pages, np.int64), self.device)
-            dev["kv"] = {name: {k: st["caches"][name][k].index_select(1, idx)
+            # the host tier keeps global blocks (a split pool's heads
+            # gathered), so a record restores onto any mesh
+            dev["kv"] = {name: {k: gather_pages(st["caches"][name][k], idx)
                                 for k in "kv"}
                          for name in kv.attn_subs}
             dev["pos"] = st["pos_pool"].index_select(0, idx)
@@ -1006,7 +1034,7 @@ class ContinuousBatchingEngine:
         if self.cross_blocks:
             cpages = kv.cross_pages_of(slot)
             cidx = to_device(np.asarray(cpages, np.int64), self.device)
-            dev["cross"] = {k: st["caches"]["cross"][k].index_select(1, cidx)
+            dev["cross"] = {k: gather_pages(st["caches"]["cross"][k], cidx)
                             for k in "kv"}
             n_cross = len(cpages)
         if self.ssm_subs:
@@ -1182,20 +1210,27 @@ class ContinuousBatchingEngine:
         if nb > n_shared:
             fresh = row_dev[n_shared:nb]
             pos_rows = arrays["pos"][n_shared:nb]
+
+            def as_ring(b):
+                # the fresh blocks (S, nf, P, Hkv, D) as a dense cache
+                # (S, nf * P, Hkv, D); staged blocks may be split on heads
+                f = lambda t: t[:, n_shared:nb].reshape(  # noqa: E731
+                    t.shape[0], -1, *t.shape[3:])
+                return (b.map(f, b.spec[:2] + b.spec[3:])
+                        if isinstance(b, ShardedTensor) else f(b))
+
             for i, name in enumerate(self.kv.attn_subs):
-                blocks = {k: arrays["kv"][name][k][:, n_shared:nb]
-                          for k in "kv"}
-                S, nf, P = blocks["k"].shape[:3]
                 paged_admit(st["caches"][name],
                             None if i else st["pos_pool"], fresh,
-                            {k: b.reshape(S, nf * P, *b.shape[3:])
-                             for k, b in blocks.items()},
-                            pos_rows.reshape(-1))
+                            {k: as_ring(arrays["kv"][name][k])
+                             for k in "kv"},
+                            pos_rows.reshape(-1), self.sh)
         if cross_pages is not None:
             cross_dev = to_device(cross_pages, self.device)
             for k in "kv":
-                ops.paged_prefill_scatter(st["caches"]["cross"][k], cross_dev,
-                                          arrays["cross"][k])
+                ops.paged_prefill_scatter_sharded(
+                    st["caches"]["cross"][k], cross_dev, arrays["cross"][k],
+                    self.sh)
             st["cross_pt"][slot].copy_(cross_dev)
         for name in self.ssm_subs:
             restore_slot_state(st["caches"][name], slot,

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.configs import ATTN, ArchConfig
 from repro_torch.core.tenancy import resolve_devices
+from repro_torch.distributed.sharding import Sharder, null_sharder
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import ModelBundle, build_model, prepare_params
 from repro_torch.models.transformer import tree_map, tree_map2
@@ -363,10 +364,27 @@ class ServingEngine:
     """One model on one device: the parameters (cast once for compute),
     prefill, the blocking ``generate`` loop and the split
     ``dispatch``/``await_result`` halves.  ``device=None`` is the CUDA
-    device; the CPU runs only when named."""
+    device; the CPU runs only when named.
+
+    ``sh`` (a :func:`repro_torch.distributed.sharding.serving_sharder` on a
+    mesh) places the weights replicated on the mesh -- kept once, on the
+    mesh's first device, which becomes the engine's device, by the one
+    controller that runs every replicated computation -- and lets a
+    :class:`repro_torch.serving.continuous.ContinuousBatchingEngine` built
+    on this engine split its KV pools over the mesh."""
 
     def __init__(self, cfg: ArchConfig, params: Any, temperature: float = 0.0,
-                 device=None, telemetry: Optional[Telemetry] = None):
+                 device=None, telemetry: Optional[Telemetry] = None,
+                 sh: Optional[Sharder] = None):
+        self.sh = sh or null_sharder()
+        if self.sh.mesh is not None:
+            # serving splits the KV pools along heads, never the weights:
+            # the one controller keeps them once, on the mesh's first device
+            first = self.sh.mesh.position_devices()[0]
+            if device is not None and resolve_devices(1, device)[0] != first:
+                raise ValueError(f"device {device}: the mesh's first device "
+                                 f"is {first}")
+            device = first
         self.device = resolve_devices(1, device)[0]    # raises: no card
         self.cfg = cfg
         self.tel = get_telemetry(telemetry)

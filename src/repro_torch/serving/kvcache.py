@@ -30,6 +30,17 @@ independently:
 Masked (inactive) rows redirect their writes to the reserved ``TRASH`` page,
 which no active row's page table ever references.
 
+On a device mesh (a :func:`repro_torch.distributed.sharding.serving_sharder`)
+the K/V pools -- self- and cross-attention -- are split on KV heads: each
+pool is a :class:`repro_torch.distributed.sharding.ShardedTensor` whose
+shards are ``(n_stages, num_pages, page_size, Hkv/M, D)`` blocks, each
+contiguous on its device, and the primitives run a shard at a time (the
+sharded kernel wrappers, one launch a shard), the decode's ``(C, H/M, D)``
+outputs gathered along heads before ``wo``.  Page tables, the position
+pool, the free list, the trie and refcounts stay host-global (and the
+position pool and page table global on the mesh's first device), so the
+accounting above is the same on any mesh.
+
 State kinds: ``attn`` (the page space above), ``cross`` and ``ssm``; a
 hybrid arch (jamba) carries attn and ssm, the encoder-decoder arch
 (whisper) attn and cross.  The cross space holds each request's whole
@@ -65,6 +76,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ATTN, ArchConfig
+from repro_torch.distributed.sharding import Sharder, ShardedTensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import POS_SENTINEL
 from repro_torch.models.layers import _project_qkv, apply_rope, dtype_of
@@ -631,81 +643,124 @@ class PagedKVCache:
         return torch.full((self.num_pages, self.page_size), POS_SENTINEL,
                           dtype=torch.int32, device=device)
 
-    def make_pools(self, n_stages: int, device=None
+    def make_pools(self, n_stages: int, device=None,
+                   sh: Optional[Sharder] = None
                    ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Each attention sublayer's K and V pools ``(n_stages, NP, P, Hkv,
+        D)`` bfloat16; on ``sh``'s mesh split on KV heads, each shard's
+        block allocated contiguous on its device (:class:`ShardedTensor`)."""
         cfg = self.cfg
         shape = (n_stages, self.num_pages, self.page_size,
                  cfg.num_kv_heads, cfg.head_dim)
-        return {name: {"k": torch.zeros(shape, dtype=torch.bfloat16,
-                                        device=device),
-                       "v": torch.zeros(shape, dtype=torch.bfloat16,
-                                        device=device)}
+        return {name: {k: _zeros(shape, torch.bfloat16, device, sh)
+                       for k in "kv"}
                 for name in self.attn_subs}
-
 
     def make_cross_page_table(self, device=None) -> torch.Tensor:
         return torch.full((self.capacity, self.cross_blocks), self.SENTINEL,
                           dtype=torch.int32, device=device)
 
-    def make_cross_pools(self, n_stages: int, device=None
+    def make_cross_pools(self, n_stages: int, device=None,
+                         sh: Optional[Sharder] = None
                          ) -> Dict[str, torch.Tensor]:
         """Cross-attention page pools, in the *compute* dtype: ``generate``
         decodes straight from the prefill's cross K/V (compute dtype), so
-        storing anything else here would break bitwise parity with it."""
+        storing anything else here would break bitwise parity with it.  On
+        ``sh``'s mesh split on KV heads, as the self-attention pools."""
         cfg = self.cfg
         shape = (n_stages, self.num_cross_pages, self.page_size,
                  cfg.num_kv_heads, cfg.head_dim)
         dt = dtype_of(cfg.compute_dtype)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        return {k: _zeros(shape, dt, device, sh) for k in "kv"}
+
+
+POOL_AXES = (None, None, None, "kv", None)     # (stages, NP, P, Hkv, D)
+
+
+def _zeros(shape, dtype, device, sh: Optional[Sharder]):
+    if sh is not None and sh.mesh is not None:
+        return sh.zeros(shape, POOL_AXES, dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
-# device primitives (used inside the decode step and admission)
+# device primitives (used inside the decode step and admission); a pool may
+# be a ShardedTensor split on its KV-head axis, the rest global tensors on
+# the mesh's first device
 # ---------------------------------------------------------------------------
-def paged_write(pool: torch.Tensor, pages: torch.Tensor, offsets: torch.Tensor,
-                values: torch.Tensor) -> torch.Tensor:
+def paged_write(pool, pages: torch.Tensor, offsets: torch.Tensor,
+                values: torch.Tensor):
     """Scatter one entry per row, in place: ``pool[pages[c], offsets[c]] =
-    values[c]``.  Masked rows all target the TRASH page; their collisions
+    values[c]`` (values ``(C, Hkv, D)``; a sharded pool takes its heads in
+    each shard).  Masked rows all target the TRASH page; their collisions
     are benign because TRASH is never read as valid."""
-    pool[pages.long(), offsets.long()] = values
+    if not isinstance(pool, ShardedTensor):
+        pool[pages.long(), offsets.long()] = values
+        return pool
+    for _, local, sl in pool.unique():
+        dev = local.device
+        local[pages.to(dev).long(), offsets.to(dev).long()] = \
+            values[:, sl[2]].to(dev)
     return pool
+
+
+def copy_page(pool, src: int, dst: int) -> None:
+    """Page ``src`` of every stage copied onto page ``dst``, in place (in
+    every shard of a sharded pool)."""
+    for local in ([t for _, t, _ in pool.unique()]
+                  if isinstance(pool, ShardedTensor) else [pool]):
+        local[:, dst].copy_(local[:, src])
+
+
+def gather_pages(pool, idx: torch.Tensor) -> torch.Tensor:
+    """Pages ``idx`` of every stage as global blocks ``(S, len(idx), P,
+    Hkv, D)`` on the mesh's first device (a sharded pool's heads gathered:
+    data movement)."""
+    if not isinstance(pool, ShardedTensor):
+        return pool.index_select(1, idx)
+    return pool.map(lambda t: t.index_select(1, idx.to(t.device))).full()
 
 
 def paged_attend(q: torch.Tensor, pool: Dict[str, torch.Tensor],
                  page_table: torch.Tensor, positions: torch.Tensor,
-                 cfg: ArchConfig, pos_pool: torch.Tensor) -> torch.Tensor:
+                 cfg: ArchConfig, pos_pool: torch.Tensor,
+                 sh: Optional[Sharder] = None):
     """Paged attention read: q (C, H, D) already-roped queries; pool
     {"k","v"} (NP, P, Hkv, D); page_table (C, NB); positions (C,).
     Returns (C, H, D) float32 -- the decode kernel on a CUDA device, its
-    plain version (the reference's dense-gather oracle) on the CPU."""
-    return ops.paged_attention_decode(q, pool["k"], pool["v"], pos_pool,
-                                      page_table, positions,
-                                      window=cfg.sliding_window)
+    plain version (the reference's dense-gather oracle) on the CPU; for
+    pools split on ``sh``'s mesh one call a shard, the result sharded like
+    q (:class:`ShardedTensor`)."""
+    return ops.paged_attention_decode_sharded(
+        q, pool["k"], pool["v"], pos_pool, page_table, positions, sh,
+        window=cfg.sliding_window)
 
 
 def paged_admit(pool: Dict[str, torch.Tensor],
                 pos_pool: Optional[torch.Tensor], pages: torch.Tensor,
-                cache: Dict[str, torch.Tensor], pos_src: torch.Tensor) -> None:
+                cache: Dict[str, torch.Tensor], pos_src: torch.Tensor,
+                sh: Optional[Sharder] = None) -> None:
     """Admission-time write of one attention sublayer, in place: the dense
     prefill cache ``cache`` {"k","v"} (S, ring, Hkv, D) into ``pool``'s
     pages ``pages`` (nb,), cast to bfloat16 and zero past the ring, and
     (unless ``pos_pool`` is None) the positions ``pos_src`` (ring,) into
     ``pos_pool``'s rows of those pages, ``POS_SENTINEL`` past the ring --
-    one launch of the scatter kernel on a CUDA device, ``index_copy_`` and
-    index-puts on the CPU; bit-exact with each other."""
-    ops.paged_admit_kv(pool["k"], pool["v"], pos_pool, pages, cache["k"],
-                       cache["v"], pos_src)
+    one launch of the scatter kernel on a CUDA device (one a shard of a
+    split pool, each its heads), ``index_copy_`` and index-puts on the CPU;
+    bit-exact with each other."""
+    ops.paged_admit_kv_sharded(pool["k"], pool["v"], pos_pool, pages,
+                               cache["k"], cache["v"], pos_src, sh)
 
 
 def paged_admit_cross(pools: Dict[str, torch.Tensor], pages: torch.Tensor,
-                      cross: Dict[str, torch.Tensor]) -> None:
+                      cross: Dict[str, torch.Tensor],
+                      sh: Optional[Sharder] = None) -> None:
     """Admission's write-once cross scatter, in place: one request's cross
     K/V ``cross`` {"k","v"} (S, S_enc, Hkv, D) zero-padded to its
     ``nbc = len(pages)`` whole pages and written into ``pools``' pages
-    ``pages`` -- one launch of the scatter kernel per pool on a CUDA
-    device, ``index_copy_`` on the CPU (bit-exact with each other).  The
-    pools are in the compute dtype, as the K/V are: the pages hold the
+    ``pages`` -- one launch of the scatter kernel per pool (and shard) on a
+    CUDA device, ``index_copy_`` on the CPU (bit-exact with each other).
+    The pools are in the compute dtype, as the K/V are: the pages hold the
     prefill's cross K/V bit for bit, and the zeros past ``S_enc`` are
     dropped by :func:`gather_cross`."""
     for kind in ("k", "v"):
@@ -714,25 +769,31 @@ def paged_admit_cross(pools: Dict[str, torch.Tensor], pages: torch.Tensor,
         nbc, psz = pages.shape[0], pool.shape[2]
         vals = torch.nn.functional.pad(
             leaf, (0, 0, 0, 0, 0, nbc * psz - s_enc))
-        ops.paged_prefill_scatter(
-            pool, pages, vals.reshape(S, nbc, psz, *leaf.shape[2:]))
+        ops.paged_prefill_scatter_sharded(
+            pool, pages, vals.reshape(S, nbc, psz, *leaf.shape[2:]), sh)
 
 
-def gather_cross(pool: torch.Tensor, cross_pt: torch.Tensor, s_enc: int
-                 ) -> torch.Tensor:
+def gather_cross(pool, cross_pt: torch.Tensor, s_enc: int) -> torch.Tensor:
     """The slot rows' cross K (or V) as a dense view ``(C, s_enc, Hkv,
     D)``: pool ``(NPc, P, Hkv, D)`` gathered through the cross page table
     ``(C, nbc)`` and cut to ``s_enc`` (bitwise the prefill's cross K/V of
-    each row's request)."""
-    C, nbc = cross_pt.shape
-    g = pool[cross_pt.long()]                       # (C, nbc, P, Hkv, D)
-    return g.reshape(C, nbc * pool.shape[1], *pool.shape[2:])[:, :s_enc]
+    each row's request; a split pool's heads gathered onto the mesh's first
+    device)."""
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        C, nbc = cross_pt.shape
+        g = t[cross_pt.to(t.device).long()]           # (C, nbc, P, Hkv, D)
+        return g.reshape(C, nbc * t.shape[1], *t.shape[2:])[:, :s_enc]
+
+    if not isinstance(pool, ShardedTensor):
+        return gather(pool)
+    return pool.map(gather).full()
 
 
 def paged_attention_decode(p, x, pool: Dict[str, torch.Tensor],
                            page_table: torch.Tensor, write_page: torch.Tensor,
                            write_off: torch.Tensor, positions: torch.Tensor,
-                           cfg: ArchConfig, pos_pool: torch.Tensor):
+                           cfg: ArchConfig, pos_pool: torch.Tensor,
+                           sh: Optional[Sharder] = None):
     """Single-token GQA decode against a paged cache (per-row positions).
 
     Mirrors :func:`repro_torch.models.layers.apply_attention_decode`
@@ -740,7 +801,10 @@ def paged_attention_decode(p, x, pool: Dict[str, torch.Tensor],
     position, bf16 cache casts, validity ``kpos <= pos`` with optional
     sliding window) -- only the cache storage is paged: the new token's K/V
     is written at ``(write_page, write_off)`` per row *before* the read, and
-    ``pos_pool`` already holds this step's positions.
+    ``pos_pool`` already holds this step's positions.  With pools split on
+    ``sh``'s mesh the read runs a shard at a time and its ``(C, H/M, D)``
+    outputs are gathered along heads before ``wo`` (data movement, never a
+    sum).
 
     x: (C, 1, d); positions: (C,) absolute position of the new token.
     Returns (out (C, 1, d), pool) with the pool updated in place."""
@@ -754,7 +818,9 @@ def paged_attention_decode(p, x, pool: Dict[str, torch.Tensor],
                 k_new[:, 0].to(pool["k"].dtype))
     paged_write(pool["v"], write_page, write_off,
                 v_new[:, 0].to(pool["v"].dtype))
-    o = paged_attend(q[:, 0], pool, page_table, positions, cfg, pos_pool)
+    o = paged_attend(q[:, 0], pool, page_table, positions, cfg, pos_pool, sh)
+    if isinstance(o, ShardedTensor):
+        o = sh.constrain(o, (None, None, None))
     o = o.reshape(C, 1, H * D).to(x.dtype)
     out = torch.matmul(o, p["wo"].to(dtype_of(cfg.compute_dtype)))
     return out, pool

@@ -47,7 +47,7 @@ import torch
 
 from repro_torch.core.tenancy import (TenancyConfig, TenantTask,
                                       VirtualDevicePool)
-from repro_torch.core.transfer import (StagedChunk, StagingEngine,
+from repro_torch.core.transfer import (MeshStagingLanes, StagingEngine,
                                        _tree_bytes, tree_map)
 from repro_torch.obs.telemetry import get_telemetry
 
@@ -94,20 +94,39 @@ def _pin(t: torch.Tensor) -> torch.Tensor:
     return t if t.is_pinned() else t.pin_memory()
 
 
+def _staged_axes(a) -> Tuple[Optional[str], ...]:
+    """Logical axes of a staged leaf: page blocks ``(S, nb, P, Hkv, D)`` --
+    self- or cross-attention -- split on KV heads, the rest replicated."""
+    return ((None, None, None, "kv", None) if a.dim() == 5
+            else (None,) * a.dim())
+
+
 class HostSwapStore:
     """Ticketed host-side store of preempted requests' state, staged back
-    to ``device`` (the engine's) by a sequential :class:`StagingEngine`."""
+    to ``device`` (the engine's) by a sequential :class:`StagingEngine`.
+
+    With ``sharder`` on a mesh, a swap-in rides
+    :class:`repro_torch.core.transfer.MeshStagingLanes` instead: each mesh
+    position's KV-head slice of every page block on its own lane, landing
+    as the pools' shards.  The host tier keeps global, unsharded blocks,
+    so a record restores onto any mesh (or none)."""
 
     def __init__(self, device=None, fault_plane: Optional[Any] = None,
-                 telemetry: Optional[Any] = None):
+                 telemetry: Optional[Any] = None,
+                 sharder: Optional[Any] = None):
         self.device = torch.device(device if device is not None else "cpu")
         # sequential mode: the paper's winner for host->device staging
         self.staging = StagingEngine(
             VirtualDevicePool(TenancyConfig(1, 1, "sequential"),
                               devices=[self.device]))
         self.fault_plane = fault_plane
+        self.sharder = sharder
+        self.lanes: Optional[MeshStagingLanes] = None
+        if sharder is not None and sharder.mesh is not None:
+            self.lanes = MeshStagingLanes(sharder)
         self._records: Dict[int, SwapRecord] = {}
-        self._staged: Dict[int, StagedChunk] = {}
+        # ticket -> its StagedChunk (its MeshStagedChunk on lanes)
+        self._staged: Dict[int, Any] = {}
         self._next_ticket = 0
         self.puts = 0
         self.fetches = 0
@@ -116,12 +135,15 @@ class HostSwapStore:
         # caller's timing; cleared by the caller
         self.prefetch_log: List[Tuple[Any, Any, int]] = []
         self.tel = get_telemetry(telemetry)
-        self.staging.tel = self.tel
+        self.retarget_telemetry(self.tel)
 
     def retarget_telemetry(self, tel: Any) -> None:
-        """Re-point the store and its staging engine at ``tel``."""
+        """Re-point the store and its staging engine (and lanes) at
+        ``tel``."""
         self.tel = tel
         self.staging.tel = tel
+        if self.lanes is not None:
+            self.lanes.retarget_telemetry(tel)
 
     # ------------------------------------------------------------------
     def __len__(self) -> int:
@@ -193,13 +215,21 @@ class HostSwapStore:
         device."""
         if ticket in self._staged:
             return
-        self.tel.event("swap.prefetch", ticket=ticket, lanes=1)
-        task = TenantTask(vdev=0, pdev=0, slot=0, start=0, stop=1)
-        chunk = self.staging.put(task, self._tree(self._records[ticket]))
-        if chunk.event is not None:
-            self.prefetch_log.append((chunk.start_event, chunk.event,
-                                      _tree_bytes(chunk.arrays)))
-        self._staged[ticket] = chunk
+        tree = self._tree(self._records[ticket])
+        self.tel.event("swap.prefetch", ticket=ticket,
+                       lanes=self.lanes.n_lanes if self.lanes else 1)
+        if self.lanes is not None:
+            staged = self.lanes.put(tree, _staged_axes, slot=ticket)
+            chunks = staged.chunks
+        else:
+            task = TenantTask(vdev=0, pdev=0, slot=0, start=0, stop=1)
+            staged = self.staging.put(task, tree)
+            chunks = [staged]
+        for chunk in chunks:
+            if chunk.event is not None:
+                self.prefetch_log.append((chunk.start_event, chunk.event,
+                                          _tree_bytes(chunk.arrays)))
+        self._staged[ticket] = staged
 
     def fetch(self, ticket: int) -> Dict[str, Any]:
         """The record's arrays on the device, ordered for the current
@@ -218,16 +248,26 @@ class HostSwapStore:
                 raise
         with self.tel.span("swap.fetch", ticket=ticket):
             self.prefetch(ticket)
-            chunk = self._staged.pop(ticket)
-            if chunk.event is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(chunk.event)
-                tree_map(lambda t: t.record_stream(stream), chunk.arrays)
+            staged = self._staged.pop(ticket)
+            if self.lanes is not None:
+                nbytes = sum(_tree_bytes(c.arrays) for c in staged.chunks)
+                # page blocks stay split like the pools; the replicated
+                # leaves become global tensors on the engine's device
+                arrays = tree_map(
+                    lambda t: t.full() if all(e is None for e in t.spec)
+                    else t, self.lanes.wait(staged))
+            else:
+                if staged.event is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(staged.event)
+                    tree_map(lambda t: t.record_stream(stream),
+                             staged.arrays)
+                arrays, nbytes = staged.arrays, _tree_bytes(staged.arrays)
         self.fetches += 1
         if self.tel.enabled:
             self.tel.count("swap.fetches")
-            self.tel.count("swap.bytes_in", _tree_bytes(chunk.arrays))
-        return chunk.arrays
+            self.tel.count("swap.bytes_in", nbytes)
+        return arrays
 
     def pop(self, ticket: int) -> SwapRecord:
         """Remove a record (restored, or dropped terminally)."""

@@ -67,7 +67,8 @@ IMPORT_ALL = textwrap.dedent("""
             "repro_torch.training.optimizer",
             "repro_torch.training.train_loop",
             "repro_torch.training.grad_compression",
-            "repro_torch.launch.train"}
+            "repro_torch.launch.train",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh"}
     assert want <= set(names), want - set(names)
     print("IMPORTED", len(names))
 """)
