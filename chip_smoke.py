@@ -195,16 +195,21 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import risk as risk_cli
 from repro_torch.launch import serve as serve_cli
+from repro_torch.models import model as model_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import transformer
 from repro_torch.models.model import build_model, param_count
-from repro_torch.models.layers import dtype_of, unembed_operand
+from repro_torch.models.layers import apply_unembed, dtype_of, unembed_operand
 from repro_torch.models.transformer import (init_footprint, tree_leaves,
                                             tree_map, tree_map2)
 from repro_torch.data.tokens import DataConfig, synth_batch
 from repro_torch.distributed import checkpoint as ckpt
-from repro_torch.distributed.sharding import parse_mesh, serving_sharder
+from repro_torch.distributed.sharding import (Mesh, Sharder, ShardedTensor,
+                                              parse_mesh, serving_sharder)
 from repro_torch.distributed.fault import run_with_recovery
 from repro_torch.launch import train as train_cli
 from repro_torch.models.attention_core import blockwise_attention_bwd
+from repro_torch.training import grad_compression as gcomp
 from repro_torch.training.optimizer import Optimizer, make_optimizer
 from repro_torch.training.train_loop import build_train_step, init_train_state
 from repro_torch.obs import TELEMETRY
@@ -5525,7 +5530,7 @@ def reduced_step(cfg, params, batch, device) -> tuple:
     bundle = build_model(cfg)
     grads: list = []
     opt = capture_grads(make_optimizer(cfg), grads)
-    step = build_train_step(bundle, opt,
+    step = build_train_step(bundle, None, opt,
                             lr_fn=lambda s: torch.full((), 1e-3))
     state = init_train_state(bundle, opt, tree_map(
         lambda t: t.detach().clone().to(device), params))
@@ -5708,7 +5713,8 @@ def microbatch_check(dev) -> dict:
         bundle = build_model(cfg)
         opt = make_optimizer(cfg)
         state = init_train_state(bundle, opt, params)
-        _, m = build_train_step(bundle, opt, lr_fn=lr)(state, batch)
+        _, m = build_train_step(bundle, None, opt, lr_fn=lr)(state,
+                                                             batch)
         res[cfg.microbatches] = (float(m["loss"]), float(m["grad_norm"]))
         del state, opt, m
         if after is None:
@@ -5736,7 +5742,7 @@ def phase_train_recovery(dev) -> dict:
     cfg = get_config("h2o-danube-1.8b").reduced()
     bundle = build_model(cfg)
     opt = make_optimizer(cfg)
-    step = build_train_step(bundle, opt)
+    step = build_train_step(bundle, None, opt)
     dc = DataConfig(4, 16, cfg.vocab_size)
 
     def batch(i):
@@ -5827,6 +5833,440 @@ def phase_train(errs: Errors, dev, laps) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the training mesh (slice 6b): internlm2-1.8b at full width on meshes of
+# the card repeated against no mesh, olmoe-1b-7b expert-parallel, and the
+# int8-compressed all-reduce
+# ---------------------------------------------------------------------------
+# (mesh or None, fsdp forced on): internlm2's config keeps fsdp off; the
+# last run forces it, so the data axis splits the parameters too
+TRAIN_MESHES = ((None, False), ("1x1", False), ("1x2", False),
+                ("2x1", False), ("2x2", False), ("2x2", True))
+TRAIN_MESH_STEPS, TRAIN_MESH_SEQ = 3, 512
+TRAIN_MESH_CKPT = "1x2"            # checkpointed, restored with no mesh
+# olmoe-1b-7b at its published width, cut to 4 of its 16 layers
+EP_ARCH, EP_LAYERS = "olmoe-1b-7b", 4
+EP_MESHES = ("1x2", "2x2", "1x8")
+EP_STEP_MESHES = ("1x2", "2x2")
+EP_STEPS = 3
+EP_AMPLE_CF = 8.0                  # E / k: the scatter path drops nothing
+# the first MoE layer alone, float32, on the card against the CPU port:
+# 8 rows of 64 tokens
+EP_LAYER_TOKENS = (8, 64)
+EP_LAYER_RTOL = 1e-4               # float32 GEMMs of other shapes
+EP_AUX_RTOL = 1e-5
+PSUM_MESH = "2x2x2"
+PSUM_BLOCK = 256
+
+
+def placed_equal(want: torch.Tensor, got) -> bool:
+    """Every distinct shard of ``got`` equal to its slices of ``want``."""
+    if not isinstance(got, ShardedTensor):
+        return torch.equal(want, got)
+    return all(torch.equal(want[sl], t) for _, t, sl in got.unique())
+
+
+def mesh_of(spec, dev):
+    if spec is None:
+        return None
+    n = int(np.prod([int(e) for e in spec.split("x")]))
+    return parse_mesh(spec, [dev] * n)
+
+
+def train_mesh_run(cfg, spec, fsdp: bool, batches, dev) -> tuple:
+    """``make_state_and_step`` on ``spec``'s mesh of the card (or none) and
+    TRAIN_MESH_STEPS steps: (state, result); counts and the peak reset just
+    before."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_counts()                # just before the path
+    run_cfg = dataclasses.replace(cfg, fsdp=True) if fsdp else cfg
+    _, state, step, sh = train_cli.make_state_and_step(
+        run_cfg, dev, 0, mesh_of(spec, dev))
+    losses, norms, ms = [], [], []
+    for batch in batches:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    res = dict(losses=losses, grad_norms=norms, step_ms=ms,
+               median_step_ms=statistics.median(ms[1:]),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               launches=fa.launch_counts[K5], variants=dict(fa.variant_counts),
+               specs=sorted({str(t.spec) for t in tree_leaves(state["params"])
+                             if isinstance(t, ShardedTensor)}))
+    return state, res
+
+
+def phase_train_mesh(dev) -> dict:
+    """internlm2-1.8b at published width and depth, batch 8 x 512, remat
+    full, AdamW, bf16 compute, seed 0: TRAIN_MESH_STEPS steps with no mesh,
+    then on each of TRAIN_MESHES; loss, grad norm and every parameter after
+    the steps bit for bit the no-mesh run's; K5 launches = 24 x 2 x steps;
+    then the 1x2 state's parameters checkpointed and restored with no mesh,
+    bit for bit."""
+    cfg = get_config("internlm2-1.8b")
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(TRAIN_BATCH, TRAIN_MESH_SEQ, cfg.vocab_size), i).items()}
+        for i in range(TRAIN_MESH_STEPS)]
+    want5 = k5_per_prefill(cfg) * 2 * TRAIN_MESH_STEPS
+    runs, ref_params, ckpt_res = {}, None, None
+    for spec, fsdp in TRAIN_MESHES:
+        name = (spec or "none") + (" fsdp" if fsdp else "")
+        state, res = train_mesh_run(cfg, spec, fsdp, batches, dev)
+        check(res["launches"] == want5 and res["variants"]["f32_simt"] == 0
+              and not sum(fa.plain_counts.values()),
+              f"train-mesh {name}: K5 launches {res['launches']} "
+              f"{res['variants']}, want {want5} bf16_mma")
+        check(all(np.isfinite(res["losses"])),
+              f"train-mesh {name}: losses {res['losses']}")
+        if ref_params is None:
+            ref_params = state["params"]
+            ref_res = res
+        else:
+            diff = [i for i, (w, g) in enumerate(zip(
+                tree_leaves(ref_params), tree_leaves(state["params"])))
+                if not placed_equal(w, g)]
+            res["params_bitwise"] = not diff
+            check(res["losses"] == ref_res["losses"]
+                  and res["grad_norms"] == ref_res["grad_norms"],
+                  f"train-mesh {name}: losses {res['losses']} / norms "
+                  f"{res['grad_norms']} against no mesh's "
+                  f"{ref_res['losses']} / {ref_res['grad_norms']}")
+            check(not diff, f"train-mesh {name}: {len(diff)} parameter "
+                            "leaves differ from no mesh's")
+        say("train-mesh", f"internlm2-1.8b {name}: losses {res['losses']}, "
+                          f"grad norms {res['grad_norms']}, step ms "
+                          f"{[round(x, 2) for x in res['step_ms']]} (median "
+                          f"of steps 2-3 {res['median_step_ms']:.2f}), peak "
+                          f"{res['peak_gib']:.2f} GiB, K5 {res['launches']}"
+                          + (", bit for bit no mesh's losses, norms and "
+                             "every parameter" if spec else ""))
+        if spec == TRAIN_MESH_CKPT and not fsdp:
+            del state["opt"]
+            ckpt_res = train_mesh_checkpoint(state, ref_params, dev)
+        runs[name] = res
+        del state
+    return {"runs": runs, "checkpoint": ckpt_res,
+            "launches": {f"internlm2-1.8b train-mesh {k}": {
+                K3: 0, K4: 0, K5: r["launches"]} for k, r in runs.items()}}
+
+
+def train_mesh_checkpoint(state, ref_params, dev) -> dict:
+    """The placed parameters and step written (global tensors), restored
+    with no mesh onto the card: bit for bit the placed ones."""
+    tree = {"params": state["params"], "step": state["step"]}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save(d, TRAIN_MESH_STEPS, tree)
+        t1 = time.perf_counter()
+        back = ckpt.restore(d, TRAIN_MESH_STEPS,
+                            {"params": ref_params, "step": state["step"]},
+                            device=dev)
+        t2 = time.perf_counter()
+    pairs = []
+    tree_map2(lambda g, b: pairs.append((g, b)), tree["params"],
+              back["params"])
+    ok = all(placed_equal(b, g) for g, b in pairs)
+    ok = ok and int(back["step"]) == int(state["step"])
+    check(ok, "train-mesh checkpoint: a restored leaf differs")
+    nbytes = sum(int(b.numel()) * b.element_size() for _, b in pairs)
+    say("train-mesh", f"checkpoint of the {TRAIN_MESH_CKPT} state's "
+                      f"parameters ({nbytes / 1e9:.2f} GB as global "
+                      f"tensors) written in {t1 - t0:.1f} s, restored with "
+                      f"no mesh in {t2 - t1:.1f} s, bit for bit")
+    return dict(bytes=nbytes, save_s=t1 - t0, restore_s=t2 - t1,
+                bitwise=ok)
+
+
+def ep_config(cf: float, compute="bfloat16"):
+    cfg = get_config(EP_ARCH)
+    return dataclasses.replace(
+        cfg, num_layers=EP_LAYERS, compute_dtype=compute,
+        moe=dataclasses.replace(cfg.moe, dispatch="ep", capacity_factor=cf))
+
+
+@contextlib.contextmanager
+def routed_losses(store: list):
+    """Every routed layer's {"moe_aux", "moe_z"} appended to ``store``."""
+    orig = moe_mod.apply_moe
+
+    def rec(*args, **kw):
+        y, losses = orig(*args, **kw)
+        store.append({k: v.detach() for k, v in losses.items()})
+        return y, losses
+    moe_mod.apply_moe = rec
+    try:
+        yield
+    finally:
+        moe_mod.apply_moe = orig
+
+
+def ep_layer_check(dev) -> dict:
+    """The first MoE layer of olmoe-1b-7b at full width in float32 at
+    capacity factor 8 on EP_LAYER_TOKENS: the card's EP at each of
+    EP_MESHES against the CPU port's EP on the same inputs (the CPU tests
+    hold that against the reference's apply_moe_ep): output at
+    EP_LAYER_RTOL, aux and z at EP_AUX_RTOL, dropped choices equal; the
+    gradients at 2x2 too."""
+    cfg = ep_config(EP_AMPLE_CF, "float32")
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    p_cpu = moe_mod.init_moe(gen, cfg, "cpu")
+    x_cpu = torch.randn(*EP_LAYER_TOKENS, cfg.d_model, generator=gen)
+    p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+    out = {}
+    for spec in EP_MESHES:
+        res = {}
+        grads = spec == "2x2"
+        for where, p, x, mesh in (
+                ("card", p_dev, x_cpu.to(dev), mesh_of(spec, dev)),
+                ("cpu", p_cpu, x_cpu, mesh_of(spec, torch.device("cpu")))):
+            q = {k: v.clone().requires_grad_(grads) for k, v in p.items()}
+            moe_mod.dropped_log = []
+            with torch.set_grad_enabled(grads):
+                y, losses = moe_mod.apply_moe(q, x, cfg, Sharder(mesh))
+            dropped = int(moe_mod.dropped_log[0])
+            moe_mod.dropped_log = None
+            g = (torch.autograd.grad(torch.sum(y ** 2) + sum(
+                losses.values()), list(q.values())) if grads else ())
+            res[where] = (y.detach().cpu(), {k: float(v.detach()) for k, v
+                                             in losses.items()}, dropped,
+                          [t.cpu() for t in g])
+        (yd, ld, nd, gd), (yc, lc, nc, gc_) = res["card"], res["cpu"]
+        err = float((yd - yc).abs().max() / yc.abs().max())
+        check(err <= EP_LAYER_RTOL, f"train-ep layer {spec}: output differs "
+                                    f"by {err:.3g} of its largest")
+        for k in lc:
+            check(abs(ld[k] - lc[k]) <= EP_AUX_RTOL * abs(lc[k]),
+                  f"train-ep layer {spec}: {k} {ld[k]} vs CPU {lc[k]}")
+        check(nd == nc, f"train-ep layer {spec}: dropped {nd} vs CPU {nc}")
+        gerr = max((float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(gd, gc_)), default=None)
+        if gerr is not None:
+            check(gerr <= EP_LAYER_RTOL, f"train-ep layer {spec}: grads "
+                                         f"differ by {gerr:.3g}")
+        out[spec] = dict(max_rel_err=err, aux=ld, dropped=nd,
+                         choices=int(np.prod(EP_LAYER_TOKENS)) * cfg.moe.top_k,
+                         grad_max_rel_err=gerr)
+        say("train-ep", f"first MoE layer float32, {EP_LAYER_TOKENS} tokens, "
+                        f"capacity factor {EP_AMPLE_CF}, EP {spec} on the "
+                        f"card against the CPU port: output within {err:.3g}"
+                        f" of its largest, aux/z {ld} (CPU {lc}), dropped "
+                        f"choices {nd} of {out[spec]['choices']} on both"
+                        + (f", grads within {gerr:.3g}" if gerr else ""))
+    return out
+
+
+def ep_forward_backward(cfg, params, batch, sh) -> dict:
+    """Loss, per-layer aux and z, dropped choices, the final logits and
+    every gradient of one forward and backward (the training forward under
+    remat, then a forward for the logits)."""
+    leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+    store: list = []
+    moe_mod.dropped_log = []
+    reset_kernel_counts()
+    bundle = build_model(cfg)
+    with routed_losses(store):
+        loss, metrics = bundle.loss_fn(params, batch, sh)
+    dropped = [int(t) for t in moe_mod.dropped_log]
+    moe_mod.dropped_log = None
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        x = model_mod._embed(params, batch, cfg)
+        h, _, _ = transformer.lm_backbone(params, x, cfg, sh)
+        logits = apply_unembed(params["embed"], h, cfg)[
+            ..., :cfg.vocab_size]      # not the padded columns' -1e30
+    for t in leaves:
+        t.requires_grad_(False)
+    torch.cuda.synchronize()
+    want5 = k5_per_prefill(cfg) * 3          # remat's two and the logits'
+    check(fa.launch_counts[K5] == want5 and not sum(fa.plain_counts.values()),
+          f"train-ep: K5 launches {fa.launch_counts[K5]}, plain "
+          f"{fa.plain_counts}, want {want5}")
+    return dict(loss=float(loss.detach()),
+                losses=[{k: float(v) for k, v in d.items()} for d in store],
+                dropped=dropped, logits=logits, grads=grads,
+                launches=fa.launch_counts[K5])
+
+
+def ep_model_check(dev) -> dict:
+    """The 4-layer model at full width, bf16, capacity factor 8, batch 8 x
+    512: the scatter path with no mesh, then EP at each of EP_MESHES;
+    loss, final logits (per row, against its largest), per-layer aux and z
+    and every gradient (against the leaf's largest) measured against
+    scatter's; the first layer's aux and z held at EP_AUX_RTOL (its input
+    is the same).  Not held beyond: the reference's EP counts empty
+    exchange slots into local expert 0's capacity, so it drops choices
+    where scatter drops none (the layer check holds EP itself)."""
+    cfg = ep_config(EP_AMPLE_CF)
+    params = build_model(cfg).init(0, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(TRAIN_BATCH, TRAIN_MESH_SEQ, cfg.vocab_size), 0).items()}
+    base = ep_forward_backward(cfg, params, batch, Sharder(None))
+    check(sum(base["dropped"]) == 0,
+          f"train-ep: scatter dropped {base['dropped']} at factor "
+          f"{EP_AMPLE_CF}")
+    out = {"scatter": dict(loss=base["loss"], losses=base["losses"],
+                           launches=base["launches"])}
+    for spec in EP_MESHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = ep_forward_backward(cfg, params, batch, Sharder(
+            mesh_of(spec, dev), fsdp=cfg.fsdp))
+        rows = ((r["logits"] - base["logits"]).abs().amax(-1)
+                / base["logits"].abs().amax(-1))
+        logit_err = float(rows.max())
+        grad_err = max(float((a - b).abs().max() / b.abs().max())
+                       for a, b in zip(r["grads"], base["grads"]))
+        aux_err = [{k: abs(e[k] - w[k]) / abs(w[k]) for k in w}
+                   for e, w in zip(r["losses"], base["losses"])]
+        first = aux_err[0]
+        check(all(v <= EP_AUX_RTOL for v in first.values()),
+              f"train-ep {spec}: first layer aux/z off by {first}")
+        n_choice = TRAIN_BATCH * TRAIN_MESH_SEQ * cfg.moe.top_k
+        check(np.isfinite(r["loss"]), f"train-ep {spec}: loss {r['loss']}")
+        out[spec] = dict(loss=r["loss"], loss_scatter=base["loss"],
+                         logit_max_rel=logit_err,
+                         logit_rows_over_bound=int((rows > LOGIT_BF16_TOL)
+                                                   .sum()),
+                         grad_max_rel=grad_err, aux_rel_err=aux_err,
+                         dropped=r["dropped"], choices_a_layer=n_choice,
+                         launches=r["launches"])
+        say("train-ep", f"olmoe {EP_LAYERS} layers, factor {EP_AMPLE_CF}, EP "
+                        f"{spec} against scatter with no mesh: loss "
+                        f"{r['loss']:.6f} vs {base['loss']:.6f}; logits "
+                        f"within {logit_err:.3g} of a row's largest "
+                        f"({out[spec]['logit_rows_over_bound']} of "
+                        f"{rows.numel()} rows over {LOGIT_BF16_TOL}); grads "
+                        f"within {grad_err:.3g} of a leaf's largest; aux/z "
+                        f"relative errors by layer {aux_err}; EP dropped "
+                        f"{r['dropped']} of {n_choice} choices a layer "
+                        f"(two forwards: the loss's, the logits')")
+        del r
+    del params, base
+    return out
+
+
+def ep_step_runs(dev) -> dict:
+    """At the published capacity factor 1.25: EP_STEPS AdamW steps through
+    ``make_state_and_step`` at each of EP_STEP_MESHES and with no mesh
+    (scatter); losses finite, dropped choices a step, step ms."""
+    cfg = ep_config(get_config(EP_ARCH).moe.capacity_factor)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(TRAIN_BATCH, TRAIN_MESH_SEQ, cfg.vocab_size), i).items()}
+        for i in range(EP_STEPS)]
+    out = {}
+    for spec in (None,) + EP_STEP_MESHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_kernel_counts()
+        _, state, step, sh = train_cli.make_state_and_step(
+            cfg, dev, 0, mesh_of(spec, dev))
+        losses, ms, dropped = [], [], []
+        for batch in batches:
+            moe_mod.dropped_log = []
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state, m = step(state, batch)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+            losses.append(float(m["loss"]))
+            # remat full: each routed layer runs twice a step
+            dropped.append(sum(int(t) for t in moe_mod.dropped_log) // 2)
+            moe_mod.dropped_log = None
+        name = spec or "none (scatter)"
+        check(all(np.isfinite(losses)), f"train-ep steps {name}: {losses}")
+        want5 = k5_per_prefill(cfg) * 2 * EP_STEPS
+        check(fa.launch_counts[K5] == want5
+              and not sum(fa.plain_counts.values()),
+              f"train-ep steps {name}: K5 launches {fa.launch_counts[K5]}, "
+              f"want {want5}")
+        check(sh.mesh is None or moe_mod.ep_applies(
+            (TRAIN_BATCH, TRAIN_MESH_SEQ), cfg, sh),
+            f"train-ep steps {name}: EP not taken")
+        out[name] = dict(losses=losses, step_ms=ms,
+                         median_step_ms=statistics.median(ms[1:]),
+                         dropped_a_step=dropped,
+                         choices_a_step=TRAIN_BATCH * TRAIN_MESH_SEQ
+                         * cfg.moe.top_k * EP_LAYERS,
+                         peak_gib=torch.cuda.max_memory_allocated(dev)
+                         / 2**30, launches=fa.launch_counts[K5])
+        say("train-ep", f"olmoe {EP_LAYERS} layers, factor "
+                        f"{cfg.moe.capacity_factor}, {name}: losses "
+                        f"{losses}, step ms {[round(x, 1) for x in ms]}, "
+                        f"dropped choices a step {dropped} of "
+                        f"{out[name]['choices_a_step']}, peak "
+                        f"{out[name]['peak_gib']:.2f} GiB")
+        del state, step
+    return out
+
+
+def phase_train_ep(dev) -> dict:
+    out = {"layer": ep_layer_check(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["model"] = ep_model_check(dev)
+    out["steps"] = ep_step_runs(dev)
+    launches = {f"{EP_ARCH} train-ep {part} {k}": {K3: 0, K4: 0,
+                                                   K5: r["launches"]}
+                for part in ("model", "steps")
+                for k, r in out[part].items()}
+    return dict(out, launches=launches)
+
+
+def phase_compressed_psum(dev) -> dict:
+    """A float32 tensor of internlm2-1.8b's token-embedding shape on each
+    position of a 2x2x2 ("pod", "data", "model") mesh of the card, reduced
+    over "pod" by ``compressed_psum``: every position's result against the
+    CPU port's on the same inputs, bit for bit (or the ulps by which they
+    differ); its ms; the payload a position would send."""
+    cfg = get_config("internlm2-1.8b")
+    shape = (cfg.vocab_size, cfg.d_model)
+    mesh = mesh_of(PSUM_MESH, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    locs = [torch.randn(shape, generator=gen, device=dev) * (p + 1)
+            for p in range(mesh.size)]
+    st = ShardedTensor.from_locals(mesh, (None, None), locs)
+    got = gcomp.compressed_psum(st, "pod", PSUM_BLOCK)
+    torch.cuda.synchronize()
+    cpu_mesh = Mesh([torch.device("cpu")] * mesh.size,
+                    tuple(mesh.shape.values()), mesh.axis_names)
+    want = gcomp.compressed_psum(ShardedTensor.from_locals(
+        cpu_mesh, (None, None), [t.cpu() for t in locs]), "pod", PSUM_BLOCK)
+    ulps = 0
+    for a, b in zip(got.locals, want.locals):
+        a = a.cpu()
+        if not torch.equal(a, b):
+            ulps = max(ulps, int((a.view(torch.int32).long()
+                                  - b.view(torch.int32).long()).abs().max()))
+    check(ulps == 0, f"compressed-psum: card differs from the CPU by up to "
+                     f"{ulps} ulps")
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    ms = cuda_ms(lambda: gcomp.compressed_psum(st, "pod", PSUM_BLOCK), 5,
+                 flush)
+    n = int(np.prod(shape))
+    payload = n + 4 * -(-n // PSUM_BLOCK)
+    say("compressed-psum", f"{shape} float32 on {PSUM_MESH} over 'pod': "
+                           f"every position bit for bit the CPU port's; "
+                           f"{ms:.3f} ms for all 8 positions (4 groups of "
+                           f"2); a position would send {payload:,} B "
+                           f"({payload / (4 * n):.4f} of its float32 "
+                           "bytes)")
+    del locs, st, got, flush
+    torch.cuda.empty_cache()
+    return dict(shape=shape, bitwise=True, ms=ms, payload_bytes=payload,
+                float32_bytes=4 * n)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5903,6 +6343,12 @@ def main() -> int:
         kern[K3]["mesh"] = mesh["kernels"]
         lap("mesh")
         train = phase_train(errs, dev, lap)
+        train_mesh = phase_train_mesh(dev)
+        lap("train-mesh")
+        train_ep = phase_train_ep(dev)
+        lap("train-ep")
+        psum = phase_compressed_psum(dev)
+        lap("compressed-psum")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5946,6 +6392,10 @@ def main() -> int:
                   for a, n in train_paths.items() if n[K5]})
     # the mesh paths: K3 and K4 once a shard, K5 replicated
     paths.update(mesh["launches"])
+    # the training mesh and expert parallelism: K5 in every attention
+    # layer's forward, twice a step under remat
+    paths.update(train_mesh["launches"])
+    paths.update(train_ep["launches"])
     k6_paths.update({a: n[K6] for a, n in train_paths.items() if n[K6]})
     on_paths = {k: sum(p[k] for p in paths.values()) for k in (K3, K4, K5)}
     by_path = {k: {a: p[k] for a, p in paths.items()} for k in (K3, K4, K5)}
@@ -6028,6 +6478,11 @@ def main() -> int:
                                 if k != "kernels"}}))
     print(json.dumps({"mesh": {"serve": mesh["runs"], "risk": mesh_risk}},
                      default=str))
+    print(json.dumps({"train_mesh": {k: v for k, v in train_mesh.items()
+                                     if k != "launches"},
+                      "train_ep": {k: v for k, v in train_ep.items()
+                                   if k != "launches"},
+                      "compressed_psum": psum}, default=str))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -63,8 +63,8 @@ def main(argv=None) -> dict:
     opt = make_optimizer(cfg)
     state = init_train_state(bundle, opt, params)
     step = build_train_step(
-        bundle, opt, lr_fn=lambda s: 3e-4 * torch.clamp(s.float() / 50.0,
-                                                        max=1.0))
+        bundle, None, opt,
+        lr_fn=lambda s: 3e-4 * torch.clamp(s.float() / 50.0, max=1.0))
 
     start = ckpt.latest_step(args.ckpt_dir)
     if start:

@@ -23,7 +23,10 @@ A save writes into ``*.tmp``, renames it, and writes the ``.done`` marker
 last, so a SIGKILL mid-save leaves the previous checkpoint intact; readers
 see only marked steps.  numpy has no bfloat16: a bfloat16 tensor is stored as
 its ``uint8`` bytes with the dtype ``"bfloat16"`` recorded beside it, and
-read back bit for bit.  Every leaf comes back as a host tensor.
+read back bit for bit.  Every leaf comes back as a host tensor.  A placed
+leaf (:class:`repro_torch.distributed.sharding.ShardedTensor`, a train
+state on a mesh) is written as its global tensor, the same file as with no
+mesh; a restore whose target leaf is placed places it again.
 """
 from __future__ import annotations
 
@@ -36,9 +39,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import ShardedTensor
+
 
 def _to_numpy(a: Any) -> Tuple[np.ndarray, str]:
     """A leaf as a numpy array plus the dtype to read it back as."""
+    if isinstance(a, ShardedTensor):
+        a = a.full("cpu")
     if isinstance(a, torch.Tensor):
         t = a.detach().to("cpu").contiguous()
         if t.dtype == torch.bfloat16:
@@ -56,6 +64,11 @@ def _from_numpy(arr: np.ndarray, dtype: str, shape=None) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(arr)).view(torch.bfloat16)
         return t if shape is None else t.reshape(shape)
     return torch.from_numpy(arr.astype(np.dtype(dtype), copy=False))
+
+
+def _shape(leaf: Any) -> List[int]:
+    return [int(d) for d in (leaf.shape if isinstance(leaf, ShardedTensor)
+                             else np.shape(leaf))]
 
 
 def _flatten(tree: Any, out: List[Any]) -> Any:
@@ -132,7 +145,7 @@ def save(directory, step: int, tree, keep_last: Optional[int] = 3
         for i, leaf in enumerate(leaves):
             arr, dtype = _to_numpy(leaf)
             np.save(tmp / f"leaf_{i}.npy", arr)
-            manifest["leaves"].append({"shape": list(np.shape(leaf)),
+            manifest["leaves"].append({"shape": _shape(leaf),
                                        "dtype": dtype})
         (tmp / "manifest.json").write_text(json.dumps(manifest))
 
@@ -148,7 +161,8 @@ def save_async(directory, step: int, tree, keep_last: Optional[int] = 3
     caller continues while the file I/O drains)."""
     leaves: List[Any] = []
     layout = _flatten(tree, leaves)
-    host = [leaf.detach().to("cpu", copy=True)
+    host = [leaf.full("cpu") if isinstance(leaf, ShardedTensor)
+            else leaf.detach().to("cpu", copy=True)
             if isinstance(leaf, torch.Tensor) else np.array(leaf)
             for leaf in leaves]
     t = threading.Thread(target=save, daemon=True,
@@ -170,7 +184,8 @@ def latest_step(directory) -> Optional[int]:
 def restore(directory, step: int, target_tree, device=None):
     """Load the leaves of ``step`` into the layout of ``target_tree`` (its
     values give the expected shapes and dtypes) as tensors on ``device``
-    (default: the host)."""
+    (default: the host); a placed target leaf comes back placed as it is,
+    on its mesh."""
     directory = pathlib.Path(directory) / f"step_{step}"
     manifest = json.loads((directory / "manifest.json").read_text())
     leaves: List[Any] = []
@@ -179,11 +194,14 @@ def restore(directory, step: int, target_tree, device=None):
         f"leaf count mismatch: ckpt {manifest['num_leaves']} vs {len(leaves)}"
     out = []
     for i, (ref, info) in enumerate(zip(leaves, manifest["leaves"])):
-        want = tuple(np.shape(ref))
+        want = tuple(_shape(ref))
         assert tuple(info["shape"]) == want, \
             f"leaf {i}: ckpt shape {tuple(info['shape'])} != target {want}"
         t = _from_numpy(np.load(directory / f"leaf_{i}.npy"),
                         info["dtype"], info["shape"])
+        if isinstance(ref, ShardedTensor):
+            out.append(sharding.layout(t.to(ref.dtype), ref.mesh, ref.spec))
+            continue
         if isinstance(ref, torch.Tensor):
             t = t.to(ref.dtype)
         out.append(t if device is None else t.to(device))

@@ -26,7 +26,14 @@ What lives on the mesh is what the caller places there.  The serving stack
 (:func:`serving_sharder`) places only its KV pools, split on KV heads; the
 one controller keeps everything replicated once, on the mesh's first device,
 and runs it there once (the reference's replicated computations are the
-same on every device).
+same on every device).  Training places the parameters and the optimizer
+state (:func:`layout`), and the expert-parallel MoE runs per position with
+the reference's collectives over per-position locals: :func:`all_to_all`
+along one axis, :func:`pmean` over axes, and :meth:`ShardedTensor.full` /
+:meth:`Sharder.relayout`, through which autograd goes back (the gradient
+of a gather is the full gradient cut into the shards' slices).  Every local
+lies on its position's device: a CPU tensor in a mesh of CUDA devices
+raises.
 """
 from __future__ import annotations
 
@@ -140,6 +147,12 @@ def spec_index_map(mesh: Mesh, spec: Spec, shape: Sequence[int]
     return out
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """One device, where an index left out is the type's current one."""
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
 def storage_key(t: torch.Tensor) -> Tuple:
     return (str(t.device), t.data_ptr(), tuple(t.shape), tuple(t.stride()))
 
@@ -155,6 +168,12 @@ class ShardedTensor:
     mesh: Mesh
     locals: List[torch.Tensor]
     slices: List[Slices]
+
+    def __post_init__(self):
+        for dev, t in zip(self.mesh.position_devices(), self.locals):
+            if not same_device(t.device, dev):
+                raise ValueError(f"a local on {t.device} at a mesh position "
+                                 f"on {dev}")
 
     @classmethod
     def from_locals(cls, mesh: Mesh, spec: Spec,
@@ -208,10 +227,26 @@ class ShardedTensor:
                              "unsplit leading axis only")
         return self.map(lambda t: t[i], self.spec[1:])
 
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def distinct(self) -> List[Tuple[int, torch.Tensor, Slices]]:
+        """``(first position, local, slices)`` of every distinct slice set,
+        in position order: what a reduction over the global tensor reads
+        once (two devices holding one slice set are one term)."""
+        seen, out = set(), []
+        for p, (t, sl) in enumerate(zip(self.locals, self.slices)):
+            key = tuple((s.start, s.stop) for s in sl)
+            if key not in seen:
+                seen.add(key)
+                out.append((p, t, sl))
+        return out
+
     def full(self, device=None) -> torch.Tensor:
         """The global tensor on ``device`` (default: the mesh's first
         device), assembled from the distinct shards -- a concatenation when
-        one axis is split."""
+        one axis is split.  Autograd goes back through it: each distinct
+        shard's gradient is the full gradient's slice."""
         device = torch.device(device) if device is not None else \
             self.mesh.position_devices()[0]
         parts: Dict[Tuple, torch.Tensor] = {}     # (start, stop) a dim
@@ -336,15 +371,7 @@ class Sharder:
             return x
         spec = self.spec(logical, x.shape)
         self._note_place(spec, x.shape, x.numel() * x.element_size())
-        made: Dict[Tuple, torch.Tensor] = {}
-        locals_ = []
-        slices = spec_index_map(self.mesh, spec, x.shape)
-        for dev, sl in zip(self.mesh.position_devices(), slices):
-            key = (str(dev), tuple((s.start, s.stop) for s in sl))
-            if key not in made:
-                made[key] = x[sl].to(dev).contiguous()
-            locals_.append(made[key])
-        return ShardedTensor(tuple(x.shape), spec, self.mesh, locals_, slices)
+        return layout(x, self.mesh, spec)
 
     def zeros(self, shape: Sequence[int], logical: Sequence[Optional[str]],
               dtype: torch.dtype):
@@ -382,6 +409,106 @@ class Sharder:
             return x if tuple(spec) == tuple(x.spec) else \
                 self.place(x.full(), logical)
         return x if replicated else self.place(x, logical)
+
+
+    def place_named(self, x: torch.Tensor, named: Optional[NamedSharding]):
+        """``x`` laid out by a :class:`NamedSharding` of this mesh (the
+        reference's ``device_put(x, sharding)``; the identity for None)."""
+        if named is None:
+            return x
+        self._note_place(named.spec, x.shape, x.numel() * x.element_size())
+        return layout(x, named.mesh, named.spec)
+
+    def relayout(self, x, spec: Spec) -> "ShardedTensor":
+        """``x`` (a tensor or a :class:`ShardedTensor`) laid out by the
+        partition ``spec``: a sharded ``x`` is gathered first (the
+        reference's ``with_sharding_constraint`` between two specs, as the
+        fsdp gather of expert weights).  Autograd goes back through it."""
+        if isinstance(x, ShardedTensor):
+            if tuple(x.spec) == tuple(spec):
+                return x
+            x = x.full()
+        return layout(x, self.mesh, spec)
+
+
+def layout(x: torch.Tensor, mesh: Mesh, spec: Spec) -> ShardedTensor:
+    """``x`` cut by ``spec`` onto ``mesh``: one contiguous local for each
+    distinct (device, slices), which the positions holding it share.
+    Autograd goes back through it: ``x``'s gradient is the sum of the
+    locals' gradients, each put back at its slices (the reduce-scatter's
+    transpose)."""
+    slices = spec_index_map(mesh, spec, x.shape)
+    made: Dict[Tuple, torch.Tensor] = {}
+    locals_ = []
+    for dev, sl in zip(mesh.position_devices(), slices):
+        key = (str(dev), tuple((s.start, s.stop) for s in sl))
+        if key not in made:
+            made[key] = x[sl].to(dev).contiguous()
+        locals_.append(made[key])
+    return ShardedTensor(tuple(x.shape), tuple(spec), mesh, locals_, slices)
+
+
+def axis_groups(mesh: Mesh, axes: Sequence[str]) -> List[List[int]]:
+    """For every position, the positions that differ from it only along
+    ``axes``, in row-major order over those axes (its collective group)."""
+    shape = mesh.devices.shape
+    out = []
+    for p in range(mesh.size):
+        at = list(np.unravel_index(p, shape))
+        dims = [mesh.axis_names.index(a) for a in axes]
+        group = []
+        for idx in np.ndindex(*(shape[d] for d in dims)):
+            for d, i in zip(dims, idx):
+                at[d] = i
+            group.append(int(np.ravel_multi_index(at, shape)))
+        out.append(group)
+    return out
+
+
+def all_to_all(mesh: Mesh, locals_: Sequence[torch.Tensor], axis: str
+               ) -> List[torch.Tensor]:
+    """The reference's ``all_to_all(x, axis, split_axis=0, concat_axis=0,
+    tiled=False)`` over per-position locals, each with a leading dimension
+    of ``axis``' extent: position ``p`` at coordinate ``c`` receives
+    ``stack(locals_[q][c] for q in its group)``, on its own device.
+    Autograd goes back through the exchange."""
+    groups = axis_groups(mesh, (axis,))
+    devs = mesh.position_devices()
+    out = []
+    for p, group in enumerate(groups):
+        c = group.index(p)
+        out.append(torch.stack([locals_[q][c].to(devs[p]) for q in group]))
+    return out
+
+
+def pmean(mesh: Mesh, values: Sequence[torch.Tensor],
+          axes: Optional[Sequence[str]] = None) -> List[torch.Tensor]:
+    """The reference's ``pmean`` over ``axes`` (default: every axis) of
+    per-position values: each group's values summed in position order on
+    its first position's device, over the group's size, and handed to every
+    member on its device."""
+    groups = axis_groups(mesh, tuple(mesh.axis_names if axes is None
+                                     else axes))
+    devs = mesh.position_devices()
+    done: Dict[Tuple[int, ...], torch.Tensor] = {}
+    out = []
+    for p, group in enumerate(groups):
+        key = tuple(group)
+        if key not in done:
+            d0 = devs[group[0]]
+            total = values[group[0]]
+            for q in group[1:]:
+                total = total + values[q].to(d0)
+            done[key] = total / len(group)
+        out.append(done[key].to(devs[p]))
+    return out
+
+
+def home_device(x) -> torch.device:
+    """A tensor's device; a placed tensor's mesh's first device (where it
+    is gathered and its replicated companions live)."""
+    return (x.mesh.position_devices()[0] if isinstance(x, ShardedTensor)
+            else x.device)
 
 
 def null_sharder() -> Sharder:

@@ -32,20 +32,33 @@ from repro_torch.core.tenancy import resolve_devices
 from repro_torch.data.tokens import DataConfig, PrefetchFeed
 from repro_torch.distributed import checkpoint as ckpt
 from repro_torch.distributed.fault import HeartbeatMonitor, StragglerDetector
+from repro_torch.distributed.sharding import (Mesh, Sharder, null_sharder,
+                                              param_shardings)
 from repro_torch.models.model import build_model
-from repro_torch.models.params import count_params
+from repro_torch.models.params import count_params, param_axes
+from repro_torch.models.transformer import tree_map2
 from repro_torch.training.optimizer import make_optimizer
 from repro_torch.training.train_loop import build_train_step, init_train_state
 
 
-def make_state_and_step(cfg, device, seed: int = 0):
-    """(bundle, train state, step function) of ``cfg`` on ``device``, the
-    parameters drawn from ``seed`` by the port's initialiser."""
+def make_state_and_step(cfg, device, seed: int = 0,
+                        mesh: Optional[Mesh] = None):
+    """(bundle, train state, step function, sharder) of ``cfg``, the
+    parameters drawn from ``seed`` by the port's initialiser on ``device``.
+    With a ``mesh`` (the reference's ``make_state_and_step(cfg, mesh=)``)
+    they are placed by ``param_shardings`` under ``Sharder(mesh,
+    fsdp=cfg.fsdp, seq_shard=cfg.fsdp)``, the optimizer state by its
+    ``state_axes``, and the step trains on the mesh."""
+    sh = (Sharder(mesh, fsdp=cfg.fsdp, seq_shard=cfg.fsdp)
+          if mesh is not None else null_sharder())
     bundle = build_model(cfg)
     opt = make_optimizer(cfg)
     params = bundle.init(seed, device)
-    state = init_train_state(bundle, opt, params)
-    return bundle, state, build_train_step(bundle, opt)
+    if mesh is not None:
+        shards = param_shardings(sh, param_axes(cfg), params)
+        params = tree_map2(sh.place_named, params, shards)
+    state = init_train_state(bundle, opt, params, sh)
+    return bundle, state, build_train_step(bundle, sh, opt), sh
 
 
 def profile_step(step_fn, state, batch, dev: torch.device):
@@ -97,7 +110,7 @@ def main(argv=None) -> int:
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    bundle, state, step_fn = make_state_and_step(cfg, dev, args.seed)
+    bundle, state, step_fn, _ = make_state_and_step(cfg, dev, args.seed)
     n_params = count_params(state["params"])
     print(f"arch={cfg.name} params={n_params:,} device={dev} "
           f"optimizer={cfg.optimizer} microbatches={cfg.microbatches} "

@@ -8,7 +8,7 @@ decoder with self- and cross-attention, sinusoidal positions)::
 
     bundle = build_model(cfg)
     params = bundle.init(seed, device)             # tree of tensors
-    loss, metrics = bundle.loss_fn(params, batch)  # training
+    loss, metrics = bundle.loss_fn(params, batch)  # training (sh: a mesh)
     logits, caches, idx = bundle.prefill_fn(params, batch)
     logits, caches = bundle.decode_fn(params, tokens, caches, idx)
 
@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig, ShapeCell
+from repro_torch.distributed.sharding import Sharder
 from repro_torch.models.layers import (apply_attention,
                                        apply_attention_decode,
                                        apply_cross_attention, apply_embedding,
@@ -66,8 +67,9 @@ class ModelBundle:
     # enc_out) -> every decoder layer's cross K and V
     encode: Optional[Callable[..., Any]] = None
     cross_kv_all: Optional[Callable[..., Any]] = None
-    # loss_fn(params, batch) -> (loss, {"xent", "aux"}): the training
-    # objective, the next-token cross-entropy plus the MoE aux losses
+    # loss_fn(params, batch, sh=None) -> (loss, {"xent", "aux"}): the
+    # training objective, the next-token cross-entropy plus the MoE aux
+    # losses (``sh``'s mesh reaches the routed experts)
     loss_fn: Optional[Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]] = None
 
 
@@ -155,9 +157,10 @@ def _build_decoder_only(cfg: ArchConfig) -> ModelBundle:
     def init(seed: int = 0, device=None):
         return init_lm(cfg, seed, device)
 
-    def loss_fn(params, batch: Dict[str, torch.Tensor]):
+    def loss_fn(params, batch: Dict[str, torch.Tensor],
+                sh: Optional[Sharder] = None):
         x = _embed(params, batch, cfg)
-        h, aux, _ = lm_backbone(params, x, cfg, train=True)
+        h, aux, _ = lm_backbone(params, x, cfg, sh, train=True)
         logits = apply_unembed(params["embed"], h, cfg)
         loss = _xent(logits, batch["labels"])
         return loss + aux, {"xent": loss, "aux": aux}
@@ -305,7 +308,9 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
                         for k in caches[0]} if collect_cache else None)
         return x, self_caches, (ck, cv)
 
-    def loss_fn(params, batch: Dict[str, torch.Tensor]):
+    def loss_fn(params, batch: Dict[str, torch.Tensor],
+                sh: Optional[Sharder] = None):
+        del sh                  # no routed experts: computed once
         enc_out = encode(params, batch["frames"])
         h, _, _ = decode_full(params, batch["tokens"], enc_out, train=True)
         logits = apply_unembed(params["embed"], h, cfg)

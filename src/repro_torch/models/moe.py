@@ -24,20 +24,35 @@ What decides token equality with the reference:
   reference's indexing clamps) and multiplies it by ``keep = 0``.  No index
   is ever out of range.
 
-Only the scatter dispatch is here: the reference's shard_map expert
-parallelism (``apply_moe_ep``) needs a mesh and comes with slice 6 of the
-port; ``dispatch="ep"`` raises.
+Expert parallelism (``apply_moe_ep``, the reference's shard_map path) runs
+on a mesh: every position routes its own block of tokens (batch over
+``("pod", "data")``, sequence over ``"model"``), buckets its choices by the
+``"model"`` shard that holds their expert, exchanges them along its
+``"model"`` row (:func:`repro_torch.distributed.sharding.all_to_all`),
+dispatches what it received to its ``E/M`` local experts, and sends the
+results back to be combined with its gates.  :func:`apply_moe` takes that
+path exactly where the reference does (``dispatch == "ep"`` or
+``REPRO_MOE_DISPATCH=ep``, a mesh, and shapes the mesh divides) and the
+scatter path everywhere else.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+import os
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig, MoEConfig
+from repro_torch.distributed.sharding import (Sharder, ShardedTensor,
+                                              all_to_all, pmean,
+                                              spec_index_map)
 from repro_torch.models.layers import apply_mlp, dtype_of, init_mlp, normal
+
+# when a list, every routed call appends the choices it dropped (a 0-d
+# int64 tensor on the input's device: no host synchronisation)
+dropped_log: Optional[List[torch.Tensor]] = None
 
 
 def init_moe(gen, cfg: ArchConfig, device,
@@ -104,10 +119,13 @@ def group_shape(T: int, mc: MoEConfig) -> Tuple[int, int, int]:
     return gsz, T // gsz, capacity
 
 
-def apply_moe_scatter(p, x: torch.Tensor, cfg: ArchConfig
+def apply_moe_scatter(p, x: torch.Tensor, cfg: ArchConfig,
+                      sh: Optional[Sharder] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x ``(B, S, d)`` -> (y ``(B, S, d)``, {"moe_aux", "moe_z"}).  No host
-    synchronisation: drops are arithmetic, so a decode step may call it."""
+    synchronisation: drops are arithmetic, so a decode step may call it.
+    Computed once, over the whole batch, on a mesh too (``sh`` unused: the
+    reference only constrains its layout)."""
     mc = cfg.moe
     cdt = dtype_of(cfg.compute_dtype)
     B, S, d = x.shape
@@ -136,6 +154,8 @@ def apply_moe_scatter(p, x: torch.Tensor, cfg: ArchConfig
     # gather back: a dropped choice reads row cap - 1 (clamped, as the
     # reference's indexing does) and is zeroed by keep
     src = slot + torch.clamp(pos, max=cap - 1)
+    if dropped_log is not None:
+        dropped_log.append((~keep).sum())
     yt = ye.reshape(E * G * cap, d)[src.reshape(-1)].view(G, N, d)
     yt = yt * (gates * keep).to(cdt)[..., None]
     y = yt.reshape(G, gsz, k, d).sum(dim=2).reshape(B, S, d)
@@ -145,12 +165,168 @@ def apply_moe_scatter(p, x: torch.Tensor, cfg: ArchConfig
     return y, losses
 
 
-def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
+def _dispatch_mode(mc: MoEConfig) -> str:
+    return os.environ.get("REPRO_MOE_DISPATCH", mc.dispatch)
+
+
+def ep_applies(x_shape, cfg: ArchConfig, sh: Optional[Sharder]) -> bool:
+    """Whether :func:`apply_moe` takes the expert-parallel path for an
+    input of ``x_shape``: the reference's test -- dispatch ``"ep"``, a
+    mesh, ``M > 1`` and B, S and E divisible by the data extent, M and M."""
+    if _dispatch_mode(cfg.moe) != "ep" or sh is None or sh.mesh is None:
+        return False
+    B, S = x_shape[0], x_shape[1]
+    shape = dict(sh.mesh.shape)
+    M = shape.get("model", 1)
+    n_dp = math.prod(v for a, v in shape.items() if a in ("pod", "data"))
+    return (M > 1 and B % max(n_dp, 1) == 0 and S % M == 0
+            and cfg.moe.num_experts % M == 0)
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ArchConfig,
+              sh: Optional[Sharder] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x ``(B, S, d)`` -> (y, aux losses), by scatter dispatch."""
-    if cfg.moe.dispatch == "ep":
-        raise NotImplementedError(
-            "MoE expert parallelism (dispatch='ep', the reference's "
-            "apply_moe_ep) needs a mesh and comes with slice 6 of the port "
-            "(ROADMAP.md)")
-    return apply_moe_scatter(p, x, cfg)
+    """x ``(B, S, d)`` -> (y, aux losses): expert-parallel where
+    :func:`ep_applies`, else by scatter dispatch."""
+    if ep_applies(x.shape, cfg, sh):
+        return apply_moe_ep(p, x, cfg, sh)
+    return apply_moe_scatter(p, x, cfg, sh)
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism over the "model" mesh axis
+# ---------------------------------------------------------------------------
+def _capacity_scatter(x: torch.Tensor, ids: torch.Tensor, n_bins: int,
+                      cap: int, valid: Optional[torch.Tensor] = None):
+    """Rows of ``x`` ``(N, d)`` into a ``(n_bins, cap, d)`` buffer by bin id,
+    each at its exclusive running count in its bin; returns (buffer, pos,
+    keep), ``pos`` clipped to ``cap`` where not kept.  A row not ``valid``
+    still takes its place in the count (the reference's one-hot counts
+    every row), and is never kept."""
+    onehot = (ids[:, None] == torch.arange(n_bins, device=ids.device)
+              ).to(torch.int32)                                  # (N, bins)
+    pos = torch.sum((torch.cumsum(onehot, dim=0, dtype=torch.int32)
+                     - onehot) * onehot, dim=-1)
+    keep = pos < cap
+    if valid is not None:
+        keep = keep & valid
+    pos_c = torch.where(keep, pos, torch.full_like(pos, cap))
+    # the spare row n_bins * cap takes every row not kept
+    dst = torch.where(keep, ids.long() * cap + pos_c.long(),
+                      torch.full_like(pos_c, n_bins * cap, dtype=torch.long))
+    buf = torch.zeros((n_bins * cap + 1, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    buf = buf.index_add(0, dst, torch.where(keep[:, None], x,
+                                            torch.zeros((), dtype=x.dtype,
+                                                        device=x.device)))
+    return buf[:n_bins * cap].view(n_bins, cap, x.shape[-1]), pos_c, keep
+
+
+def apply_moe_ep(p, x: torch.Tensor, cfg: ArchConfig, sh: Sharder
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The reference's shard_map expert parallelism, position by position
+    on each position's device.  ``x`` ``(B, S, d)`` is cut into the
+    positions' blocks; the output blocks are gathered back on the mesh's
+    first device.  Autograd goes back through every exchange.  The aux and
+    z losses are the reference's: the per-position dispatch fractions, mean
+    probabilities and z terms averaged over every position first."""
+    mc = cfg.moe
+    mesh = sh.mesh
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S, d = x.shape
+    k, E = mc.top_k, mc.num_experts
+    axes = tuple(mesh.axis_names)
+    dp_axes = tuple(a for a in ("pod", "data") if a in axes)
+    M = mesh.shape.get("model", 1)
+    if E % M:
+        raise ValueError(f"{E} experts do not split {M} ways")
+    e_loc = E // M
+    t_loc = B * S // mesh.size
+    # per-destination-shard send capacity and per-expert local capacity
+    cap_s = max(1, int(math.ceil(t_loc * k * mc.capacity_factor / M)))
+    cap_e = max(1, int(math.ceil(M * cap_s / e_loc)))
+    blk_spec = (dp_axes if len(dp_axes) != 1 else dp_axes[0],
+                "model" if "model" in axes else None, None)
+    ew_spec = ("model" if "model" in axes else None, None, None)
+    # the fsdp gather of the expert weights, then each position's E/M
+    ws = [sh.relayout(p[n].to(cdt), ew_spec).locals
+          for n in ("w_gate", "w_up", "w_down")]
+    devs = mesh.position_devices()
+    blocks = spec_index_map(mesh, blk_spec, x.shape)
+    n_pos = mesh.size
+
+    routed = []                # per position: (dest, pos_s, keep_s, gates)
+    sends, eids, stats = [], [], []
+    for q in range(n_pos):
+        dev = devs[q]
+        xb = x[blocks[q]].to(dev)
+        b_loc, s_loc = xb.shape[0], xb.shape[1]
+        xt = xb.reshape(b_loc * s_loc, d)
+        logits = torch.matmul(xt.float(), p["router"].float().to(dev))
+        probs = torch.softmax(logits, dim=-1)
+        gates, ids = torch.topk(probs, k, dim=-1, sorted=True)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        first = ids[:, 0, None] == torch.arange(E, device=dev)
+        stats.append((first.float().mean(dim=0),
+                      probs.mean(dim=0),
+                      torch.mean(torch.logsumexp(logits, dim=-1) ** 2)))
+        ids_f = ids.reshape(-1)
+        xk = xt.to(cdt).repeat_interleave(k, dim=0)
+        dest = ids_f // e_loc
+        send, pos_s, keep_s = _capacity_scatter(xk, dest, M, cap_s)
+        # the local expert id rides beside the payload, +1 so 0 is empty
+        eid = torch.zeros(M * cap_s + 1, dtype=torch.int32, device=dev)
+        slot = torch.where(keep_s, dest * cap_s + pos_s,
+                           torch.full_like(pos_s, M * cap_s))
+        eid = eid.index_add(0, slot.long(), torch.where(
+            keep_s, (ids_f % e_loc + 1).to(torch.int32),
+            torch.zeros((), dtype=torch.int32, device=dev)))
+        sends.append(send)
+        eids.append(eid[:M * cap_s].view(M, cap_s))
+        routed.append((dest, pos_s, keep_s, gates))
+    recv = all_to_all(mesh, sends, "model")
+    recv_eid = all_to_all(mesh, eids, "model")
+
+    slots_back, kept = [], []
+    for q in range(n_pos):
+        rx = recv[q].reshape(M * cap_s, d)
+        re = recv_eid[q].reshape(M * cap_s)
+        e_of = torch.clamp(re - 1, min=0)
+        buf, pos_e, keep_e = _capacity_scatter(rx, e_of, e_loc, cap_e,
+                                               valid=re > 0)
+        kept.append(keep_e.sum())
+        wg, wu, wd = (w[q] for w in ws)
+        h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+        y_e = torch.bmm(h, wd)                               # (e_loc, cap_e, d)
+        # a slot not kept reads row cap_e - 1 (the reference's indexing
+        # clamps) and is zeroed
+        y_slots = y_e[e_of.long(), torch.clamp(pos_e, max=cap_e - 1).long()]
+        y_slots = torch.where(keep_e[:, None], y_slots,
+                              torch.zeros((), dtype=y_slots.dtype,
+                                          device=y_slots.device))
+        slots_back.append(y_slots.view(M, cap_s, d))
+    back = all_to_all(mesh, slots_back, "model")
+
+    ys = []
+    for q in range(n_pos):
+        dest, pos_s, keep_s, gates = routed[q]
+        y_tok = back[q][dest, torch.clamp(pos_s, max=cap_s - 1)]
+        y_tok = torch.where(keep_s[:, None], y_tok,
+                            torch.zeros((), dtype=y_tok.dtype,
+                                        device=y_tok.device))
+        blk = [sl.stop - sl.start for sl in blocks[q]]
+        y = (y_tok.view(blk[0] * blk[1], k, d)
+             * gates[..., None].to(cdt)).sum(dim=1)
+        ys.append(y.view(blk[0], blk[1], d))
+    y = ShardedTensor.from_locals(mesh, blk_spec, ys).full(x.device)
+    if dropped_log is not None:
+        dropped_log.append(B * S * k - sum(n.to(x.device) for n in kept))
+
+    f_bar, p_bar, z_bar = (pmean(mesh, [st[i] for st in stats])[0]
+                           for i in range(3))
+    aux = E * torch.sum(f_bar * p_bar)
+    if mc.num_shared_experts and "shared" in p:
+        y = y + apply_mlp(p["shared"], x, cfg)
+    losses = {"moe_aux": aux.to(x.device) * mc.aux_loss_weight,
+              "moe_z": z_bar.to(x.device) * 1e-3}
+    return y, losses

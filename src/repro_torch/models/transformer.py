@@ -23,6 +23,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ATTN, DENSE, MAMBA, MOE, NONE, ArchConfig
+from repro_torch.distributed.sharding import Sharder
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (DRAW_PIECE, apply_attention,
@@ -198,12 +199,15 @@ def apply_ffn(sub: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig
     return apply_ffn_aux(sub, h, cfg)[0]
 
 
-def apply_ffn_aux(sub: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig
+def apply_ffn_aux(sub: Dict[str, Any], h: torch.Tensor, cfg: ArchConfig,
+                  sh: Optional[Sharder] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """:func:`apply_ffn` and the routed experts' aux losses summed
-    (``moe_aux + moe_z``, float32), or None for a dense MLP."""
+    (``moe_aux + moe_z``, float32), or None for a dense MLP.  ``sh``'s mesh
+    reaches the routed experts (expert parallelism where the dispatch asks
+    for it)."""
     if "moe" in sub:
-        y, losses = moe_mod.apply_moe(sub["moe"], h, cfg)
+        y, losses = moe_mod.apply_moe(sub["moe"], h, cfg, sh)
         return y, losses["moe_aux"] + losses["moe_z"]
     return apply_mlp(sub["mlp"], h, cfg), None
 
@@ -251,7 +255,8 @@ def _kv_to_cache(k, v, positions, cfg: ArchConfig):
             "pos": pos.to(torch.int32)}
 
 
-def _stage_forward(sp, x, cfg: ArchConfig, positions, collect_cache: bool):
+def _stage_forward(sp, x, cfg: ArchConfig, positions, collect_cache: bool,
+                   sh: Optional[Sharder] = None):
     """One stage: (x, the sum of its MoE sublayers' aux losses, float32,
     or None without one, caches)."""
     sched = cfg.block_schedule()[:cfg.stage_period]
@@ -273,21 +278,24 @@ def _stage_forward(sp, x, cfg: ArchConfig, positions, collect_cache: bool):
             h = ssm_mod.apply_ssm(sub["mamba"], h, cfg)
         x = x + h
         if mlp != NONE:
-            h, a = apply_ffn_aux(sub, apply_rmsnorm(sub["norm2"], x), cfg)
+            h, a = apply_ffn_aux(sub, apply_rmsnorm(sub["norm2"], x), cfg,
+                                 sh)
             x = x + h
             if a is not None:
                 aux = a if aux is None else aux + a
     return x, aux, caches
 
 
-def lm_backbone(params, x, cfg: ArchConfig,
+def lm_backbone(params, x, cfg: ArchConfig, sh: Optional[Sharder] = None,
                 positions: Optional[torch.Tensor] = None,
                 collect_cache: bool = False, train: bool = False):
     """x: (B, S, d) embedded inputs -> (hidden, aux, caches|None): aux the
     float32 sum of every MoE sublayer's aux losses (0 without one), caches
     stacked with the stage axis first, like the reference's scan output.
     ``train`` recomputes each stage in the backward as ``cfg.remat``
-    says."""
+    says.  ``sh`` (default: no mesh) reaches only the routed experts: the
+    rest is computed once, over the whole batch, where the reference merely
+    constrains its layout."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     n_stages = cfg.num_layers // cfg.stage_period
@@ -296,23 +304,24 @@ def lm_backbone(params, x, cfg: ArchConfig,
     for i in range(n_stages):
         if collect_cache:
             x, a, c = _stage_forward(stage_view(params["stages"], i), x, cfg,
-                                     positions, True)
+                                     positions, True, sh)
             per_stage.append(c)
         else:
             x, a = remat_wrap(functools.partial(
                 _stage_train, params["stages"], i, cfg=cfg,
-                positions=positions), cfg, train)(x)
+                positions=positions, sh=sh), cfg, train)(x)
         if a is not None:
             aux = aux + a
     x = apply_rmsnorm(params["final_norm"], x)
     return x, aux, (_stack(per_stage) if collect_cache else None)
 
 
-def _stage_train(stages, i: int, x, *, cfg: ArchConfig, positions):
+def _stage_train(stages, i: int, x, *, cfg: ArchConfig, positions,
+                 sh: Optional[Sharder] = None):
     """Stage ``i`` without caches: (x, aux or None) -- what a
     checkpointed stage returns."""
     x, aux, _ = _stage_forward(stage_view(stages, i), x, cfg, positions,
-                               False)
+                               False, sh)
     return x, aux
 
 

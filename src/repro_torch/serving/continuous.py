@@ -376,7 +376,7 @@ class ContinuousBatchingEngine:
         # alone: cross pages are per request and SSM state is neither paged
         # nor cached, so only pure-attention archs skip a prefill (or cache
         # its logits)
-        self._pure_attn = tuple(self.state_kinds) == ("attn",)
+        self._pure_attn = {k.name for k in self.state_kinds} == {"attn"}
         self.logits_cache_size = int(logits_cache_size)
         self._logits_cache: "collections.OrderedDict[bytes, torch.Tensor]" = \
             collections.OrderedDict()
@@ -384,7 +384,8 @@ class ContinuousBatchingEngine:
         # cross pages as page blocks, SSM slot state as fixed-width
         # records), so any arch preempts when swap is on
         self.fault_plane = fault_plane
-        self.can_preempt = bool(swap)
+        self.can_preempt = bool(swap) and all(
+            k.swappable for k in self.state_kinds)
         self.admission_retry_limit = int(admission_retry_limit)
         self.rejected: List[Any] = []   # run_all's terminal REJECTED requests
         # first uses of a round key: the reference counts its round_fn's
@@ -461,12 +462,13 @@ class ContinuousBatchingEngine:
         window-phase keys on a sliding-window arch -- and whether continuous
         decode is bitwise or, under MoE capacity routing, only
         statistically exchangeable with ``generate``)."""
-        names = list(state_kinds(cfg))
+        kinds = state_kinds(cfg)
+        names = [k.name for k in kinds]
         moe = any(mlp == MOE for _, mlp in cfg.block_schedule())
         cont = {
             "supported": True,
             "state_kinds": names,
-            "preemptable": True,           # every state kind swaps
+            "preemptable": all(k.swappable for k in kinds),
             "prefix_sharing": "attn" in names,
             "window_phase_keys": ("attn" in names
                                   and cfg.sliding_window is not None),

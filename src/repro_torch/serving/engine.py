@@ -52,6 +52,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.model import ModelBundle, build_model, prepare_params
 from repro_torch.models.transformer import tree_map, tree_map2
 from repro_torch.obs.telemetry import Telemetry, get_telemetry
+from repro_torch.serving import kvcache
 
 _M32 = 0xFFFFFFFF
 
@@ -421,6 +422,12 @@ class ServingEngine:
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev
+
+    def state_kinds(self):
+        """The per-request state kinds this arch's serving rows carry
+        (:func:`repro_torch.serving.kvcache.state_kinds`): the capability
+        probe ``supported_modes`` and ``launch.serve --list-archs`` read."""
+        return kvcache.state_kinds(self.cfg)
 
     def _make_batch(self, prompts: np.ndarray,
                     extra_inputs: Optional[Dict[str, Any]]

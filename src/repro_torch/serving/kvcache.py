@@ -70,7 +70,8 @@ with ``ServingEngine.generate`` on the same padded prompt.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Set, Tuple, Union
+from typing import (Dict, Iterable, List, NamedTuple, Optional, Set, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -97,13 +98,29 @@ def ssm_subs(cfg: ArchConfig) -> List[str]:
     return [f"sub{i}" for i, (mixer, _) in enumerate(sched) if mixer != ATTN]
 
 
-def state_kinds(cfg: ArchConfig) -> Tuple[str, ...]:
-    """Names of the state kinds an arch's slot rows carry, in the
-    reference's order: attention pages, cross-attention pages (an
-    encoder-decoder arch), SSM slot state."""
-    return (("attn",) if attn_subs(cfg) else ()) + \
-        (("cross",) if cfg.enc_dec else ()) + \
-        (("ssm",) if ssm_subs(cfg) else ())
+class StateKind(NamedTuple):
+    """One kind of per-request serving state the pool accounts for:
+    ``paged`` -- it lives in a device page space (attention pages in the
+    refcounted space, cross-attention pages in their own); ``swappable`` --
+    it has a host snapshot, so a row carrying it may be preempted."""
+    name: str
+    paged: bool
+    swappable: bool
+
+
+def state_kinds(cfg: ArchConfig) -> Tuple[StateKind, ...]:
+    """The state kinds an arch's slot rows carry, in the reference's order:
+    attention pages, cross-attention pages (an encoder-decoder arch), SSM
+    slot state.  Every kind swaps (pages as page blocks, SSM state as
+    fixed-width records)."""
+    kinds: List[StateKind] = []
+    if attn_subs(cfg):
+        kinds.append(StateKind("attn", paged=True, swappable=True))
+    if cfg.enc_dec:
+        kinds.append(StateKind("cross", paged=True, swappable=True))
+    if ssm_subs(cfg):
+        kinds.append(StateKind("ssm", paged=False, swappable=True))
+    return tuple(kinds)
 
 
 class PagedKVCache:
@@ -201,6 +218,14 @@ class PagedKVCache:
     def available(self) -> int:
         """Pages an allocation can draw on: free plus evictable cached."""
         return len(self._free) + len(self._cached)
+
+    def ref(self, page: int) -> int:
+        """Live slot references to ``page``."""
+        return self._ref.get(page, 0)
+
+    def hits(self, page: int) -> int:
+        """Sharing hits recorded against ``page`` while trie-registered."""
+        return self._hits.get(page, 0)
 
     @property
     def cow_reserve(self) -> int:

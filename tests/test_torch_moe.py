@@ -130,14 +130,6 @@ def test_routing_metadata_equal():
         _close(g.numpy(), w)
 
 
-def test_ep_dispatch_raises():
-    cfg, _ = _moe_cfgs()
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
-                                                           dispatch="ep"))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tmoe.apply_moe({}, torch.zeros((1, 4, 32)), cfg)
-
-
 def test_moe_layer_on_reduced_olmoe_matches_jax(models):
     jcfg, cfg, vals, tp = models
     sub_j = jax.tree.map(lambda a: a[1], vals["stages"]["sub0"]["moe"])

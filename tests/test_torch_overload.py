@@ -218,7 +218,8 @@ def test_ssm_preempt_restore_token_exact(mamba, rng):
     eng, jeng = mamba
     ceng = ContinuousBatchingEngine(eng, capacity=2, page_size=8,
                                     inner_steps=3, max_prompt_len=16)
-    assert ceng.can_preempt and ceng.state_kinds == ("ssm",)
+    assert ceng.can_preempt
+    assert [k.name for k in ceng.state_kinds] == ["ssm"]
     los, hi = _lo_hi(rng, eng.cfg.vocab_size, "m", lo_len=9, lo_new=12,
                      hi_new=3)
     sched, by_tenant = _preempt_mix(eng, ceng, los, hi)
@@ -240,7 +241,8 @@ def test_smoke_ssm_hybrid_preempt_restore(arch, rng):
     eng = ServingEngine(cfg, build_model(cfg).init(0, "cpu"), device="cpu")
     ceng = ContinuousBatchingEngine(eng, capacity=2, page_size=8,
                                     inner_steps=3, max_prompt_len=16)
-    assert ceng.can_preempt and "ssm" in ceng.state_kinds
+    assert ceng.can_preempt
+    assert "ssm" in [k.name for k in ceng.state_kinds]
     los, hi = _lo_hi(rng, cfg.vocab_size, "h", lo_len=9, lo_new=12,
                      hi_new=3)
     want = {r.tenant: t for c in [*los, hi]
@@ -272,7 +274,8 @@ def test_whisper_cross_row_preempt_restore(rng):
     eng = ServingEngine(cfg, build_model(cfg).init(0, "cpu"), device="cpu")
     ceng = ContinuousBatchingEngine(eng, capacity=2, page_size=8,
                                     inner_steps=3, max_prompt_len=16)
-    assert ceng.state_kinds == ("attn", "cross") and ceng.can_preempt
+    assert [k.name for k in ceng.state_kinds] == ["attn", "cross"] \
+        and ceng.can_preempt
 
     def frames():
         return {"frames": rng.normal(size=(cfg.encoder_seq_len,

@@ -197,7 +197,7 @@ def test_supported_modes_and_state_kinds(engines):
               "exactness", "preemptable"):
         assert mine[k] == ref[k], k
     assert mine["preemptable"]
-    assert state_kinds(eng.cfg) == ("ssm",)
+    assert [k.name for k in state_kinds(eng.cfg)] == ["ssm"]
 
 
 def test_page_space_and_fair_share_without_attention(engines):

@@ -122,8 +122,9 @@ def test_microbatch_tenancy_matches_single_shot():
         opt = _capture(make_optimizer(cfg), grads)
         params = jax.tree.map(lambda t: t.clone(), init)
         state = init_train_state(bundle, opt, params)
-        state, m = build_train_step(bundle, opt, lr_fn=lambda s: torch.tensor(
-            1e-3))(state, batch)
+        state, m = build_train_step(
+            bundle, None, opt, lr_fn=lambda s: torch.tensor(1e-3))(state,
+                                                                   batch)
         assert sorted(m) == ["aux", "grad_norm", "loss", "lr", "xent"]
         out[cfg.microbatches] = (float(m["loss"]), grads[0], state)
     (l1, g1, s1), (l4, g4, s4) = out[1], out[4]
@@ -144,7 +145,8 @@ def test_lm_trains_and_loss_falls():
     bundle = build_model(cfg)
     opt = make_optimizer(cfg)
     state = init_train_state(bundle, opt, bundle.init(0, "cpu"))
-    step = build_train_step(bundle, opt, lr_fn=lambda s: torch.tensor(5e-3))
+    step = build_train_step(bundle, None, opt,
+                            lr_fn=lambda s: torch.tensor(5e-3))
     dc = DataConfig(8, 32, cfg.vocab_size)
     losses = []
     for i in range(30):
@@ -162,7 +164,7 @@ def _h2o_setup():
     cfg = get_config("h2o-danube-1.8b").reduced()
     bundle = build_model(cfg)
     opt = make_optimizer(cfg)
-    step = build_train_step(bundle, opt)
+    step = build_train_step(bundle, None, opt)
     dc = DataConfig(4, 16, cfg.vocab_size)
 
     def batch(i):

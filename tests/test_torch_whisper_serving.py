@@ -99,7 +99,7 @@ def test_cross_space_allocates_private_rows():
     cfg = get_config(ARCH).reduced()
     kv = PagedKVCache(cfg, capacity=2, page_size=8, max_blocks=2,
                       cross_blocks=3)
-    assert kv.state_kinds == ("attn", "cross")
+    assert [k.name for k in kv.state_kinds] == ["attn", "cross"]
     assert kv.num_cross_pages == PagedKVCache.RESERVED + 2 * 3
     rows = [kv.alloc_cross(c) for c in range(2)]
     got = sorted(int(p) for r in rows for p in r)
@@ -118,7 +118,7 @@ def test_cross_space_allocates_private_rows():
     dense = PagedKVCache(get_config("internlm2-1.8b").reduced(), capacity=2,
                          page_size=8, max_blocks=2)
     assert dense.cross_blocks == dense.num_cross_pages == 0
-    assert "cross" not in dense.state_kinds
+    assert "cross" not in [k.name for k in dense.state_kinds]
 
 
 @pytest.mark.parametrize("s_enc", [None, 100])
@@ -138,7 +138,7 @@ def test_continuous_matches_generate_and_reference(s_enc, rng):
     tel, jtel = Telemetry(enabled=True), JaxTelemetry(enabled=True)
     ceng = ContinuousBatchingEngine(eng, telemetry=tel, **KW)
     jceng = JaxCont(jeng, backend="jnp", telemetry=jtel, **KW)
-    assert ceng.state_kinds == ("attn", "cross")
+    assert [k.name for k in ceng.state_kinds] == ["attn", "cross"]
     assert ceng.cross_blocks == jceng.cross_blocks == \
         -(-cfg.encoder_seq_len // KW["page_size"]) > 0
     assert tuple(ceng.state["cross_pt"].shape) == (2, ceng.cross_blocks)
@@ -299,7 +299,7 @@ def test_launch_serve_whisper_on_the_cpu(mode):
     sched = seen[0]
     if mode == "continuous":
         ceng = sched.continuous_engine
-        assert ceng.state_kinds == ("attn", "cross")
+        assert [k.name for k in ceng.state_kinds] == ["attn", "cross"]
         assert ceng.kv.cross_pages_allocated == \
             ceng.kv.cross_pages_freed == 4 * ceng.cross_blocks
         ceng.assert_conserved()
