@@ -3390,11 +3390,12 @@ def slot_launches() -> tuple:
 
 
 def serve_slots_once(arch: str, prompt_len: int, mode: str, dev,
-                     num_layers=None) -> dict:
+                     num_layers=None, mesh=None) -> dict:
     """One ``launch.serve.main`` run of ``arch`` at full width (its first
-    ``num_layers`` layers, if given) in a slot mode: checks and numbers;
-    the overlapped run's tokens are held against ``generate`` on each of
-    its padded batches, with the batch's patch embeddings."""
+    ``num_layers`` layers, if given; on ``--mesh mesh``, every position on
+    the one card, if given) in a slot mode: checks and numbers; the
+    overlapped run's tokens are held against ``generate`` on each of its
+    padded batches, with the batch's patch embeddings."""
     cfg = arch_config(arch, num_layers)
     rec = SlotServeRecorder()
     gc.collect()
@@ -3404,12 +3405,15 @@ def serve_slots_once(arch: str, prompt_len: int, mode: str, dev,
         m.reset_counts()                 # just before the serving path
     rc = serve_cli.main(["--arch", arch, "--prompt-len", str(prompt_len),
                          "--mode", mode] + SLOT_ARGV
-                        + depth_argv(num_layers), observe=rec)
+                        + depth_argv(num_layers)
+                        + (["--mesh", mesh] if mesh else []), observe=rec)
     launches, plains = slot_launches()   # just after
     variants = {K5: dict(fa.variant_counts), K6: dict(ssd.variant_counts)}
     check(rc == 0, f"serve {arch} {mode} returned {rc}")
-    tag = f"{arch} {mode}"
+    tag = f"{arch} {mode}" + (f" mesh {mesh}" if mesh else "")
     sched, eng = rec.sched, rec.sched.engine
+    check(mesh is None or eng.sh.mesh.shape["model"]
+          == int(mesh.split("x")[1]), f"{tag}: engine mesh {eng.sh.mesh}")
     SlotRecorder.remove(eng)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     resp = rec.responses
@@ -6267,6 +6271,256 @@ def phase_compressed_psum(dev) -> dict:
                 float32_bytes=4 * n)
 
 
+
+# ---------------------------------------------------------------------------
+# slice 7: the slot schedules under --mesh, the dry-run, olmoe at full depth
+# ---------------------------------------------------------------------------
+SLOT_MESH_ARCH, SLOT_MESH_PROMPT = "internlm2-1.8b", 128
+SLOT_MESHES = (None, "1x1", "1x2", "1x8")
+# at 1x2 overlapped beside no mesh: whisper's cross K/V split too, mamba2's
+# SSM states whole (its prefills through K6)
+SLOT_MESH_ALSO = ((WHISPER, WHISPER_PROMPT), ("mamba2-2.7b", 384))
+SLOT_MESH_STEPS = 4                # decode steps of the logits check
+OLMOE_ARCH = "olmoe-1b-7b"
+OLMOE_TRAIN_STEPS = 3
+DRYRUN_ARCH = "internlm2-1.8b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_RISK = "risk_1m_t8"
+
+
+def slot_mesh_logits(dev) -> dict:
+    """internlm2-1.8b at full width from one parameter tree: a (4, 128)
+    prefill and SLOT_MESH_STEPS decode steps fed the no-mesh run's greedy
+    tokens, on engines with no mesh and on each of SLOT_MESHES: the logits
+    of every step bit for bit at 1x1, their largest difference at 1x2 and
+    1x8; then three dispatches of one key on the 1x8 engine, the third (a
+    replay) under ``set_sync_debug_mode("error")``."""
+    cfg = get_config(SLOT_MESH_ARCH)
+    params = build_model(cfg).init(0, dev)
+    prompts = np.random.default_rng(7).integers(
+        1, cfg.vocab_size, (4, SLOT_MESH_PROMPT)).astype(np.int32)
+    ref, toks, out = None, [], {}
+    for spec in SLOT_MESHES:
+        sh = serving_sharder(mesh_of(spec, dev)) if spec else None
+        eng = ServingEngine(cfg, params, device=dev, sh=sh)
+        with torch.no_grad():
+            logits, caches, idx = eng.prefill(eng._make_batch(prompts, None))
+            got = [logits]
+            for i in range(SLOT_MESH_STEPS):
+                if ref is None:
+                    toks.append(torch.argmax(logits, dim=-1)[:, None])
+                logits, caches = eng.bundle.decode_fn(
+                    eng.params, toks[i], caches, idx + i, eng.sh)
+                got.append(logits)
+        if spec is not None:
+            split = [t for t in tree_leaves(caches)
+                     if isinstance(t, ShardedTensor)]
+            check(len(split) == 2 and all(
+                len(t.distinct()) == int(spec.split("x")[1]) for t in split),
+                f"slot mesh {spec}: {len(split)} split cache leaves")
+        if ref is None:
+            ref = got
+        else:
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(ref, got))
+            out[spec] = {"logits_max_abs_diff": diff,
+                         "bitwise": all(torch.equal(a, b)
+                                        for a, b in zip(ref, got))}
+            if spec == "1x1":
+                check(out[spec]["bitwise"], f"slot mesh 1x1: logits differ "
+                                            f"from no mesh's by {diff}")
+        if spec == SLOT_MESHES[-1]:
+            handles = [eng.dispatch(prompts, 8) for _ in range(2)]
+            torch.cuda.synchronize(dev)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                handles.append(eng.dispatch(prompts, 8))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            res = [eng.await_result(h).tokens for h in handles]
+            check(all(np.array_equal(res[0], r) for r in res[1:])
+                  and sum(c.replays for c in
+                          eng.decode_program.loops.values()) == 2,
+                  f"slot mesh {spec}: dispatches under sync debug")
+            out[spec]["dispatch_tokens"] = res[0][:, :4].tolist()
+        del eng, caches, logits, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_slots_mesh(dev) -> dict:
+    """The slot schedules on a mesh of the one card (``launch.serve
+    --mesh``): internlm2-1.8b at full width, overlapped and blocking, with
+    no mesh and on 1x1, 1x2 and 1x8, 12 requests of 3 tenants, 4 a slot;
+    every run's tokens equal the no-mesh overlapped run's, each run's
+    decode ms a slot by CUDA events and its peak; SLOT_MESH_ALSO at 1x2
+    overlapped against no mesh; then the logits
+    (:func:`slot_mesh_logits`).  No gain is claimed: every shard's work
+    queues on the one card."""
+    runs = {}
+    for mode in ("overlapped", "blocking"):
+        for spec in SLOT_MESHES:
+            runs[f"{SLOT_MESH_ARCH} {mode} {spec or 'none'}"] = \
+                serve_slots_once(SLOT_MESH_ARCH, SLOT_MESH_PROMPT, mode, dev,
+                                 mesh=spec)
+    for arch, prompt_len in SLOT_MESH_ALSO:
+        for spec in (None, "1x2"):
+            runs[f"{arch} overlapped {spec or 'none'}"] = serve_slots_once(
+                arch, prompt_len, "overlapped", dev, mesh=spec)
+    for arch in (SLOT_MESH_ARCH,) + tuple(a for a, _ in SLOT_MESH_ALSO):
+        base = runs[f"{arch} overlapped none"]["tokens"]
+        for name, r in runs.items():
+            if name.startswith(arch):
+                check(set(r["tokens"]) == set(base) and all(
+                    np.array_equal(r["tokens"][k], base[k]) for k in base),
+                    f"serve-slots-mesh {name}: tokens differ from the "
+                    "no-mesh overlapped run's")
+    logits = slot_mesh_logits(dev)
+    for r in runs.values():
+        r.pop("tokens")
+    say("serve-slots-mesh", "tokens equal across meshes and modes; logits "
+        + ", ".join(f"{k}: {v['logits_max_abs_diff']:.4g}"
+                    + (" (bit for bit)" if v["bitwise"] else "")
+                    for k, v in logits.items()))
+    return {"runs": runs, "logits": logits,
+            "launches": {f"{n} slots mesh": {K3: 0, K4: 0,
+                                             K5: r["launches"].get(K5, 0)}
+                         for n, r in runs.items()
+                         if r["launches"].get(K5)},
+            "k6_launches": {f"{n} slots mesh": r["launches"][K6]
+                            for n, r in runs.items()
+                            if r["launches"].get(K6)}}
+
+
+def olmoe_train_reckoning(cfg) -> dict:
+    """Bytes of olmoe's training state with the given optimizer, leaf by
+    leaf from the meta tree: float32 parameters and gradients, the
+    optimizer's state, the largest whole-leaf float32 temporary."""
+    params = build_model(cfg).init(0, "meta")
+    opt = make_optimizer(cfg)
+    st = opt.init(params)
+    nbytes = lambda tree: sum(t.numel() * t.element_size()
+                              for t in tree_leaves(tree))
+    leaves = tree_leaves(params)
+    largest = max(t.numel() * 4 for t in leaves)
+    out = {"params": nbytes(params), "grads": nbytes(params),
+           "momentum": nbytes(st.get("m", {})),
+           "second_moment": nbytes(st["v"]), "largest_leaf": largest,
+           "largest_stage_slice": max(t[0].numel() * 4 for t in leaves
+                                      if t.dim() >= 3)}
+    out["state"] = (out["params"] + out["grads"] + out["momentum"]
+                    + out["second_moment"])
+    # the gradients are allocated before the forward and filled a stage at
+    # a time; the norm and the update walk a stacked leaf a stage slice at
+    # a time: beside the state, the activations (not reckoned here) and a
+    # few stage slices
+    out["reckoned_peak"] = out["state"] + 2 * out["largest_stage_slice"]
+    return out
+
+
+def phase_train_olmoe(dev) -> dict:
+    """olmoe-1b-7b at published width and depth with the reference's
+    Adafactor (``optimizer="adafactor"``: AdamW's 110.7 GB of state does
+    not fit), ``launch.train``'s state and step, batch 8 x 512, remat full,
+    bf16 compute, seed 0, OLMOE_TRAIN_STEPS steps: losses finite, step ms
+    by CUDA events, the peak beside the reckoning, K5 = 16 x 2 a step;
+    the live state's bytes for the dry-run's check."""
+    cfg = dataclasses.replace(get_config(OLMOE_ARCH), optimizer="adafactor")
+    reck = olmoe_train_reckoning(cfg)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(TRAIN_BATCH, TRAIN_MESH_SEQ, cfg.vocab_size), i).items()}
+        for i in range(OLMOE_TRAIN_STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_kernel_counts()                # just before the path
+    _, state, step, _ = train_cli.make_state_and_step(cfg, dev, 0)
+    live = sum(t.numel() * t.element_size() for t in tree_leaves(state)) \
+        + sum(t.numel() * t.element_size() for t in batches[0].values())
+    init_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    losses, ms, per_step = [], [], []
+    for batch in batches:
+        n0 = fa.launch_counts[K5]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step(state, batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+        per_step.append(fa.launch_counts[K5] - n0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = k5_per_prefill(cfg) * 2
+    check(all(np.isfinite(losses)), f"train-olmoe: losses {losses}")
+    check(per_step == [want] * OLMOE_TRAIN_STEPS
+          and fa.variant_counts["f32_simt"] == 0
+          and not sum(fa.plain_counts.values()),
+          f"train-olmoe: K5 a step {per_step} (want {want}), variants "
+          f"{dict(fa.variant_counts)}")
+    res = dict(optimizer=cfg.optimizer, batch=TRAIN_BATCH,
+               seq=TRAIN_MESH_SEQ, losses=losses, step_ms=ms,
+               median_step_ms=statistics.median(ms[1:]),
+               peak_gib=peak / 2**30, peak_bytes=peak, init_peak_gib=init_gib,
+               reckoning_gib={k: v / 2**30 for k, v in reck.items()},
+               live_state_bytes=live, k5_per_step=per_step,
+               launches={f"{OLMOE_ARCH} train full depth": {
+                   K3: 0, K4: 0, K5: sum(per_step)}})
+    say("train-olmoe", f"{OLMOE_ARCH} 16 layers, Adafactor, batch "
+        f"{TRAIN_BATCH} x {TRAIN_MESH_SEQ}: losses {losses}, step ms "
+        f"{[round(x, 2) for x in ms]}, peak {res['peak_gib']:.2f} GiB "
+        f"against the reckoned {res['reckoning_gib']['reckoned_peak']:.2f} "
+        f"(state {res['reckoning_gib']['state']:.2f}), K5 {per_step}")
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_dryrun(olmoe: dict, dev) -> dict:
+    """``launch/dryrun.py`` on the meta device from this host: one pod cell
+    of each kind for internlm2-1.8b (no aux reckonings) and the risk cell
+    DRYRUN_RISK, each record ``ok`` with the reference's memory, cost and
+    collective keys; the reckoned parameter, optimizer-state, step and
+    batch bytes of the train-olmoe phase's own configuration on a 1x1 meta
+    mesh equal that phase's live state on the card, byte for byte; no
+    CUDA memory allocated meanwhile."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    alloc0 = torch.cuda.memory_allocated(dev)
+    recs = {}
+    for shape in DRYRUN_SHAPES:
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(DRYRUN_ARCH, shape, False, exact_costs=False)
+        check(rec["status"] == "ok" and rec["memory"]["argument_bytes"] > 0
+              and rec["cost"]["flops"] > 0,
+              f"dryrun {DRYRUN_ARCH} {shape}: {rec.get('status')}")
+        rec["wall_s"] = time.perf_counter() - t0
+        recs[shape] = rec
+    recs[DRYRUN_RISK] = dryrun.lower_risk_cell(DRYRUN_RISK, False)
+    cfg = dataclasses.replace(get_config(OLMOE_ARCH), optimizer="adafactor")
+    one = Sharder(Mesh([torch.device("meta")], (1, 1), ("data", "model")),
+                  fsdp=cfg.fsdp, seq_shard=cfg.fsdp)
+    cell = ShapeCell("train_olmoe", TRAIN_MESH_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    olmoe_rec = dryrun.reckon(cfg, cell, one)
+    olmoe_rec["wall_s"] = time.perf_counter() - t0
+    args = olmoe_rec["memory"]["argument_bytes"]
+    check(args == olmoe["live_state_bytes"],
+          f"dryrun: reckoned train-olmoe arguments {args} B against "
+          f"{olmoe['live_state_bytes']} B live on the card")
+    check(torch.cuda.memory_allocated(dev) == alloc0,
+          "dryrun: CUDA memory allocated")
+    recs["olmoe train 1x1"] = olmoe_rec
+    say("dryrun", "; ".join(
+        f"{k}: args {r['memory']['argument_bytes']:,} B, temp "
+        f"{r['memory']['temp_bytes']:,} B, flops {r['cost']['flops']:.4g}"
+        for k, r in recs.items()) + f"; train-olmoe's live state {args:,} B"
+        " equal")
+    return recs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6349,6 +6603,12 @@ def main() -> int:
         lap("train-ep")
         psum = phase_compressed_psum(dev)
         lap("compressed-psum")
+        slots_mesh = phase_serve_slots_mesh(dev)
+        lap("serve-slots-mesh")
+        train_olmoe = phase_train_olmoe(dev)
+        lap("train-olmoe")
+        dry = phase_dryrun(train_olmoe, dev)
+        lap("dryrun")
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6396,6 +6656,11 @@ def main() -> int:
     # layer's forward, twice a step under remat
     paths.update(train_mesh["launches"])
     paths.update(train_ep["launches"])
+    # slice 7: the slot prefills on a mesh (replicated) and olmoe's 16
+    # layers, twice a step
+    paths.update(slots_mesh["launches"])
+    paths.update(train_olmoe["launches"])
+    k6_paths.update(slots_mesh["k6_launches"])
     k6_paths.update({a: n[K6] for a, n in train_paths.items() if n[K6]})
     on_paths = {k: sum(p[k] for p in paths.values()) for k in (K3, K4, K5)}
     by_path = {k: {a: p[k] for a, p in paths.items()} for k in (K3, K4, K5)}
@@ -6483,6 +6748,12 @@ def main() -> int:
                       "train_ep": {k: v for k, v in train_ep.items()
                                    if k != "launches"},
                       "compressed_psum": psum}, default=str))
+    print(json.dumps({"serve_slots_mesh": {k: v for k, v in
+                                           slots_mesh.items()
+                                           if k != "launches"},
+                      "train_olmoe": {k: v for k, v in train_olmoe.items()
+                                      if k != "launches"},
+                      "dryrun": dry}, default=str))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -207,10 +207,10 @@ def generate_keeping_logits(eng: ServingEngine, prompts: np.ndarray,
         kept.append(logits.float().clone())
         return logits, caches, idx
 
-    def decode_fn(params, tok, caches, idx):
+    def decode_fn(params, tok, caches, idx, sh=None):
         n = len(kept) - 1
         (logits, caches), calls = recorder.run(bundle.decode_fn, params, tok,
-                                               caches, idx)
+                                               caches, idx, sh)
         kept.append(logits.float().clone())
         if after_decode is not None:
             after_decode(n, caches, calls)

@@ -21,9 +21,18 @@ the reference's own, which has no Pallas kernel either.  :func:`flash_attention`
 and :func:`ssd` take a ``Function`` only when grad mode is on and an input
 requires grad; otherwise (every serving path, CUDA graph captures
 included) they call the kernel wrapper directly.
+
+Inside :func:`shape_only` (``launch/dryrun.py``'s pass, which computes
+shapes, not numbers) a meta tensor is routed here, explicitly, to the
+kernel's plain computation -- the reference's blockwise attention, the
+chunked SSD oracle -- uncounted: no kernel is launched and no plain version
+runs on data.  Every other call goes to the wrapper, which launches the
+kernel for a CUDA tensor, runs the plain version for a CPU tensor, and
+raises for anything else (a meta tensor outside the pass included).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, List, Optional
 
@@ -52,7 +61,7 @@ def _env_agg_variant() -> str:
     return v
 
 
-_STATE = {"agg_variant": _env_agg_variant()}
+_STATE = {"agg_variant": _env_agg_variant(), "shape_only": False}
 
 
 def use_aggregate_variant(name: str) -> None:
@@ -111,8 +120,50 @@ def ssd(x, dt, a_log_decay, B, C, chunk: int,
     if _differentiable(x, dt, a_log_decay, B, C, initial_state):
         return SsdChunkedFn.apply(x, dt, a_log_decay, B, C, initial_state,
                                   chunk)
-    return _ssd.ssd_chunked(x, dt, a_log_decay, B, C, chunk=chunk,
-                            initial_state=initial_state)
+    return _ssd_forward(x, dt, a_log_decay, B, C, chunk, initial_state)
+
+
+def _ssd_forward(x, dt, a, B, C, chunk: int, h0):
+    """The scan kernel's wrapper, or in the dry-run's pass over meta tensors
+    its plain computation (shapes only)."""
+    if _meta_pass(x):
+        return _ref.ssd_chunked_ref(x, dt, a, B, C, chunk, initial_state=h0)
+    return _ssd.ssd_chunked(x, dt, a, B, C, chunk=chunk, initial_state=h0)
+
+
+@contextlib.contextmanager
+def shape_only():
+    """Within: a meta tensor takes the kernels' plain computation (the
+    dry-run's pass over meta tensors); outside, the wrappers refuse it."""
+    before, _STATE["shape_only"] = _STATE["shape_only"], True
+    try:
+        yield
+    finally:
+        _STATE["shape_only"] = before
+
+
+def _meta_pass(t: torch.Tensor) -> bool:
+    return t.device.type == "meta" and _STATE["shape_only"]
+
+
+# the plain computation's blocks on the meta device: every block is
+# computed either way, so the operations are the same; larger blocks cut a
+# 32k prefill's meta pass from 2,048 block steps a layer to 64
+META_BLOCK = 4096
+
+
+def _flash_forward(q, k, v, causal: bool, window: Optional[int],
+                   return_lse: bool = False):
+    """The FlashAttention kernel's wrapper, or in the dry-run's pass over
+    meta tensors its plain computation (shapes only) at :data:`META_BLOCK`
+    blocks."""
+    if _meta_pass(q):
+        return _ref.blockwise_attention(q, k, v, causal=causal,
+                                        window=window, block_q=META_BLOCK,
+                                        block_kv=META_BLOCK,
+                                        return_lse=return_lse)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=return_lse)
 
 
 def ssd_decode_step(state, x_t, dt_t, a_t, B_t, C_t):
@@ -177,7 +228,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     with an input that requires grad, through :class:`FlashAttentionFn`."""
     if _differentiable(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window)
-    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash_forward(q, k, v, causal, window)
 
 
 def _differentiable(*tensors) -> bool:
@@ -198,8 +249,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
-        o, lse = _flash.flash_attention(q, k, v, causal=causal,
-                                        window=window, return_lse=True)
+        o, lse = _flash_forward(q, k, v, causal, window, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window = causal, window
         return o
@@ -226,7 +276,7 @@ class SsdChunkedFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, a, B, C, h0, chunk: int):
-        y, h = _ssd.ssd_chunked(x, dt, a, B, C, chunk=chunk, initial_state=h0)
+        y, h = _ssd_forward(x, dt, a, B, C, chunk, h0)
         ctx.save_for_backward(x, dt, a, B, C, h0)
         ctx.chunk = chunk
         return y, h

@@ -90,23 +90,28 @@ Since ``main`` also runs inside other programs, the plane it lights starts
 empty and is turned off again when it returns (the reference's process
 simply exits).
 
-``--mesh AxB`` (continuous mode) splits the paged KV pools -- self- and
-cross-attention -- and the paged decode along KV heads over the "model"
-axis of a mesh of the visible CUDA devices (``--device cpu``: the one CPU
-device); page tables, the free list, the trie and refcounts stay
-host-global, so admission, prefix sharing, copy-on-write and preemption
-behave as without a mesh.  ``1x1`` is bit-identical with no mesh; wider
-meshes are greedy token-exact.  A spec needing more devices than there are
-raises ``ValueError``, as the reference's does.  The Python API
-(``ServingEngine(..., sh=serving_sharder(parse_mesh(spec, devices)))``)
-takes an explicit device list, in which a device may repeat: that is how
-one card runs ``1x8``.  The slot modes under a mesh need the dense caches
-of ``models/layers.py`` sharded and raise, naming slice 6b.
+``--mesh AxB`` splits the KV caches along KV heads over the "model" axis
+of a mesh, in every mode.  Continuous: the paged KV pools -- self- and
+cross-attention -- and the paged decode; page tables, the free list, the
+trie and refcounts stay host-global, so admission, prefix sharing,
+copy-on-write and preemption behave as without a mesh.  Overlapped and
+blocking: each slot's prefill runs once, on the mesh's first device, and
+its dense caches are laid out by the reference's cache axes
+(``bundle.cache_axes()``: K/V and whisper's cross K/V on KV heads, the
+positions and SSM states whole), and every decode step runs each shard's
+query heads against its KV heads and joins them before ``wo``.  ``1x1`` is
+bit-identical with no mesh; wider meshes are greedy token-exact.  The mesh's
+positions go to the visible CUDA devices (``--device cpu``: the one CPU
+device) in turn, a device taking several when there are fewer than ``A*B``
+-- as the reference's forced host device count makes many devices of one
+-- so one card serves ``1x8``: every shard a tensor of its own there and
+every per-shard call a launch of its own.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import sys
 import time
@@ -235,14 +240,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "lowest-priority (then latest-deadline) queued "
                          "work is shed with a rejected outcome")
     ap.add_argument("--mesh", default=None, metavar="AxB",
-                    help="continuous mode: device mesh spec, e.g. '1x8': "
-                         "split the paged KV pools and the paged decode "
-                         "along KV heads over the 'model' axis (B devices); "
-                         "page tables, free list, prefix trie and "
-                         "refcounts stay host-global.  '1x1' is "
-                         "bit-identical with no mesh, wider meshes greedy "
-                         "token-exact.  Needs A*B visible devices.  "
-                         "Default: no mesh")
+                    help="device mesh spec, e.g. '1x8': split the KV "
+                         "caches (continuous: the paged pools; slot modes: "
+                         "each prefill's dense caches) and the decode along "
+                         "KV heads over the 'model' axis; page tables, free "
+                         "list, prefix trie and refcounts stay "
+                         "host-global.  '1x1' is bit-identical with no "
+                         "mesh, wider meshes greedy token-exact.  Positions "
+                         "go to the visible devices in turn (several to a "
+                         "device when there are fewer).  Default: no mesh")
     ap.add_argument("--journal-dir", default=None, metavar="DIR",
                     help="continuous mode: write the request journal to "
                          "DIR/journal.jsonl (fsync'd ahead of every "
@@ -274,6 +280,18 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def mesh_devices(spec: str, dev: torch.device) -> list:
+    """The devices of a ``spec`` mesh's positions, row-major: the visible
+    CUDA devices (the one CPU device when ``dev`` is the CPU) in turn, a
+    device taking several positions when there are fewer than the mesh
+    needs."""
+    n = math.prod(int(e) for e in str(spec).lower().split("x"))
+    visible = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if dev.type == "cuda" else [dev])
+    return [visible[i % len(visible)] for i in range(n)]
+
+
 def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
     """Run the driver; ``observe(scheduler)`` (optional) is called once
     after the scheduler is built and then after every scheduling step."""
@@ -293,11 +311,6 @@ def main(argv=None, observe: Optional[Callable[[Any], None]] = None) -> int:
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} comes with {slice_} of the port "
                 "(ROADMAP.md)")
-    if args.mesh and mode != "continuous":
-        raise NotImplementedError(
-            f"--mesh with --mode {mode} comes with slice 6b of the port "
-            "(the slot schedules' dense caches sharded; ROADMAP.md); use "
-            "--mode continuous")
     dev = resolve_devices(1, args.device)[0]           # raises: no card
     obs_on = bool(args.trace_out or args.metrics_out or args.stats_every)
     if not obs_on:
@@ -315,10 +328,8 @@ def _serve(args, dev: torch.device,
            observe: Optional[Callable[[Any], None]]) -> int:
     sh = None
     if args.mesh:
-        # over the visible CUDA devices, or the one CPU device; raises
-        # before any weight is drawn when there are too few
-        sh = serving_sharder(parse_mesh(
-            args.mesh, None if dev.type == "cuda" else [dev]))
+        sh = serving_sharder(parse_mesh(args.mesh,
+                                        mesh_devices(args.mesh, dev)))
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed.sharding import Sharder, ShardedTensor
 from repro_torch.kernels import ops
 from repro_torch.models.attention_core import naive_attention
 
@@ -246,7 +247,8 @@ def apply_cross_attention(p, x, kv: Tuple[torch.Tensor, torch.Tensor],
                           cfg: ArchConfig, *, decode: bool = False
                           ) -> torch.Tensor:
     """Decoder cross-attention against precomputed encoder K/V ``kv`` (each
-    ``(B, S_enc, Hkv, D)``), no masking.  A prefill's queries go through
+    ``(B, S_enc, Hkv, D)``; a decode step's may be split on KV heads, each
+    shard cast to the query's dtype), no masking.  A prefill's queries go through
     ``ops.flash_attention(causal=False)`` (the FlashAttention kernel on the
     card, Sq the prompt bucket against S_enc keys); a decode step's single
     query (``decode``) through :func:`naive_attention`, as the reference
@@ -259,7 +261,10 @@ def apply_cross_attention(p, x, kv: Tuple[torch.Tensor, torch.Tensor],
         q = apply_rmsnorm_heads(p["q_norm"], q)
     k, v = kv
     if decode:
-        o = naive_attention(q, k, v, causal=False)
+        # K/V split on KV heads (a slot decode under --mesh) a shard at a
+        # time, cast to the query's dtype there
+        o = attend_kv_shards(q, k, v, lambda qs, ks, vs: naive_attention(
+            qs, ks.to(qs.dtype), vs.to(qs.dtype), causal=False))
     else:
         o = ops.flash_attention(q, k, v, causal=False)
     o = o.reshape(B, S, -1)
@@ -280,15 +285,57 @@ def precompute_cross_kv(p, enc_out: torch.Tensor, cfg: ArchConfig
     return k, v
 
 
-def apply_attention_decode(p, x, cache: Dict[str, torch.Tensor],
-                           cfg: ArchConfig, cache_index: int):
+def _decode_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
+    """One query token's GQA attention: q ``(B, 1, Hq, D)`` against k / v
+    ``(B, S_c, Hk, D)`` (``Hq`` a multiple of ``Hk``, query head ``h``
+    reading KV head ``h // (Hq / Hk)``) under the additive ``bias``
+    ``(S_c,)``; float32 ``(B, 1, Hq, D)``.  Heads are independent, so a
+    KV-head shard's call is its heads of the whole call."""
+    B, _, Hq, D = q.shape
+    Hk = k.shape[2]
+    qr = q.reshape(B, 1, Hk, Hq // Hk, D)
+    scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhrd,bkhd->bqhrk", qr.float(),
+                     k.to(q.dtype).float()) * scale
+    s = s + bias
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhrk,bkhd->bqhrd", pattn, v.to(q.dtype).float())
+    return o.reshape(B, 1, Hq, D)
+
+
+def attend_kv_shards(q: torch.Tensor, k, v, attend) -> torch.Tensor:
+    """``attend(q_heads, k_local, v_local)`` once per distinct KV-head
+    shard of ``k`` / ``v`` (:class:`ShardedTensor` split on their head axis
+    2, or plain tensors: one call over every head), each shard's query
+    heads ``(B, S, Hq/M, D)`` moved to its device; the shards' outputs
+    joined on heads on ``q``'s device (data movement, never a sum)."""
+    if not isinstance(k, ShardedTensor):
+        return attend(q, k, v)
+    rep = q.shape[2] // k.shape[2]
+    parts = []
+    for p, kl, sl in k.distinct():
+        h = sl[2]
+        parts.append(attend(q[:, :, h.start * rep:h.stop * rep].to(kl.device),
+                            kl, v.locals[p]).to(q.device))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+
+
+def apply_attention_decode(p, x, cache: Dict[str, Any], cfg: ArchConfig,
+                           cache_index: int, sh: Optional[Sharder] = None):
     """Single-token decode with a (possibly ring) KV cache.
 
     cache: {"k": (B, S_c, Hkv, D), "v": ..., "pos": (B, S_c) absolute
     positions}, updated in place (the reference returns a new cache; here
     the caller's buffers are the state).  ``cache_index`` is the new
-    token's absolute position.  Returns (out, cache)."""
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    token's absolute position.  K / V may be :class:`ShardedTensor` split on
+    KV heads over ``sh``'s mesh (the slot schedules' caches under
+    ``--mesh``): each shard takes the new token's K/V of its heads in place,
+    its query heads attend to its KV heads on its device, and the shards'
+    outputs are joined on heads on the first device before ``wo`` -- bit
+    for bit their heads of the unsharded call.  Returns (out, cache)."""
+    del sh                    # the placement travels with the cache
+    H, D = cfg.num_heads, cfg.head_dim
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(p, x, x, cfg)
     pos = int(cache_index)
@@ -298,21 +345,20 @@ def apply_attention_decode(p, x, cache: Dict[str, torch.Tensor],
         k_new = apply_rope(k_new, at, cfg.rope_theta)
     k, v, kpos = cache["k"], cache["v"], cache["pos"]
     slot = pos % k.shape[1]
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
+    for dst, new in ((k, k_new), (v, v_new)):
+        if isinstance(dst, ShardedTensor):
+            for _, t, sl in dst.unique():
+                t[:, slot] = new[:, 0, sl[2]].to(t.device, t.dtype)
+        else:
+            dst[:, slot] = new[:, 0].to(dst.dtype)
     kpos[:, slot] = pos
     valid = kpos[0] <= pos
     if cfg.sliding_window is not None:
         valid &= kpos[0] > pos - cfg.sliding_window
     bias = torch.where(valid, 0.0, NEG_INF).float()
-    rep = H // Hkv
-    qr = q.reshape(B, 1, Hkv, rep, D)
-    scale = 1.0 / math.sqrt(D)
-    s = torch.einsum("bqhrd,bkhd->bqhrk", qr.float(),
-                     k.to(q.dtype).float()) * scale
-    s = s + bias
-    pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bqhrk,bkhd->bqhrd", pattn, v.to(q.dtype).float())
+    o = attend_kv_shards(
+        q, k, v, lambda qs, ks, vs: _decode_heads(qs, ks, vs,
+                                                  bias.to(ks.device)))
     o = o.reshape(B, 1, H * D).to(x.dtype)
     out = torch.matmul(o, p["wo"].to(dtype_of(cfg.compute_dtype)))
     return out, cache

@@ -11,6 +11,7 @@ decoder with self- and cross-attention, sinusoidal positions)::
     loss, metrics = bundle.loss_fn(params, batch)  # training (sh: a mesh)
     logits, caches, idx = bundle.prefill_fn(params, batch)
     logits, caches = bundle.decode_fn(params, tokens, caches, idx)
+    bundle.cache_axes()                            # caches' logical axes
 
 ``loss_fn`` computes with the float32 master leaves, cast at each use as the
 reference casts them, so its gradients reach every leaf;
@@ -37,12 +38,14 @@ from repro_torch.models.layers import (apply_attention,
                                        precompute_cross_kv,
                                        sinusoid_frequencies,
                                        sinusoidal_positions, unembed_operand)
-from repro_torch.models.transformer import (VIS_WIDTH, _kv_to_cache,
-                                            check_supported, init_lm,
-                                            init_lm_caches, init_stacked,
-                                            lm_backbone, lm_decode_backbone,
+from repro_torch.models.transformer import (ATTN_CACHE_AXES, VIS_WIDTH,
+                                            _kv_to_cache, check_supported,
+                                            init_lm, init_lm_caches,
+                                            init_stacked, lm_backbone,
+                                            lm_cache_axes, lm_decode_backbone,
                                             make_generator, remat_wrap,
-                                            stage_view, tree_map)
+                                            stage_view, stage_views,
+                                            tree_map)
 
 # leaves the reference casts to the compute dtype at every use
 # (``p[...].astype(cdt)``; a MoE sublayer's experts w_gate/w_up/w_down too,
@@ -71,6 +74,9 @@ class ModelBundle:
     # training objective, the next-token cross-entropy plus the MoE aux
     # losses (``sh``'s mesh reaches the routed experts)
     loss_fn: Optional[Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]] = None
+    # cache_axes() -> the logical axes of init_caches' tree (the
+    # reference's): a serving sharder lays the prefill's caches out by them
+    cache_axes: Optional[Callable[[], Any]] = None
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -171,18 +177,20 @@ def _build_decoder_only(cfg: ArchConfig) -> ModelBundle:
         logits = apply_unembed(params["embed"], h[:, -1:], cfg)
         return logits[:, 0], caches, int(x.shape[1])
 
-    def decode_fn(params, tokens, caches, cache_index: int):
+    def decode_fn(params, tokens, caches, cache_index: int,
+                  sh: Optional[Sharder] = None):
         x = apply_embedding(params["embed"], tokens, cfg)
         if not cfg.use_rope:
             x = x + _position_at(cache_index, cfg, x)
-        h, caches = lm_decode_backbone(params, x, caches, cache_index, cfg)
+        h, caches = lm_decode_backbone(params, x, caches, cache_index, cfg,
+                                       sh)
         return apply_unembed(params["embed"], h, cfg)[:, 0], caches
 
     def init_caches(batch: int, seq_len: int, device=None):
         return init_lm_caches(cfg, batch, seq_len, device)
 
     return ModelBundle(cfg, init, prefill_fn, decode_fn, init_caches,
-                       loss_fn=loss_fn)
+                       loss_fn=loss_fn, cache_axes=lambda: lm_cache_axes(cfg))
 
 
 def _position_at(cache_index: int, cfg: ArchConfig, x: torch.Tensor
@@ -253,8 +261,7 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
         x = frames.to(cdt)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(x.dtype)[None]
-        for i in range(n_enc):
-            sp = stage_view(params["enc_stages"], i)
+        for sp in stage_views(params["enc_stages"]):
             x = x + apply_attention(sp["attn"], apply_rmsnorm(sp["norm1"], x),
                                     cfg, causal=False)
             x = x + apply_mlp(sp["mlp"], apply_rmsnorm(sp["norm2"], x), cfg)
@@ -264,15 +271,14 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every decoder layer's cross K and V, stacked ``(n_dec, B, S_enc,
         Hkv, D)``."""
-        kv = [precompute_cross_kv(stage_view(params["dec_stages"], i)["cross"],
-                                  enc_out, cfg) for i in range(n_dec)]
+        kv = [precompute_cross_kv(sp["cross"], enc_out, cfg)
+              for sp in stage_views(params["dec_stages"])]
         return (torch.stack([k for k, _ in kv]),
                 torch.stack([v for _, v in kv]))
 
-    def dec_layer(stages, i: int, x, ck, cv, positions):
-        """Decoder layer ``i`` without caches (what a checkpointed layer
+    def dec_layer(sp, x, ck, cv, positions):
+        """A decoder layer without caches (what a checkpointed layer
         runs)."""
-        sp = stage_view(stages, i)
         x = x + apply_attention(sp["attn"], apply_rmsnorm(sp["norm1"], x),
                                 cfg, positions=positions)
         x = x + apply_cross_attention(
@@ -287,13 +293,11 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
         ck, cv = cross_kv_all(params, enc_out)
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
-        for i in range(n_dec):
+        for i, sp in enumerate(stage_views(params["dec_stages"])):
             if not collect_cache:
-                x = remat_wrap(functools.partial(
-                    dec_layer, params["dec_stages"], i), cfg, train)(
-                        x, ck[i], cv[i], positions)
+                x = remat_wrap(functools.partial(dec_layer, sp), cfg, train)(
+                    x, ck[i], cv[i], positions)
                 continue
-            sp = stage_view(params["dec_stages"], i)
             a, (k, v) = apply_attention(sp["attn"],
                                         apply_rmsnorm(sp["norm1"], x), cfg,
                                         positions=positions, return_kv=True)
@@ -327,7 +331,8 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
         caches = {"self": self_caches, "cross": {"k": ck, "v": cv}}
         return logits[:, 0], caches, int(batch["tokens"].shape[1])
 
-    def decode_fn(params, tokens, caches, cache_index: int):
+    def decode_fn(params, tokens, caches, cache_index: int,
+                  sh: Optional[Sharder] = None):
         x = apply_embedding(params["embed"], tokens, cfg)
         x = x + _position_at(cache_index, cfg, x)
         cross = caches["cross"]
@@ -336,12 +341,11 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
             a, _ = apply_attention_decode(sp["attn"],
                                           apply_rmsnorm(sp["norm1"], x),
                                           stage_view(caches["self"], i), cfg,
-                                          cache_index)
+                                          cache_index, sh)
             x = x + a
             x = x + apply_cross_attention(
                 sp["cross"], apply_rmsnorm(sp["norm_c"], x),
-                (cross["k"][i].to(x.dtype), cross["v"][i].to(x.dtype)), cfg,
-                decode=True)
+                (cross["k"][i], cross["v"][i]), cfg, decode=True)
             x = x + apply_mlp(sp["mlp"], apply_rmsnorm(sp["norm2"], x), cfg)
         x = apply_rmsnorm(params["final_norm"], x)
         return apply_unembed(params["embed"], x, cfg)[:, 0], caches
@@ -356,8 +360,13 @@ def _build_enc_dec(cfg: ArchConfig) -> ModelBundle:
                 "cross": {k: torch.zeros(shape, dtype=torch.bfloat16,
                                          device=device) for k in "kv"}}
 
+    def cache_axes():
+        cross = ("layers", "batch", None, "kv", None)
+        return {"self": dict(ATTN_CACHE_AXES),
+                "cross": {"k": cross, "v": cross}}
+
     return ModelBundle(cfg, init, prefill_fn, decode_fn, init_caches,
-                       encode, cross_kv_all, loss_fn)
+                       encode, cross_kv_all, loss_fn, cache_axes)
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:

@@ -33,7 +33,6 @@ _AXES: Dict[Any, Axes] = {
     "out_proj": ("inner", "fsdp"),
     ("mm_proj", "w1"): (None, "fsdp"), ("mm_proj", "w2"): ("fsdp", None),
 }
-_STACKED = ("stages", "enc_stages", "dec_stages")   # leading "layers" axis
 
 
 def param_axes(cfg: ArchConfig) -> Dict[str, Any]:
@@ -41,12 +40,13 @@ def param_axes(cfg: ArchConfig) -> Dict[str, Any]:
     of axis names (or None) per leaf, ``"layers"`` first under the stacked
     stages."""
     from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import STACKED
 
     def walk(tree, parent: Optional[str], stacked: bool):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = walk(v, k, stacked or k in _STACKED)
+                out[k] = walk(v, k, stacked or k in STACKED)
                 continue
             axes = _AXES[(parent, k)] if (parent, k) in _AXES else _AXES[k]
             if len(axes) + stacked != v.dim():

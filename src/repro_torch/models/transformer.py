@@ -15,6 +15,7 @@ decode never do.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -77,6 +78,39 @@ def tree_leaves(tree) -> List[Any]:
 def stage_view(stages: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Stage ``i``'s parameters (or caches): views, no copy."""
     return tree_map(lambda a: a[i], stages)
+
+
+# the parameter subtrees whose leaves carry the stage axis first
+STACKED = ("stages", "enc_stages", "dec_stages")
+# stacked leaf (by id) -> the tensors its stages enter a forward as, while
+# a training step's ``stage_leaves`` is open
+_STAGE_LEAVES: Dict[int, List[torch.Tensor]] = {}
+
+
+@contextlib.contextmanager
+def stage_leaves(stages_of: Dict[int, List[torch.Tensor]]):
+    """Within: :func:`stage_views` hands out ``stages_of[id(leaf)]`` for
+    those stacked leaves instead of their views -- a training step's
+    per-stage leaves, whose gradients it collects a stage at a time."""
+    _STAGE_LEAVES.update(stages_of)
+    try:
+        yield
+    finally:
+        for k in stages_of:
+            _STAGE_LEAVES.pop(k, None)
+
+
+def stage_views(stages: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every stage's parameters as views, from one ``unbind`` of each
+    stacked leaf (or a training step's per-stage leaves,
+    :func:`stage_leaves`).  Under autograd a leaf's gradient is then the
+    stack of its stages' (one allocation); indexed stage by stage, each
+    stage's gradient would be written into a zero leaf of its own and added
+    up (depth times the leaf's bytes, a step)."""
+    per_leaf = tree_map(lambda a: _STAGE_LEAVES.get(id(a)) or a.unbind(0),
+                        stages)
+    n = len(tree_leaves(per_leaf)[0])
+    return [tree_map(lambda u: u[i], per_leaf) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -298,39 +332,38 @@ def lm_backbone(params, x, cfg: ArchConfig, sh: Optional[Sharder] = None,
     constrains its layout."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
-    n_stages = cfg.num_layers // cfg.stage_period
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_stage = []
-    for i in range(n_stages):
+    for sp in stage_views(params["stages"]):
         if collect_cache:
-            x, a, c = _stage_forward(stage_view(params["stages"], i), x, cfg,
-                                     positions, True, sh)
+            x, a, c = _stage_forward(sp, x, cfg, positions, True, sh)
             per_stage.append(c)
         else:
             x, a = remat_wrap(functools.partial(
-                _stage_train, params["stages"], i, cfg=cfg,
-                positions=positions, sh=sh), cfg, train)(x)
+                _stage_train, sp, cfg=cfg, positions=positions, sh=sh),
+                cfg, train)(x)
         if a is not None:
             aux = aux + a
     x = apply_rmsnorm(params["final_norm"], x)
     return x, aux, (_stack(per_stage) if collect_cache else None)
 
 
-def _stage_train(stages, i: int, x, *, cfg: ArchConfig, positions,
+def _stage_train(sp, x, *, cfg: ArchConfig, positions,
                  sh: Optional[Sharder] = None):
-    """Stage ``i`` without caches: (x, aux or None) -- what a
-    checkpointed stage returns."""
-    x, aux, _ = _stage_forward(stage_view(stages, i), x, cfg, positions,
-                               False, sh)
+    """A stage without caches: (x, aux or None) -- what a checkpointed
+    stage returns."""
+    x, aux, _ = _stage_forward(sp, x, cfg, positions, False, sh)
     return x, aux
 
 
 # ---------------------------------------------------------------------------
 # decode (single token) forward
 # ---------------------------------------------------------------------------
-def lm_decode_backbone(params, x, caches, cache_index: int, cfg: ArchConfig):
+def lm_decode_backbone(params, x, caches, cache_index: int, cfg: ArchConfig,
+                       sh: Optional[Sharder] = None):
     """x: (B, 1, d) -> (hidden (B, 1, d), caches); the dense ring caches
-    and the SSM states are updated in place."""
+    and the SSM states are updated in place.  K/V caches split on KV heads
+    (``sh``'s mesh) are read and written a shard at a time."""
     sched = cfg.block_schedule()[:cfg.stage_period]
     n_stages = cfg.num_layers // cfg.stage_period
     for s in range(n_stages):
@@ -342,7 +375,7 @@ def lm_decode_backbone(params, x, caches, cache_index: int, cfg: ArchConfig):
             if mixer == ATTN:
                 hout, _ = apply_attention_decode(sub["attn"], hin,
                                                  sc[f"sub{i}"], cfg,
-                                                 cache_index)
+                                                 cache_index, sh)
             else:
                 hout, new = ssm_mod.apply_ssm_decode(sub["mamba"], hin,
                                                      sc[f"sub{i}"], cfg)
@@ -352,6 +385,23 @@ def lm_decode_backbone(params, x, caches, cache_index: int, cfg: ArchConfig):
             if mlp != NONE:
                 x = x + apply_ffn(sub, apply_rmsnorm(sub["norm2"], x), cfg)
     return apply_rmsnorm(params["final_norm"], x), caches
+
+
+# the decode caches' logical axes, the reference's: a serving sharder maps
+# only "kv" to the mesh, so K/V split on KV heads and the positions and the
+# SSM states ("inner" is no serving rule) stay whole
+ATTN_CACHE_AXES = {"k": ("layers", "batch", "kvseq", "kv", None),
+                   "v": ("layers", "batch", "kvseq", "kv", None),
+                   "pos": ("layers", "batch", "kvseq")}
+SSM_CACHE_AXES = {"ssm": ("layers", "batch", "inner", None, None),
+                  "conv": ("layers", "batch", None, "inner")}
+
+
+def lm_cache_axes(cfg: ArchConfig):
+    """Logical sharding axes matching :func:`init_lm_caches`' structure."""
+    sched = cfg.block_schedule()[:cfg.stage_period]
+    return {f"sub{i}": (ATTN_CACHE_AXES if mixer == ATTN else SSM_CACHE_AXES)
+            for i, (mixer, _) in enumerate(sched)}
 
 
 def init_lm_caches(cfg: ArchConfig, batch: int, seq_len: int, device=None):

@@ -47,7 +47,8 @@ import torch
 
 from repro_torch.configs import ATTN, ArchConfig
 from repro_torch.core.tenancy import resolve_devices
-from repro_torch.distributed.sharding import Sharder, null_sharder
+from repro_torch.distributed.sharding import (Sharder, ShardedTensor,
+                                              null_sharder, param_shardings)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.model import ModelBundle, build_model, prepare_params
 from repro_torch.models.transformer import tree_map, tree_map2
@@ -143,6 +144,44 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def _clone(t):
+    """A tensor's copy; a placed one's shards copied on their devices."""
+    return t.map(torch.clone) if isinstance(t, ShardedTensor) else t.clone()
+
+
+def _copy_into(dst, src) -> None:
+    """``src`` written into ``dst`` in place, shard by shard when placed
+    (both laid out by one spec)."""
+    if isinstance(dst, ShardedTensor):
+        for (_, d, _), (_, t, _) in zip(dst.unique(), src.unique()):
+            d.copy_(t)
+    else:
+        dst.copy_(src)
+
+
+def _storages(t) -> List[torch.Tensor]:
+    return [x for _, x, _ in t.unique()] if isinstance(t, ShardedTensor) \
+        else [t]
+
+
+def place_caches(sh: Sharder, axes: Any, caches: Any) -> Any:
+    """The prefill's caches laid out on ``sh``'s mesh by their logical
+    ``axes`` (``bundle.cache_axes()``, resolved by ``param_shardings``):
+    under the serving rules K/V (and the cross K/V) split on KV heads as
+    :class:`ShardedTensor`; a leaf its spec leaves whole -- the positions,
+    the SSM states, K/V whose heads the "model" extent does not divide --
+    stays the global tensor on the mesh's first device.  No mesh: the
+    caches as they are."""
+    if sh.mesh is None:
+        return caches
+
+    def put(x, named):
+        if named is None or all(e is None for e in named.spec):
+            return x
+        return sh.place_named(x, named)
+    return tree_map2(put, caches, param_shardings(sh, axes, caches))
 
 
 def _on_stream(stream):
@@ -332,7 +371,7 @@ class DecodeProgram:
         if cap is None:
             return self._first(eng, key, inputs, idx)
         self.loops.move_to_end(key)
-        tree_map2(lambda dst, src: dst.copy_(src), cap.inputs, inputs)
+        tree_map2(_copy_into, cap.inputs, inputs)
         cap.graph.replay()
         cap.replays += 1
         count_replay(cap.counts)
@@ -340,7 +379,9 @@ class DecodeProgram:
 
     def _first(self, eng: "ServingEngine", key: DecodeKey,
                inputs: Dict[str, Any], idx: int) -> torch.Tensor:
-        static = tree_map(lambda a: a.clone(), inputs)
+        # on a mesh every shard's cache storage is the loop's, written in
+        # place by each replay, for as long as the loop is held
+        static = tree_map(_clone, inputs)
         b, _, steps, sampling = key
         tokens = torch.empty((b, steps), dtype=torch.int32,
                              device=eng.device)
@@ -370,9 +411,11 @@ class ServingEngine:
     ``sh`` (a :func:`repro_torch.distributed.sharding.serving_sharder` on a
     mesh) places the weights replicated on the mesh -- kept once, on the
     mesh's first device, which becomes the engine's device, by the one
-    controller that runs every replicated computation -- and lets a
-    :class:`repro_torch.serving.continuous.ContinuousBatchingEngine` built
-    on this engine split its KV pools over the mesh."""
+    controller that runs every replicated computation.  The slot paths
+    (``generate``, ``dispatch``) lay each prefill's dense caches out by
+    ``bundle.cache_axes()`` (K/V split on KV heads) and decode a shard at a
+    time; a :class:`repro_torch.serving.continuous.ContinuousBatchingEngine`
+    built on this engine splits its KV pools over the mesh."""
 
     def __init__(self, cfg: ArchConfig, params: Any, temperature: float = 0.0,
                  device=None, telemetry: Optional[Telemetry] = None,
@@ -444,9 +487,11 @@ class ServingEngine:
         with self.tel.span("engine.prefill",
                            batch=int(batch["tokens"].shape[0]),
                            seq=int(batch["tokens"].shape[1])):
-            out = self.bundle.prefill_fn(self.params, batch)
+            logits, caches, idx = self.bundle.prefill_fn(self.params, batch)
         self.tel.count("engine.prefill_calls")
-        return out
+        # on a mesh the decode reads the caches laid out once, here
+        return logits, place_caches(self.sh, self.bundle.cache_axes(),
+                                    caches), idx
 
     def _sample(self, logits: torch.Tensor, seed: int, step: int
                 ) -> torch.Tensor:
@@ -481,7 +526,8 @@ class ServingEngine:
         for step in range(max_new_tokens):
             out.append(tok.cpu().numpy().astype(np.int32))
             logits, caches = self.bundle.decode_fn(self.params, tok[:, None],
-                                                   caches, idx + step)
+                                                   caches, idx + step,
+                                                   self.sh)
             tok = self._sample(logits, seed, step + 1)
         done = self._event()
         self.sync()
@@ -527,7 +573,7 @@ class ServingEngine:
                     all_greedy=all_greedy, any_topk=any_topk)
             tokens[:, i].copy_(tok)
             logits, caches = self.bundle.decode_fn(self.params, tok[:, None],
-                                                   caches, idx + i)
+                                                   caches, idx + i, self.sh)
 
     def _sampling_rows(self, b: int, seed: int, temperatures, top_ks,
                        seeds) -> Tuple[Tuple, Dict[str, torch.Tensor]]:
@@ -625,7 +671,8 @@ class ServingEngine:
             if loop is not None:
                 # read on the loop's stream: their memory goes back to the
                 # prefill stream only once that has passed
-                tree_map(lambda t: t.record_stream(loop), inputs)
+                tree_map(lambda t: [x.record_stream(loop)
+                                    for x in _storages(t)], inputs)
             if self.decode_program is not None:
                 tokens = self.decode_program.run(self, key, inputs, idx)
             else:

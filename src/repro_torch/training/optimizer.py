@@ -17,7 +17,11 @@ column and RMS sums combined across a tensor's shards before use.
 * AdamW -- float32 moments, bias correction, decoupled weight decay.
 * Adafactor -- factored second moment over the last two axes (row and
   column means of ``g^2``), RMS update clipping and optional bf16
-  momentum; the choice for the 100B+ archs.
+  momentum; the choice for the 100B+ archs.  A stacked leaf is updated one
+  stage slice at a time, in two passes (the second moment and the sum of
+  ``u^2``; then ``u`` again, clipped by the whole leaf's RMS), so no float32
+  temporary is larger than a slice: olmoe's (16, 64, 2048, 1024) expert
+  leaves would need 3 x 8.6 GB at once otherwise.
 """
 from __future__ import annotations
 
@@ -181,28 +185,42 @@ def adafactor(decay_pow: float = 0.8, eps: float = 1e-30,
         state["count"] += 1
         beta2 = 1.0 - state["count"].float() ** (-decay_pow)
 
-        def upd(p, g, v, m=None):             # v: {vr, vc} or {v}
+        def second_moment(g, v, fac: bool) -> torch.Tensor:
+            """Update one slice's second moment from its gradient ``g``,
+            in place; returns the slice's unclipped update."""
             g = g.float()
             g2 = g * g + eps
-            if factored(p.shape):
+            if fac:
                 v["vr"].copy_(beta2 * v["vr"] + (1 - beta2) * g2.mean(dim=-1))
                 v["vc"].copy_(beta2 * v["vc"] + (1 - beta2) * g2.mean(dim=-2))
-                # rank-1 reconstruction of the second moment
-                denom = v["vr"][..., :, None] * v["vc"][..., None, :]
-                denom = denom / torch.clamp(
-                    v["vr"].mean(dim=-1)[..., None, None], min=1e-30)
-                u = g * torch.rsqrt(torch.clamp(denom, min=1e-30))
             else:
                 v["v"].copy_(beta2 * v["v"] + (1 - beta2) * g2)
-                u = g * torch.rsqrt(torch.clamp(v["v"], min=1e-30))
-            # update clipping by RMS
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            if m is not None:
-                u = momentum * m.float() + (1 - momentum) * u
-                m.copy_(u)
-            pf = p.float()
-            p.copy_(pf - lr * (u + weight_decay * pf))
+            del g2
+            return _unclipped(g, v, fac)
+
+        def upd(p, g, v, m=None):             # v: {vr, vc} or {v}
+            fac = factored(p.shape)
+            # a stacked leaf (stage axis first; the factored axes are the
+            # last two) is walked one stage slice at a time, so no
+            # temporary is larger than a slice: pass 1 updates the second
+            # moment and sums u^2, pass 2 recomputes u from it, clips by the
+            # whole leaf's RMS and applies momentum and the step
+            parts = range(p.shape[0]) if p.dim() >= 3 else [slice(None)]
+            total = 0.0
+            for i in parts:
+                u = second_moment(g[i], tree_map(lambda t: t[i], v), fac)
+                total = total + torch.sum(u * u)
+                del u
+            rms = torch.sqrt(total / p.numel() + 1e-30)
+            scale = torch.clamp(rms / clip_threshold, min=1.0)
+            for i in parts:
+                u = _unclipped(g[i].float(), tree_map(lambda t: t[i], v),
+                               fac) / scale
+                if m is not None:
+                    u = momentum * m[i].float() + (1 - momentum) * u
+                    m[i].copy_(u)
+                pf = p[i].float()
+                p[i].copy_(pf - lr * (u + weight_decay * pf))
 
         def upd_any(p, g, v, m=None):
             if isinstance(p, ShardedTensor):
@@ -231,6 +249,18 @@ def adafactor(decay_pow: float = 0.8, eps: float = 1e-30,
 
     return Optimizer(_initialiser(init_plain, state_axes), update,
                      state_axes)
+
+
+def _unclipped(g: torch.Tensor, v, fac: bool) -> torch.Tensor:
+    """Adafactor's update ``g / sqrt(v)`` before clipping, ``v`` the second
+    moment -- factored, the rank-1 reconstruction from its row and column
+    means, each matrix over its mean row mean."""
+    if not fac:
+        return g * torch.rsqrt(torch.clamp(v["v"], min=1e-30))
+    vr, vc = v["vr"], v["vc"]
+    denom = vr[..., :, None] * vc[..., None, :]
+    denom = denom / torch.clamp(vr.mean(dim=-1)[..., None, None], min=1e-30)
+    return g * torch.rsqrt(torch.clamp(denom, min=1e-30))
 
 
 def _sum_at(parts, shape, dev) -> torch.Tensor:

@@ -325,8 +325,16 @@ def test_serve_cli_mesh_1x1_equals_no_mesh(capsys):
         np.testing.assert_array_equal(a.tokens[k], b.tokens[k])
     assert torch.equal(a.sched.continuous_engine.state["logits"],
                        b.sched.continuous_engine.state["logits"])
-    with pytest.raises(ValueError, match="needs 2 devices"):
-        serve_cli.main(argv[:-2] + ["--mesh", "1x2"])
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        serve_cli.main(["--reduced", "--device", "cpu", "--mesh", "1x1"])
+    # a mesh wider than the visible devices takes them in turn: both 1x2
+    # positions on the one CPU device, the tokens of no mesh
+    keep = _Keep()
+    assert serve_cli.main(argv + ["--mesh", "1x2"], observe=keep) == 0
+    assert keep.sched.continuous_engine.sh.mesh.position_devices() == \
+        [CPU, CPU]
+    assert sorted(keep.tokens) == sorted(a.tokens)
+    for k in a.tokens:
+        np.testing.assert_array_equal(a.tokens[k], keep.tokens[k])
+    # the slot schedules take a mesh too
+    assert serve_cli.main(["--reduced", "--device", "cpu", "--mesh",
+                           "1x1"]) == 0
     assert "mesh" not in serve_cli.LATER

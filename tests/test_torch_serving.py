@@ -267,9 +267,10 @@ def test_unadmittable_request_rejects_not_spins(engines, monkeypatch):
 
 
 def test_what_later_slices_bring_raises(engines):
-    """Only ``--mesh`` is left to a later slice; swap, preemption and the
-    backlog bound build, and the crash flags are validated as the
-    reference validates them."""
+    """Nothing is left to a later slice (``--mesh`` runs in every mode,
+    tests/test_torch_slot_mesh.py); swap, preemption and the backlog bound
+    build, and the crash flags are validated as the reference validates
+    them."""
     eng, jeng = engines
     modes = ContinuousBatchingEngine.supported_modes(eng.cfg)
     assert modes["continuous"]["supported"]
@@ -284,8 +285,7 @@ def test_what_later_slices_bring_raises(engines):
                                         swap=False).can_preempt
     for kw in (dict(preemption=True), dict(max_backlog=4)):
         MultiTenantScheduler(eng, mode="continuous", **kw)
-    with pytest.raises(NotImplementedError, match="slice"):
-        serve.main(["--device", "cpu", "--mesh", "1x2"])
+    assert serve.LATER == {}
     for argv in (["--journal-dir", "j"], ["--recover"],
                  ["--mode", "continuous", "--checkpoint-every", "2"]):
         with pytest.raises(SystemExit):
