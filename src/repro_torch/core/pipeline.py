@@ -59,6 +59,7 @@ from repro_torch.core.tenancy import TenantTask, VirtualDevicePool
 from repro_torch.core.transfer import (DeviceStreams, StagedChunk,
                                        StagingEngine, reorder_for_stragglers,
                                        tree_leaves)
+from repro_torch.obs.telemetry import Telemetry, get_telemetry
 
 StageFn = Callable[[TenantTask], Any]           # task -> host tree
 ComputeFn = Callable[[TenantTask, Any], Any]    # (task, device tree) -> out
@@ -238,83 +239,107 @@ class PipelineExecutor:
     transfer chain.  Placement follows the engine: the pool's devices, else
     ``device`` (default CUDA; raises when there is none).  An owner that runs
     repeatedly passes its :class:`DeviceStreams` so that runs share streams.
+
+    On the ``telemetry`` plane (and its staging engine's) a run records
+    ``pipeline.start`` (the waiter threads and origin events), per tenant
+    ``pipeline.stage`` (``stage_fn`` and the copy's enqueue),
+    ``pipeline.wait`` (the host's block until the chunk is resident) and
+    ``pipeline.launch`` (the compute's enqueue), each with ``vdev`` and
+    ``bytes``, then ``pipeline.join`` (the waiters drained).
     """
 
     def __init__(self, pool: VirtualDevicePool, mode: Optional[str] = None,
                  device: Union[None, str, torch.device] = None,
-                 streams: Optional[DeviceStreams] = None):
+                 streams: Optional[DeviceStreams] = None,
+                 telemetry: Optional[Telemetry] = None):
         self.pool = pool
         self.mode = mode or pool.cfg.transfer_mode
         assert self.mode in ("sequential", "concurrent")
+        self.tel = get_telemetry(telemetry)
         self.engine = StagingEngine(pool, self.mode, device=device,
-                                    streams=streams)
+                                    streams=streams, telemetry=self.tel)
         self.streams = self.engine.streams
 
     # ------------------------------------------------------------------
     def run(self, tasks: Sequence[TenantTask], stage_fn: StageFn,
             compute_fn: ComputeFn,
             straggler_hist: Optional[Dict[int, float]] = None,
-            ) -> PipelineReport:
+            **attrs: Any) -> PipelineReport:
         """Execute every tenant task; returns results + per-tenant timeline.
 
         ``stage_fn(task)`` builds the host tree for one tenant (a cheap slice
         of pinned host data); ``compute_fn(task, device_tree)`` must only
         *enqueue* work on the current CUDA stream — the pipeline blocks on
         completion events only after every tenant has been launched.
+        ``attrs`` (an analysis' ``run`` id) go on every span of the run.
         """
-        t0 = time.perf_counter()
-        now = lambda: time.perf_counter() - t0
-        order = reorder_for_stragglers(tasks, straggler_hist)
-        timeline: Dict[int, TenantTimeline] = {}
-        results: Dict[int, Any] = {}
-        launched: Dict[int, Tuple[StagedChunk, Any, Any]] = {}
-        origins = record_origins(self.engine.devices)
+        tel = self.tel
+        with tel.span("pipeline.start", **attrs):
+            t0 = time.perf_counter()
+            now = lambda: time.perf_counter() - t0
+            order = reorder_for_stragglers(tasks, straggler_hist)
+            timeline: Dict[int, TenantTimeline] = {}
+            results: Dict[int, Any] = {}
+            launched: Dict[int, Tuple[StagedChunk, Any, Any]] = {}
+            origins = record_origins(self.engine.devices)
 
-        # CompletionWaiter per pdev: blocks on each launched tenant's
-        # completion event concurrently with the staging loop and stamps
-        # compute_end the moment it fires.  The main thread only writes a
-        # tenant's timeline entry before submitting it, the waiter only
-        # stamps compute_end after.  One waiter per pdev: tenants of a pdev
-        # complete in launch order anyway (the compute stream serialises
-        # them), so within-pdev blocking in launch order stamps *exact*
-        # completion times, and a slow pdev cannot inflate another pdev's
-        # compute_end (the per-tenant times steer the next run's staging
-        # order).
-        waiters: Dict[int, CompletionWaiter] = {
-            p: CompletionWaiter(now, name="pipeline-waiter")
-            for p in {t.pdev for t in order}}
+            # CompletionWaiter per pdev: blocks on each launched tenant's
+            # completion event concurrently with the staging loop and stamps
+            # compute_end the moment it fires.  The main thread only writes
+            # a tenant's timeline entry before submitting it, the waiter only
+            # stamps compute_end after.  One waiter per pdev: tenants of a
+            # pdev complete in launch order anyway (the compute stream
+            # serialises them), so within-pdev blocking in launch order
+            # stamps *exact* completion times, and a slow pdev cannot inflate
+            # another pdev's compute_end (the per-tenant times steer the next
+            # run's staging order).
+            waiters: Dict[int, CompletionWaiter] = {
+                p: CompletionWaiter(now, name="pipeline-waiter")
+                for p in {t.pdev for t in order}}
+
+        def stage(task: TenantTask) -> StagedChunk:
+            with tel.span("pipeline.stage", vdev=task.vdev, **attrs) as sp:
+                chunk = self.engine.put(task, stage_fn(task), t0)
+                sp.note(bytes=chunk.nbytes)
+            return chunk
 
         def dispatch(task: TenantTask, chunk: StagedChunk) -> None:
-            self.engine.wait(chunk, t0)    # overlap point: compute of already
-            te = now()                     # launched tenants keeps running
-            out, start, done = launch_after_copy(
-                chunk, compute_fn, self.streams.compute(task.pdev))
-            timeline[task.vdev] = TenantTimeline(
-                task.vdev, task.pdev, task.slot,
-                chunk.enqueue_s, te, now(), 0.0)
-            launched[task.vdev] = (chunk, start, done)
-            waiters[task.pdev].submit(
-                done, timeline[task.vdev],
-                on_ready=functools.partial(results.__setitem__, task.vdev,
-                                           out))
+            with tel.span("pipeline.wait", vdev=task.vdev,
+                          bytes=chunk.nbytes, **attrs):
+                # overlap point: compute of already launched tenants keeps
+                # running
+                self.engine.wait(chunk, t0, **attrs)
+            te = now()
+            with tel.span("pipeline.launch", vdev=task.vdev,
+                          bytes=chunk.nbytes, **attrs):
+                out, start, done = launch_after_copy(
+                    chunk, compute_fn, self.streams.compute(task.pdev))
+                timeline[task.vdev] = TenantTimeline(
+                    task.vdev, task.pdev, task.slot,
+                    chunk.enqueue_s, te, now(), 0.0)
+                launched[task.vdev] = (chunk, start, done)
+                waiters[task.pdev].submit(
+                    done, timeline[task.vdev],
+                    on_ready=functools.partial(results.__setitem__,
+                                               task.vdev, out))
 
         try:
             if self.mode == "sequential":
                 # one transfer on the link at a time; compute(k) is already
                 # in flight while put+wait stages chunk k+1 (double buffering)
                 for task in order:
-                    dispatch(task, self.engine.put(task, stage_fn(task), t0))
+                    dispatch(task, stage(task))
             else:
                 # all transfers share the link from t~0; launch each
                 # tenant's compute as its chunk lands, in staging order
-                chunks = [self.engine.put(task, stage_fn(task), t0)
-                          for task in order]
+                chunks = [stage(task) for task in order]
                 for task, chunk in zip(order, chunks):
                     dispatch(task, chunk)
         finally:
             # always drain + reap the waiters, even when staging raises
-            for w in waiters.values():
-                w.close()
+            with tel.span("pipeline.join", **attrs):
+                for w in waiters.values():
+                    w.close()
         waiter_err = [e for w in waiters.values() for e in w.errors]
         if waiter_err:
             raise waiter_err[0]

@@ -121,6 +121,7 @@ class StagedChunk:
     start_event: Optional[Any] = None
     event: Optional[Any] = None
     pinned: bool = True           # every host leaf was page-locked
+    nbytes: int = 0               # payload bytes of ``arrays``
 
 
 class StagingEngine:
@@ -183,7 +184,7 @@ class StagingEngine:
         if device.type != "cuda":
             arrays = tree_map(lambda a: self._put_leaf(a, device), host_tree)
             return StagedChunk(task, arrays, time.perf_counter() - base,
-                               base_s=base)
+                               base_s=base, nbytes=_tree_bytes(arrays))
         pinned = all(
             _as_tensor(a.rows if isinstance(a, PaddedRows) else a).is_pinned()
             for a in tree_leaves(host_tree))
@@ -196,18 +197,20 @@ class StagingEngine:
             done.record(stream)
         return StagedChunk(task, arrays, time.perf_counter() - base,
                            base_s=base, start_event=start, event=done,
-                           pinned=pinned)
+                           pinned=pinned, nbytes=_tree_bytes(arrays))
 
-    def wait(self, chunk: StagedChunk, t0: Optional[float] = None) -> StagedChunk:
+    def wait(self, chunk: StagedChunk, t0: Optional[float] = None,
+             **attrs: Any) -> StagedChunk:
         """Block until the chunk is device-resident; records the ready time
         against the same origin ``put`` used (or an explicit ``t0``).
         While the caller blocks here, previously dispatched compute keeps
-        running on its device — this is the pipeline's overlap point."""
+        running on its device — this is the pipeline's overlap point.
+        ``attrs`` go on the chunk's ``transfer.stage`` span."""
         if chunk.event is not None:
             chunk.event.synchronize()
         base = t0 if t0 is not None else chunk.base_s
         chunk.ready_s = time.perf_counter() - base
-        nbytes = _tree_bytes(chunk.arrays)
+        nbytes = chunk.nbytes
         self.log.append({"vdev": chunk.task.vdev, "ready_s": chunk.ready_s,
                          "mode": self.mode, "bytes": nbytes,
                          "pinned": chunk.pinned})
@@ -217,7 +220,7 @@ class StagingEngine:
             self.tel.record_span("transfer.stage", base + chunk.enqueue_s,
                                  base + chunk.ready_s, vdev=chunk.task.vdev,
                                  pdev=chunk.task.pdev, slot=chunk.task.slot,
-                                 mode=self.mode, bytes=nbytes)
+                                 mode=self.mode, bytes=nbytes, **attrs)
             self.tel.count("transfer.bytes", nbytes)
             self.tel.count("transfer.chunks")
         return chunk
@@ -326,8 +329,7 @@ class MeshStagingLanes:
                 stream.wait_event(chunk.event)
                 tree_map(lambda t: t.record_stream(stream), chunk.arrays)
                 eng.log.append({"vdev": chunk.task.vdev, "ready_s": None,
-                                "mode": eng.mode,
-                                "bytes": _tree_bytes(chunk.arrays),
+                                "mode": eng.mode, "bytes": chunk.nbytes,
                                 "pinned": chunk.pinned})
         mesh = self.sharder.mesh
 

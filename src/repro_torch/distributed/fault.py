@@ -44,14 +44,13 @@ class HeartbeatMonitor:
         self.last_beat = time.monotonic()
 
     def suspect(self) -> bool:
-        """One watchdog verdict; True marks the worker suspect.  Verdicts
-        are mirrored onto the telemetry plane (``heartbeat.verdicts`` /
-        ``heartbeat.suspect`` — the serving scheduler additionally keeps
-        the ``heartbeat.suspects`` gauge)."""
-        tel = get_telemetry(None)
-        tel.count("heartbeat.verdicts")
+        """One watchdog verdict; True marks the worker suspect.  A suspect
+        verdict is mirrored onto the telemetry plane as a
+        ``heartbeat.suspect`` event (the serving scheduler additionally
+        keeps the ``heartbeat.suspects`` gauge)."""
         if time.monotonic() - self.last_beat > self.timeout_s:
             self.missed += 1
+            tel = get_telemetry(None)
             if tel.enabled:
                 tel.event("heartbeat.suspect", missed=self.missed)
             return True

@@ -10,16 +10,27 @@ Every span and metric name is lowercase, dot-separated:
 ========== ==========================================================
 prefix      layer
 ========== ==========================================================
-``sched``   `serving.multitenant` — scheduler steps, admission passes
+``sched``   `serving.multitenant` — scheduler steps, admission passes;
+            per request (``rid``) ``sched.queue`` (arrival to the
+            admission pass that admits it) and ``sched.first_token``
+            (that pass to its first collected token), both written
+            when the request retires
 ``round``   `serving.continuous` — decode micro-round dispatch/collect
-``admit``   `serving.continuous` — batched admission (plan/prefill)
+``admit``   `serving.continuous` — batched admission (plan/prefill);
+            ``admit.prefill`` names its ``rids`` and its ``call`` in
+            ``prefill_ms()``
 ``engine``  `serving.engine` — prefill, ``generate``, ``dispatch``,
             ``await``
 ``kv``      `serving.kvcache` — paged-pool page accounting
-``heartbeat`` `distributed.fault` — liveness verdicts
+``heartbeat`` `distributed.fault` — liveness
 ``trace``   first use of a decode round key (`serving.continuous`) or
             of a decode loop key (`serving.engine`)
-``admission`` `serving.multitenant` — admissions as timeline entries
+``risk``    `risk.analysis` — one analysis (``run``): ``risk.run``,
+            ``risk.prepare``, ``risk.collect``; the resident step
+            ``risk.step`` with ``risk.pad`` and ``risk.launch``
+``pipeline`` `core.pipeline` — ``pipeline.start`` (waiter threads),
+            per tenant ``pipeline.stage`` / ``pipeline.wait`` /
+            ``pipeline.launch``, then ``pipeline.join``
 ``transfer`` `core.transfer` — staging-engine chunk windows
 ``timeline`` ``TenantTimeline`` entries re-expressed as spans (the
             scheduler's, and risk runs' device windows, `obs.fit`)
@@ -33,7 +44,8 @@ prefix      layer
 counter.
 
 Kinds: **spans** (closed ``[t_start, t_end)`` intervals on one monotonic
-clock, `time.perf_counter`; retrospective spans carry ``parent_id=None``),
+clock, `time.perf_counter`; retrospective spans carry ``parent_id=None``
+and ``live=False``: ``Telemetry.live_spans()`` is the host's own work),
 **events** (zero-length spans), **counters** (monotonically increasing, e.g.
 ``transfer.bytes``), **gauges** (last write wins) and **histograms**
 (count/sum/min/max).

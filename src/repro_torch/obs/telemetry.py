@@ -34,15 +34,18 @@ class Span:
     Times are seconds relative to the owning :class:`Telemetry`'s
     ``t0``.  ``parent_id`` is the ``span_id`` of the span that was open
     on the same thread when this one started (None for roots and
-    retrospective spans).
+    retrospective spans).  ``live`` is True for a span the host opened
+    and closed around its own work (``span``, ``event``) and False for
+    one written afterwards from stamps (``record_span``): a window, such
+    as a device round or a request's queue wait, not host work.
     """
 
     __slots__ = ("name", "t_start", "t_end", "span_id", "parent_id",
-                 "thread", "attrs")
+                 "thread", "attrs", "live")
 
     def __init__(self, name: str, t_start: float, t_end: float,
                  span_id: int, parent_id: Optional[int], thread: int,
-                 attrs: Dict[str, Any]):
+                 attrs: Dict[str, Any], live: bool = True):
         self.name = name
         self.t_start = t_start
         self.t_end = t_end
@@ -50,6 +53,7 @@ class Span:
         self.parent_id = parent_id
         self.thread = thread
         self.attrs = attrs
+        self.live = live
 
     @property
     def duration(self) -> float:
@@ -239,7 +243,8 @@ class Telemetry:
             return None
         sid = self._new_id()
         self._close(Span(name, t_start - self.t0, t_end - self.t0, sid,
-                         parent_id, threading.get_ident(), attrs))
+                         parent_id, threading.get_ident(), attrs,
+                         live=False))
         return sid
 
     def spans(self, name: Optional[str] = None,
@@ -252,6 +257,12 @@ class Telemetry:
         if prefix is not None:
             out = [s for s in out if s.name.startswith(prefix)]
         return out
+
+    def live_spans(self) -> List[Span]:
+        """The spans the host opened around its own work, oldest first:
+        what a device trace may file its idle time under (written windows
+        left out)."""
+        return [s for s in self.spans() if s.live]
 
     # -- snapshots ----------------------------------------------------
     def counter_snapshot(self) -> Dict[str, float]:

@@ -33,6 +33,14 @@ Hot-path overhead control (all observable):
   memory, or the copies would hold the host and the overlap would vanish.
   A YET that is not pinned yet (see ``RiskTables.pinned``) is pinned once
   and cached by identity like the resident tables.
+
+On the ``telemetry`` plane (default: the global one) every span of one
+analysis carries its ``run`` id: ``run_tenant_chunked`` opens ``risk.run``,
+then ``risk.prepare`` (plan, resident tables with their fingerprint, the
+pinned YET, the executor), the executor's ``pipeline.*`` spans and the
+staging engine's ``transfer.stage``, then ``risk.collect`` (the year losses
+into the host array); the resident step opens ``risk.step`` with
+``risk.pad`` (only when it pads the ELT) and ``risk.launch``.
 """
 from __future__ import annotations
 
@@ -55,6 +63,7 @@ from repro_torch.core.transfer import (DeviceStreams, PaddedRows,
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.aggregate_loss import (pad_elt_columns,
                                                 padded_rows)
+from repro_torch.obs.telemetry import Telemetry, get_telemetry
 from repro_torch.risk.tables import RiskTables
 
 # resident per-pdev table sets kept per engine (LRU on table identity)
@@ -74,8 +83,11 @@ class RunReport:
 class AggregateRiskAnalysis:
     def __init__(self, cfg: RiskAppConfig,
                  tenancy: Optional[TenancyConfig] = None,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 telemetry: Optional[Telemetry] = None):
         self.cfg = cfg
+        self.tel = get_telemetry(telemetry)
+        self.runs = 0                 # analyses begun: their spans' ``run``
         on_cpu = device is not None and torch.device(device).type == "cpu"
         self.tenancy = tenancy or TenancyConfig(
             n_pdev=1 if on_cpu else max(1, torch.cuda.device_count()),
@@ -216,12 +228,26 @@ class AggregateRiskAnalysis:
         *all* tenants, then launch compute), kept only so a measurement can
         show what the overlap buys.
         """
+        run = self.runs
+        self.runs += 1
+        with self.tel.span("risk.run", run=run, overlapped=overlapped):
+            return self._run_tenant_chunked(tables, straggler_hist,
+                                            overlapped, run)
+
+    def _run_tenant_chunked(self, tables: RiskTables,
+                            straggler_hist: Optional[Dict[int, float]],
+                            overlapped: bool, run: int) -> RunReport:
         t_start = time.perf_counter()
-        tasks = self.pool.plan(tables.num_trials, uniform=True)
-        resident = self._resident_tables(tables)
-        host_yet = self._host_yet(tables)
-        agg_ret, agg_lim = float(tables.agg_ret), float(tables.agg_lim)
-        chunk = self._chunk(tables)
+        tel = self.tel
+        with tel.span("risk.prepare", run=run):
+            tasks = self.pool.plan(tables.num_trials, uniform=True)
+            resident = self._resident_tables(tables)
+            host_yet = self._host_yet(tables)
+            agg_ret, agg_lim = float(tables.agg_ret), float(tables.agg_lim)
+            chunk = self._chunk(tables)
+            ylt = np.zeros(tables.num_trials, np.float32)
+            ex = (PipelineExecutor(self.pool, streams=self.streams,
+                                   telemetry=tel) if overlapped else None)
 
         def stage_fn(t: TenantTask):
             rows = host_yet[t.start:t.stop]
@@ -233,20 +259,20 @@ class AggregateRiskAnalysis:
             return self._step(arrays["yet"], elt, occ_ret, occ_lim,
                               agg_ret, agg_lim, chunk)
 
-        ylt = np.zeros(tables.num_trials, np.float32)
-        if overlapped:
-            ex = PipelineExecutor(self.pool, streams=self.streams)
-            rep = ex.run(tasks, stage_fn, compute_fn, straggler_hist)
+        if ex is not None:
+            rep = ex.run(tasks, stage_fn, compute_fn, straggler_hist, run=run)
             # device->host only after every tenant has been launched
-            for t in tasks:
-                ylt[t.start:t.stop] = rep.results[t.vdev][:t.size].cpu().numpy()
+            with tel.span("risk.collect", run=run, bytes=ylt.nbytes):
+                for t in tasks:
+                    ylt[t.start:t.stop] = \
+                        rep.results[t.vdev][:t.size].cpu().numpy()
             return RunReport(ylt, time.perf_counter() - t_start,
                              rep.per_tenant_s(), ex.engine.log, rep.timeline,
                              rep.t0_s)
 
         # blocking schedule: stage everything, then compute
         order = reorder_for_stragglers(tasks, straggler_hist)
-        engine = StagingEngine(self.pool, streams=self.streams)
+        engine = StagingEngine(self.pool, streams=self.streams, telemetry=tel)
         origins = record_origins(self.devices)
         staged = engine.stage(order, stage_fn, block=True)
         base = staged[0].base_s if staged else time.perf_counter()
@@ -289,23 +315,30 @@ class AggregateRiskAnalysis:
         per device and call (:func:`pad_elt_columns`)."""
         c = chunk or self.cfg.chunk_events
         devs = mesh.position_devices()
+        tel = self.tel
 
         def step(yet, elt, occ_ret, occ_lim, agg_ret, agg_lim):
-            tables: Dict[str, Tuple] = {}
-            outs = []
-            for dev, ids in zip(devs, torch.tensor_split(yet, len(devs))):
-                key = str(dev)
-                if key not in tables:
-                    e = elt.to(dev)
-                    if dev.type == "cuda" and not padded_rows(e):
-                        e = pad_elt_columns(e)
-                    tables[key] = (e, occ_ret.to(dev), occ_lim.to(dev))
-                e, ret, lim = tables[key]
-                self.launch_shapes.add((tuple(ids.shape), tuple(e.shape), c))
-                outs.append(kops.aggregate_loss(
-                    ids.to(dev), e, ret, lim, float(agg_ret), float(agg_lim),
-                    chunk=c).to(devs[0]))
-            return torch.cat(outs)
+            run = self.runs
+            self.runs += 1
+            with tel.span("risk.step", run=run):
+                tables: Dict[str, Tuple] = {}
+                outs = []
+                for dev, ids in zip(devs, torch.tensor_split(yet, len(devs))):
+                    key = str(dev)
+                    if key not in tables:
+                        e = elt.to(dev)
+                        if dev.type == "cuda" and not padded_rows(e):
+                            with tel.span("risk.pad", run=run, device=key):
+                                e = pad_elt_columns(e)
+                        tables[key] = (e, occ_ret.to(dev), occ_lim.to(dev))
+                    e, ret, lim = tables[key]
+                    self.launch_shapes.add((tuple(ids.shape), tuple(e.shape),
+                                            c))
+                    with tel.span("risk.launch", run=run, device=key):
+                        outs.append(kops.aggregate_loss(
+                            ids.to(dev), e, ret, lim, float(agg_ret),
+                            float(agg_lim), chunk=c).to(devs[0]))
+                return torch.cat(outs)
 
         return step
 

@@ -759,15 +759,20 @@ class ContinuousBatchingEngine:
                 batch = {"tokens": to_device(tokens, self.device),
                          **extras_to_device(extras, self.device)}
                 with self.tel.span("admit.prefill", bucket=bucket,
-                                   width=width, n=len(chunk)):
+                                   width=width, n=len(chunk)) as sp:
                     t0 = self._event()
                     logits, caches, _ = self.bundle.prefill_fn(self.params,
                                                                batch)
                     t1 = self._event()
+                    if self.tel.enabled:
+                        # ``call``: this prefill's entry in prefill_ms()
+                        sp.note(rids=[getattr(pl["req"], "rid", -1)
+                                      for pl in chunk],
+                                call=(len(self._prefill_events)
+                                      if t0 is not None else None))
                 if t0 is not None:
                     self._prefill_events.append((t0, t1))
                 self.prefill_calls += 1
-                self.tel.count("admit.prefill_calls")
                 for j, pl in enumerate(chunk):
                     pl["logits"] = logits[j:j + 1]
                     pl["caches"] = {name: {k: a[:, j:j + 1]

@@ -488,7 +488,6 @@ class ServingEngine:
                            batch=int(batch["tokens"].shape[0]),
                            seq=int(batch["tokens"].shape[1])):
             logits, caches, idx = self.bundle.prefill_fn(self.params, batch)
-        self.tel.count("engine.prefill_calls")
         # on a mesh the decode reads the caches laid out once, here
         return logits, place_caches(self.sh, self.bundle.cache_axes(),
                                     caches), idx

@@ -655,7 +655,6 @@ class PagedKVCache:
             else:
                 assert self.swapped_pages == host_pages, \
                     (self.swapped_pages, host_pages)
-        self.tel.count("kv.conservation_checks")
 
     # ------------------------------------------------------------------
     # device-state constructors (the engine holds the results in its state)

@@ -132,6 +132,10 @@ class Request:
     priority: int = 1
     deadline_s: Optional[float] = None
     extra_inputs: Optional[Dict[str, Any]] = None
+    # the scheduler's id for it, set at submit (the journal's rid)
+    rid: int = -1
+    # perf_counter start of the admission pass that admitted it
+    admitted_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -147,6 +151,7 @@ class Response:
     ttft_s: Optional[float] = None   # first collected token minus arrival
     priority: int = 1
     preemptions: int = 0             # times the row was swapped out
+    rid: int = -1                    # the request's id (its spans carry it)
 
 
 @dataclasses.dataclass
@@ -304,22 +309,20 @@ class MultiTenantScheduler:
         self.checkpoint_every = int(checkpoint_every)
         self.checkpoint_keep = int(checkpoint_keep)
         self.checkpoints_taken = 0
-        self._rids: Dict[int, int] = {}       # id(req) -> stable journal rid
-        self._next_rid = 0
+        self._next_rid = 0                    # the next submitted request's rid
         self._committed_rounds = 0            # collected decode rounds
         self._last_ckpt_round = 0
         self._ckpt_step = 0
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
+        req.rid = self._next_rid
+        self._next_rid += 1
         # write-ahead: the SUBMIT record is on disk before the queue
         # mutation, so a crash between the two re-queues the request
         if self.journal is not None:
-            rid = self._next_rid
-            self._next_rid += 1
-            self._rids[id(req)] = rid
             self.journal.append(
-                "SUBMIT", **journal_mod.request_to_record(rid, req))
+                "SUBMIT", **journal_mod.request_to_record(req.rid, req))
         self._enqueue(req)
 
     def _register_tenant(self, tenant: str) -> None:
@@ -334,8 +337,9 @@ class MultiTenantScheduler:
     # ------------------------------------------------------------------
     # crash safety: journal hooks (no-ops without a journal)
     # ------------------------------------------------------------------
-    def _rid(self, req: Any) -> int:
-        return self._rids.get(id(req), -1)
+    @staticmethod
+    def _rid(req: Any) -> int:
+        return getattr(req, "rid", -1)
 
     def _journal(self, kind: str, **fields: Any) -> None:
         if self.journal is not None:
@@ -477,7 +481,7 @@ class MultiTenantScheduler:
                 self._register_tenant(req.tenant)
                 rec = swap_record_from_payload(ent["rec"], sub, req)
                 rec.t_first = None
-                self._rids[id(req)] = int(ent["rid"])
+                req.rid = int(ent["rid"])
                 accounted.add(int(ent["rid"]))
                 return rec
 
@@ -499,7 +503,7 @@ class MultiTenantScheduler:
                 for qrec in meta["queued"]:
                     req = journal_mod.request_from_record(qrec)
                     req.arrival_s = now
-                    self._rids[id(req)] = int(qrec["rid"])
+                    req.rid = int(qrec["rid"])
                     accounted.add(int(qrec["rid"]))
                     self._enqueue(req)
                 self._committed_rounds = max(int(meta["rounds"]),
@@ -516,7 +520,7 @@ class MultiTenantScheduler:
                     continue
                 req = journal_mod.request_from_record(js.submitted[rid])
                 req.arrival_s = now
-                self._rids[id(req)] = rid
+                req.rid = rid
                 self._enqueue(req)
                 requeued += 1
             self._next_rid = max(js.next_rid,
@@ -760,7 +764,8 @@ class MultiTenantScheduler:
                         tenant=cur.tenant, nv=self.tenancy.n_vdev)
         done_abs = self._t0 + cur.entry.compute_end
         return [Response(cur.tenant, result.tokens[i],
-                         done_abs - r.arrival_s, len(cur.reqs))
+                         done_abs - r.arrival_s, len(cur.reqs),
+                         rid=self._rid(r))
                 for i, r in enumerate(cur.reqs)]
 
     # ------------------------------------------------------------------
@@ -801,7 +806,22 @@ class MultiTenantScheduler:
         record_timeline(self.tel, entry, base=self._t0, tenant=tenant,
                         nv=self.tenancy.n_vdev)
         return [Response(tenant, result.tokens[i], done - r.arrival_s,
-                         len(reqs)) for i, r in enumerate(reqs)]
+                         len(reqs), rid=self._rid(r))
+                for i, r in enumerate(reqs)]
+
+    def _request_spans(self, req: Any, srec: Any) -> None:
+        """A retired request's ``sched.queue`` (arrival -> the admission
+        pass that admitted it) and ``sched.first_token`` (-> its first
+        collected token), written from the stamps it carried."""
+        t_adm = getattr(req, "admitted_s", None)
+        if t_adm is None or srec.t_first is None:
+            return
+        attrs = dict(rid=self._rid(req), tenant=req.tenant,
+                     prompt=int(np.asarray(req.prompt).size),
+                     bucket=srec.bucket)
+        self.tel.record_span("sched.queue", req.arrival_s, t_adm, **attrs)
+        self.tel.record_span("sched.first_token", t_adm, srec.t_first,
+                             **attrs)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -824,13 +844,12 @@ class MultiTenantScheduler:
             st["shed"] += 1
             self.tel.count("sched.shed")
         self._journal("REJECT", rid=self._rid(req), shed=bool(shed))
-        self._rids.pop(id(req), None)
         self._attempts.pop(id(req), None)
         self._backoff.pop(id(req), None)
         self._terminal.append(Response(
             req.tenant, np.zeros((0,), np.int32),
             time.perf_counter() - req.arrival_s, 0, outcome="rejected",
-            priority=self._prio(req)))
+            priority=self._prio(req), rid=self._rid(req)))
 
     def _fail(self, req: Any, preemptions: int = 0) -> None:
         """Terminal FAILED outcome (a fault-injection retry limit was
@@ -840,13 +859,13 @@ class MultiTenantScheduler:
         self.tel.count("sched.failed")
         self._journal("FAIL", rid=self._rid(req),
                       preemptions=int(preemptions))
-        self._rids.pop(id(req), None)
         self._attempts.pop(id(req), None)
         self._backoff.pop(id(req), None)
         self._terminal.append(Response(
             req.tenant, np.zeros((0,), np.int32),
             time.perf_counter() - req.arrival_s, 0, outcome="failed",
-            priority=self._prio(req), preemptions=preemptions))
+            priority=self._prio(req), preemptions=preemptions,
+            rid=self._rid(req)))
 
     def _pop_terminal(self, responses: Optional[List[Response]] = None
                       ) -> List[Response]:
@@ -973,6 +992,7 @@ class MultiTenantScheduler:
                 if victim is None:
                     break
                 self._preempt_slot(victim)
+                t_adm = time.perf_counter()
                 try:
                     ok = eng.try_admit_batch([req])[0]
                 except InjectedFault:
@@ -983,6 +1003,7 @@ class MultiTenantScheduler:
                 self._attempts.pop(id(req), None)
                 self._backoff.pop(id(req), None)
                 self._journal_admits([req])
+                req.admitted_s = t_adm
             else:
                 remaining.append(req)
         return admitted, remaining
@@ -1099,14 +1120,11 @@ class MultiTenantScheduler:
                 self._attempts.pop(id(req), None)
                 self._backoff.pop(id(req), None)
                 slot = self._slot_of[req.tenant]
-                entry = TenantTimeline(
+                self.admission_timeline.append(TenantTimeline(
                     vdev=slot, pdev=eng.pdev, slot=slot,
                     transfer_start=t0, transfer_end=t1,
-                    compute_start=t1, compute_end=t1)
-                self.admission_timeline.append(entry)
-                record_timeline(self.tel, entry, base=self._t0,
-                                prefix="admission", tenant=req.tenant,
-                                nv=self.tenancy.n_vdev)
+                    compute_start=t1, compute_end=t1))
+                req.admitted_s = self._t0 + t0
             if failures and can_preempt:
                 extra, failures = self._preempt_for(failures)
                 admitted += extra
@@ -1274,11 +1292,12 @@ class MultiTenantScheduler:
                     else srec.t_first - req.arrival_s)
             self._journal("RETIRE", rid=self._rid(req),
                           tokens=[int(t) for t in tokens])
-            self._rids.pop(id(req), None)
+            if self.tel.enabled:
+                self._request_spans(req, srec)
             responses.append(Response(
                 req.tenant, tokens, done_abs - req.arrival_s, 1,
                 ttft_s=ttft, priority=self._prio(req),
-                preemptions=srec.preemptions))
+                preemptions=srec.preemptions, rid=self._rid(req)))
         return self._pop_terminal(responses)
 
     # ------------------------------------------------------------------
