@@ -110,7 +110,10 @@ main path (gather, full width), power, fit, pairs, mesh risk, main path
 (onehot, 1,000,000 trials, catalog cut), cli, serving (reduced internlm2, h2o-danube
 and mamba2, token-exact with ``generate`` through graph rounds of several
 keys, and reduced olmoe), serving (full width, internlm2; then its rounds
-eager against graph), serve-obs, paged kernels (full width), serving (full
+eager against graph), serve-obs, paged kernels (full width), paged decode
+at the chat deployment's 64 capacity rows with and without the round's row
+mask (live rows bit for bit, masked rows zero, a captured call replayed
+under other masks), serving (full
 width, mamba2; rounds eager against graph), ssd kernel (full width),
 serving (full width, olmoe; rounds eager against graph), paged decode
 (olmoe's shape), flash kernel (full width), serve-slots (full width,
@@ -1824,6 +1827,117 @@ def phase_paged_full(errs: Errors, dev, NB: int) -> dict:
                  "scatter_entry": {"shape": f"pool ({S}, {NP_}, {P}, {Hkv}, "
                                             f"{D}) bf16, 12 pages",
                                    **scatter}}}
+
+# the chat deployment's decode round (perfbench's internlm2-chat): capacity
+# rows, table width, live rows and retired rows (their stale tables and
+# positions) of CHAT_PAGES pages each; the rest never held a request
+# (SENTINEL everywhere)
+CHAT_C, CHAT_NB, CHAT_LIVE, CHAT_STALE, CHAT_PAGES = 64, 128, 17, 13, 48
+
+
+def chat_round_state(rng, dev):
+    """K3's arguments at the chat round's shape (internlm2's heads) and
+    its row mask: CHAT_LIVE live rows and CHAT_STALE retired ones, each
+    naming CHAT_PAGES pages of a full ring (the retired ones keep their
+    last position), the other rows SENTINEL at position 0, rows in a
+    random order."""
+    C, NB, P, H, Hkv, D = (CHAT_C, CHAT_NB, FULL_P, FULL_H, FULL_HKV,
+                           FULL_D)
+    named = CHAT_LIVE + CHAT_STALE
+    q, kp, vp, pp_, pt, pos = rand_paged_state(
+        rng, C=named, NB=CHAT_PAGES, P=P, H=H, Hkv=Hkv, D=D, dev=dev,
+        q_dtype=torch.bfloat16, full=True)
+    order = torch.from_numpy(rng.permutation(C)).to(dev)
+    rows = order[:named]
+    table = torch.full((C, NB), PagedKVCache.SENTINEL, dtype=torch.int32,
+                       device=dev)
+    table[rows, :CHAT_PAGES] = pt
+    positions = torch.zeros((C,), dtype=torch.int32, device=dev)
+    positions[rows] = pos
+    q_all = torch.from_numpy(rng.standard_normal((C, H, D)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    q_all[rows] = q
+    mask = torch.zeros((C,), dtype=torch.bool, device=dev)
+    mask[order[:CHAT_LIVE]] = True
+    return (q_all, kp, vp, pp_, table, positions), mask
+
+
+def phase_paged_chat(errs: Errors, dev) -> dict:
+    """K3 at the chat deployment's decode round, with the round's row
+    mask and without: live rows bit for bit, masked rows zero, the masked
+    call held against its plain version; two masked calls bit-identical
+    and an unmasked one after them unchanged (no ticket left behind); one
+    masked call captured in a CUDA graph and replayed under three other
+    masks, each bit for bit the eager call.  Then both calls timed beside
+    the bound of the live rows' pages (``perfbench/roofline/k3.py``) and
+    the plain version."""
+    bench = os.path.join(ROOT, "perfbench")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from roofline import k3 as k3_roofline
+    rng = np.random.default_rng(31)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    state, mask = chat_round_state(rng, dev)
+    C, H, D = state[0].shape
+    Hkv, P = state[1].shape[2], state[1].shape[1]
+    what = (f"chat round C{C} table {CHAT_NB}: {CHAT_LIVE} live, "
+            f"{CHAT_STALE} retired, {C - CHAT_LIVE - CHAT_STALE} SENTINEL")
+    full = pa.paged_attention_decode(*state)
+    got = pa.paged_attention_decode(*state, row_mask=mask)
+    again = pa.paged_attention_decode(*state, row_mask=mask)
+    after = pa.paged_attention_decode(*state)
+    torch.cuda.synchronize()
+    check(torch.equal(got[mask], full[mask]),
+          f"{what}: live rows differ with the row mask")
+    check(not bool(got[~mask].any()), f"{what}: a masked row is not zero")
+    check(torch.equal(got, again), f"{what}: two masked calls differ")
+    check(torch.equal(after, full), f"{what}: an unmasked call after masked "
+                                    "ones differs")
+    errs.hold(K3, got, pa.paged_attention_decode_plain(*state,
+                                                       row_mask=mask), what)
+    # one captured call serves any set of live rows: the mask is read on
+    # the device at every replay
+    side = torch.cuda.Stream(device=dev)
+    buf = mask.clone()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention_decode(*state, row_mask=buf)     # its scratch
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = pa.paged_attention_decode(*state, row_mask=buf)
+    held = pa.detach_scratch(dev, side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    named = state[4][:, 0] != PagedKVCache.SENTINEL
+    for tag, other in (("every named row", named),
+                       ("every row", torch.ones_like(mask)),
+                       ("the retired rows", named & ~mask)):
+        buf.copy_(other)
+        graph.replay()
+        want = pa.paged_attention_decode(*state, row_mask=other)
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"{what}: the captured call replayed "
+                                      f"with {tag} live differs")
+    del graph, held, out
+    ms = cuda_ms(lambda: pa.paged_attention_decode(*state, row_mask=mask), 50,
+                 flush)
+    ms_all = cuda_ms(lambda: pa.paged_attention_decode(*state), 50, flush)
+    plain = cuda_ms(lambda: pa.paged_attention_decode_plain(
+        *state, row_mask=mask), 10, flush)
+    bound_s, by = k3_roofline.bound(CHAT_LIVE, CHAT_PAGES, P, H, Hkv, D)
+    bound = bound_s * 1e3
+    shape = (f"q ({C}, {H}, {D}) bf16, pools ({state[1].shape[0]}, {P}, "
+             f"{Hkv}, {D}) bf16, table ({C}, {CHAT_NB}); {CHAT_LIVE} live "
+             f"rows and {CHAT_STALE} retired of {CHAT_PAGES} pages, "
+             f"{C - CHAT_LIVE - CHAT_STALE} SENTINEL")
+    say("paged", f"decode at the chat round {shape}: masked {ms:.4f} ms, "
+                 f"unmasked {ms_all:.4f} ms, plain (masked) {plain:.4f} ms, "
+                 f"bound of the live rows {bound:.4f} ms by {by} "
+                 f"({100 * bound / ms:.1f} % masked, "
+                 f"{100 * bound / ms_all:.1f} % unmasked); live rows bit for "
+                 "bit, a captured call replayed under three masks")
+    return dict(ms=ms, unmasked_ms=ms_all, plain_ms=plain, bound_ms=bound,
+                bound_by=by, shape=shape)
+
 
 # ---------------------------------------------------------------------------
 # the SSD scan: the pure-SSM serving path's kernel
@@ -6566,6 +6680,7 @@ def main() -> int:
         serving = phase_serve_full(errs, dev)
         serve_obs = phase_serve_obs(dev, serving.pop("plane_off"))
         kern.update(phase_paged_full(errs, dev, serving["max_blocks"]))
+        kern[K3]["chat_round"] = phase_paged_chat(errs, dev)
         lap("serve internlm2, serve-obs, paged full")
         mamba = phase_serve_mamba2(dev)
         kern.update(phase_ssd_full(errs, dev))

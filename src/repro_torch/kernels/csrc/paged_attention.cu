@@ -53,6 +53,19 @@
 //     memory once for all `rep` query heads of the group.  Pages stream
 //     through a ring of up to 4 shared-memory stages (cp.async), so 3 pages
 //     are in flight while one is scored.
+//   - Rows the caller masks are not read.  A decode round runs every
+//     capacity row (64 in a chat deployment), and most hold no live
+//     request: a retired row keeps its stale table and position, so it
+//     walks its old pages in full, and a row that never held one names
+//     SENTINEL everywhere, so each of its splits rescans the whole row and
+//     then averages every entry.  That dead walk is most of an unmasked
+//     call's pages.  With a row mask (row_live) every block of a masked
+//     row returns after reading one flag, before any position or page; its
+//     first split writes zeros for the group's heads, and no ticket moves.
+//     Live rows take the same path, splits and combine order as with no
+//     mask, so their bits do not depend on it.  What bounds a call is then
+//     the live rows' pages, plus a position scan in each split of a live
+//     row that holds no admissible key (its SENTINEL tail).
 //
 // scatter / admission -- what bounds it: bytes (read the values once, write
 //   the named pages once).  A grid of (page, stage, K or V) blocks, each
@@ -151,10 +164,23 @@ __global__ void __launch_bounds__(kDecodeThreads)
                         const int* __restrict__ pos_pool,
                         const int* __restrict__ page_table,
                         const int* __restrict__ positions,
+                        const bool* __restrict__ row_live,
                         float* __restrict__ out, float2* part_ml,
                         float* part_acc, int* tickets, int NB, int P,
                         int Hkv, int D, int rep, int window, float scale,
                         int chunk, int nst, int KS) {
+  const int tid = threadIdx.x;
+  const int g = blockIdx.x, c = blockIdx.y, sp = blockIdx.z;
+  const int H = Hkv * rep;
+  const size_t qbase = ((size_t)c * H + (size_t)g * rep) * D;
+  if (row_live != nullptr && !row_live[c]) {
+    // a masked row: its first split writes zeros for the group's heads;
+    // no position scan, no page, no ticket
+    if (sp == 0)
+      for (int i = tid; i < rep * D; i += kDecodeThreads)
+        out[qbase + i] = 0.0f;
+    return;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   const DecodeSmem L = decode_smem(P, D, rep, chunk, nst, KS);
   const int tile = P * D;              // bf16 elements of one K or V tile
@@ -171,10 +197,7 @@ __global__ void __launch_bounds__(kDecodeThreads)
   int* vis_s = flag_s + chunk;
   int* misc = vis_s + chunk;
 
-  const int tid = threadIdx.x;
-  const int g = blockIdx.x, c = blockIdx.y, sp = blockIdx.z;
   const int S = gridDim.z;
-  const int H = Hkv * rep;
   const int pos = positions[c];
   const int* row = page_table + (size_t)c * NB;
   const int e0 = sp * chunk;
@@ -188,7 +211,6 @@ __global__ void __launch_bounds__(kDecodeThreads)
     pid_s[e] = row[e0 + e];
     flag_s[e] = 0;
   }
-  const size_t qbase = ((size_t)c * H + (size_t)g * rep) * D;
   for (int i = tid; i < rep * D; i += kDecodeThreads) {
     q_s[i] = to_float(q[qbase + i]);
   }
@@ -390,10 +412,10 @@ __global__ void __launch_bounds__(kDecodeThreads)
 template <typename QT>
 int launch_decode(const void* q, const void* k_pool, const void* v_pool,
                   const void* pos_pool, const void* page_table,
-                  const void* positions, void* out, void* part_ml,
-                  void* part_acc, void* tickets, int C, int NB, int P,
-                  int Hkv, int D, int rep, int window, float scale, int chunk,
-                  cudaStream_t s) {
+                  const void* positions, const void* row_live, void* out,
+                  void* part_ml, void* part_acc, void* tickets, int C, int NB,
+                  int P, int Hkv, int D, int rep, int window, float scale,
+                  int chunk, cudaStream_t s) {
   // key subsets of the weighted sum: enough (head, column pair, subset)
   // items for every thread of the block
   const int pairs = rep * D / 2;
@@ -416,7 +438,8 @@ int launch_decode(const void* q, const void* k_pool, const void* v_pool,
       static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool),
       static_cast<const int*>(pos_pool), static_cast<const int*>(page_table),
-      static_cast<const int*>(positions), static_cast<float*>(out),
+      static_cast<const int*>(positions), static_cast<const bool*>(row_live),
+      static_cast<float*>(out),
       static_cast<float2*>(part_ml), static_cast<float*>(part_acc),
       static_cast<int*>(tickets), NB, P, Hkv, D, rep, window, scale, chunk,
       nst, KS);
@@ -564,17 +587,19 @@ extern "C" {
 
 // q: (C, H, D) float32 (q_bf16 == 0) or bfloat16, contiguous; k_pool/v_pool:
 // (NP, P, Hkv, D) bfloat16, contiguous; pos_pool: (NP, P) int32; page_table:
-// (C, NB) int32; positions: (C,) int32; out: (C, H, D) float32.  window < 0
-// means no sliding window.  The walk is split into ceil(NB / chunk) ranges
-// of `chunk` table entries; with more than one, part_ml (C * H * splits
-// float2), part_acc (C * H * splits * D float32) and tickets (C * Hkv
-// int32, all 0, and left 0) are the scratch the splits combine through.
-// The caller guarantees D % 8 == 0 and 16-byte aligned pools.
+// (C, NB) int32; positions: (C,) int32; row_live: (C,) bool or null (every
+// row live); out: (C, H, D) float32.  A row whose row_live is false is not
+// read: its output is zeros.  window < 0 means no sliding window.  The walk
+// is split into ceil(NB / chunk) ranges of `chunk` table entries; with more
+// than one, part_ml (C * H * splits float2), part_acc (C * H * splits * D
+// float32) and tickets (C * Hkv int32, all 0, and left 0) are the scratch
+// the splits combine through.  The caller guarantees D % 8 == 0 and 16-byte
+// aligned pools.
 int paged_attention_decode_launch(const void* q, int q_bf16,
                                   const void* k_pool, const void* v_pool,
                                   const void* pos_pool, const void* page_table,
-                                  const void* positions, void* out,
-                                  void* part_ml, void* part_acc,
+                                  const void* positions, const void* row_live,
+                                  void* out, void* part_ml, void* part_acc,
                                   void* tickets, int C, int NB, int P,
                                   int Hkv, int D, int rep, int window,
                                   float scale, int chunk, void* stream) {
@@ -586,11 +611,13 @@ int paged_attention_decode_launch(const void* q, int q_bf16,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_bf16)
     return launch_decode<__nv_bfloat16>(
-        q, k_pool, v_pool, pos_pool, page_table, positions, out, part_ml,
-        part_acc, tickets, C, NB, P, Hkv, D, rep, window, scale, chunk, s);
+        q, k_pool, v_pool, pos_pool, page_table, positions, row_live, out,
+        part_ml, part_acc, tickets, C, NB, P, Hkv, D, rep, window, scale,
+        chunk, s);
   return launch_decode<float>(q, k_pool, v_pool, pos_pool, page_table,
-                              positions, out, part_ml, part_acc, tickets, C,
-                              NB, P, Hkv, D, rep, window, scale, chunk, s);
+                              positions, row_live, out, part_ml, part_acc,
+                              tickets, C, NB, P, Hkv, D, rep, window, scale,
+                              chunk, s);
 }
 
 

@@ -173,11 +173,14 @@ def ssd_decode_step(state, x_t, dt_t, a_t, B_t, C_t):
 
 
 def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
-                           positions, window: Optional[int] = None):
-    """One-token GQA decode read through a page table (see
+                           positions, window: Optional[int] = None,
+                           row_mask: Optional[torch.Tensor] = None):
+    """One-token GQA decode read through a page table, rows ``row_mask``
+    masks left unread and zero (see
     :func:`repro_torch.kernels.paged_attention.paged_attention_decode`)."""
     return _paged.paged_attention_decode(q, k_pool, v_pool, pos_pool,
-                                         page_table, positions, window=window)
+                                         page_table, positions, window=window,
+                                         row_mask=row_mask)
 
 
 def paged_prefill_scatter(pool, pages, values):
@@ -195,13 +198,14 @@ def paged_admit_kv(k_pool, v_pool, pos_pool, pages, k_src, v_src, pos_src):
 
 
 def paged_attention_decode_sharded(q, k_pool, v_pool, pos_pool, page_table,
-                                   positions, sh, window: Optional[int] = None):
+                                   positions, sh, window: Optional[int] = None,
+                                   row_mask: Optional[torch.Tensor] = None):
     """The decode read with pools split on KV heads over ``sh``'s mesh, one
     call a shard (see :func:`repro_torch.kernels.paged_attention.
     paged_attention_decode_sharded`); plain pools take the unsharded call."""
     return _paged.paged_attention_decode_sharded(
         q, k_pool, v_pool, pos_pool, page_table, positions, sh,
-        window=window)
+        window=window, row_mask=row_mask)
 
 
 def paged_prefill_scatter_sharded(pool, pages, values, sh):

@@ -31,7 +31,11 @@ What bounds them on the card, and what the design does about it:
   being captured into a CUDA graph must find its scratch there, and the
   graph's owner takes it out (:func:`detach_scratch`).  Online softmax in
   float32; the output depends on page content reached through the table,
-  never on physical page ids.
+  never on physical page ids.  An optional device row mask (``row_mask``)
+  leaves the rows it masks unread -- each of their blocks returns after one
+  flag, their outputs zeros -- while the live rows keep their bits: a
+  decode round of 64 capacity rows with a few live ones pays for the live
+  ones' pages only.
 * **scatter** is bound by bytes: the values are read once and the named
   pages written once, cast by round-to-nearest-even -- bit-exact with
   ``index_copy_`` of ``values.to(torch.bfloat16)``.  It writes in place;
@@ -97,15 +101,20 @@ def reset_counts() -> None:
 # plain versions
 # ---------------------------------------------------------------------------
 def paged_attention_decode_plain(q, k_pool, v_pool, pos_pool, page_table,
-                                 positions, *, window: Optional[int] = None
+                                 positions, *, window: Optional[int] = None,
+                                 row_mask: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """Plain PyTorch version of :func:`paged_attention_decode`: the
     dense-gather full softmax of :func:`repro_torch.kernels.ref.
-    paged_attention_decode_ref`."""
+    paged_attention_decode_ref`, zeros for the rows ``row_mask`` masks."""
     plain_counts["paged_attention_decode_plain"] += 1
-    return _ref.paged_attention_decode_ref(q, k_pool, v_pool, page_table,
-                                           positions, pos_pool=pos_pool,
-                                           window=window)
+    out = _ref.paged_attention_decode_ref(q, k_pool, v_pool, page_table,
+                                          positions, pos_pool=pos_pool,
+                                          window=window)
+    if row_mask is None:
+        return out
+    return torch.where(row_mask.to(torch.bool)[:, None, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def paged_prefill_scatter_plain(pool, pages, values) -> torch.Tensor:
@@ -157,13 +166,14 @@ def _entry(name: str, argtypes):
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
-_DECODE_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                _I, _I, _I, _F, _I, _P]
+_DECODE_ARGS = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                _I, _I, _I, _I, _F, _I, _P]
 _ADMIT_ARGS = [_P, _P, _L, _P, _P, _I, _L, _P, _I, _I, _I, _L, _I, _P, _P,
                _I, _P]
 
 
-def _check_decode(q, k_pool, v_pool, pos_pool, page_table, positions):
+def _check_decode(q, k_pool, v_pool, pos_pool, page_table, positions,
+                  row_mask=None):
     if q.dim() != 3 or k_pool.dim() != 4 or tuple(v_pool.shape) != tuple(
             k_pool.shape):
         raise ValueError("need q (C, H, D) and k_pool/v_pool (NP, P, Hkv, D)")
@@ -178,6 +188,8 @@ def _check_decode(q, k_pool, v_pool, pos_pool, page_table, positions):
         raise ValueError(f"page_table {tuple(page_table.shape)}: need (C, NB)")
     if tuple(positions.shape) != (C,):
         raise ValueError(f"positions {tuple(positions.shape)}: need ({C},)")
+    if row_mask is not None and tuple(row_mask.shape) != (C,):
+        raise ValueError(f"row_mask {tuple(row_mask.shape)}: need ({C},)")
     return C, H, D, NP, P, Hkv, page_table.shape[1]
 
 
@@ -237,7 +249,8 @@ def detach_scratch(dev: torch.device, stream: int
 
 def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
                            positions, *, window: Optional[int] = None,
-                           split_kv_heads: Optional[int] = None
+                           split_kv_heads: Optional[int] = None,
+                           row_mask: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Single-token GQA decode read against a paged KV pool.
 
@@ -252,14 +265,20 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
     ``split_kv_heads`` sizes the walk's split (:func:`decode_split`) from
     that many kv heads instead of the pools' ``Hkv``: a shard holding some
     of a pool's heads passes the whole pool's count, so it splits and
-    combines as the whole call does and gives its heads' bits."""
+    combines as the whole call does and gives its heads' bits.
+
+    ``row_mask`` ``(C,)`` bool on the device, or None (every row live): a
+    row it masks is not read and gets zeros; every other row gets the bits
+    it gets with no mask.  A device tensor, so a captured call serves any
+    set of live rows without a host synchronisation."""
     C, H, D, NP, P, Hkv, NB = _check_decode(q, k_pool, v_pool, pos_pool,
-                                            page_table, positions)
+                                            page_table, positions, row_mask)
     if q.device.type == "cpu":
         return paged_attention_decode_plain(q, k_pool, v_pool, pos_pool,
                                             page_table, positions,
-                                            window=window)
-    build.require_cuda(q, k_pool, v_pool, pos_pool, page_table, positions)
+                                            window=window, row_mask=row_mask)
+    build.require_cuda(*(t for t in (q, k_pool, v_pool, pos_pool, page_table,
+                                     positions, row_mask) if t is not None))
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q dtype {q.dtype}: need float32 or bfloat16")
     if k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16:
@@ -280,6 +299,8 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
     pos_pool = pos_pool.to(torch.int32).contiguous()
     page_table = page_table.to(torch.int32).contiguous()
     positions = positions.to(torch.int32).contiguous()
+    if row_mask is not None:
+        row_mask = row_mask.to(torch.bool).contiguous()
     out = torch.empty((C, H, D), dtype=torch.float32, device=q.device)
     if C == 0:
         return out                     # nothing to launch, nothing counted
@@ -290,7 +311,9 @@ def paged_attention_decode(q, k_pool, v_pool, pos_pool, page_table,
         err = _entry("paged_attention_decode_launch", _DECODE_ARGS)(
             q.data_ptr(), int(q.dtype == torch.bfloat16), k_pool.data_ptr(),
             v_pool.data_ptr(), pos_pool.data_ptr(), page_table.data_ptr(),
-            positions.data_ptr(), out.data_ptr(), sc["ml"].data_ptr(),
+            positions.data_ptr(),
+            None if row_mask is None else row_mask.data_ptr(),
+            out.data_ptr(), sc["ml"].data_ptr(),
             sc["acc"].data_ptr(), sc["tickets"].data_ptr(), C, NB, P, Hkv, D,
             H // Hkv, -1 if window is None else int(window),
             1.0 / math.sqrt(D), chunk, stream)
@@ -478,18 +501,21 @@ def _heads(src, p: int, dim: int, sl: slice, dev: torch.device
 
 def paged_attention_decode_sharded(q, k_pool, v_pool, pos_pool, page_table,
                                    positions, sh, *,
-                                   window: Optional[int] = None):
+                                   window: Optional[int] = None,
+                                   row_mask: Optional[torch.Tensor] = None):
     """:func:`paged_attention_decode` partitioned along KV heads.
 
     q ``(C, H, D)``, pos_pool, page_table and positions are global tensors
     on the mesh's first device; k_pool / v_pool ``(NP, P, Hkv, D)``
     :class:`ShardedTensor` placed by ``sh`` on ``(None, None, "kv",
-    None)``.  Returns a :class:`ShardedTensor` ``(C, H, D)`` float32, one
+    None)``; ``row_mask`` (global, like the rows) goes to every shard's
+    call.  Returns a :class:`ShardedTensor` ``(C, H, D)`` float32, one
     kernel launch per distinct shard.  Plain pools (off-mesh) take the
     unsharded call."""
     if not isinstance(k_pool, ShardedTensor):
         return paged_attention_decode(q, k_pool, v_pool, pos_pool,
-                                      page_table, positions, window=window)
+                                      page_table, positions, window=window,
+                                      row_mask=row_mask)
     mesh = k_pool.mesh
     H, Hkv = q.shape[1], k_pool.shape[2]
     devs = mesh.position_devices()
@@ -513,7 +539,8 @@ def paged_attention_decode_sharded(q, k_pool, v_pool, pos_pool, page_table,
             done[key] = paged_attention_decode(
                 q[:, q_sl[p]].to(dev), kl, vl, pos_pool.to(dev),
                 page_table.to(dev), positions.to(dev), window=window,
-                split_kv_heads=Hkv)
+                split_kv_heads=Hkv,
+                row_mask=None if row_mask is None else row_mask.to(dev))
         outs.append(done[key])
     return ShardedTensor.from_locals(mesh, out_spec, outs)
 

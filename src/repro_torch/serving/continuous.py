@@ -118,6 +118,13 @@ step's capacity rows, masked ones included -- so a MoE row is only
 statistically exchangeable with ``generate``, and a shared page holds *a*
 valid prefill of its chain.  The contract there is engine against engine on
 identical admissions (``supported_modes`` says ``"statistical"``).
+
+Without a MoE sublayer no masked row's step reaches a live row, so the
+engine hands the step's row mask to the paged decode kernel, which leaves
+masked rows unread (their attention output is zero, where the reference
+computes it and throws it away): a round of 64 capacity rows pays for the
+live rows' pages only.  ``round.masked_row_steps`` counts the row-steps so
+skipped; a MoE engine passes no mask and counts none.
 """
 from __future__ import annotations
 
@@ -156,6 +163,12 @@ from repro_torch.serving.kvcache import (POS_SENTINEL, PagedKVCache,
                                          paged_attention_decode, ssm_subs,
                                          state_kinds)
 from repro_torch.serving.swap import HostSwapStore, SwapRecord
+
+
+def _has_moe(cfg: ArchConfig) -> bool:
+    """Does any sublayer's MLP route through experts?  Expert capacity then
+    couples a step's rows, masked ones included."""
+    return any(mlp == MOE for _, mlp in cfg.block_schedule())
 
 
 @dataclasses.dataclass
@@ -355,6 +368,9 @@ class ContinuousBatchingEngine:
         self.max_prompt_len = max_prompt_len
         self.n_stages = cfg.num_layers // cfg.stage_period
         self.sched = cfg.block_schedule()[:cfg.stage_period]
+        # a masked row's step reaches no live row unless experts route it:
+        # then the decode kernel leaves masked rows unread
+        self.skip_masked_rows = not _has_moe(cfg)
         self.page_size = page_size
         self.state_kinds = state_kinds(cfg)
         self.ssm_subs = ssm_subs(cfg)
@@ -464,7 +480,7 @@ class ContinuousBatchingEngine:
         statistically exchangeable with ``generate``)."""
         kinds = state_kinds(cfg)
         names = [k.name for k in kinds]
-        moe = any(mlp == MOE for _, mlp in cfg.block_schedule())
+        moe = _has_moe(cfg)
         cont = {
             "supported": True,
             "state_kinds": names,
@@ -548,7 +564,7 @@ class ContinuousBatchingEngine:
             x = x + _sinusoid_at(pos[:, None, None],
                                  cfg.d_model).to(x.dtype)
         if self.cross_blocks:
-            x = self._enc_dec_layers(x, pt, page, off, pos)
+            x = self._enc_dec_layers(x, active, pt, page, off, pos)
         else:
             x = self._decoder_layers(x, active, pt, page, off, pos)
         h = apply_rmsnorm(params["final_norm"], x)
@@ -570,6 +586,7 @@ class ContinuousBatchingEngine:
         """The decoder-only stages of one step: paged attention or the SSM
         decode per sublayer, then its MLP."""
         cfg, st, params = self.cfg, self.state, self.params
+        mask = active if self.skip_masked_rows else None
         for s in range(self.n_stages):
             sp = stage_view(params["stages"], s)
             sc = stage_view(st["caches"], s)
@@ -579,7 +596,7 @@ class ContinuousBatchingEngine:
                 if mixer == ATTN:
                     hout, _ = paged_attention_decode(
                         sub["attn"], hin, sc[f"sub{i}"], pt, page, off, pos,
-                        cfg, st["pos_pool"], self.sh)
+                        cfg, st["pos_pool"], self.sh, mask)
                 else:
                     hout, new = apply_ssm_decode(sub["mamba"], hin,
                                                  sc[f"sub{i}"], cfg)
@@ -596,14 +613,16 @@ class ContinuousBatchingEngine:
                                       cfg)
         return x
 
-    def _enc_dec_layers(self, x: torch.Tensor, pt: torch.Tensor,
-                        page: torch.Tensor, off: torch.Tensor,
-                        pos: torch.Tensor) -> torch.Tensor:
+    def _enc_dec_layers(self, x: torch.Tensor, active: torch.Tensor,
+                        pt: torch.Tensor, page: torch.Tensor,
+                        off: torch.Tensor, pos: torch.Tensor
+                        ) -> torch.Tensor:
         """The encoder-decoder's decoder layers of one step: paged
         self-attention, then the read-only gather of each row's cross pages
         and the cross-attention to them, then the MLP -- ``decode_fn``'s
         residual structure operation for operation, per row."""
         cfg, st, params = self.cfg, self.state, self.params
+        mask = active if self.skip_masked_rows else None
         self_pool = st["caches"][self.kv.attn_subs[0]]
         cross, cpt = st["caches"]["cross"], st["cross_pt"]
         for s in range(self.n_stages):
@@ -611,7 +630,7 @@ class ContinuousBatchingEngine:
             a, _ = paged_attention_decode(
                 sp["attn"], apply_rmsnorm(sp["norm1"], x),
                 stage_view(self_pool, s), pt, page, off, pos, cfg,
-                st["pos_pool"], self.sh)
+                st["pos_pool"], self.sh, mask)
             x = x + a
             ck = gather_cross(cross["k"][s], cpt, cfg.encoder_seq_len)
             cv = gather_cross(cross["v"][s], cpt, cfg.encoder_seq_len)
@@ -959,6 +978,9 @@ class ContinuousBatchingEngine:
         live_steps = int(active_steps.sum())
         self.row_steps += live_steps
         self._round_log.append((handle.steps, self.capacity, live_steps))
+        if self.skip_masked_rows:
+            self.tel.count("round.masked_row_steps",
+                           handle.steps * self.capacity - live_steps)
         self.tel.record_span("round.device", handle.t_start,
                              time.perf_counter(), round=handle.rnd,
                              steps=handle.steps, capacity=self.capacity,

@@ -748,16 +748,18 @@ def gather_pages(pool, idx: torch.Tensor) -> torch.Tensor:
 def paged_attend(q: torch.Tensor, pool: Dict[str, torch.Tensor],
                  page_table: torch.Tensor, positions: torch.Tensor,
                  cfg: ArchConfig, pos_pool: torch.Tensor,
-                 sh: Optional[Sharder] = None):
+                 sh: Optional[Sharder] = None,
+                 row_mask: Optional[torch.Tensor] = None):
     """Paged attention read: q (C, H, D) already-roped queries; pool
-    {"k","v"} (NP, P, Hkv, D); page_table (C, NB); positions (C,).
+    {"k","v"} (NP, P, Hkv, D); page_table (C, NB); positions (C,);
+    row_mask (C,) bool or None: rows it masks are not read and give zeros.
     Returns (C, H, D) float32 -- the decode kernel on a CUDA device, its
     plain version (the reference's dense-gather oracle) on the CPU; for
     pools split on ``sh``'s mesh one call a shard, the result sharded like
     q (:class:`ShardedTensor`)."""
     return ops.paged_attention_decode_sharded(
         q, pool["k"], pool["v"], pos_pool, page_table, positions, sh,
-        window=cfg.sliding_window)
+        window=cfg.sliding_window, row_mask=row_mask)
 
 
 def paged_admit(pool: Dict[str, torch.Tensor],
@@ -817,7 +819,8 @@ def paged_attention_decode(p, x, pool: Dict[str, torch.Tensor],
                            page_table: torch.Tensor, write_page: torch.Tensor,
                            write_off: torch.Tensor, positions: torch.Tensor,
                            cfg: ArchConfig, pos_pool: torch.Tensor,
-                           sh: Optional[Sharder] = None):
+                           sh: Optional[Sharder] = None,
+                           row_mask: Optional[torch.Tensor] = None):
     """Single-token GQA decode against a paged cache (per-row positions).
 
     Mirrors :func:`repro_torch.models.layers.apply_attention_decode`
@@ -828,7 +831,8 @@ def paged_attention_decode(p, x, pool: Dict[str, torch.Tensor],
     ``pos_pool`` already holds this step's positions.  With pools split on
     ``sh``'s mesh the read runs a shard at a time and its ``(C, H/M, D)``
     outputs are gathered along heads before ``wo`` (data movement, never a
-    sum).
+    sum).  Rows ``row_mask`` masks skip the read: their attention output is
+    zero (the caller throws their step away).
 
     x: (C, 1, d); positions: (C,) absolute position of the new token.
     Returns (out (C, 1, d), pool) with the pool updated in place."""
@@ -842,7 +846,8 @@ def paged_attention_decode(p, x, pool: Dict[str, torch.Tensor],
                 k_new[:, 0].to(pool["k"].dtype))
     paged_write(pool["v"], write_page, write_off,
                 v_new[:, 0].to(pool["v"].dtype))
-    o = paged_attend(q[:, 0], pool, page_table, positions, cfg, pos_pool, sh)
+    o = paged_attend(q[:, 0], pool, page_table, positions, cfg, pos_pool, sh,
+                     row_mask)
     if isinstance(o, ShardedTensor):
         o = sh.constrain(o, (None, None, None))
     o = o.reshape(C, 1, H * D).to(x.dtype)

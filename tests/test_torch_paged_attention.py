@@ -6,7 +6,9 @@ these tests hold, on seeded numpy inputs handed to both packages:
 * the decode (K3) plain version against ``repro.kernels.ref.
   paged_attention_decode_ref`` and against the Pallas kernel in interpret
   mode, over the cases and tolerance of ``tests/test_paged_attention.py``
-  (GQA, MHA, MQA, sliding window, an all-masked row, page permutations);
+  (GQA, MHA, MQA, sliding window, an all-masked row, page permutations),
+  and with a row mask: masked rows zeros, live rows bit for bit the call
+  without it;
 * the scatter (K4) plain version bit for bit against ``paged_scatter_ref``
   and the interpret-mode Pallas scatter, with float32 and bfloat16 values;
 * admission's entry into the same kernel (K and V of every stage and the
@@ -157,6 +159,34 @@ def test_decode_kpos_and_pos_pool_forms_agree():
     b = ref.paged_attention_decode_ref(q, k, v, pt, pos, pos_pool=pp_)
     assert torch.equal(a, b)
     assert torch.equal(ops.paged_attention_decode(q, k, v, pp_, pt, pos), b)
+
+
+ROW_MASKS = {"some": [True, False, True, False], "none": [False] * 4,
+             "all": [True] * 4}
+
+
+@pytest.mark.parametrize("P,NB,H,Hkv,window", CASES)
+@pytest.mark.parametrize("live", sorted(ROW_MASKS))
+def test_decode_row_mask_zeros_masked_rows_and_keeps_live_bits(
+        P, NB, H, Hkv, window, live):
+    """K3 with a row mask, as the continuous engine hands it a round's
+    live rows: each masked row is zeros, each live row bit for bit what the
+    call without the mask gives it (the last row names SENTINEL only, as a
+    row that never held a request does)."""
+    rng = np.random.default_rng(
+        [P, NB, H, Hkv, sorted(ROW_MASKS).index(live)])
+    state = list(as_torch(*rand_paged_state(rng, C=4, NB=NB, P=P, H=H,
+                                            Hkv=Hkv, D=8)))
+    state[4][3] = SENTINEL
+    mask = torch.tensor(ROW_MASKS[live])
+    pa.reset_counts()
+    base = pa.paged_attention_decode(*state, window=window)
+    got = pa.paged_attention_decode(*state, window=window, row_mask=mask)
+    assert pa.plain_counts["paged_attention_decode_plain"] == 2
+    assert pa.launch_counts["paged_attention_decode"] == 0
+    assert got.shape == base.shape and got.dtype == torch.float32
+    assert torch.equal(got[mask], base[mask])
+    assert torch.equal(got[~mask], torch.zeros_like(got[~mask]))
 
 
 def _permuted(perm, q, k, v, pp_, pt, pos):
@@ -362,6 +392,9 @@ def test_wrappers_reject_bad_shapes():
         pa.paged_attention_decode(q, k, v, pp_[:, :2], pt, pos)
     with pytest.raises(ValueError):
         pa.paged_attention_decode(q, k, v, pp_, pt[:1], pos)
+    with pytest.raises(ValueError, match="row_mask"):
+        pa.paged_attention_decode(q, k, v, pp_, pt, pos,
+                                  row_mask=torch.ones(3, dtype=torch.bool))
     pool = torch.zeros((2, 6, 4, 2, 8), dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         pa.paged_prefill_scatter(pool, torch.tensor([2, 3]),

@@ -248,6 +248,25 @@ def test_sharded_decode_is_its_heads_of_the_unsharded_call(spec, shape):
 
 
 @pytest.mark.parametrize("spec", ["1x2", "1x8"])
+def test_sharded_decode_hands_the_row_mask_to_every_shard(spec):
+    """The round's row mask is global, like the rows: every shard's call
+    takes it, so the gathered output is the unsharded masked call's bit for
+    bit, zeros in every head of a masked row."""
+    rng = np.random.default_rng(2)
+    q, kp, vp, pos_pool, pt, pos = _decode_case(rng)
+    mask = torch.tensor([True, False, False, True])
+    sh = serving_sharder(parse_mesh(spec, [CPU] * 8))
+    ref = pa.paged_attention_decode(q, kp, vp, pos_pool, pt, pos,
+                                    row_mask=mask)
+    out = pa.paged_attention_decode_sharded(
+        q, sh.place(kp, POOL), sh.place(vp, POOL), pos_pool, pt, pos, sh,
+        row_mask=mask)
+    got = sh.constrain(out, (None, None, None))
+    assert torch.equal(got, ref)
+    assert (got[~mask] == 0).all() and (got[mask] != 0).any()
+
+
+@pytest.mark.parametrize("spec", ["1x2", "1x8"])
 @pytest.mark.parametrize("hkv", [8, 3])
 def test_sharded_scatter_and_admission_bit_for_bit(spec, hkv):
     rng = np.random.default_rng(1)
