@@ -105,7 +105,13 @@ under ``set_sync_debug_mode("error")``.
 
 Phases: device, build, kernels (aggregate sweep), paged kernels (the
 reference's cases), ssd kernel (the reference's sweep and the edges), flash
-kernel (the reference's sweep and the edges), tables, kernels (full width),
+kernel (the reference's sweep and the edges), norm-rope (the model step's
+RMSNorm and RoPE kernels against their op chains at the paths' shapes and
+timed; internlm2-1.8b's eager prefill's host enqueue at 128 / 512 / 2,048
+tokens with the kernels and with the op chains; 49 RMSNorm and 48 RoPE
+launches a prefill and a replayed decode step, none plain; graph rounds'
+tokens against eager rounds'; a reduced training step through the autograd
+Functions against the op chains), tables, kernels (full width),
 main path (gather, full width), power, fit, pairs, mesh risk, main path
 (onehot, 1,000,000 trials, catalog cut), cli, serving (reduced internlm2, h2o-danube
 and mamba2, token-exact with ``generate`` through graph rounds of several
@@ -192,12 +198,14 @@ from repro_torch.distributed.fault import FaultPlane
 from repro_torch.kernels import aggregate_loss as agg
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import norm_rope as nr
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.launch import risk as risk_cli
 from repro_torch.launch import serve as serve_cli
+from repro_torch.models import layers as mlayers
 from repro_torch.models import model as model_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
@@ -399,6 +407,7 @@ K6 = "ssd_chunked"
 K5 = "flash_attention"
 # the training backwards' grads, held apart from the kernels' forwards
 K5B, K6B = "flash_attention_bwd", "ssd_chunked_bwd"
+NR, RP = "rmsnorm", "rope"           # the model step's kernels
 # SSD scan vs its plain version: tests/test_kernels_ssd.py's tolerances --
 # float32 1e-4 (the chunk's cumulative decay is summed in another order and
 # exp(a_cum[l] - a_cum[s]) amplifies the difference); bfloat16 inputs are
@@ -424,7 +433,8 @@ class Errors:
     """Largest disagreement seen per kernel, over every comparison."""
 
     def __init__(self):
-        self.abs = dict.fromkeys((G, R, O, K3, K4, K6, K5, K5B, K6B), 0.0)
+        self.abs = dict.fromkeys((G, R, O, K3, K4, K6, K5, K5B, K6B, NR,
+                                  RP), 0.0)
         self.rel = dict(self.abs)
         self.cases = dict.fromkeys(self.abs, 0)
 
@@ -2406,6 +2416,306 @@ def phase_flash_full(errs: Errors, dev) -> dict:
         n: r for n, r in out.items() if r is not main}}}
 
 
+# ---------------------------------------------------------------------------
+# the model step's RMSNorm and RoPE kernels (csrc/norm_rope.cu)
+# float32 RMSNorm against its op chain: the squares summed in another order
+NORM_F32_RTOL = 2e-6
+BF16, F32 = torch.bfloat16, torch.float32
+# (name, x shape, x type, scale type): internlm2's prefills and decode step
+# (its float32 scales), the qk-norm at head_dim 128 and 64, whisper-base's
+# width, the widest rows on the card's paths (mistral-large, jamba: bf16
+# scales), float32 inputs (the reduced configs), a width of single elements
+NORM_SHAPES = [("internlm2 prefill 128", (1, 128, 2048), BF16, F32),
+               ("internlm2 prefill 512", (1, 512, 2048), BF16, F32),
+               ("internlm2 prefill 2048", (1, 2048, 2048), BF16, F32),
+               ("internlm2 prefill width 4 x 512", (4, 512, 2048), BF16, F32),
+               ("internlm2 decode", (64, 1, 2048), BF16, F32),
+               ("qk-norm 128 (olmoe q, 1024)", (1, 1024, 16, 128), BF16, F32),
+               ("qk-norm 64", (8, 64, 8, 64), BF16, F32),
+               ("whisper-base encoder", (8, 1500, 512), BF16, F32),
+               ("mistral-large decode", (8, 1, 12288), BF16, BF16),
+               ("jamba prefill", (1, 1024, 8192), BF16, BF16),
+               ("float32 2048", (4, 512, 2048), F32, F32),
+               ("float32 reduced", (2, 33, 64), F32, F32),
+               ("float32 x, bf16 scale", (3, 17, 64), F32, BF16),
+               ("width 60 (single elements)", (3, 17, 60), BF16, F32)]
+# (name, x shape, x type, positions "S" (arange, int64) or "BS" (int32)):
+# internlm2's q and k at every prefill length and the decode step, width 4
+# at 512, h2o-danube's D 80, float32
+ROPE_SHAPES = ([(f"internlm2 {w} prefill {s}", (1, s, h, 128), BF16, "S")
+                for s in (128, 512, 2048) for w, h in (("q", 16), ("k", 8))]
+               + [("internlm2 q prefill width 4 x 512", (4, 512, 16, 128),
+                   BF16, "S"),
+                  ("internlm2 q decode", (64, 1, 16, 128), BF16, "BS"),
+                  ("internlm2 k decode", (64, 1, 8, 128), BF16, "BS"),
+                  ("h2o-danube q prefill 512", (1, 512, 32, 80), BF16, "S"),
+                  ("float32 q (64, 1)", (64, 1, 16, 128), F32, "BS"),
+                  ("float32 reduced", (2, 33, 4, 16), F32, "BS")])
+INTERNLM2_THETA = 1e6
+PREFILL_LENS = (128, 512, 2048)
+
+
+def ulps_apart(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Each value's distance in units in the last place between two tensors
+    of one type: the bit patterns read as sign and magnitude on one integer
+    line (+0 and -0 at 0)."""
+    bits, n = ((torch.int16, 15) if got.dtype == torch.bfloat16
+               else (torch.int32, 31))
+
+    def line(t):
+        i = t.contiguous().view(bits).long()
+        return torch.where(i < 0, -(i & ((1 << n) - 1)), i)
+    return (line(got) - line(want)).abs()
+
+
+def hold_norm_rope(errs: Errors, name: str, got: torch.Tensor,
+                   want: torch.Tensor, what: str) -> dict:
+    """A kernel's output against its op chain's on the same card: bf16
+    within one ulp (neighbouring values), float32 within
+    :data:`NORM_F32_RTOL` of each value (RoPE's float32 also within that of
+    1, where its sums cancel).  Returns the largest distance in ulps and the
+    share of values the two give alike."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name} {what}: shape/dtype {got.shape} {got.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{name} {what}: not finite")
+    ulps = ulps_apart(got, want)
+    max_ulps = int(ulps.max()) if ulps.numel() else 0
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    a = float(diff.max())
+    r = float((diff / w.abs().clamp_min(1e-30))[w != 0].max()) \
+        if bool((w != 0).any()) else 0.0
+    errs.abs[name] = max(errs.abs[name], a)
+    errs.rel[name] = max(errs.rel[name], r)
+    errs.cases[name] += 1
+    if got.dtype == torch.bfloat16:
+        ok = max_ulps <= 1
+    else:
+        ok = bool((diff <= NORM_F32_RTOL * (
+            w.abs() if name == NR else w.abs() + 1)).all())
+    check(ok, f"{name} {what}: {max_ulps} ulps apart, max abs err {a:.3g}, "
+              f"max rel err {r:.3g}")
+    return dict(max_ulps=max_ulps, exact_share=float((ulps == 0).float()
+                                                     .mean()),
+                max_abs_err=a)
+
+
+def norm_rope_timed(errs: Errors, dev, flush: torch.Tensor) -> dict:
+    """Each kernel at the paths' shapes: held against its op chain on the
+    same inputs, then timed beside its bound (bytes: x read and y written
+    once, the scale, positions and frequencies once) and its op chain;
+    RMSNorm also beside ``torch.nn.functional.rms_norm`` (used nowhere in
+    the port)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    out = {NR: {}, RP: {}}
+    for name, shape, xdt, sdt in NORM_SHAPES:
+        x = torch.randn(shape, generator=g, device=dev).to(xdt)
+        s = (1 + 0.1 * torch.randn(shape[-1:], generator=g,
+                                   device=dev)).to(sdt)
+        held = hold_norm_rope(errs, NR, nr.rmsnorm(x, s, 1e-6),
+                              mlayers._rmsnorm_chain(s, x, 1e-6), name)
+        ms = cuda_ms(lambda: nr.rmsnorm(x, s, 1e-6), 20, flush)
+        plain = cuda_ms(lambda: mlayers._rmsnorm_chain(s, x, 1e-6), 5, flush)
+        sw = s.to(xdt)
+        lib = cuda_ms(lambda: torch.nn.functional.rms_norm(
+            x, shape[-1:], sw, 1e-6), 20, flush)
+        nbytes = 2 * x.numel() * x.element_size() + s.numel() * s.element_size()
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[NR][name] = dict(shape=f"{shape} {xdt}, scale {sdt}", ms=ms,
+                             plain_ms=plain, library_ms=lib, bound_ms=bound,
+                             bound_by="bytes", **held)
+        say("norm-rope", f"rmsnorm {name} {shape} {str(xdt)[6:]}, scale "
+                         f"{str(sdt)[6:]}: {ms:.4f} ms, op chain {plain:.4f} "
+                         f"ms, F.rms_norm {lib:.4f} ms, bound {bound:.4f} ms "
+                         f"by bytes; against the chain {held['max_ulps']} "
+                         f"ulps, {held['exact_share']:.6f} alike")
+    for name, shape, xdt, pos_kind in ROPE_SHAPES:
+        B, S = shape[:2]
+        x = torch.randn(shape, generator=g, device=dev).to(xdt)
+        pos = (torch.arange(S, device=dev) if pos_kind == "S" else
+               torch.randint(0, 4096, (B, S), generator=g, device=dev,
+                             dtype=torch.int32))
+        theta = INTERNLM2_THETA if shape[-1] != 80 else 1e4
+        inv = mlayers.rope_inv_frequencies(shape[-1], theta, dev)
+        held = hold_norm_rope(errs, RP, nr.rope(x, pos, inv),
+                              mlayers._rope_chain(x, pos, theta), name)
+        ms = cuda_ms(lambda: nr.rope(x, pos, inv), 20, flush)
+        plain = cuda_ms(lambda: mlayers._rope_chain(x, pos, theta), 5, flush)
+        nbytes = (2 * x.numel() * x.element_size()
+                  + pos.numel() * pos.element_size() + inv.numel() * 4)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[RP][name] = dict(shape=f"{shape} {xdt}, positions "
+                                   f"{tuple(pos.shape)} {pos.dtype}", ms=ms,
+                             plain_ms=plain, library_ms=None, bound_ms=bound,
+                             bound_by="bytes", **held)
+        say("norm-rope", f"rope {name} {shape} {str(xdt)[6:]}, positions "
+                         f"{tuple(pos.shape)} {str(pos.dtype)[6:]}: "
+                         f"{ms:.4f} ms, op chain {plain:.4f} ms, bound "
+                         f"{bound:.4f} ms by bytes; against the chain "
+                         f"{held['max_ulps']} ulps, {held['exact_share']:.6f}"
+                         " alike")
+    return out
+
+
+@contextlib.contextmanager
+def model_step_chains():
+    """Within: the model step's RMSNorm and RoPE run their op chains on the
+    card, as before the kernels (the prefill's host time, compared)."""
+    rms, rope = mlayers.apply_rmsnorm_heads, mlayers.apply_rope
+    mlayers.apply_rmsnorm_heads = \
+        lambda scale, x, eps=1e-6: mlayers._rmsnorm_chain(scale, x, eps)
+    mlayers.apply_rope = mlayers._rope_chain
+    try:
+        yield
+    finally:
+        mlayers.apply_rmsnorm_heads, mlayers.apply_rope = rms, rope
+
+
+def prefill_host_ms(eng: ServingEngine, batch, reps: int = 5) -> tuple:
+    """(median host ms of enqueuing one eager prefill, median CUDA-event ms
+    of the same call), after one untimed call."""
+    host, dev_ms = [], []
+    with torch.no_grad():
+        eng.prefill(batch)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            t0 = time.perf_counter()
+            eng.prefill(batch)
+            host.append((time.perf_counter() - t0) * 1e3)
+            b.record()
+            b.synchronize()
+            dev_ms.append(a.elapsed_time(b))
+    return statistics.median(host), statistics.median(dev_ms)
+
+
+def phase_norm_rope(errs: Errors, dev) -> dict:
+    """The model step's two kernels: held against their op chains and
+    timed at the paths' shapes; at internlm2-1.8b's full width one eager
+    prefill's host enqueue at 128 / 512 / 2,048 tokens with the kernels and
+    with the op chains (in turns), launches of a prefill and of a captured
+    decode step (49 RMSNorm and 48 RoPE, no plain call), a replayed round
+    under ``set_sync_debug_mode("error")`` against eager rounds (through
+    ``compare_rounds``), and one training step of the reduced arch on the
+    card through the autograd Functions."""
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MB
+    out = norm_rope_timed(errs, dev, flush)
+    del flush
+    cfg = get_config("internlm2-1.8b")
+    eng = ServingEngine(cfg, build_model(cfg).init(0, dev), device=dev)
+    per_step = {NR: 2 * cfg.num_layers + 1, RP: 2 * cfg.num_layers}
+    rng = np.random.default_rng(12)
+    host = {}
+    for S in PREFILL_LENS:
+        batch = eng._make_batch(rng.integers(1, cfg.vocab_size, (1, S))
+                                .astype(np.int32), {})
+        turns = []
+        for route in ("kernels", "chains", "chains", "kernels"):
+            if route == "chains":
+                with model_step_chains():
+                    turns.append((route, *prefill_host_ms(eng, batch)))
+            else:
+                turns.append((route, *prefill_host_ms(eng, batch)))
+        host[S] = {r: dict(host_ms=statistics.median(
+            t[1] for t in turns if t[0] == r), device_window_ms=
+            statistics.median(t[2] for t in turns if t[0] == r))
+            for r in ("kernels", "chains")}
+        nr.reset_counts()
+        with torch.no_grad():
+            eng.prefill(batch)
+        check(nr.launch_counts == {NR: per_step[NR], RP: per_step[RP]}
+              and not any(nr.plain_counts.values()),
+              f"a {S}-token prefill: launches {nr.launch_counts}, plain "
+              f"{nr.plain_counts}, expected {per_step}")
+        say("norm-rope", f"internlm2-1.8b eager prefill of {S} tokens: host "
+                         f"enqueue {host[S]['kernels']['host_ms']:.2f} ms "
+                         f"with the kernels, {host[S]['chains']['host_ms']:.2f}"
+                         f" ms with the op chains; CUDA-event window "
+                         f"{host[S]['kernels']['device_window_ms']:.2f} / "
+                         f"{host[S]['chains']['device_window_ms']:.2f} ms; "
+                         f"launches {dict(nr.launch_counts)}, plain 0")
+    prof = {}
+    for route in ("kernels", "chains"):
+        with (model_step_chains() if route == "chains"
+              else contextlib.nullcontext()):
+            prof[route] = profile_prefill(eng, dev, 1, 512)
+    # a captured decode step: the launches one replayed round adds
+    ceng = ContinuousBatchingEngine(eng, capacity=8, page_size=16,
+                                    inner_steps=4, max_prompt_len=256,
+                                    device=dev)
+    reqs = [Request("p", rng.integers(1, cfg.vocab_size, 128)
+                    .astype(np.int32), max_new_tokens=64) for _ in range(8)]
+    check(all(ceng.try_admit_batch(reqs)), "norm-rope: admission failed")
+    for _ in range(2):                   # eager and captured, then a replay
+        ceng.collect(ceng.dispatch_round())
+    nr.reset_counts()
+    ceng.collect(ceng.dispatch_round())
+    steps = ceng.inner_steps
+    check(nr.launch_counts == {k: v * steps for k, v in per_step.items()}
+          and not any(nr.plain_counts.values()),
+          f"a replayed round of {steps} steps: launches {nr.launch_counts},"
+          f" plain {nr.plain_counts}, expected {per_step} a step")
+    graph = graph_rounds(ceng, "norm-rope")
+    check(graph["replays"] >= 1, "norm-rope: no replayed round")
+    say("norm-rope", f"a replayed decode round of {steps} steps: launches "
+                     f"{dict(nr.launch_counts)} ({per_step} a step), plain 0")
+    del ceng
+    rounds = compare_rounds(eng, dev, prompt_len=128)
+    check(rounds["tokens_identical"],
+          f"norm-rope: graph rounds' tokens differ from eager rounds' "
+          f"({rounds.get('first_difference')})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = norm_rope_train_step(dev)
+    return {"kernels": out, "prefill_host": host, "prefill_profile": prof,
+            "decode_step_launches": per_step, "rounds": {
+                k: rounds[k] for k in ("tokens_identical", "max_logit_diff")},
+            "train": train}
+
+
+def norm_rope_train_step(dev) -> dict:
+    """One training step of reduced internlm2 on the card (float32, the
+    full config's remat) with the kernels, whose autograd Functions'
+    backwards recompute the op chains, against the same step with the op
+    chains: loss at rtol 1e-5 and every gradient leaf at rtol 1e-3 / atol
+    1e-5, as ``phase_train_reduced`` holds the card to the CPU."""
+    cfg = get_config("internlm2-1.8b").reduced()
+    params = build_model(cfg).init(0, "cpu")
+    batch = synth_batch(DataConfig(2, 32, cfg.vocab_size), 0, cfg)
+    nr.reset_counts()                    # just before the card's step
+    m_k, g_k = reduced_step(cfg, params, batch, dev)
+    torch.cuda.synchronize()
+    counts, bwd = dict(nr.launch_counts), dict(nr.backward_counts)
+    plain = sum(nr.plain_counts.values())
+    with model_step_chains():
+        m_c, g_c = reduced_step(cfg, params, batch, dev)
+    L, mb = cfg.num_layers, max(1, cfg.microbatches)
+    check(counts[NR] >= (2 * L + 1) * mb and counts[RP] >= 2 * L * mb
+          and bwd == {"rmsnorm_bwd": (2 * L + 1) * mb, "rope_bwd": 2 * L * mb}
+          and plain == 0,
+          f"train step: launches {counts}, backwards {bwd}, plain {plain}")
+    check(abs(m_k["loss"] - m_c["loss"]) <= 1e-5 * abs(m_c["loss"]),
+          f"train step: loss {m_k['loss']} against the op chains' "
+          f"{m_c['loss']}")
+    worst = 0.0
+    for gk, gc_ in zip(tree_leaves(g_k), tree_leaves(g_c)):
+        worst = max(worst, float((gk - gc_).abs().max()))
+        check(bool(torch.allclose(gk, gc_, rtol=1e-3, atol=1e-5)),
+              f"train step: a grad leaf differs from the op chains' by "
+              f"{float((gk - gc_).abs().max()):.3g}")
+    say("norm-rope", f"reduced internlm2 train step on the card: launches "
+                     f"{counts}, backwards {bwd}, plain 0; loss "
+                     f"{m_k['loss']:.6f} (op chains {m_c['loss']:.6f}), "
+                     f"every grad leaf within rtol 1e-3 / atol 1e-5 (max abs "
+                     f"diff {worst:.3g})")
+    return dict(launches=counts, backwards=bwd, loss=m_k["loss"],
+                loss_chains=m_c["loss"], grad_max_abs_diff=worst)
+
+
 def generate_oracle(eng: ServingEngine, ceng, req) -> np.ndarray:
     """``generate`` on the request's page-aligned left-padded prompt, with
     its extra inputs: the continuous path's exactness contract.  A
@@ -2501,13 +2811,15 @@ def phase_serve_reduced(dev) -> dict:
         pa.reset_counts()                # just before this run
         ssd.reset_counts()
         fa.reset_counts()
+        nr.reset_counts()
         done = []
         for batch in batches:
             done += ceng.run_all(batch)
         launches = {**pa.launch_counts, **ssd.launch_counts,
                     **fa.launch_counts}
         variants = dict(fa.variant_counts)
-        plains = {**pa.plain_counts, **ssd.plain_counts, **fa.plain_counts}
+        plains = {**pa.plain_counts, **ssd.plain_counts, **fa.plain_counts,
+                  **nr.plain_counts}
         n = sum(len(b) for b in batches)
         check(len(done) == n, f"{arch} reduced: {len(done)} of {n} done")
         n_attn = ceng.n_stages * len(ceng.kv.attn_subs)
@@ -2642,6 +2954,7 @@ def phase_serve_full(errs: Errors, dev) -> dict:
     agg.reset_counts()
     ssd.reset_counts()
     fa.reset_counts()
+    nr.reset_counts()
     pa.reset_counts()                    # just before the serving path
     for spl in SHARED_PREFIXES:
         rec = ServeRecorder()
@@ -2653,9 +2966,9 @@ def phase_serve_full(errs: Errors, dev) -> dict:
         check(rc == 0, f"serve returned {rc}")
         rec.peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         recs[spl] = rec
-    launches = {**pa.launch_counts, **fa.launch_counts}
+    launches = {**pa.launch_counts, **fa.launch_counts, **nr.launch_counts}
     variants = dict(fa.variant_counts)
-    plains = {**pa.plain_counts, **fa.plain_counts}
+    plains = {**pa.plain_counts, **fa.plain_counts, **nr.plain_counts}
     other = sum(agg.launch_counts.values()) + sum(
         ssd.launch_counts.values()) + sum(ssd.plain_counts.values())
     # just after
@@ -2663,7 +2976,7 @@ def phase_serve_full(errs: Errors, dev) -> dict:
     check(not any(plains.values()) and other == 0,
           f"the serving path took another route: plain {plains}, "
           f"aggregate or SSD calls {other}")
-    want_k3 = want_k4 = want_k5 = 0
+    want_k3 = want_k4 = want_k5 = want_steps = 0
     runs = {}
     rng = np.random.default_rng(4)
     for spl, rec in recs.items():
@@ -2674,6 +2987,9 @@ def phase_serve_full(errs: Errors, dev) -> dict:
         want_k3 += eng.rounds * eng.inner_steps * eng.n_stages * n_sub
         want_k4 += n_sub * (len(rec.finished) - eng.prefill_skips)
         want_k5 += eng.n_stages * n_sub * eng.prefill_calls
+        # every prefill and decode step: an RMSNorm before each sub-layer's
+        # mixer and MLP and a final one, two RoPEs an attention sub-layer
+        want_steps += eng.prefill_calls + eng.rounds * eng.inner_steps
         check(len(rec.finished) == 12 and all(
             t.shape == (32,) for _, t in rec.finished),
             f"{tag}: {len(rec.finished)} requests finished, token counts "
@@ -2734,9 +3050,16 @@ def phase_serve_full(errs: Errors, dev) -> dict:
           f"{want_k4}, flash {want_k5}")
     check(variants == {"bf16_mma": launches[K5], "f32_simt": 0},
           f"internlm2 full width (bf16): flash variants {variants}")
+    L = get_config("internlm2-1.8b").num_layers
+    per_step = {NR: 2 * L + 1, RP: 2 * L}
+    check(all(launches[k] == n * want_steps for k, n in per_step.items()),
+          f"launches {launches}, expected {per_step} a prefill or decode "
+          f"step over {want_steps} of them")
     say("serve", f"serving path launches: decode {launches[K3]}, admission "
                  f"{launches[K4]}, flash {launches[K5]} (variants "
-                 f"{variants}); plain calls 0")
+                 f"{variants}), rmsnorm {launches[NR]}, rope {launches[RP]} "
+                 f"({per_step} in each of {want_steps} prefills and decode "
+                 "steps); plain calls 0")
     max_blocks = max(r.sched.continuous_engine.kv.max_blocks
                      for r in recs.values())
     plane_off = served_run(recs[0])
@@ -2856,6 +3179,7 @@ def phase_serve_mamba2(dev) -> dict:
     agg.reset_counts()
     pa.reset_counts()
     fa.reset_counts()
+    nr.reset_counts()
     ssd.reset_counts()                   # just before the serving path
     t0 = time.perf_counter()
     rc = serve_cli.main(MAMBA_ARGV, observe=rec)
@@ -2863,7 +3187,7 @@ def phase_serve_mamba2(dev) -> dict:
     launches = {**ssd.launch_counts, **pa.launch_counts, **agg.launch_counts,
                 **fa.launch_counts}
     plains = {**ssd.plain_counts, **pa.plain_counts, **agg.plain_counts,
-              **fa.plain_counts}
+              **fa.plain_counts, **nr.plain_counts}
     variants = dict(ssd.variant_counts)
     # just after
     check(rc == 0, f"serve returned {rc}")
@@ -2950,6 +3274,7 @@ def phase_serve_olmoe(dev) -> dict:
     agg.reset_counts()
     ssd.reset_counts()
     pa.reset_counts()
+    nr.reset_counts()
     fa.reset_counts()                    # just before the serving path
     t0 = time.perf_counter()
     rc = serve_cli.main(OLMOE_ARGV, observe=rec)
@@ -2958,7 +3283,7 @@ def phase_serve_olmoe(dev) -> dict:
                 **agg.launch_counts}
     variants = dict(fa.variant_counts)
     plains = {**fa.plain_counts, **pa.plain_counts, **ssd.plain_counts,
-              **agg.plain_counts}
+              **agg.plain_counts, **nr.plain_counts}
     # just after
     check(rc == 0, f"serve returned {rc}")
     sched, eng = rec.sched, rec.sched.continuous_engine
@@ -3500,7 +3825,7 @@ def slot_launches() -> tuple:
     return ({**fa.launch_counts, **ssd.launch_counts, **pa.launch_counts,
              **agg.launch_counts},
             {**fa.plain_counts, **ssd.plain_counts, **pa.plain_counts,
-             **agg.plain_counts})
+             **agg.plain_counts, **nr.plain_counts})
 
 
 def serve_slots_once(arch: str, prompt_len: int, mode: str, dev,
@@ -3515,7 +3840,7 @@ def serve_slots_once(arch: str, prompt_len: int, mode: str, dev,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    for m in (agg, pa, fa, ssd):
+    for m in (agg, pa, fa, ssd, nr):
         m.reset_counts()                 # just before the serving path
     rc = serve_cli.main(["--arch", arch, "--prompt-len", str(prompt_len),
                          "--mode", mode] + SLOT_ARGV
@@ -4012,7 +4337,7 @@ def serve_arch_continuous(errs: Errors, arch: str, num_layers, prompt_len,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    for m in (agg, pa, fa, ssd):
+    for m in (agg, pa, fa, ssd, nr):
         m.reset_counts()                 # just before the serving path
     t0 = time.perf_counter()
     rc = serve_cli.main(["--arch", arch, "--mode", "continuous",
@@ -4567,7 +4892,7 @@ def overload_run(ceng, traffic, dev, h2d_gbps, faults=None) -> dict:
     probe = SwapProbe(ceng, dev)
     calls0 = ceng.prefill_calls
     rounds0, pre0, res0 = ceng.rounds, ceng.preemptions, ceng.restores
-    for m in (agg, pa, fa, ssd):
+    for m in (agg, pa, fa, ssd, nr):
         m.reset_counts()                 # just before the serving path
     try:
         sched = MultiTenantScheduler(eng, mode="continuous",
@@ -5408,7 +5733,7 @@ TRAIN_LM_ARGV = ["--steps", str(TRAIN_LM_STEPS)]
 
 
 def reset_kernel_counts() -> None:
-    for m in (agg, pa, ssd, fa):
+    for m in (agg, pa, ssd, fa, nr):
         m.reset_counts()
 
 
@@ -5676,7 +6001,8 @@ def phase_train_reduced(dev) -> dict:
                     "bwd5": fa.backward_counts["flash_attention_bwd"],
                     "bwd6": ssd.backward_counts["ssd_chunked_bwd"],
                     "plain": sum(fa.plain_counts.values())
-                    + sum(ssd.plain_counts.values())}
+                    + sum(ssd.plain_counts.values())
+                    + sum(nr.plain_counts.values())}
         m_cpu, g_cpu = reduced_step(cfg, params, batch, "cpu")
         mb = max(1, cfg.microbatches)
         want5, want6 = k5_per_prefill(cfg) * mb, mamba_count(cfg) * mb
@@ -5729,7 +6055,8 @@ def train_run(arch: str, seq: int, reckoned_gb: float, dev) -> dict:
     variants = {K5: dict(fa.variant_counts), K6: dict(ssd.variant_counts)}
     bwd = {K5: fa.backward_counts["flash_attention_bwd"],
            K6: ssd.backward_counts["ssd_chunked_bwd"]}
-    plain = sum(fa.plain_counts.values()) + sum(ssd.plain_counts.values())
+    plain = (sum(fa.plain_counts.values()) + sum(ssd.plain_counts.values())
+             + sum(nr.plain_counts.values()))
     lines = buf.getvalue().strip().splitlines()
     for line in lines[:-1]:
         say("train", f"{arch}: {line[:400]}")
@@ -6659,6 +6986,8 @@ def main() -> int:
         phase_ssd_small(errs, dev)
         phase_flash_small(errs, dev)
         lap("kernel sweeps")
+        norm = phase_norm_rope(errs, dev)
+        lap("norm-rope")
         cfg = RiskAppConfig()
         tables = phase_tables(cfg)
         trials = tables.num_trials
@@ -6743,7 +7072,11 @@ def main() -> int:
                    f"and state {SSD_BF16_STATE}), flash attention "
                    f"{errs.cases[K5]} cases (max abs err {errs.abs[K5]:.3g}; "
                    f"float32 rtol=atol={FLASH_RTOL}, bfloat16 "
-                   f"rtol={FLASH_BF16_RTOL} atol={FLASH_BF16_ATOL})")
+                   f"rtol={FLASH_BF16_RTOL} atol={FLASH_BF16_ATOL}), "
+                   f"rmsnorm {errs.cases[NR]} cases (max abs err "
+                   f"{errs.abs[NR]:.3g}; bf16 within one ulp, float32 "
+                   f"rtol={NORM_F32_RTOL}), rope {errs.cases[RP]} cases (max "
+                   f"abs err {errs.abs[RP]:.3g})")
     agg_src = "src/repro_torch/kernels/csrc/aggregate_loss.cu"
     paged_src = "src/repro_torch/kernels/csrc/paged_attention.cu"
     ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
@@ -6838,9 +7171,30 @@ def main() -> int:
                      "library_ms": numbers["library_ms"],
                      "max_rel_err": errs.rel[name], "cases": errs.cases[name],
                      **{k: v for k, v in numbers.items() if k not in keys}})
+    nr_src = "src/repro_torch/kernels/csrc/norm_rope.cu"
+    for name, main_shape, fn in ((NR, "internlm2 prefill 512",
+                                  "apply_rmsnorm_heads"),
+                                 (RP, "internlm2 q prefill 512", "apply_rope")):
+        shapes = norm["kernels"][name]
+        m = shapes[main_shape]
+        rows.append({"name": name, "route": "cuda", "source": nr_src,
+                     "replaces": f"src/repro/models/layers.py {fn} (jnp "
+                                 "ops: no Pallas kernel)",
+                     "launches": serving["launches"][name],
+                     "max_abs_err": errs.abs[name], "ms": m["ms"],
+                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                     "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                     "max_rel_err": errs.rel[name], "cases": errs.cases[name],
+                     "launches_by_path": {
+                         "internlm2-1.8b": serving["launches"][name]},
+                     "per_prefill_or_decode_step":
+                         norm["decode_step_launches"][name],
+                     "shapes": shapes})
     say("done", f"{time.perf_counter() - t_start:.1f} s in all; seconds by "
                 f"phase {laps}")
     print(json.dumps({"main_path": main_path["runs"], "trials": trials}))
+    print(json.dumps({"norm_rope": {k: v for k, v in norm.items()
+                                    if k != "kernels"}}))
     print(json.dumps({"risk_loop": loop, "serve_obs": serve_obs}))
     print(json.dumps({"serving": {str(k): v for k, v in
                                   serving["runs"].items()},

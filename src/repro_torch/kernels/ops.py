@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.kernels import aggregate_loss as _agg
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import norm_rope as _nr
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
@@ -117,7 +118,7 @@ def ssd(x, dt, a_log_decay, B, C, chunk: int,
         y, h = ssd(*(_pad_steps(t, pad) for t in (x, dt, a_log_decay, B, C)),
                    chunk, initial_state)
         return y[:, :L], h
-    if _differentiable(x, dt, a_log_decay, B, C, initial_state):
+    if differentiable(x, dt, a_log_decay, B, C, initial_state):
         return SsdChunkedFn.apply(x, dt, a_log_decay, B, C, initial_state,
                                   chunk)
     return _ssd_forward(x, dt, a_log_decay, B, C, chunk, initial_state)
@@ -126,7 +127,7 @@ def ssd(x, dt, a_log_decay, B, C, chunk: int,
 def _ssd_forward(x, dt, a, B, C, chunk: int, h0):
     """The scan kernel's wrapper, or in the dry-run's pass over meta tensors
     its plain computation (shapes only)."""
-    if _meta_pass(x):
+    if meta_pass(x):
         return _ref.ssd_chunked_ref(x, dt, a, B, C, chunk, initial_state=h0)
     return _ssd.ssd_chunked(x, dt, a, B, C, chunk=chunk, initial_state=h0)
 
@@ -142,7 +143,7 @@ def shape_only():
         _STATE["shape_only"] = before
 
 
-def _meta_pass(t: torch.Tensor) -> bool:
+def meta_pass(t: torch.Tensor) -> bool:
     return t.device.type == "meta" and _STATE["shape_only"]
 
 
@@ -157,7 +158,7 @@ def _flash_forward(q, k, v, causal: bool, window: Optional[int],
     """The FlashAttention kernel's wrapper, or in the dry-run's pass over
     meta tensors its plain computation (shapes only) at :data:`META_BLOCK`
     blocks."""
-    if _meta_pass(q):
+    if meta_pass(q):
         return _ref.blockwise_attention(q, k, v, causal=causal,
                                         window=window, block_q=META_BLOCK,
                                         block_kv=META_BLOCK,
@@ -230,12 +231,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     FlashAttention kernel for CUDA tensors, for CPU tensors its plain
     version -- the reference layers' ``blockwise_attention``.  Under grad
     with an input that requires grad, through :class:`FlashAttentionFn`."""
-    if _differentiable(q, k, v):
+    if differentiable(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window)
     return _flash_forward(q, k, v, causal, window)
 
 
-def _differentiable(*tensors) -> bool:
+def differentiable(*tensors) -> bool:
     """Whether a call must record its backward: grad mode on and some
     input requiring grad."""
     return torch.is_grad_enabled() and any(
@@ -308,7 +309,7 @@ def counters() -> List[Dict[str, int]]:
     variants).  A wrapper counts when its Python runs, so launches captured
     into a CUDA graph count once, at capture; the graph's owner takes the
     capture's counts back out and adds them at every replay."""
-    return [getattr(m, name) for m in (_agg, _flash, _paged, _ssd)
+    return [getattr(m, name) for m in (_agg, _flash, _paged, _ssd, _nr)
             for name in ("launch_counts", "plain_counts", "variant_counts")
             if hasattr(m, name)]
 

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.distributed.sharding import Sharder, ShardedTensor
-from repro_torch.kernels import ops
+from repro_torch.kernels import norm_rope, ops
 from repro_torch.models.attention_core import naive_attention
 
 NEG_INF = -1e30
@@ -92,11 +92,58 @@ def apply_rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 def apply_rmsnorm_heads(scale, x: torch.Tensor, eps: float = 1e-6
                         ) -> torch.Tensor:
-    """RMSNorm over the last axis (also the per-head qk-norm)."""
+    """RMSNorm over the last axis (also the per-head qk-norm): one launch of
+    the RMSNorm kernel for a CUDA tensor (:func:`repro_torch.kernels.
+    norm_rope.rmsnorm`; under grad through :class:`RmsNormFn`), the op
+    chain :func:`rmsnorm_plain` for a CPU tensor.  In the dry-run's pass
+    over meta tensors the op chain, uncounted."""
+    if x.device.type == "cpu":
+        return rmsnorm_plain(scale, x, eps)
+    if ops.meta_pass(x):
+        return _rmsnorm_chain(scale, x, eps)
+    if ops.differentiable(x, scale):
+        return RmsNormFn.apply(x, scale, eps)
+    return norm_rope.rmsnorm(x, scale, eps)
+
+
+def rmsnorm_plain(scale, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The RMSNorm kernel's plain version: the op chain, counted in
+    ``norm_rope.plain_counts``."""
+    norm_rope.plain_counts["rmsnorm_plain"] += 1
+    return _rmsnorm_chain(scale, x, eps)
+
+
+def _rmsnorm_chain(scale, x: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+class RmsNormFn(torch.autograd.Function):
+    """The RMSNorm kernel under autograd (training on the card): the
+    forward is the kernel and saves ``(x, scale)``; the backward recomputes
+    the op chain on them and differentiates it, counted in
+    ``norm_rope.backward_counts`` (the JAX package differentiates the same
+    jnp ops)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return norm_rope.rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        norm_rope.backward_counts["rmsnorm_bwd"] += 1
+        x, scale = (t.detach().requires_grad_(n) for t, n in
+                    zip(ctx.saved_tensors, ctx.needs_input_grad[:2]))
+        wanted = [t for t in (x, scale) if t.requires_grad]
+        with torch.enable_grad():
+            got = iter(torch.autograd.grad(
+                _rmsnorm_chain(scale, x, ctx.eps), wanted, dy))
+        return (next(got) if x.requires_grad else None,
+                next(got) if scale.requires_grad else None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -108,9 +155,55 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / half))
 
 
+# (head_dim, theta, device) -> rope_frequencies on that device
+_ROPE_INV: Dict[Tuple[int, float, torch.device], torch.Tensor] = {}
+
+
+def rope_inv_frequencies(head_dim: int, theta: float,
+                         device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies` computed on ``device`` once per
+    ``(head_dim, theta, device)`` and kept: the RoPE kernel's operand, the
+    very numbers the op chain computes in each call.  Computed eagerly on
+    the current stream at the first call, so never inside a CUDA graph
+    capture (raises there: a captured fill would hold no numbers until a
+    replay)."""
+    key = (int(head_dim), float(theta), torch.device(device))
+    inv = _ROPE_INV.get(key)
+    if inv is None:
+        if key[2].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"rope frequencies {key} first asked for "
+                               "inside a CUDA graph capture")
+        inv = _ROPE_INV[key] = rope_frequencies(head_dim, theta, key[2])
+    return inv
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (S,) or (B, S)."""
+    """x: (B, S, H, D); positions: (S,) or (B, S).  One launch of the RoPE
+    kernel for a CUDA tensor (:func:`repro_torch.kernels.norm_rope.rope`;
+    under grad through :class:`RopeFn`), the op chain :func:`rope_plain`
+    for a CPU tensor.  In the dry-run's pass over meta tensors the op
+    chain, uncounted."""
+    if x.device.type == "cpu":
+        return rope_plain(x, positions, theta)
+    if ops.meta_pass(x):
+        return _rope_chain(x, positions, theta)
+    if ops.differentiable(x):
+        return RopeFn.apply(x, positions, theta)
+    return norm_rope.rope(x, positions,
+                          rope_inv_frequencies(x.shape[-1], theta, x.device))
+
+
+def rope_plain(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """The RoPE kernel's plain version: the op chain, counted in
+    ``norm_rope.plain_counts``."""
+    norm_rope.plain_counts["rope_plain"] += 1
+    return _rope_chain(x, positions, theta)
+
+
+def _rope_chain(x: torch.Tensor, positions: torch.Tensor, theta: float
+                ) -> torch.Tensor:
     D = x.shape[-1]
     inv = rope_frequencies(D, theta, x.device)
     if positions.dim() == 1:
@@ -123,6 +216,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+class RopeFn(torch.autograd.Function):
+    """The RoPE kernel under autograd (training on the card): the forward
+    is the kernel and saves ``(x, positions)``; the backward recomputes the
+    op chain and differentiates it, counted in
+    ``norm_rope.backward_counts``."""
+
+    @staticmethod
+    def forward(ctx, x, positions, theta: float):
+        ctx.save_for_backward(x, positions)
+        ctx.theta = theta
+        return norm_rope.rope(x, positions, rope_inv_frequencies(
+            x.shape[-1], theta, x.device))
+
+    @staticmethod
+    def backward(ctx, dy):
+        norm_rope.backward_counts["rope_bwd"] += 1
+        x, positions = ctx.saved_tensors
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            dx, = torch.autograd.grad(_rope_chain(x, positions, ctx.theta),
+                                      (x,), dy)
+        return dx, None, None
 
 
 def sinusoid_frequencies(dim: int, device=None) -> torch.Tensor:
