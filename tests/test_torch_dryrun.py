@@ -134,7 +134,7 @@ def ref_2x4():
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable, "-c", REF_SCRIPT,
                         json.dumps(SHAPES)], capture_output=True, text=True,
-                       env=env, cwd=ROOT, timeout=600)
+                       env=env, cwd=ROOT, timeout=240)
     assert r.returncode == 0, r.stderr[-3000:]
     return json.loads(r.stdout.strip().splitlines()[-1])
 

@@ -80,7 +80,7 @@ def test_port_imports_without_jax_and_without_the_jax_package():
         [os.path.join(ROOT, "src"), ROOT, env.get("PYTHONPATH", "")])
     proc = subprocess.run([sys.executable, "-c", IMPORT_ALL],
                           capture_output=True, text=True, env=env,
-                          timeout=600, cwd=ROOT)
+                          timeout=240, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "IMPORTED" in proc.stdout
 
@@ -243,7 +243,7 @@ def test_kernel_wrapper_never_falls_back_for_non_cpu_tensors():
 def test_chip_smoke_fails_without_a_card():
     _skip_if_card()
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
-                          capture_output=True, text=True, timeout=600,
+                          capture_output=True, text=True, timeout=240,
                           cwd=ROOT)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
@@ -254,7 +254,7 @@ def test_chip_smoke_fails_without_a_card():
 def test_diagnostics_fail_without_a_card(script):
     _skip_if_card()
     proc = subprocess.run([sys.executable, script], capture_output=True,
-                          text=True, timeout=600, cwd=ROOT)
+                          text=True, timeout=240, cwd=ROOT)
     assert proc.returncode == 1
     assert "no CUDA device" in proc.stderr
 
@@ -267,7 +267,7 @@ def test_examples_fail_without_a_card(script):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run([sys.executable, script], capture_output=True,
-                          text=True, timeout=600, cwd=ROOT, env=env)
+                          text=True, timeout=240, cwd=ROOT, env=env)
     assert proc.returncode != 0
     assert "CUDA" in proc.stderr
 
@@ -289,7 +289,7 @@ def test_f1_diagnostic_runs_reduced_on_the_cpu():
     proc = subprocess.run(
         [sys.executable, DIAGNOSTICS[0], "--reduced", "--device", "cpu",
          "--dtypes", "float32"], capture_output=True, text=True,
-        timeout=600, cwd=ROOT)
+        timeout=240, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])["float32"]
     assert out["token_agreement"] == 1.0 and out["divergent"] == 0
@@ -327,7 +327,7 @@ def test_train_lm_example_runs_on_the_cpu(tmp_path):
     proc = subprocess.run(
         [sys.executable, EXAMPLES[-1], "--device", "cpu", "--steps", "2",
          "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path)],
-        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+        capture_output=True, text=True, timeout=240, cwd=ROOT, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])["train_lm"]
     assert out["steps"] == 2 and len(out["losses"]) == 2

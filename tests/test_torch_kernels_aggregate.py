@@ -139,7 +139,7 @@ def test_env_variant_fail_fast(value, ok):
     proc = subprocess.run(
         [sys.executable, "-c",
          "from repro_torch.kernels import ops; print(ops.aggregate_variant())"],
-        capture_output=True, text=True, env=env, timeout=300)
+        capture_output=True, text=True, env=env, timeout=240)
     if ok:
         assert proc.returncode == 0, proc.stderr[-2000:]
         assert proc.stdout.strip() == value

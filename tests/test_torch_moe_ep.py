@@ -158,7 +158,7 @@ def ref(tmp_path_factory):
     env.pop("REPRO_MOE_DISPATCH", None)
     r = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(out)],
                        capture_output=True, text=True, env=env, cwd=ROOT,
-                       timeout=600)
+                       timeout=240)
     assert r.returncode == 0, r.stderr[-3000:]
     with np.load(out) as f:
         return dict(f)

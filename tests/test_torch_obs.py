@@ -610,7 +610,7 @@ def test_example_runs_on_the_cpu(script):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(argv, capture_output=True, text=True, env=env,
-                          timeout=600, cwd=ROOT)
+                          timeout=240, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     want = {"torch_quickstart.py": "time-optimal deployment",
             "torch_risk_realtime.py": "p50 latency",

@@ -131,7 +131,7 @@ def ref(tmp_path_factory):
     env.pop("XLA_FLAGS", None)
     r = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(out),
                         json.dumps(CASES)], capture_output=True, text=True,
-                       env=env, cwd=ROOT, timeout=600)
+                       env=env, cwd=ROOT, timeout=240)
     assert r.returncode == 0, r.stderr[-3000:]
     with np.load(out) as f:
         return dict(f)
